@@ -1,0 +1,20 @@
+"""scaletorch_tpu_torch: the PyTorch / CUDA port of scaletorch_tpu.
+
+The JAX package ``scaletorch_tpu`` stays the reference; this package
+grows beside it, slice by slice, and never imports it (or JAX). The
+first slice is the paged serving engine:
+
+  * ``models``    — the Llama-family decoder (Llama, Qwen3) in the
+    reference parameter layout, with its KV-cached forward;
+  * ``ops``       — the hand-written CUDA kernels (sources in ``csrc/``,
+    built with nvcc for sm_90a at first use) beside their plain PyTorch
+    versions;
+  * ``inference`` — the KV caches, the engine steps and
+    ``InferenceEngine``;
+  * ``telemetry``, ``utils`` — latency histograms, logging, devices.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

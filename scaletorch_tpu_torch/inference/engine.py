@@ -1,0 +1,891 @@
+"""Continuous-batching inference engine over a fixed-slot batch (PyTorch port).
+
+Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
+
+  * a FIXED number of slots (the decode batch) and a FIXED maximum
+    sequence length — every device buffer keeps its shape for the whole
+    engine lifetime; between decode steps the engine admits queued
+    requests into freed slots by writing their row of the prompt buffer
+    and flipping their ``write_mask`` bit;
+  * per-slot lengths and stop state live on the HOST; each decode step
+    brings the sampled tokens and the finite mask back in one copy;
+  * the KV buffers are written in place through every step, so they
+    keep their ``data_ptr()`` (the counterpart of donation);
+  * ``cache_layout="paged"`` swaps the dense per-slot buffers for a
+    global page pool + per-slot page tables: page-budget-aware
+    admission, a radix tree sharing page-aligned prompt prefixes, and
+    decode attention through the hand-written CUDA paged-decode kernel
+    on the card (the gather path on the CPU) — greedy outputs of the
+    gather path are bit-identical to the dense layout;
+  * every submitted request ends in exactly one terminal ``outcome``
+    (ok / timeout / shed / rejected / quarantined / aborted): bounded
+    admission, per-request TTLs, quarantine of a slot whose logits go
+    non-finite, ``drain()``.
+
+Not in this slice (they come with later ones): mesh/TP sharding, the
+monitor/tracer/exporter telemetry hooks, fault injection, the
+preemption handler, the serving watchdog, and warm prefix export/import.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from scaletorch_tpu_torch.inference.decode import (
+    make_decode_step,
+    make_fill_slots_step,
+    make_paged_decode_step,
+    make_paged_prefill_step,
+    make_prefill_step,
+)
+from scaletorch_tpu_torch.inference.kv_cache import (
+    TRASH_PAGE,
+    PageAllocator,
+    RadixPrefixCache,
+    ceil_div,
+    init_kv_cache,
+    init_paged_kv_cache,
+    kv_cache_bytes,
+)
+from scaletorch_tpu_torch.inference.resilience import (
+    TERMINAL_OUTCOMES,
+    EngineDraining,
+)
+from scaletorch_tpu_torch.inference.sampling import SamplingParams
+from scaletorch_tpu_torch.telemetry.histogram import LogHistogram
+from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
+from scaletorch_tpu_torch.utils.logger import get_logger
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class Request:
+    """One generation request. ``eos_id`` stops the slot early;
+    ``max_new_tokens`` always bounds it; the engine's ``max_seq`` caps
+    prompt + generation regardless. ``deadline`` (absolute monotonic
+    time, or None) retires the request with ``timeout`` wherever it is.
+    ``admit_time`` is stamped when the request enters a slot."""
+
+    request_id: int
+    prompt: List[int]
+    max_new_tokens: int = 64
+    eos_id: Optional[int] = None
+    seed: int = 0
+    submit_time: float = field(default_factory=time.monotonic)
+    deadline: Optional[float] = None
+    admit_time: Optional[float] = None
+
+
+@dataclass
+class RequestResult:
+    """The single terminal record of a request. ``finish_reason`` refines
+    an ``ok`` outcome ('eos' | 'length' | 'max_seq') and repeats the
+    outcome otherwise."""
+
+    request_id: int
+    prompt: List[int]
+    tokens: List[int]               # generated tokens (prompt excluded)
+    finish_reason: str
+    outcome: str = "ok"             # one of TERMINAL_OUTCOMES
+    detail: Optional[str] = None
+    ttft_s: Optional[float] = None  # submit -> first generated token
+    latency_s: Optional[float] = None
+    queue_wait_s: Optional[float] = None
+    prefill_s: Optional[float] = None
+    prefix_hit: bool = False
+
+
+@dataclass
+class EngineMetrics:
+    """Serving counters/gauges; ``snapshot()`` is flat numeric. The
+    per-outcome counters satisfy ``requests_submitted ==
+    sum(requests_<outcome>)`` once the engine is drained."""
+
+    requests_submitted: int = 0
+    requests_completed: int = 0     # ok outcomes only
+    requests_admitted: int = 0      # entered a slot (prefilled)
+    tokens_generated: int = 0
+    prefill_calls: int = 0
+    decode_steps: int = 0
+    queue_depth: int = 0
+    active_slots: int = 0
+    num_slots: int = 0
+    # paged layout: pool occupancy and the radix prefix cache's yield
+    pages_in_use: int = 0
+    page_pool_free: int = 0
+    prefix_hits: int = 0
+    prefill_tokens_saved: int = 0
+    prefix_pages: int = 0
+    ttft_sum_s: float = 0.0
+    ttft_count: int = 0
+    outcomes: Dict[str, int] = field(
+        default_factory=lambda: {o: 0 for o in TERMINAL_OUTCOMES})
+    hist: Dict[str, LogHistogram] = field(default_factory=lambda: {
+        name: LogHistogram()
+        for name in ("ttft", "tpot", "queue_wait", "prefill", "e2e")})
+    _window_start: float = field(default_factory=time.monotonic)
+    _window_tokens: int = 0
+
+    def record_ttft(self, ttft_s: float) -> None:
+        self.ttft_sum_s += ttft_s
+        self.ttft_count += 1
+        self.hist["ttft"].observe(ttft_s)
+
+    def record_outcome(self, outcome: str) -> None:
+        self.outcomes[outcome] += 1
+        if outcome == "ok":
+            self.requests_completed += 1
+
+    def tokens_per_second(self) -> float:
+        dt = time.monotonic() - self._window_start
+        return self._window_tokens / dt if dt > 0 else 0.0
+
+    def snapshot(self) -> Dict[str, float]:
+        terminal = sum(self.outcomes.values())
+        snap = {
+            "requests_submitted": self.requests_submitted,
+            "requests_completed": self.requests_completed,
+            "tokens_generated": self.tokens_generated,
+            "prefill_calls": self.prefill_calls,
+            "decode_steps": self.decode_steps,
+            "queue_depth": self.queue_depth,
+            "num_slots": self.num_slots,
+            "slot_occupancy": (
+                self.active_slots / self.num_slots if self.num_slots else 0.0
+            ),
+            "tokens_per_second": self.tokens_per_second(),
+            "mean_ttft_s": (
+                self.ttft_sum_s / self.ttft_count if self.ttft_count else 0.0
+            ),
+            "deadline_miss_rate": (
+                self.outcomes["timeout"] / terminal if terminal else 0.0
+            ),
+            "quarantine_rate": (
+                self.outcomes["quarantined"] / terminal if terminal else 0.0
+            ),
+            "pages_in_use": self.pages_in_use,
+            "page_pool_free": self.page_pool_free,
+            "prefix_hit_rate": (
+                self.prefix_hits / self.requests_admitted
+                if self.requests_admitted else 0.0
+            ),
+            "prefill_tokens_saved": self.prefill_tokens_saved,
+            "prefix_pages": self.prefix_pages,
+        }
+        for outcome, count in self.outcomes.items():
+            snap[f"requests_{outcome}"] = count
+        return snap
+
+
+class _Slot:
+    """Host-side state of one decode slot."""
+
+    __slots__ = ("request", "tokens", "position", "generated",
+                 "first_token_t", "last_token_t", "prefill_s", "prefix_hit")
+
+    def __init__(self) -> None:
+        self.request: Optional[Request] = None
+        self.tokens: List[int] = []
+        self.position = 0        # absolute position of the NEXT token to feed
+        self.generated = 0
+        self.first_token_t: Optional[float] = None
+        self.last_token_t: Optional[float] = None
+        self.prefill_s: Optional[float] = None
+        self.prefix_hit = False
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None
+
+
+class InferenceEngine:
+    """KV-cache decode with continuous batching.
+
+    Parameters
+    ----------
+    params : the model — a ``LlamaForCausalLM`` (or any module with
+        ``forward_cached``), or a parameter tree in the reference layout
+        (torch tensors or numpy arrays, e.g. ``init_params``' output or
+        a JAX tree through ``np.asarray``), which is loaded into a new
+        ``LlamaForCausalLM`` on ``device``.
+    cfg : the model's config (``LlamaConfig`` or ``Qwen3Config``).
+    max_slots : decode batch size B (fixed).
+    max_seq : cache length S_max (prompt + generation cap per slot).
+    prefill_len : static prompt-buffer length P_max (default
+        ``max_seq``); longer prompts are rejected.
+    sampling : engine-wide sampling knobs.
+    cache_dtype : KV dtype (default: the config's compute dtype).
+    cache_layout : ``"dense"`` (per-slot [L,B,Hkv,S_max,D] buffers) or
+        ``"paged"`` (a pool [L,n_pages,Hkv,page_size,D] plus per-slot
+        page tables, page-budget-aware admission).
+    page_size, num_pages, prefix_cache : paged layout only; ``num_pages``
+        includes the reserved TRASH page (None: the dense-equivalent
+        ``max_slots * ceil(max_seq / page_size) + 1``); ``prefix_cache``
+        keeps the radix tree over page-aligned prompt prefixes.
+    queue_capacity : with more queued requests than this, the OLDEST is
+        shed (0 = unbounded).
+    default_ttl_s : deadline for requests submitted without ``ttl_s``
+        (0 = none).
+    strict_submit : True raises on an invalid ``submit()``; False ends
+        it as a ``rejected`` terminal result.
+    forward_fn : override of the cached forward, with the signature
+        ``(model, tokens, cfg, cache, **kw)``.
+    on_tokens : ``(slot, request_id, token_ids)`` callback fed each
+        newly sampled token on the host; a raising hook is disarmed.
+    paged_kernel : the decode attention route of the paged layout:
+        None takes the CUDA kernel on the card and the gather path on
+        the CPU; False forces the gather path (the reference run).
+    device : where the engine runs; None means the CUDA card and raises
+        without one. Pass ``"cpu"`` for the plain PyTorch path.
+    """
+
+    def __init__(
+        self,
+        params: Any,
+        cfg: Any,
+        *,
+        max_slots: int = 4,
+        max_seq: int = 512,
+        prefill_len: Optional[int] = None,
+        sampling: SamplingParams = SamplingParams(),
+        cache_dtype: Optional[torch.dtype] = None,
+        cache_layout: str = "dense",
+        page_size: int = 16,
+        num_pages: Optional[int] = None,
+        prefix_cache: bool = True,
+        queue_capacity: int = 0,
+        default_ttl_s: float = 0.0,
+        strict_submit: bool = True,
+        forward_fn: Optional[Callable] = None,
+        on_tokens: Optional[Callable[[int, int, List[int]], None]] = None,
+        paged_kernel: Optional[bool] = None,
+        device: DeviceLike = None,
+    ) -> None:
+        if max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if max_seq < 2:
+            raise ValueError(f"max_seq must be >= 2, got {max_seq}")
+        if queue_capacity < 0:
+            raise ValueError(
+                f"queue_capacity must be >= 0 (0 = unbounded), "
+                f"got {queue_capacity}")
+        if default_ttl_s < 0:
+            raise ValueError(
+                f"default_ttl_s must be >= 0 (0 = no deadline), "
+                f"got {default_ttl_s}")
+        if cache_layout not in ("dense", "paged"):
+            raise ValueError(
+                f"cache_layout must be 'dense' or 'paged', "
+                f"got {cache_layout!r}")
+        self.device = resolve_device(device)
+        self.model = self._resolve_model(params, cfg)
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.prefill_len = prefill_len or max_seq
+        if self.prefill_len > max_seq:
+            raise ValueError(
+                f"prefill_len {self.prefill_len} exceeds max_seq {max_seq}")
+        self.sampling = sampling
+        self.queue_capacity = queue_capacity
+        self.default_ttl_s = default_ttl_s
+        self.strict_submit = strict_submit
+        self.on_tokens = on_tokens
+
+        self.cache_layout = cache_layout
+        self._paged = cache_layout == "paged"
+        if self._paged and page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.page_size = page_size
+        self._pages_per_slot = (
+            ceil_div(max_seq, page_size) if self._paged else 0)
+        if num_pages is None and self._paged:
+            num_pages = max_slots * self._pages_per_slot + 1
+        self.num_pages = num_pages
+
+        if self._paged:
+            self.cache = init_paged_kv_cache(
+                cfg, num_pages, page_size, dtype=cache_dtype,
+                device=self.device)
+            self.allocator = PageAllocator(num_pages)
+            self.radix = (
+                RadixPrefixCache(
+                    page_size, self.allocator.retain, self.allocator.release,
+                    self.allocator.refcount,
+                ) if prefix_cache else None
+            )
+            # per-slot page tables (host copy), the pages each slot holds
+            # a reference on (shared prefix pages first), and how many
+            # leading entries are FROZEN (shared or radix-registered)
+            self._tables = np.full(
+                (max_slots, self._pages_per_slot), TRASH_PAGE, np.int32)
+            # device copy, re-uploaded only after a host write
+            self._tables_dev: Optional[torch.Tensor] = None
+            self._slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
+            self._slot_frozen = [0] * max_slots
+            logger.info(
+                "inference engine: %d slots over %d pages x %d tokens, "
+                "pool %.1f MiB on %s%s",
+                max_slots, num_pages, page_size,
+                kv_cache_bytes(cfg, max_slots, max_seq, dtype=cache_dtype,
+                               layout="paged", page_size=page_size,
+                               num_pages=num_pages) / 2**20,
+                self.device, ", prefix cache on" if prefix_cache else "")
+            self._prefill = make_paged_prefill_step(
+                cfg, sampling, page_size=page_size, seq_limit=max_seq,
+                forward_fn=forward_fn)
+            self._decode = make_paged_decode_step(
+                cfg, sampling, page_size=page_size, seq_limit=max_seq,
+                forward_fn=forward_fn, kernel=paged_kernel)
+        else:
+            self.cache = init_kv_cache(cfg, max_slots, max_seq,
+                                       dtype=cache_dtype, device=self.device)
+            self.allocator = None
+            self.radix = None
+            logger.info(
+                "inference engine: %d slots x %d positions, cache %.1f MiB "
+                "on %s", max_slots, max_seq,
+                kv_cache_bytes(cfg, max_slots, max_seq,
+                               dtype=cache_dtype) / 2**20, self.device)
+            self._prefill = make_prefill_step(cfg, sampling,
+                                              forward_fn=forward_fn)
+            self._decode = make_decode_step(cfg, sampling,
+                                            forward_fn=forward_fn)
+        self._fill_slots = make_fill_slots_step()
+
+        self._slots = [_Slot() for _ in range(max_slots)]
+        self._queue: deque[Request] = deque()
+        self._results: Dict[int, RequestResult] = {}
+        self._finished_tick: List[RequestResult] = []
+        self._ids = itertools.count()
+        self._seeds = np.zeros(max_slots, np.int64)
+        self._draining = False
+        self.metrics = EngineMetrics(num_slots=max_slots)
+        if self._paged:
+            self._update_page_gauges()
+
+    def _resolve_model(self, params, cfg) -> torch.nn.Module:
+        if not isinstance(params, torch.nn.Module):
+            from scaletorch_tpu_torch.models.llama import LlamaForCausalLM
+
+            return LlamaForCausalLM.from_params(params, cfg,
+                                                device=self.device)
+        dev = next(params.parameters()).device
+        if dev.type != self.device.type or (
+                self.device.index is not None and dev != self.device):
+            raise ValueError(
+                f"the model lives on {dev}, the engine runs on {self.device}")
+        self.device = dev
+        return params
+
+    def _update_page_gauges(self) -> None:
+        self.metrics.pages_in_use = self.allocator.used_count
+        self.metrics.page_pool_free = self.allocator.free_count
+        self.metrics.prefix_pages = (
+            len(self.radix) if self.radix is not None else 0)
+
+    def _tables_device(self) -> torch.Tensor:
+        """The page tables on the device, uploaded once per host mutation
+        rather than once per decode tick."""
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self._tables).to(self.device)
+        return self._tables_dev
+
+    def _request_pages(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Worst-case pages a request reserves: prompt plus generation,
+        capped by ``max_seq``."""
+        total = min(prompt_len + max_new_tokens, self.max_seq)
+        return ceil_div(total, self.page_size)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    # ---- request lifecycle ----------------------------------------------
+    def submit(
+        self,
+        prompt: List[int],
+        *,
+        max_new_tokens: int = 64,
+        eos_id: Optional[int] = None,
+        seed: int = 0,
+        ttl_s: Optional[float] = None,
+    ) -> int:
+        """Queue a request; returns its id. Admission happens inside
+        ``step()`` when a slot (and, paged, the pages) frees up.
+
+        ``ttl_s`` sets this request's deadline (None = engine
+        ``default_ttl_s``; <= 0 = none). Invalid submissions raise
+        (``strict_submit``) or end as ``rejected``; a draining engine
+        raises ``EngineDraining`` / rejects. A full queue sheds its
+        OLDEST request."""
+        err = None
+        if self._draining:
+            err = "engine is draining: admissions are stopped"
+        elif not prompt:
+            err = "prompt must contain at least one token"
+        elif len(prompt) > self.prefill_len:
+            err = (
+                f"prompt length {len(prompt)} exceeds the engine's static "
+                f"prefill buffer ({self.prefill_len}); re-create the engine "
+                "with a larger prefill_len/max_seq")
+        elif len(prompt) >= self.max_seq:
+            err = (
+                f"prompt length {len(prompt)} leaves no room to generate "
+                f"within max_seq {self.max_seq}")
+        elif (self._paged and self._request_pages(len(prompt), max_new_tokens)
+                > self.allocator.capacity):
+            err = (
+                f"request needs "
+                f"{self._request_pages(len(prompt), max_new_tokens)} pages "
+                f"but the pool's capacity is {self.allocator.capacity}; "
+                "re-create the engine with more num_pages or cap "
+                "max_new_tokens")
+        if err is not None and self.strict_submit:
+            raise EngineDraining(err) if self._draining else ValueError(err)
+        req = Request(request_id=next(self._ids), prompt=list(prompt),
+                      max_new_tokens=max_new_tokens, eos_id=eos_id, seed=seed)
+        ttl = self.default_ttl_s if ttl_s is None else ttl_s
+        if ttl and ttl > 0:
+            req.deadline = req.submit_time + ttl
+        self.metrics.requests_submitted += 1
+        if err is not None:
+            self._finalize(req, "rejected", tokens=[], detail=err,
+                           now=time.monotonic())
+            return req.request_id
+        self._queue.append(req)
+        while self.queue_capacity and len(self._queue) > self.queue_capacity:
+            shed = self._queue.popleft()
+            self._finalize(
+                shed, "shed", tokens=[],
+                detail=(f"queue exceeded capacity {self.queue_capacity}; "
+                        "oldest request shed"),
+                now=time.monotonic())
+        self.metrics.queue_depth = len(self._queue)
+        return req.request_id
+
+    def _finalize(
+        self,
+        req: Request,
+        outcome: str,
+        *,
+        tokens: List[int],
+        reason: Optional[str] = None,
+        detail: Optional[str] = None,
+        ttft_t: Optional[float] = None,
+        prefill_s: Optional[float] = None,
+        prefix_hit: bool = False,
+        now: float,
+    ) -> None:
+        """Record the single terminal result of ``req``: every request
+        path funnels through here, so conservation holds by
+        construction."""
+        latency = now - req.submit_time
+        queue_wait = (req.admit_time - req.submit_time
+                      if req.admit_time is not None else None)
+        self._results[req.request_id] = RequestResult(
+            request_id=req.request_id,
+            prompt=req.prompt,
+            tokens=tokens,
+            finish_reason=reason or outcome,
+            outcome=outcome,
+            detail=detail,
+            ttft_s=(ttft_t - req.submit_time) if ttft_t is not None else None,
+            latency_s=latency,
+            queue_wait_s=queue_wait,
+            prefill_s=prefill_s,
+            prefix_hit=prefix_hit,
+        )
+        if req.admit_time is not None and outcome in ("ok", "timeout"):
+            # only SERVED requests feed the e2e histogram
+            self.metrics.hist["e2e"].observe(latency)
+        self._finished_tick.append(self._results[req.request_id])
+        self.metrics.record_outcome(outcome)
+        if outcome != "ok":
+            logger.warning("request %d -> %s%s", req.request_id, outcome,
+                           f" ({detail})" if detail else "")
+
+    def _retire_slot(self, i: int, outcome: str, *,
+                     reason: Optional[str] = None,
+                     detail: Optional[str] = None, now: float) -> None:
+        """Terminal-result a slot's request (partial tokens attached) and
+        free the slot."""
+        slot = self._slots[i]
+        req = slot.request
+        self._finalize(
+            req, outcome, tokens=slot.tokens[len(req.prompt):],
+            reason=reason, detail=detail, ttft_t=slot.first_token_t,
+            prefill_s=slot.prefill_s, prefix_hit=slot.prefix_hit, now=now)
+        slot.request = None
+        slot.tokens = []
+        if self._paged:
+            # drop the slot's references; pages shared with live slots or
+            # pinned by the radix tree survive, the rest return to the
+            # free list
+            for p in self._slot_pages[i]:
+                self.allocator.release(p)
+            self._slot_pages[i] = []
+            self._slot_frozen[i] = 0
+            self._tables[i, :] = TRASH_PAGE
+            self._tables_dev = None
+            self._update_page_gauges()
+
+    def _expire(self, now: float) -> None:
+        """Deadline sweep over queued and mid-decode requests."""
+        if self._queue:
+            kept: deque[Request] = deque()
+            for req in self._queue:
+                if req.deadline is not None and now >= req.deadline:
+                    self._finalize(
+                        req, "timeout", tokens=[],
+                        detail="deadline exceeded before admission", now=now)
+                else:
+                    kept.append(req)
+            self._queue = kept
+            self.metrics.queue_depth = len(self._queue)
+        for i, slot in enumerate(self._slots):
+            if (slot.active and slot.request.deadline is not None
+                    and now >= slot.request.deadline):
+                self._retire_slot(
+                    i, "timeout", detail="deadline exceeded mid-decode",
+                    now=now)
+
+    def _quarantine(self, indices: List[int], now: float, where: str) -> None:
+        """Retire poisoned slots (non-finite logits) and zero their cache
+        lines so the NaN K/V cannot outlive the request. Paged, only the
+        slot's MUTABLE pages (past the frozen prefix) are cleared: frozen
+        pages were written once by a healthy prefill and may be shared."""
+        if self._paged:
+            mask = np.zeros(self.num_pages, bool)
+            for i in indices:
+                mutable = self._slot_pages[i][self._slot_frozen[i]:]
+                mask[mutable] = True
+                self._retire_slot(i, "quarantined",
+                                  detail=f"non-finite logits at {where}",
+                                  now=now)
+        else:
+            mask = np.zeros(self.max_slots, bool)
+            for i in indices:
+                self._retire_slot(i, "quarantined",
+                                  detail=f"non-finite logits at {where}",
+                                  now=now)
+                mask[i] = True
+        self.cache = self._fill_slots(self.cache, mask, 0.0)
+
+    def _admit(self) -> None:
+        """Move queued requests into free slots and prefill them — ONE
+        batched prefill call however many were admitted."""
+        if self._paged:
+            self._admit_paged()
+        else:
+            self._admit_dense()
+
+    def _bind_slot(self, i: int, req: Request) -> None:
+        slot = self._slots[i]
+        slot.request = req
+        slot.tokens = list(req.prompt)
+        slot.position = len(req.prompt)
+        slot.generated = 0
+        slot.first_token_t = None
+        slot.last_token_t = None
+        slot.prefill_s = None
+        slot.prefix_hit = False
+        req.admit_time = time.monotonic()
+        self.metrics.hist["queue_wait"].observe(
+            req.admit_time - req.submit_time)
+        self._seeds[i] = req.seed
+        self.metrics.requests_admitted += 1
+
+    def _admit_dense(self) -> None:
+        free = [i for i, s in enumerate(self._slots) if not s.active]
+        if not free or not self._queue:
+            return
+        admitted: List[int] = []
+        tokens = np.zeros((self.max_slots, self.prefill_len), np.int32)
+        lengths = np.ones(self.max_slots, np.int32)
+        write_mask = np.zeros(self.max_slots, bool)
+        for i in free:
+            if not self._queue:
+                break
+            req = self._queue.popleft()
+            self._bind_slot(i, req)
+            tokens[i, : len(req.prompt)] = req.prompt
+            lengths[i] = len(req.prompt)
+            write_mask[i] = True
+            admitted.append(i)
+        t0 = time.monotonic()
+        first, _logits, finite, self.cache = self._prefill(
+            self.model, tokens, lengths, write_mask, self.cache, self._seeds)
+        self._after_prefill(admitted, first, finite, t0)
+
+    def _after_prefill(self, admitted: List[int], first: torch.Tensor,
+                       finite: torch.Tensor, t0: float) -> None:
+        """Bring the first tokens and the finite mask to the host (one
+        copy), attribute the prefill's wall time, quarantine poisoned
+        slots, register frozen prompt pages (paged) and emit."""
+        host = torch.stack([first.long(), finite.long()]).cpu().numpy()
+        self.metrics.prefill_calls += 1
+        now = time.monotonic()
+        for i in admitted:
+            self._slots[i].prefill_s = now - t0
+            self.metrics.hist["prefill"].observe(now - t0)
+        poisoned = [i for i in admitted if not host[1, i]]
+        if poisoned:
+            # poison prompts skip radix registration: their pages hold
+            # non-finite K/V and must never be shared
+            self._quarantine(poisoned, now, where="prefill")
+        for i in admitted:
+            if not host[1, i]:
+                continue
+            if self.radix is not None:
+                slot = self._slots[i]
+                plen = len(slot.request.prompt)
+                frozen = (plen // self.page_size) * self.page_size
+                if frozen:
+                    n = frozen // self.page_size
+                    self.radix.insert(
+                        slot.request.prompt[:frozen],
+                        [int(p) for p in self._tables[i, :n]])
+                    # the fully written prompt pages are immutable from
+                    # here on: exempt from quarantine, shareable
+                    self._slot_frozen[i] = n
+            self._emit(i, int(host[0, i]), now)
+        if self._paged:
+            self._update_page_gauges()
+        self.metrics.queue_depth = len(self._queue)
+
+    def _reserve_pages(self, req: Request):
+        """Reserve the pages one request needs: radix-match its prompt,
+        retain the shared prefix pages, allocate the rest (evicting
+        unpinned radix leaves when the free list runs short). Returns
+        (shared_tokens, page_list), or None when the pool cannot cover
+        the request now — it waits at the head of the queue (FIFO)."""
+        plen = len(req.prompt)
+        ps = self.page_size
+        total_pages = self._request_pages(plen, req.max_new_tokens)
+        shared = 0
+        shared_pages: List[int] = []
+        if self.radix is not None:
+            matched, pages = self.radix.match(req.prompt)
+            # never share the whole prompt: the first token samples from
+            # the logits at prompt_len - 1, so at least one tail token
+            # must run through prefill
+            shared = min(matched, ((plen - 1) // ps) * ps)
+            shared_pages = pages[: shared // ps]
+            for p in shared_pages:
+                self.allocator.retain(p)
+        own_needed = total_pages - len(shared_pages)
+        own = self.allocator.alloc(own_needed)
+        if own is None and self.radix is not None:
+            self.radix.evict(own_needed - self.allocator.free_count)
+            own = self.allocator.alloc(own_needed)
+        if own is None:
+            for p in shared_pages:
+                self.allocator.release(p)
+            return None
+        return shared, shared_pages + own
+
+    def _admit_paged(self) -> None:
+        free = [i for i, s in enumerate(self._slots) if not s.active]
+        if not free or not self._queue:
+            return
+        admitted: List[int] = []
+        tokens = np.zeros((self.max_slots, self.prefill_len), np.int32)
+        tail_lens = np.ones(self.max_slots, np.int32)
+        starts = np.zeros(self.max_slots, np.int32)
+        write_mask = np.zeros(self.max_slots, bool)
+        for i in free:
+            if not self._queue:
+                break
+            reserved = self._reserve_pages(self._queue[0])
+            if reserved is None:
+                break  # page budget exhausted: the head of the line waits
+            req = self._queue.popleft()
+            shared, pages = reserved
+            self._bind_slot(i, req)
+            self._slot_pages[i] = pages
+            self._slot_frozen[i] = shared // self.page_size
+            self._tables[i, :] = TRASH_PAGE
+            self._tables[i, : len(pages)] = pages
+            self._tables_dev = None
+            tail = req.prompt[shared:]
+            tokens[i, : len(tail)] = tail
+            tail_lens[i] = len(tail)
+            starts[i] = shared
+            write_mask[i] = True
+            if shared:
+                self.metrics.prefix_hits += 1
+                self.metrics.prefill_tokens_saved += shared
+                self._slots[i].prefix_hit = True
+            admitted.append(i)
+        if not admitted:
+            return
+        t0 = time.monotonic()
+        first, _logits, finite, self.cache = self._prefill(
+            self.model, tokens, tail_lens, starts, write_mask,
+            self._tables_device(), self.cache, self._seeds)
+        self._after_prefill(admitted, first, finite, t0)
+
+    def _emit(self, i: int, token: int, now: float) -> None:
+        """Record one generated token for slot i; retire the slot when a
+        stop condition hits."""
+        slot = self._slots[i]
+        req = slot.request
+        slot.tokens.append(token)
+        slot.generated += 1
+        self.metrics.tokens_generated += 1
+        self.metrics._window_tokens += 1
+        if slot.first_token_t is None:
+            slot.first_token_t = now
+            self.metrics.record_ttft(now - req.submit_time)
+        else:
+            self.metrics.hist["tpot"].observe(now - slot.last_token_t)
+        slot.last_token_t = now
+        if self.on_tokens is not None:
+            try:
+                self.on_tokens(i, req.request_id, [token])
+            except Exception:
+                logger.exception("on_tokens hook raised; disarming the hook")
+                self.on_tokens = None
+
+        reason = None
+        if req.eos_id is not None and token == req.eos_id:
+            reason = "eos"
+        elif slot.generated >= req.max_new_tokens:
+            reason = "length"
+        elif slot.position + slot.generated >= self.max_seq:
+            # continuing would feed a token at position >= max_seq
+            reason = "max_seq"
+        if reason is not None:
+            self._retire_slot(i, "ok", reason=reason, now=now)
+
+    def step(self) -> List[RequestResult]:
+        """One engine tick: deadline sweep, admission (prefill), then one
+        decode step for the active slots. Returns every result that
+        reached its terminal outcome since the previous ``step()``."""
+        self._expire(time.monotonic())
+        self._admit()
+        active_idx = [i for i, s in enumerate(self._slots) if s.active]
+        if active_idx:
+            tokens = np.zeros(self.max_slots, np.int32)
+            positions = np.zeros(self.max_slots, np.int32)
+            active = np.zeros(self.max_slots, bool)
+            for i in active_idx:
+                slot = self._slots[i]
+                # feed the last emitted token at its absolute position
+                tokens[i] = slot.tokens[-1]
+                positions[i] = slot.position + slot.generated - 1
+                active[i] = True
+            tables = (self._tables_device(),) if self._paged else ()
+            nxt, _logits, finite, self.cache = self._decode(
+                self.model, tokens, positions, active, *tables, self.cache,
+                self._seeds)
+            self.metrics.decode_steps += 1
+            host = torch.stack([nxt.long(), finite.long()]).cpu().numpy()
+            now = time.monotonic()
+            poisoned = [i for i in active_idx if not host[1, i]]
+            if poisoned:
+                self._quarantine(poisoned, now, where="decode")
+            for i in active_idx:
+                if host[1, i]:
+                    self._emit(i, int(host[0, i]), now)
+        self.metrics.active_slots = sum(s.active for s in self._slots)
+        self.metrics.queue_depth = len(self._queue)
+        finished, self._finished_tick = self._finished_tick, []
+        return finished
+
+    def tick(self) -> List[RequestResult]:
+        """Alias of ``step()``: one admission sweep + one decode step."""
+        return self.step()
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue) + sum(s.active for s in self._slots)
+
+    def cancel(self, request_id: int, *,
+               detail: str = "cancelled by client") -> bool:
+        """Abort one in-flight request, queued or mid-decode, with an
+        ``aborted`` result (partial tokens attached, pages released).
+        False when the id is unknown or already terminal."""
+        now = time.monotonic()
+        for idx, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[idx]
+                self._finalize(req, "aborted", tokens=[], detail=detail,
+                               now=now)
+                self.metrics.queue_depth = len(self._queue)
+                return True
+        for i, slot in enumerate(self._slots):
+            if slot.active and slot.request.request_id == request_id:
+                self._retire_slot(i, "aborted", detail=detail, now=now)
+                self.metrics.active_slots = sum(
+                    s.active for s in self._slots)
+                return True
+        return False
+
+    def stop_admissions(self) -> None:
+        """Enter the draining state without running the tick loop:
+        ``submit()`` now raises / rejects, in-flight work keeps flowing
+        through ``step()``. Idempotent."""
+        self._draining = True
+
+    def _abort_pending(self, detail: str) -> None:
+        now = time.monotonic()
+        while self._queue:
+            self._finalize(self._queue.popleft(), "aborted", tokens=[],
+                           detail=detail, now=now)
+        for i, slot in enumerate(self._slots):
+            if slot.active:
+                self._retire_slot(i, "aborted", detail=detail, now=now)
+        self.metrics.queue_depth = 0
+        self.metrics.active_slots = 0
+
+    def run(self, max_steps: int = 100_000) -> Dict[int, RequestResult]:
+        """Drive ``step()`` until queue and slots drain; returns all
+        results by request id. On ``max_steps`` exhaustion the unfinished
+        requests end as ``aborted`` with their partial tokens."""
+        steps = 0
+        while self.pending and steps < max_steps:
+            self.step()
+            steps += 1
+        if self.pending:
+            logger.warning(
+                "engine did not drain within %d steps: aborting %d "
+                "in-flight requests", max_steps, self.pending)
+            self._abort_pending(f"run(max_steps={max_steps}) exhausted")
+        return dict(self._results)
+
+    def drain(self, *, max_steps: int = 100_000,
+              finish_queued: bool = False) -> Dict[int, RequestResult]:
+        """Graceful shutdown: stop admissions, finish the admitted
+        requests, flush all results. Queued requests are ``aborted``
+        unless ``finish_queued``. Idempotent."""
+        self.stop_admissions()
+        if not finish_queued:
+            now = time.monotonic()
+            while self._queue:
+                self._finalize(self._queue.popleft(), "aborted", tokens=[],
+                               detail="drain: not yet admitted", now=now)
+            self.metrics.queue_depth = 0
+        steps = 0
+        while self.pending and steps < max_steps:
+            self.step()
+            steps += 1
+        if self.pending:
+            self._abort_pending(f"drain(max_steps={max_steps}) exhausted")
+        return dict(self._results)
+
+    def result(self, request_id: int) -> Optional[RequestResult]:
+        return self._results.get(request_id)
+
+    def pop_result(self, request_id: int) -> Optional[RequestResult]:
+        """Remove and return a terminal result (None when absent)."""
+        return self._results.pop(request_id, None)

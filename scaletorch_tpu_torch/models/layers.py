@@ -1,0 +1,154 @@
+"""Model building blocks, forward only: RMSNorm, SwiGLU, RoPE, cached SDPA.
+
+PyTorch counterparts of scaletorch_tpu/models/layers.py with the same
+casts, because the casts decide the numbers:
+
+  * ``rms_norm`` computes in fp32 and casts back to the input dtype;
+  * cos/sin are computed in fp32 and cast to q's dtype *before* the
+    multiply;
+  * attention scores come out of the matmul in q's dtype, are upcast to
+    fp32, masked with ``finfo(float32).min``, softmaxed in fp32, and the
+    probabilities are cast back to q's dtype before P·V.
+
+The custom backward passes of ``rms_norm``/``swiglu`` come with the
+training slice; serving runs under ``torch.inference_mode()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+# ---- RMSNorm / SwiGLU ---------------------------------------------------------
+def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm over the last axis with fp32 internals; ``weight``
+    broadcasts over the leading axes (per-head q/k norms pass a [Dh]
+    weight against [B, S, H, Dh] activations)."""
+    x32 = x.float()
+    variance = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    inv = torch.rsqrt(variance + eps)
+    return (x32 * inv * weight.float()).to(x.dtype)
+
+
+def swiglu(gate: Tensor, up: Tensor) -> Tensor:
+    """``silu(gate) * up``."""
+    return F.silu(gate) * up
+
+
+# ---- RoPE ---------------------------------------------------------------------
+def get_cos_sin(
+    seq_len: int,
+    head_dim: int,
+    rope_theta: float = 10000.0,
+    dtype: torch.dtype = torch.float32,
+    positions: Optional[Tensor] = None,
+    *,
+    device: Optional[torch.device] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Rotary cos/sin tables ``[seq, head_dim]``, or ``[B, S, head_dim]``
+    for 2-D ``positions`` (the decode path's per-slot absolute
+    positions). Inverse frequencies over even dims, angles duplicated
+    across the two halves (the HF convention)."""
+    if positions is not None:
+        device = positions.device
+    inv_freq = 1.0 / (
+        rope_theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                    device=device) / head_dim)
+    )
+    if positions is None:
+        positions = torch.arange(seq_len, dtype=torch.float32, device=device)
+    else:
+        positions = positions.to(torch.float32)
+    freqs = positions[..., None] * inv_freq          # [..., S, Dh/2]
+    emb = torch.cat([freqs, freqs], dim=-1)          # [..., S, Dh]
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def rotate_half(x: Tensor) -> Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(
+    q: Tensor, k: Tensor, cos: Tensor, sin: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """q/k: [B, H, S, Dh]; cos/sin: [S, Dh] or per-batch [B, S, Dh]."""
+    if cos.ndim == 3:
+        cos = cos[:, None, :, :].to(q.dtype)
+        sin = sin[:, None, :, :].to(q.dtype)
+    else:
+        cos = cos[None, None, :, :].to(q.dtype)
+        sin = sin[None, None, :, :].to(q.dtype)
+    q_rot = q * cos + rotate_half(q) * sin
+    k_rot = k * cos + rotate_half(k) * sin
+    return q_rot, k_rot
+
+
+# ---- attention ----------------------------------------------------------------
+def repeat_kv(k: Tensor, n_rep: int) -> Tensor:
+    """GQA KV head expansion [B, Hkv, S, D] -> [B, Hkv*n_rep, S, D]."""
+    if n_rep == 1:
+        return k
+    b, h_kv, s, d = k.shape
+    return k[:, :, None].expand(b, h_kv, n_rep, s, d).reshape(
+        b, h_kv * n_rep, s, d)
+
+
+def cached_sdpa_attention(
+    q: Tensor,
+    k_cache: Tensor,
+    v_cache: Tensor,
+    q_positions: Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> Tensor:
+    """SDPA against a fixed-size KV cache with absolute-position masking.
+
+    q: [B, Hq, S, D]; k_cache/v_cache: [B, Hkv, S_max, D]; q_positions:
+    [B, S]. The query at position p attends cache entries j <= p.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[1] // k_cache.shape[1]
+    k = repeat_kv(k_cache, n_rep)
+    v = repeat_kv(v_cache, n_rep)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    key_idx = torch.arange(k_cache.shape[2], device=q.device)
+    visible = key_idx[None, None, :] <= q_positions[:, :, None]  # [B,S,S_max]
+    scores.masked_fill_(~visible[:, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def write_kv_cache(
+    cache: Tensor,
+    new: Tensor,
+    starts: Tensor,
+    write_mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Write ``new`` [B, H, S, D] into ``cache`` [B, H, S_max, D] at the
+    per-slot offsets ``starts`` [B], IN PLACE, and return ``cache``.
+
+    Offsets clamp to [0, S_max - S] as ``lax.dynamic_update_slice``
+    clamps them in the JAX package. ``write_mask`` [B] bool keeps the
+    unlisted slots' bytes untouched (continuous batching admits new
+    requests without perturbing live ones).
+    """
+    b, _, s, _ = new.shape
+    starts = starts.to(torch.long).clamp(0, cache.shape[2] - s)
+    rows = torch.arange(b, device=cache.device)[:, None]             # [B,1]
+    cols = starts[:, None] + torch.arange(s, device=cache.device)    # [B,S]
+    # advanced indices split by a slice put their broadcast dims first:
+    # the indexed view is [B, S, H, D]
+    vals = new.to(cache.dtype).transpose(1, 2)
+    if write_mask is not None:
+        vals = torch.where(write_mask.view(b, 1, 1, 1), vals,
+                           cache[rows, :, cols, :])
+    cache[rows, :, cols, :] = vals
+    return cache

@@ -1,0 +1,293 @@
+"""Llama-family decoder LM, KV-cached forward (PyTorch port, serving slice).
+
+Counterpart of scaletorch_tpu/models/llama.py for the serving path. The
+parameter layout is the reference's, so a JAX parameter tree carries
+across unchanged (``models/convert.py``):
+
+  * the same key names, layers stacked along axis 0;
+  * projections stored ``[in, out]`` and applied as ``x @ w`` (no
+    ``nn.Linear``, whose weight is ``[out, in]``);
+  * the tied head is ``embed_tokens.T``.
+
+``LlamaForCausalLM`` holds the matmul and embedding weights already cast
+to the compute dtype ``cfg.dtype`` (bit-identical to the JAX package's
+per-use ``.astype(cfg.dtype)``) and the norm weights in ``param_dtype``
+(``rms_norm`` reads them as fp32). Qwen3 rides the ``qk_norm`` flag.
+
+The layer loop is a Python loop over the stacked weights; the KV cache
+(dense ``[L, B, Hkv, S_max, D]`` or the paged pool ``[L, n_pages, Hkv,
+page_size, D]``) is updated IN PLACE, the counterpart of the JAX
+package's buffer donation.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from scaletorch_tpu_torch.models.layers import (
+    apply_rotary_pos_emb,
+    cached_sdpa_attention,
+    get_cos_sin,
+    rms_norm,
+    swiglu,
+    write_kv_cache,
+)
+from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 4
+    head_dim: Optional[int] = None  # defaults to hidden // heads
+    max_position_embeddings: int = 32768
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+    qk_norm: bool = False  # Qwen3-style per-head q/k RMSNorm before RoPE
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def actual_head_dim(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @property
+    def q_size(self) -> int:
+        return self.num_attention_heads * self.actual_head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_key_value_heads * self.actual_head_dim
+
+    def num_params(self) -> int:
+        h, i, l, v = (self.hidden_size, self.intermediate_size,
+                      self.num_hidden_layers, self.vocab_size)
+        attn = h * self.q_size + 2 * h * self.kv_size + self.q_size * h
+        mlp = 3 * h * i
+        norms = 2 * h + (2 * self.actual_head_dim if self.qk_norm else 0)
+        embed = v * h
+        head = 0 if self.tie_word_embeddings else v * h
+        return l * (attn + mlp + norms) + embed + h + head
+
+
+def _param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], bool]]:
+    """Flat name -> (shape, is_norm) in the reference layout."""
+    l, h = cfg.num_hidden_layers, cfg.hidden_size
+    i, v, dh = cfg.intermediate_size, cfg.vocab_size, cfg.actual_head_dim
+    shapes = {
+        "embed_tokens": ((v, h), False),
+        "layers.input_layernorm": ((l, h), True),
+        "layers.q_proj": ((l, h, cfg.q_size), False),
+        "layers.k_proj": ((l, h, cfg.kv_size), False),
+        "layers.v_proj": ((l, h, cfg.kv_size), False),
+        "layers.o_proj": ((l, cfg.q_size, h), False),
+        "layers.post_attention_layernorm": ((l, h), True),
+        "layers.gate_proj": ((l, h, i), False),
+        "layers.up_proj": ((l, h, i), False),
+        "layers.down_proj": ((l, i, h), False),
+        "norm": ((h,), True),
+    }
+    if cfg.qk_norm:
+        shapes["layers.q_norm"] = ((l, dh), True)
+        shapes["layers.k_norm"] = ((l, dh), True)
+    if not cfg.tie_word_embeddings:
+        shapes["lm_head"] = ((h, v), False)
+    return shapes
+
+
+def init_params(
+    cfg: LlamaConfig,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+) -> Params:
+    """Random parameters with the reference's distributions, as a nested
+    dict of ``param_dtype`` tensors on ``device``: fan-in uniform
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for projections, ones for norms,
+    normal(0, 0.02) for the embedding. ``generator`` must live on
+    ``device`` (default: a fresh one seeded with 0). The draws are not
+    JAX's threefry draws; parity tests carry JAX parameters across with
+    ``models.convert.load_numpy_params`` instead."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    pd = cfg.param_dtype
+    params: Params = {"layers": {}}
+    for name, (shape, is_norm) in _param_shapes(cfg).items():
+        if is_norm:
+            t = torch.ones(shape, dtype=pd, device=dev)
+        elif name == "embed_tokens":
+            t = torch.empty(shape, dtype=pd, device=dev).normal_(
+                0.0, 0.02, generator=generator)
+        else:
+            bound = 1.0 / math.sqrt(shape[-2])  # fan_in: the [in] axis
+            t = torch.empty(shape, dtype=pd, device=dev).uniform_(
+                -bound, bound, generator=generator)
+        if name.startswith("layers."):
+            params["layers"][name[len("layers."):]] = t
+        else:
+            params[name] = t
+    return params
+
+
+# ---- KV-cache inference path --------------------------------------------------
+def attention_block_cached(
+    x: Tensor,
+    layer: Dict[str, Tensor],
+    cache_k: Tensor,
+    cache_v: Tensor,
+    cos: Tensor,
+    sin: Tensor,
+    positions: Tensor,
+    cfg: LlamaConfig,
+    *,
+    write_mask: Optional[Tensor] = None,
+    kv_io: Optional[Any] = None,
+) -> Tensor:
+    """Cache-aware pre-norm attention sub-block with residual.
+
+    x: [B, S, H]; cache_k/cache_v: one layer's cache, [B, Hkv, S_max, D]
+    (or the ``kv_io`` adapter's layout, e.g. the paged pool), written IN
+    PLACE at ``positions`` [B, S]; attention runs q-against-cache with
+    the j <= p mask. Returns the block output.
+    """
+    dh = cfg.actual_head_dim
+    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    b, s, _ = h.shape
+    q = (h @ layer["q_proj"]).view(b, s, -1, dh)
+    k = (h @ layer["k_proj"]).view(b, s, -1, dh)
+    v = (h @ layer["v_proj"]).view(b, s, -1, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
+    q = q.transpose(1, 2)  # [B, Hq, S, D]
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    q, k = apply_rotary_pos_emb(q, k, cos, sin)
+    if kv_io is None:
+        write_kv_cache(cache_k, k, positions[:, 0], write_mask)
+        write_kv_cache(cache_v, v, positions[:, 0], write_mask)
+        attn = cached_sdpa_attention(q, cache_k, cache_v, positions)
+    else:
+        kv_io.write(cache_k, k, positions, write_mask)
+        kv_io.write(cache_v, v, positions, write_mask)
+        attn = kv_io.attend(q, cache_k, cache_v, positions)
+    attn = attn.transpose(1, 2).reshape(b, s, -1)
+    return x + attn @ layer["o_proj"]
+
+
+def mlp_block(x: Tensor, layer: Dict[str, Tensor], cfg: LlamaConfig) -> Tensor:
+    """Dense SwiGLU MLP sub-block with residual."""
+    h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    gate = h @ layer["gate_proj"]
+    up = h @ layer["up_proj"]
+    return x + swiglu(gate, up) @ layer["down_proj"]
+
+
+class LlamaForCausalLM(nn.Module):
+    """The decoder with weights in the reference layout (see the module
+    docstring). Built empty on ``device`` (None = the CUDA card); fill it
+    with ``models.convert.load_numpy_params`` or build it with
+    ``from_params``. Weights carry no gradient: this slice serves."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None) -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        layers: Dict[str, nn.Parameter] = {}
+        for name, (shape, is_norm) in _param_shapes(cfg).items():
+            dtype = cfg.param_dtype if is_norm else cfg.dtype
+            p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
+                             requires_grad=False)
+            if name.startswith("layers."):
+                layers[name[len("layers."):]] = p
+            else:
+                self.register_parameter(name, p)
+        if cfg.tie_word_embeddings:
+            self.lm_head = None
+        self.layers = nn.ParameterDict(layers)
+
+    @classmethod
+    def from_params(cls, params: Params, cfg: LlamaConfig,
+                    device: DeviceLike = None) -> "LlamaForCausalLM":
+        """A model holding ``params`` (a nested dict of tensors or numpy
+        arrays in the reference layout, e.g. ``init_params``'s output)."""
+        from scaletorch_tpu_torch.models.convert import load_numpy_params
+
+        model = cls(cfg, device=device)
+        load_numpy_params(model, params)
+        return model
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_tokens.device
+
+    def lm_head_weight(self) -> Tensor:
+        """[H, V] head weight in compute dtype (tied-embedding aware)."""
+        if self.cfg.tie_word_embeddings:
+            return self.embed_tokens.T
+        return self.lm_head
+
+    def forward_cached(
+        self,
+        input_ids: Tensor,
+        cache: Tuple[Tensor, Tensor],
+        *,
+        positions: Tensor,
+        write_mask: Optional[Tensor] = None,
+        kv_io: Optional[Any] = None,
+        last_index: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+        """[B, S] tokens at absolute ``positions`` [B, S] -> (logits
+        [B, S, V] in compute dtype, the cache pair updated in place).
+
+        ``last_index`` [B] keeps only row ``last_index[b]`` of each slot
+        before the final norm and head -> logits [B, 1, V]: the same
+        function at the one row a prefill samples from, without the
+        [B, S, V] logits buffer.
+        """
+        cfg = self.cfg
+        cache_k, cache_v = cache
+        x = self.embed_tokens[input_ids.long()]
+        cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
+                               cfg.rope_theta, positions=positions)
+        names = list(self.layers.keys())
+        per_layer = zip(*(self.layers[n].unbind(0) for n in names))
+        for i, weights in enumerate(per_layer):
+            layer = dict(zip(names, weights))
+            x = attention_block_cached(
+                x, layer, cache_k[i], cache_v[i], cos, sin, positions, cfg,
+                write_mask=write_mask, kv_io=kv_io)
+            x = mlp_block(x, layer, cfg)
+        if last_index is not None:
+            rows = torch.arange(x.shape[0], device=x.device)
+            x = x[rows, last_index.long()][:, None]
+        x = rms_norm(x, self.norm, cfg.rms_norm_eps)
+        return x @ self.lm_head_weight(), (cache_k, cache_v)
+
+
+def forward_cached(
+    model: LlamaForCausalLM,
+    input_ids: Tensor,
+    cfg: LlamaConfig,
+    cache: Tuple[Tensor, Tensor],
+    **kw: Any,
+) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """Functional entry with the JAX package's ``forward_fn`` signature
+    ``(params, tokens, cfg, cache, **kw)``; ``params`` is the model."""
+    if model.cfg != cfg:
+        raise ValueError("the model was built for another config")
+    return model.forward_cached(input_ids, cache, **kw)

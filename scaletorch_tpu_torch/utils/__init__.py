@@ -1,0 +1,7 @@
+"""Utilities of the PyTorch port: logging and device resolution."""
+
+from scaletorch_tpu_torch.utils.device import (  # noqa: F401
+    card_name_and_power_limit,
+    resolve_device,
+)
+from scaletorch_tpu_torch.utils.logger import get_logger  # noqa: F401

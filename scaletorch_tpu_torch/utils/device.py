@@ -1,0 +1,49 @@
+"""Device resolution for the port's entry points, and the card's identity.
+
+Every entry point (``InferenceEngine``, ``init_params``, the model
+constructor) takes ``device=None``, which means the CUDA card. There is
+no silent CPU path: without a card, ``resolve_device`` raises unless the
+caller asked for the CPU by name, as the CPU tests do.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda``; raise if the device asked for is CUDA and no
+    card is visible."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible to PyTorch; the port runs on the "
+            "GPU by default. Pass device='cpu' explicitly to run the "
+            "plain PyTorch path on the CPU."
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def card_name_and_power_limit() -> Optional[str]:
+    """``nvidia-smi --query-gpu=name,power.limit`` for the first card,
+    as the tool prints it (e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``), or
+    None where ``nvidia-smi`` is missing. Every timing the port records
+    stands beside this line: a card set below its full power limit runs
+    slower under load."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return None
+    out = subprocess.run(
+        [exe, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    return lines[0] if lines else None
