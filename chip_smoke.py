@@ -11,31 +11,55 @@ is non-zero; no phase catches an exception):
   1. device   — the card's name and power limit (nvidia-smi) and
                 torch.cuda.get_device_name(0); no card, no run.
   2. build    — nvcc builds every kernel source in
-                scaletorch_tpu_torch/csrc/ into build/kernels/, all
-                compiles started together.
-  3. kernel_paged_decode — the paged-decode kernel against its plain
+                scaletorch_tpu_torch/csrc/ (paged_decode, flash_fwd,
+                flash_bwd) into build/kernels/, all compiles started
+                together.
+  3. kernel_paged_decode — the paged-decode kernel (K4) against its plain
                 PyTorch version at the serving shapes of Qwen3-0.6B
                 (Hq 16, Hkv 8, D 128, 8 slots, page 16, 128 pages per
                 slot), fp32 and bf16; its time, the plain version's, a
                 library yardstick's (gather + scaled_dot_product_attention,
                 which the port never calls) and the memory bound.
-  4. decode_parity — Qwen3-0.6B at full width, fp32, random weights from
+  4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
+                dV) against their plain versions at the training shape of
+                Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
+                fp32 and bf16: max abs, whole-tensor and per-tile
+                relative errors against stated limits, beside the readings
+                of two controls (kernels that skip one tile, which must
+                fail the checks, and a lower-precision plain version); each
+                kernel's time, its plain version's, the library yardstick
+                (scaled_dot_product_attention forward, and its autograd
+                backward for K2 + K3 together) and the bound.
+  5. decode_parity — Qwen3-0.6B at full width, fp32, random weights from
                 a seeded generator: teacher-forced paged decode of
                 2 x 64 tokens through the kernel and through the gather
                 path; max |logit difference| <= 1e-3.
-  5. serve    — the paged engine at Qwen3-0.6B width in bf16 serves 16
+  6. serve    — the paged engine at Qwen3-0.6B width in bf16 serves 16
                 greedy requests (half behind a shared 256-token prefix)
                 with the kernel counted: every outcome ok, prefix hits,
                 page conservation, pools updated in place, and 28 kernel
                 launches per decode step. The same traffic through the
                 gather path gives the greedy agreement (printed, not
                 asserted: bf16 can diverge late in a sequence).
-  6. profile  — torch.profiler over 16 steady decode ticks of the same
+  7. profile  — torch.profiler over 16 steady decode ticks of the same
                 engine: wall and device time per step, the device's busy
                 share, and the kernels that take the device time.
-  7. kernels  — every Pallas kernel of the JAX package, ported or not.
+  8. train_parity — Qwen3-0.6B at full width and depth, fp32, random
+                weights from a seeded generator, 2 x 1024 tokens, gradient
+                checkpointing: the loss and every gradient through the
+                flash backend (K1-K3) and through sdpa.
+  9. train    — the port's benchmark entry (benchmark_config) on the
+                bench headline row (qwen3-0.6b, seq 8192, micro-batch 1,
+                gradient checkpointing, bf16 compute, fp32 masters, AdamW):
+                its Trainer takes 2 warm-up and 5 timed steps on synthetic
+                data with the kernels counted: finite losses, no skipped
+                update, and 56 / 28 / 28 launches of K1 / K2 / K3 per step;
+                tokens/s, MFU and peak memory as the entry reports them.
+ 10. train_profile — torch.profiler over 2 steady steps of the same
+                trainer.
+ 11. kernels  — every Pallas kernel of the JAX package, ported or not.
 
-Then the per-kernel contract line, the nvidia-smi line, and last:
+Then the seconds each phase took, the per-kernel contract line, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -50,6 +74,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scaletorch_tpu_torch.benchmark import benchmark_config, make_bench_args
 from scaletorch_tpu_torch.inference import (
     InferenceEngine,
     SamplingParams,
@@ -62,11 +87,14 @@ from scaletorch_tpu_torch.models import (
     model_config,
 )
 from scaletorch_tpu_torch.ops import _build
+from scaletorch_tpu_torch.ops import flash as tf
 from scaletorch_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
     paged_gather_kv,
 )
+from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
+from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
 from scaletorch_tpu_torch.utils.device import card_name_and_power_limit
 
 MODEL = "qwen3-0.6b"
@@ -78,6 +106,28 @@ SLOTS, PAGE_SIZE, MAX_SEQ, PREFILL_LEN = 8, 16, 2048, 512
 PAGES_PER_SLOT = MAX_SEQ // PAGE_SIZE
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_TOLERANCE = 1e-3
+# the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
+TRAIN_SEQ = 8192
+TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 2, 5, 2
+# kernel vs plain version, on each of out, lse, dQ, dK, dV: max abs, the
+# relative L2 error of the whole tensor ("rel"), and the largest relative
+# L2 error of one TILE-row tile of one head ("tile_rel": a fault confined
+# to one tile, which the whole tensor's norm dilutes, shows there). Each
+# limit sits above the sound kernels' reading and below the reading of a
+# kernel that skips one tile (phase 4 prints both, and a lower-precision
+# control beside them).
+TILE = 64
+FLASH_TOLERANCE = {
+    torch.float32: {"out_max_abs": 2e-5, "lse_max_abs": 1e-4,
+                    "out_rel": 1e-5, "grad_rel": 1e-5,
+                    "out_tile_rel": 1e-4, "grad_tile_rel": 1e-4},
+    torch.bfloat16: {"out_max_abs": 2e-2, "lse_max_abs": 1e-4,
+                     "out_rel": 3e-3, "grad_rel": 1e-3,
+                     "out_tile_rel": 1e-2, "grad_tile_rel": 1.5e-3},
+}
+# flash vs sdpa through the whole fp32 model: two attention algorithms,
+# the same function; fp32 rounding across 28 layers
+TRAIN_PARITY = {"loss_abs": 1e-4, "grad_rel": 1e-3}
 
 TPU_KERNELS = [
     ("K1", "_fwd_kernel", "scaletorch_tpu/ops/pallas/flash.py:76"),
@@ -90,6 +140,12 @@ TPU_KERNELS = [
     ("K7", "_dw_kernel", "scaletorch_tpu/ops/pallas/grouped_mlp.py:162"),
 ]
 PORTED = {
+    "K1": {"name": tf.K1_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/flash_fwd.cu"},
+    "K2": {"name": tf.K2_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/flash_bwd.cu"},
+    "K3": {"name": tf.K3_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/flash_bwd.cu"},
     "K4": {"name": "paged_decode", "route": "cuda",
            "source": "scaletorch_tpu_torch/csrc/paged_decode.cu"},
 }
@@ -232,7 +288,216 @@ def phase_kernel() -> dict:
     return results
 
 
-# ---- 4. full-width decode parity, kernel vs gather path ----------------------
+# ---- 4. the flash kernels against their plain versions -----------------------
+def flash_inputs(dtype: torch.dtype, seed: int):
+    """q, k, v, dO at the training shape of the headline row."""
+    cfg = model_config(MODEL)
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.actual_head_dim)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(heads):
+        return torch.randn(1, heads, TRAIN_SEQ, d, generator=gen,
+                           device="cuda").to(dtype)
+
+    return rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+
+
+def flash_bound(kernel: str, q, k):
+    """(bound ms, what bounds it) of one causal call: the larger of its
+    bytes (each input read once, each output written once) over HBM
+    bandwidth and its flops (2 per multiply-add of its products over the
+    visible (query, key) pairs) over the dtype's peak."""
+    b, hq, s, d = q.shape
+    elem = q.element_size()
+    q_bytes = b * hq * s * d * elem
+    kv_bytes = b * k.shape[1] * s * d * elem
+    row_bytes = 4 * b * hq * s  # one fp32 per query row: lse or delta
+    pairs = b * hq * s * (s + 1) // 2
+    flops, nbytes = {
+        # O, LSE from Q, K, V: Q K^T and P V
+        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        # dQ from Q, K, V, dO, LSE, delta: Q K^T, dO V^T, dS K
+        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        # dK, dV from the same: Q K^T, dO V^T, P^T dO, dS^T Q
+        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+    }[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def tile_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest relative L2 error of one TILE-row tile of one head of
+    [B, H, S, D] tensors (a ragged last tile is padded with zeros)."""
+    batch, heads, seq, _ = b.shape
+
+    def per_tile(x):
+        rows = x.float().square().sum(-1)
+        rows = F.pad(rows, (0, (-seq) % TILE))
+        return rows.view(batch, heads, -1, TILE).sum(-1)
+
+    return float((per_tile(a.float() - b.float()) / per_tile(b)).sqrt().max())
+
+
+def flash_plain(q, k, v, dout, lse, delta):
+    """(out, lse, dQ, dK, dV) of the plain versions."""
+    out, out_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    dq = tf.flash_dq_ref(q, k, v, dout, lse, delta, causal=True)
+    dk, dv = tf.flash_dkv_ref(q, k, v, dout, lse, delta, causal=True)
+    return out, out_lse, dq, dk, dv
+
+
+def flash_errors(got, ref) -> dict:
+    """Every reading of (out, lse, dQ, dK, dV) ``got`` against ``ref``."""
+    errs = {"lse_max_abs": max_abs(got[1], ref[1])}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got[:1] + got[2:],
+                          ref[:1] + ref[2:]):
+        errs[f"{name}_max_abs"] = max_abs(a, b)
+        errs[f"{name}_rel"] = rel_err(a, b)
+        errs[f"{name}_tile_rel"] = tile_rel_max(a, b)
+    return errs
+
+
+def flash_violations(errs: dict, tol: dict) -> list:
+    """The readings over their limits, as text (empty when all hold)."""
+    limits = {"out_max_abs": tol["out_max_abs"],
+              "lse_max_abs": tol["lse_max_abs"], "out_rel": tol["out_rel"]}
+    limits["out_tile_rel"] = tol["out_tile_rel"]
+    for name in ("dq", "dk", "dv"):
+        limits[f"{name}_rel"] = tol["grad_rel"]
+        limits[f"{name}_tile_rel"] = tol["grad_tile_rel"]
+    return [f"{key} {errs[key]} > {limit}" for key, limit in limits.items()
+            if not errs[key] <= limit]
+
+
+def skip_one_tile(got, q, k, v, dout, lse, delta, scale: float):
+    """``got`` (out, lse, dQ, dK, dV) as kernels that skip one tile would
+    give it: q head 0's last query tile against key tile 0, where a skip is
+    hardest to see (64 of those rows' 8192 keys, 64 of those keys' 8192
+    queries), is left out of out (renormalised), dQ, dK and dV."""
+    out, out_lse, dq, dk, dv = (t.clone() for t in got)
+    seq = q.shape[2]
+    rows, cols = slice(seq - TILE, seq), slice(0, TILE)
+    qb, dob = q[0, 0, rows].float(), dout[0, 0, rows].float()
+    kb, vb = k[0, 0, cols].float(), v[0, 0, cols].float()
+    p = torch.exp(qb @ kb.T * scale - lse[0, 0, rows, None])
+    ds = p * (dob @ vb.T - delta[0, 0, rows, None]) * scale
+    kept = out[0, 0, rows].float() - p @ vb
+    out[0, 0, rows] = (kept / (1 - p.sum(-1, keepdim=True))).to(out.dtype)
+    dq[0, 0, rows] = (dq[0, 0, rows].float() - ds @ kb).to(dq.dtype)
+    dk[0, 0, cols] = (dk[0, 0, cols].float() - ds.T @ qb).to(dk.dtype)
+    dv[0, 0, cols] = (dv[0, 0, cols].float() - p.T @ dob).to(dv.dtype)
+    return out, out_lse, dq, dk, dv
+
+
+def lower_precision(q, k, v, dout, lse, delta):
+    """The plain versions one step less precise than the kernels: fp32
+    with its products in TF32; bf16 with p and dS left unrounded (fp32
+    throughout, outputs rounded to bf16)."""
+    if q.dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return flash_plain(q, k, v, dout, lse, delta)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    wide = [t.float() for t in (q, k, v, dout)]
+    out, out_lse, dq, dk, dv = flash_plain(*wide, lse, delta)
+    return (out.to(q.dtype), out_lse, dq.to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def phase_kernel_flash() -> dict:
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOLERANCE[dtype]
+        q, k, v, dout = flash_inputs(dtype, seed=4321)
+        scale = 1.0 / q.shape[-1] ** 0.5
+        out, lse = tf.flash_forward(q, k, v, causal=True)
+        ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+        delta = tf.attention_delta(ref_out, dout)
+        bwd_args = (q, k, v, dout, ref_lse, delta)
+        ref = flash_plain(*bwd_args)
+        dq = tf.flash_dq(*bwd_args, causal=True)
+        dk, dv = tf.flash_dkv(*bwd_args, causal=True)
+        got = (out, lse, dq, dk, dv)
+        lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                                 enable_gqa=True)
+        torch.cuda.synchronize()
+        for t in got:
+            check(bool(torch.isfinite(t).all()), f"{dtype}: non-finite")
+        errs = flash_errors(got, ref)
+        errs["library_out_max_abs"] = max_abs(lib_out.detach(), ref[0])
+        controls = {}
+        for name, faulty in (
+                ("skip_one_tile",
+                 skip_one_tile(got, q, k, v, dout, ref[1], delta, scale)),
+                ("lower_precision", lower_precision(*bwd_args))):
+            c_errs = flash_errors(faulty, ref)
+            controls[name] = {**c_errs,
+                              "over_limit": flash_violations(c_errs, tol)}
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, lib_in, dout,
+                                       retain_graph=True)
+
+        reps = 5
+        times = {
+            "K1": (lambda: tf.flash_forward(q, k, v, causal=True),
+                   lambda: tf.flash_forward_ref(q, k, v, causal=True),
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True)),
+            "K2": (lambda: tf.flash_dq(*bwd_args, causal=True),
+                   lambda: tf.flash_dq_ref(*bwd_args, causal=True),
+                   lib_bwd),
+            "K3": (lambda: tf.flash_dkv(*bwd_args, causal=True),
+                   lambda: tf.flash_dkv_ref(*bwd_args, causal=True),
+                   lib_bwd),
+        }
+        row = {"dtype": str(dtype).replace("torch.", ""),
+               "shape": {"q": list(q.shape), "kv": list(k.shape)},
+               "causal": True, "tolerance": tol, **errs,
+               "controls": controls, "kernels": {}}
+        lib_bwd_ms = None
+        for kid, (kernel_fn, plain_fn, lib_fn) in times.items():
+            bound_ms, bound_by = flash_bound(kid, q, k)
+            if kid == "K3" and lib_bwd_ms is not None:
+                lib_ms = lib_bwd_ms  # one backward call computes dQ, dK, dV
+            else:
+                lib_ms = time_ms(lib_fn, flush, reps)
+            if kid == "K2":
+                lib_bwd_ms = lib_ms
+            row["kernels"][kid] = {
+                "kernel_ms": time_ms(kernel_fn, flush, reps),
+                "plain_ms": time_ms(plain_fn, flush, reps),
+                "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+        del lib_out, lib_in
+        results[row["dtype"]] = row
+        emit("kernel_flash", **row)
+        violations = flash_violations(errs, tol)
+        check(not violations, f"{dtype}: kernels vs plain: {violations}")
+        seen = {v.split()[0] for v in controls["skip_one_tile"]["over_limit"]}
+        want = {"out_tile_rel", "dq_tile_rel", "dk_tile_rel", "dv_tile_rel"}
+        check(want <= seen, f"{dtype}: a skipped tile passes the checks of "
+                            f"{sorted(want - seen)}")
+    return results
+
+
+# ---- 5. full-width decode parity, kernel vs gather path ----------------------
 def phase_decode_parity() -> LlamaForCausalLM:
     cfg = model_config(MODEL, dtype=torch.float32)
     gen = torch.Generator(device="cuda")
@@ -261,7 +526,7 @@ def phase_decode_parity() -> LlamaForCausalLM:
     return model
 
 
-# ---- 5. serving ---------------------------------------------------------------
+# ---- 6. serving ---------------------------------------------------------------
 def traffic(vocab: int, seed: int = 7):
     rng = np.random.default_rng(seed)
     prefix = rng.integers(0, vocab, 256).tolist()
@@ -347,14 +612,39 @@ def phase_serve(model32) -> int:
     return launches
 
 
+def profiled(run, steps: int) -> dict:
+    """torch.profiler over ``run()`` (``steps`` steps, ending in a
+    synchronise): wall and device ms per step, the device's busy share
+    (the kernels' summed device time over the window's wall time; one
+    stream, so no overlap), launches per step and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        wall_ms_per_step=1e3 * wall / steps,
+        device_ms_per_step=1e-3 * device_us / steps,
+        device_busy_share=(1e-6 * device_us / wall) if wall else None,
+        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        top_kernels=[{"name": e.key[:80], "calls_per_step": e.count / steps,
+                      "ms_per_step": 1e-3 * e.self_device_time_total / steps}
+                     for e in top])
+
+
 def phase_profile(model32) -> None:
     """Where a decode step's time goes: torch.profiler over a steady
     window of decode ticks of the serving engine (8 active slots, no
     admission inside the window). Device busy share = the kernels' summed
     device time over the window's wall time (one stream: no overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = model_config(MODEL, dtype=torch.bfloat16)
     model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
                                          cfg)
@@ -370,26 +660,103 @@ def phase_profile(model32) -> None:
         for _ in range(4):  # admission and warm decode ticks
             eng.step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
+
+        def run():
             for _ in range(window):
                 eng.step()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
+
+        stats = profiled(run, window)
     check(eng.metrics.prefill_calls == 1, "admission inside the window")
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", window_decode_steps=window,
-         wall_ms_per_step=1e3 * wall / window,
-         device_ms_per_step=1e-3 * device_us / window,
-         device_busy_share=(1e-6 * device_us / wall) if wall else None,
-         kernel_launches_per_step=sum(e.count for e in kernels) / window,
-         top_kernels=[{"name": e.key[:80], "calls_per_step": e.count / window,
-                       "ms_per_step": 1e-3 * e.self_device_time_total / window}
-                      for e in top])
+    emit("profile", window_decode_steps=window, **stats)
+
+
+# ---- 8. full-width training parity, flash kernels vs sdpa --------------------
+def phase_train_parity() -> None:
+    cfg = model_config(MODEL, dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, "cuda", requires_grad=True)
+    b, s = 2, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                           device="cuda")
+    mb = {"input_ids": tokens[:, :-1], "target_ids": tokens[:, 1:],
+          "position_ids": torch.arange(s, device="cuda")}
+    leaves = tree_leaves(params)
+    runs = {}
+    for backend in ("flash", "sdpa"):
+        loss_fn = make_loss_fn(cfg, attention_backend=backend,
+                               gradient_checkpointing=True)
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        loss = loss_fn(params, mb)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[backend] = (float(loss.detach()), grads, dict(_build.launch_counts),
+                         time.monotonic() - t0)
+    (loss_f, g_f, launches_f, s_f), (loss_s, g_s, launches_s, s_s) = (
+        runs["flash"], runs["sdpa"])
+    norm_f = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_f)))
+    norm_s = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_s)))
+    diff = float(torch.sqrt(sum(((a - c).float() ** 2).sum()
+                                for a, c in zip(g_f, g_s))))
+    per_leaf = max(rel_err(a, c) for a, c in zip(g_f, g_s))
+    d_loss = abs(loss_f - loss_s)
+    check(all(bool(torch.isfinite(g).all()) for g in g_f), "non-finite grad")
+    layers = cfg.num_hidden_layers
+    want = {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers, tf.K3_NAME: layers}
+    check(launches_f == want, f"flash launches {launches_f}, want {want}")
+    check(not launches_s, f"sdpa launched kernels {launches_s}")
+    check(d_loss <= TRAIN_PARITY["loss_abs"],
+          f"|dloss| {d_loss} > {TRAIN_PARITY['loss_abs']}")
+    check(abs(norm_f - norm_s) / norm_s <= TRAIN_PARITY["grad_rel"],
+          f"grad norms {norm_f} vs {norm_s}")
+    check(diff / norm_s <= TRAIN_PARITY["grad_rel"],
+          f"|g_flash - g_sdpa| / |g_sdpa| {diff / norm_s}")
+    emit("train_parity", model=MODEL, layers=layers, dtype="float32",
+         tokens=[b, s], gradient_checkpointing=True,
+         loss_flash=loss_f, loss_sdpa=loss_s, loss_abs_diff=d_loss,
+         grad_norm_flash=norm_f, grad_norm_sdpa=norm_s,
+         grad_norm_rel_diff=abs(norm_f - norm_s) / norm_s,
+         grad_rel_l2_diff=diff / norm_s, worst_leaf_rel_diff=per_leaf,
+         tolerance=TRAIN_PARITY, flash_launches=launches_f,
+         flash_s=s_f, sdpa_s=s_s)
+
+
+# ---- 9. training on the headline row -------------------------------------------
+def phase_train():
+    cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
+    res = benchmark_config(cfg, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                           before_window=_build.reset_launch_counts)
+    launches = dict(_build.launch_counts)
+    trainer = res.pop("trainer")
+    check(trainer.attention_backend == "flash",
+          f"attention backend {trainer.attention_backend}")
+    losses = res["warmup_losses"] + res["losses"]
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(not any(res["update_skipped"]),
+          f"update_skipped {res['update_skipped']}")
+    layers = trainer.model_cfg.num_hidden_layers
+    per_step = {name: launches.get(name, 0) / TRAIN_STEPS
+                for name in (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
+    want = {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers, tf.K3_NAME: layers}
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    emit("train", model=MODEL, sequence_length=cfg.sequence_length,
+         micro_batch_size=cfg.micro_batch_size,
+         gradient_checkpointing=cfg.gradient_checkpointing,
+         dtype=cfg.dtype, attention_backend=trainer.attention_backend,
+         warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
+         peak_flops=trainer.peak_flops(), launches=launches,
+         launches_per_step=per_step, **res)
+    return trainer, launches
+
+
+def phase_train_profile(trainer) -> None:
+    def run():
+        for _ in range(PROFILE_STEPS):
+            trainer.step()
+
+    emit("train_profile", window_train_steps=PROFILE_STEPS,
+         **profiled(run, PROFILE_STEPS))
 
 
 def main() -> int:
@@ -399,20 +766,48 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    info = phase_device()
-    phase_build()
-    kernel = phase_kernel()
-    model32 = phase_decode_parity()
-    launches = phase_serve(model32)
-    phase_profile(model32)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    info = timed("device", phase_device)
+    timed("build", phase_build)
+    kernel = timed("kernel_paged_decode", phase_kernel)
+    flash = timed("kernel_flash", phase_kernel_flash)
+    model32 = timed("decode_parity", phase_decode_parity)
+    launches = timed("serve", phase_serve, model32)
+    timed("profile", phase_profile, model32)
+    del model32
+    torch.cuda.empty_cache()
+    timed("train_parity", phase_train_parity)
+    torch.cuda.empty_cache()
+    trainer, train_launches = timed("train", phase_train)
+    timed("train_profile", phase_train_profile, trainer)
+    emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     emit("kernels", kernels=[
         {"id": kid, "function": fn, "at": at,
          "status": "ported" if kid in PORTED else "not_ported"}
         for kid, fn, at in TPU_KERNELS])
+    at = {kid: where for kid, _, where in TPU_KERNELS}
     bf16 = kernel["bfloat16"]
-    print(json.dumps({"kernels": [{
-        **PORTED["K4"],
-        "replaces": "scaletorch_tpu/ops/pallas/paged_attention.py:131",
+    flash16 = flash["bfloat16"]
+    flash_err = {"K1": flash16["out_max_abs"], "K2": flash16["dq_max_abs"],
+                 "K3": max(flash16["dk_max_abs"], flash16["dv_max_abs"])}
+    rows = []
+    for kid in ("K1", "K2", "K3"):
+        t = flash16["kernels"][kid]
+        rows.append({
+            **PORTED[kid], "replaces": at[kid],
+            "launches": train_launches.get(PORTED[kid]["name"], 0),
+            "max_abs_err": flash_err[kid], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    rows.append({
+        **PORTED["K4"], "replaces": at["K4"],
         "launches": launches,
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["kernel_ms"],
@@ -420,7 +815,8 @@ def main() -> int:
         "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"],
-    }]}), flush=True)
+    })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}),

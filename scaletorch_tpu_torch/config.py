@@ -1,0 +1,184 @@
+"""Training configuration of the port: the subset of
+scaletorch_tpu/config.py that the single-device training slice reads.
+
+The dataclasses keep the reference's names, field names and defaults:
+``ModelArguments`` (its architecture fields, ``config.py:98-113``, plus
+``model_type``), ``LrSchedulerArguments``, ``OptimizerArguments`` and
+``TrainingArguments`` (``config.py:343-412``, whole), and the data and
+logging fields the slice reads. They compose into
+``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
+fields (the machine with the card has no ``transformers``, so no
+``HfArgumentParser``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+
+@dataclass
+class DataArguments:
+    sequence_length: int = field(
+        default=1024, metadata={"help": "Training sequence length."})
+    synthetic_data: bool = field(
+        default=False,
+        metadata={"help": "Use a synthetic token stream (benchmarks). The "
+                          "port has no real-data loader yet: the Trainer "
+                          "refuses to run without this flag."})
+    synthetic_vocab_size: Optional[int] = field(
+        default=None,
+        metadata={"help": "Cap the synthetic stream's sampled token ids "
+                          "below the model vocab (default: model vocab)."})
+
+
+@dataclass
+class ModelArguments:
+    model_type: str = field(
+        default="llama", metadata={"help": "llama | qwen3"})
+    hidden_size: int = 2048
+    intermediate_size: Optional[int] = None
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    num_key_value_heads: Optional[int] = None
+    head_dim: Optional[int] = None
+    vocab_size: int = 32000
+    max_position_embeddings: int = 32768
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+    attention_backend: str = field(
+        default="auto",
+        metadata={"help": "auto | flash | sdpa: auto resolves like the "
+                          "reference (FLASH_ATTEN -> flash, else sdpa); "
+                          "flash runs the CUDA kernels K1-K3."})
+
+
+@dataclass
+class LrSchedulerArguments:
+    lr_scheduler_type: str = field(
+        default="cosine",
+        metadata={"help": "linear | cosine | polynomial | step | onecycle | "
+                          "constant"})
+    warmup_steps: int = 0
+    warmup_ratio: float = 0.0
+    min_lr_ratio: float = 0.1
+    step_size: int = 1000          # for 'step'
+    step_gamma: float = 0.9        # for 'step'
+    poly_power: float = 1.0        # for 'polynomial'
+
+
+@dataclass
+class OptimizerArguments:
+    optimizer_name: str = field(
+        default="adamw",
+        metadata={"help": "adamw (adam | sgd | lamb | adafactor are not "
+                          "ported yet)"})
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    momentum: float = 0.9  # sgd
+
+
+@dataclass
+class TrainingArguments:
+    micro_batch_size: int = 1
+    gradient_accumulation_steps: int = 1
+    eval_frequency: int = field(
+        default=0,
+        metadata={"help": "Run validation every N optimizer steps (0 = off; "
+                          "the port has no eval step yet)."})
+    eval_steps: int = field(
+        default=8, metadata={"help": "Validation batches per evaluation."})
+    eval_dataset_name: Optional[str] = None
+    global_batch_size: Optional[int] = field(
+        default=None,
+        metadata={"help": "If set, must equal micro_batch_size * "
+                          "grad_accum (one device)."})
+    total_train_steps: int = 100
+    seed: int = 42
+    dtype: str = field(default="bfloat16",
+                       metadata={"help": "bfloat16|float32"})
+    param_dtype: str = field(
+        default="float32",
+        metadata={"help": "Master-weight dtype; the port keeps fp32 "
+                          "masters (bfloat16 is not ported yet)."})
+    gradient_checkpointing: bool = field(
+        default=False, metadata={"help": "Recompute each decoder layer in "
+                                         "the backward."})
+    remat_policy: str = field(
+        default="nothing_saveable",
+        metadata={"help": "GC policy: nothing_saveable (the others are not "
+                          "ported yet)."})
+    donate_params: bool = field(
+        default=True,
+        metadata={"help": "The port always updates parameters and "
+                          "optimizer state in place; false is refused."})
+
+
+@dataclass
+class LoggingArguments:
+    log_frequency: int = 1
+    log_file: Optional[str] = None
+
+
+@dataclass
+class ScaleTorchTPUArguments(
+    DataArguments,
+    ModelArguments,
+    LrSchedulerArguments,
+    OptimizerArguments,
+    TrainingArguments,
+    LoggingArguments,
+):
+    """The training arguments the port reads, composed."""
+
+    def __post_init__(self) -> None:
+        expected = self.micro_batch_size * self.gradient_accumulation_steps
+        if self.global_batch_size is None:
+            self.global_batch_size = expected
+        elif self.global_batch_size != expected:
+            raise ValueError(
+                f"global_batch_size {self.global_batch_size} != micro_bs * "
+                f"grad_accum = {expected} (one device)")
+        if self.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"dtype must be bfloat16 or float32, got "
+                             f"{self.dtype!r}")
+
+
+def _parser_type(annotation: str):
+    base = annotation.replace("Optional[", "").rstrip("]")
+    if base == "bool":
+        return _as_bool
+    return {"int": int, "float": float, "str": str}[base]
+
+
+def _as_bool(text: str) -> bool:
+    low = text.lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+def parse_args(args: Optional[List[str]] = None) -> ScaleTorchTPUArguments:
+    """``--field value`` for every field (booleans take true/false; a bare
+    ``--flag`` means true)."""
+    parser = argparse.ArgumentParser(
+        description="Train a Llama/Qwen3 model with the PyTorch port.")
+    for f in dataclasses.fields(ScaleTorchTPUArguments):
+        kind = _parser_type(f.type)
+        help_text = f.metadata.get("help", "")
+        if kind is _as_bool:
+            parser.add_argument(f"--{f.name}", type=_as_bool, nargs="?",
+                                const=True, default=f.default, help=help_text)
+        else:
+            parser.add_argument(f"--{f.name}", type=kind, default=f.default,
+                                help=help_text)
+    return ScaleTorchTPUArguments(**vars(parser.parse_args(args)))

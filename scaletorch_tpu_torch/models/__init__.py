@@ -1,6 +1,14 @@
-"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3)."""
+"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3).
 
-from scaletorch_tpu_torch.models.convert import load_numpy_params  # noqa: F401
+Importing the package registers the attention backends: ``sdpa``
+(``llama.py``) and ``flash`` (``ops/flash_attention.py``, the CUDA
+kernels K1-K3)."""
+
+from scaletorch_tpu_torch.models.convert import (  # noqa: F401
+    load_numpy_params,
+    params_from_numpy,
+    params_to_numpy,
+)
 from scaletorch_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     LlamaForCausalLM,
@@ -12,3 +20,5 @@ from scaletorch_tpu_torch.models.presets import (  # noqa: F401
     preset,
 )
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config  # noqa: F401
+
+import scaletorch_tpu_torch.ops.flash_attention  # noqa: E402,F401

@@ -1,19 +1,24 @@
-"""Carry a parameter tree in the reference layout into a port model.
+"""Carry a parameter tree in the reference layout into and out of the port.
 
 The JAX package's parameters are a nested dict (``embed_tokens``,
 ``layers.{...}`` stacked on axis 0, ``norm``, optional ``lm_head``);
 ``jax.tree.map(np.asarray, params)`` gives it as numpy arrays, which is
-what the parity tests hand to ``load_numpy_params``. Torch tensors in
-the same layout (``llama.init_params``) load the same way.
+what the parity tests hand over. ``load_numpy_params`` fills a serving
+``LlamaForCausalLM``; ``params_from_numpy`` builds the training
+parameter dict (fp32 leaves with ``requires_grad``) and
+``params_to_numpy`` turns it back. Torch tensors in the same layout
+(``llama.init_params``) load the same way.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def flatten_params(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -60,3 +65,29 @@ def load_numpy_params(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                 f"{tuple(dst.shape)}")
         dst.copy_(src.to(device=dst.device).to(dst.dtype))
     return model
+
+
+def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The training parameter dict of a nested numpy (or tensor) tree, in
+    the same layout: leaves in ``dtype`` (default fp32, the master
+    copy) on ``device`` (None = the CUDA card), with ``requires_grad``."""
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = params_from_numpy(value, dev, dtype)
+        else:
+            t = _as_tensor(value).to(device=dev, dtype=dtype).clone()
+            out[key] = t.requires_grad_(True)
+    return out
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameter dict as a nested dict of float32 numpy arrays: a
+    snapshot, never a view of the (in-place updated) parameters."""
+    return {key: (params_to_numpy(value) if isinstance(value, dict)
+                  else value.detach().to("cpu", torch.float32,
+                                         copy=True).numpy())
+            for key, value in params.items()}

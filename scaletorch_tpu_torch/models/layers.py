@@ -1,4 +1,4 @@
-"""Model building blocks, forward only: RMSNorm, SwiGLU, RoPE, cached SDPA.
+"""Model building blocks: RMSNorm, SwiGLU, RoPE, SDPA, cross entropy.
 
 PyTorch counterparts of scaletorch_tpu/models/layers.py with the same
 casts, because the casts decide the numbers:
@@ -10,8 +10,10 @@ casts, because the casts decide the numbers:
     fp32, masked with ``finfo(float32).min``, softmaxed in fp32, and the
     probabilities are cast back to q's dtype before P·V.
 
-The custom backward passes of ``rms_norm``/``swiglu`` come with the
-training slice; serving runs under ``torch.inference_mode()``.
+``rms_norm`` and ``swiglu`` carry the reference's memory-lean custom
+VJPs as ``torch.autograd.Function``s: each saves only its original-dtype
+inputs and recomputes the fp32 internals in the backward. Their forwards
+are the serving path's, unchanged.
 """
 
 from __future__ import annotations
@@ -26,19 +28,72 @@ Tensor = torch.Tensor
 
 
 # ---- RMSNorm / SwiGLU ---------------------------------------------------------
-def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
-    """RMSNorm over the last axis with fp32 internals; ``weight``
-    broadcasts over the leading axes (per-head q/k norms pass a [Dh]
-    weight against [B, S, H, Dh] activations)."""
+def _rms_norm_fwd_math(x: Tensor, weight: Tensor, eps: float) -> Tensor:
     x32 = x.float()
     variance = torch.mean(x32 * x32, dim=-1, keepdim=True)
     inv = torch.rsqrt(variance + eps)
     return (x32 * inv * weight.float()).to(x.dtype)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """Saves the ORIGINAL-dtype ``x`` and ``weight`` only; the backward
+    recomputes the fp32 internals (reference ``_rms_norm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rms_norm_fwd_math(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        x32 = x.float()
+        variance = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        inv = torch.rsqrt(variance + ctx.eps)
+        xhat = x32 * inv
+        g32 = g.float()
+        gw = g32 * weight.float()
+        # d/dx of xhat·w: (1/rms)·(g·w − xhat·mean(g·w·xhat)) over the axis
+        dx = inv * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+        # the weight broadcasts over every leading axis of x
+        lead = tuple(range(x.ndim - weight.ndim))
+        dw = torch.sum(g32 * xhat, dim=lead) if lead else g32 * xhat
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm over the last axis with fp32 internals; ``weight``
+    broadcasts over the leading axes (per-head q/k norms pass a [Dh]
+    weight against [B, S, H, Dh] activations)."""
+    return _RMSNorm.apply(x, weight, float(eps))
+
+
+class _SwiGLU(torch.autograd.Function):
+    """Saves only (gate, up) and recomputes the elementwise pieces in
+    fp32 in the backward (reference ``_swiglu_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return F.silu(gate) * up
+
+    @staticmethod
+    def backward(ctx, ct):
+        gate, up = ctx.saved_tensors
+        g32 = gate.float()
+        s = torch.sigmoid(g32)
+        silu = g32 * s
+        dsilu = s + silu * (1.0 - s)  # d/dg [g·sigmoid(g)]
+        ct32 = ct.float()
+        dgate = (ct32 * up.float() * dsilu).to(gate.dtype)
+        dup = (ct32 * silu).to(up.dtype)
+        return dgate, dup
+
+
 def swiglu(gate: Tensor, up: Tensor) -> Tensor:
-    """``silu(gate) * up``."""
-    return F.silu(gate) * up
+    """``silu(gate) * up`` with a memory-lean backward."""
+    return _SwiGLU.apply(gate, up)
 
 
 # ---- RoPE ---------------------------------------------------------------------
@@ -100,6 +155,66 @@ def repeat_kv(k: Tensor, n_rep: int) -> Tensor:
         b, h_kv * n_rep, s, d)
 
 
+def sdpa_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    bias: Optional[Tensor] = None,
+) -> Tensor:
+    """Plain scaled-dot-product attention with an fp32 softmax.
+
+    q: [B, Hq, S, D]; k/v: [B, Hkv, Skv, D] (GQA expanded here). The
+    causal mask is bottom-right aligned (``tril(k=Skv-Sq)``) with
+    ``finfo(float32).min``, as in the reference."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[1] // k.shape[1]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones(s_q, s_k, dtype=torch.bool,
+                          device=q.device).tril(s_k - s_q)
+        scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v)
+
+
+def sdpa_attention_with_lse(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor]:
+    """SDPA that also returns the log-sum-exp ``[B, H, S]`` (fp32): the
+    ring merge's building block. Masked with ``-inf``; a row with no
+    visible key has lse ``-inf`` and output 0."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    n_rep = q.shape[1] // k.shape[1]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones(s_q, s_k, dtype=torch.bool,
+                          device=q.device).tril(s_k - s_q)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    finite = torch.isfinite(lse)
+    probs = torch.exp(scores - torch.where(finite, lse, 0.0)[..., None])
+    probs = torch.where(finite[..., None], probs, 0.0).to(q.dtype)
+    return torch.matmul(probs, v), lse
+
+
 def cached_sdpa_attention(
     q: Tensor,
     k_cache: Tensor,
@@ -152,3 +267,20 @@ def write_kv_cache(
                            cache[rows, :, cols, :])
     cache[rows, :, cols, :] = vals
     return cache
+
+
+# ---- losses -------------------------------------------------------------------
+def cross_entropy_loss(
+    logits: Tensor,
+    targets: Tensor,
+    ignore_index: int = -100,
+) -> Tensor:
+    """Token-mean cross entropy with ``ignore_index`` masking, fp32
+    internally. logits: [..., V]; targets: [...] integer."""
+    logits = logits.float()
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1)

@@ -1,8 +1,8 @@
-"""Llama-family decoder LM, KV-cached forward (PyTorch port, serving slice).
+"""Llama-family decoder LM: the training forward and the KV-cached forward.
 
-Counterpart of scaletorch_tpu/models/llama.py for the serving path. The
-parameter layout is the reference's, so a JAX parameter tree carries
-across unchanged (``models/convert.py``):
+Counterpart of scaletorch_tpu/models/llama.py. The parameter layout is
+the reference's, so a JAX parameter tree carries across unchanged
+(``models/convert.py``):
 
   * the same key names, layers stacked along axis 0;
   * projections stored ``[in, out]`` and applied as ``x @ w`` (no
@@ -18,24 +18,38 @@ The layer loop is a Python loop over the stacked weights; the KV cache
 (dense ``[L, B, Hkv, S_max, D]`` or the paged pool ``[L, n_pages, Hkv,
 page_size, D]``) is updated IN PLACE, the counterpart of the JAX
 package's buffer donation.
+
+The training forward (``forward``, ``decoder_stack``, ``attention_block``)
+is a set of functions over the parameter dict of ``init_params``: fp32
+master leaves with ``requires_grad``, cast to ``cfg.dtype`` at each use as
+the reference's ``w.astype(cdt)``, so the gradients land on the fp32
+leaves. Attention goes through the backend registry (``sdpa``, ``flash``).
+Gradient checkpointing recomputes each whole layer in the backward
+(``torch.utils.checkpoint``), the ``nothing_saveable`` policy.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scaletorch_tpu_torch.models.layers import (
     apply_rotary_pos_emb,
     cached_sdpa_attention,
     get_cos_sin,
     rms_norm,
+    sdpa_attention,
     swiglu,
     write_kv_cache,
+)
+from scaletorch_tpu_torch.models.registry import (
+    get_attention_backend,
+    register_attention_backend,
 )
 from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -112,14 +126,17 @@ def init_params(
     cfg: LlamaConfig,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    *,
+    requires_grad: bool = False,
 ) -> Params:
     """Random parameters with the reference's distributions, as a nested
     dict of ``param_dtype`` tensors on ``device``: fan-in uniform
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for projections, ones for norms,
     normal(0, 0.02) for the embedding. ``generator`` must live on
-    ``device`` (default: a fresh one seeded with 0). The draws are not
-    JAX's threefry draws; parity tests carry JAX parameters across with
-    ``models.convert.load_numpy_params`` instead."""
+    ``device`` (default: a fresh one seeded with 0). ``requires_grad``
+    makes the leaves the trainable masters of the training forward. The
+    draws are not JAX's threefry draws; parity tests carry JAX parameters
+    across with ``models.convert`` instead."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -136,11 +153,160 @@ def init_params(
             bound = 1.0 / math.sqrt(shape[-2])  # fan_in: the [in] axis
             t = torch.empty(shape, dtype=pd, device=dev).uniform_(
                 -bound, bound, generator=generator)
+        t.requires_grad_(requires_grad)
         if name.startswith("layers."):
             params["layers"][name[len("layers."):]] = t
         else:
             params[name] = t
     return params
+
+
+# ---- training forward ---------------------------------------------------------
+def attention_block(
+    x: Tensor,
+    layer: Dict[str, Tensor],
+    cos: Tensor,
+    sin: Tensor,
+    cfg: LlamaConfig,
+    attn_fn: Callable,
+) -> Tensor:
+    """Pre-norm attention sub-block with residual. x: [B, S, H] in compute
+    dtype; ``layer`` holds one layer's fp32 weights."""
+    cdt = cfg.dtype
+    dh = cfg.actual_head_dim
+    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    b, s, _ = h.shape
+    q = (h @ layer["q_proj"].to(cdt)).view(b, s, -1, dh)
+    k = (h @ layer["k_proj"].to(cdt)).view(b, s, -1, dh)
+    v = (h @ layer["v_proj"].to(cdt)).view(b, s, -1, dh)
+    if cfg.qk_norm:
+        # Qwen3: RMSNorm over head_dim, per head, before RoPE
+        q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps)
+    q = q.transpose(1, 2)  # [B, H, S, D]
+    k = k.transpose(1, 2)
+    v = v.transpose(1, 2)
+    q, k = apply_rotary_pos_emb(q, k, cos, sin)
+    attn = attn_fn(q, k, v, causal=True)
+    attn = attn.transpose(1, 2).reshape(b, s, -1)
+    return x + attn @ layer["o_proj"].to(cdt)
+
+
+def _decoder_layer(
+    x: Tensor,
+    layer: Dict[str, Tensor],
+    cos: Tensor,
+    sin: Tensor,
+    cfg: LlamaConfig,
+    attn_fn: Callable,
+) -> Tensor:
+    """One pre-norm decoder block: attention, then the SwiGLU MLP."""
+    cdt = cfg.dtype
+    x = attention_block(x, layer, cos, sin, cfg, attn_fn)
+    h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    gate = h @ layer["gate_proj"].to(cdt)
+    up = h @ layer["up_proj"].to(cdt)
+    return x + swiglu(gate, up) @ layer["down_proj"].to(cdt)
+
+
+def embed(params: Params, input_ids: Tensor, cfg: LlamaConfig) -> Tensor:
+    """Token embedding: [B, S] -> [B, S, H] in compute dtype."""
+    return params["embed_tokens"][input_ids.long()].to(cfg.dtype)
+
+
+def final_hidden(params: Params, x: Tensor, cfg: LlamaConfig) -> Tensor:
+    """The final RMSNorm before the LM head."""
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
+REMAT_POLICIES = ("nothing_saveable", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable", "save_attn")
+
+
+def resolve_remat_policy(name: str) -> str:
+    """Check a config-level gradient-checkpointing policy name.
+
+    ``nothing_saveable`` (recompute the whole layer) is
+    ``torch.utils.checkpoint`` around each layer. The reference's other
+    three policies save chosen residuals; the port refuses them rather
+    than run another policy in their place (ROADMAP Queue 1)."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; have {sorted(REMAT_POLICIES)}")
+    if name != "nothing_saveable":
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet (ROADMAP Queue 1); "
+            "the port recomputes whole layers ('nothing_saveable')")
+    return name
+
+
+def decoder_stack(
+    x: Tensor,
+    layers: Dict[str, Tensor],
+    cos: Tensor,
+    sin: Tensor,
+    cfg: LlamaConfig,
+    attn_fn: Callable,
+    *,
+    gradient_checkpointing: bool = False,
+    remat_policy: str = "nothing_saveable",
+) -> Tensor:
+    """Run every layer of a stack (leading axis = layer index) over x.
+
+    The stacked leaves are unbound once, so each leaf's gradient is one
+    stack of the per-layer gradients. With ``gradient_checkpointing`` each
+    layer runs under ``checkpoint(..., use_reentrant=False)``: only its
+    input is kept, and the backward recomputes the whole layer."""
+    if gradient_checkpointing:
+        resolve_remat_policy(remat_policy)
+    names = list(layers)
+    for weights in zip(*(layers[n].unbind(0) for n in names)):
+        layer = dict(zip(names, weights))
+        if gradient_checkpointing:
+            x = checkpoint(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = _decoder_layer(x, layer, cos, sin, cfg, attn_fn)
+    return x
+
+
+def forward(
+    params: Params,
+    input_ids: Tensor,
+    cfg: LlamaConfig,
+    *,
+    positions: Optional[Tensor] = None,
+    attention_backend: str = "sdpa",
+    gradient_checkpointing: bool = False,
+    remat_policy: str = "nothing_saveable",
+    return_hidden: bool = False,
+) -> Tensor:
+    """Full decoder forward: [B, S] tokens -> logits [B, S, V] in compute
+    dtype, or the final hidden states [B, S, H] with ``return_hidden``
+    (the caller applies ``lm_head_weight``, e.g. the fused chunked CE).
+    ``positions`` [S] overrides 0..S-1 for the RoPE tables."""
+    x = embed(params, input_ids, cfg)
+    cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
+                           cfg.rope_theta, positions=positions,
+                           device=input_ids.device)
+    attn_fn = get_attention_backend(attention_backend)
+    x = decoder_stack(x, params["layers"], cos, sin, cfg, attn_fn,
+                      gradient_checkpointing=gradient_checkpointing,
+                      remat_policy=remat_policy)
+    x = final_hidden(params, x, cfg)
+    if return_hidden:
+        return x
+    return x @ lm_head_weight(params, cfg)
+
+
+def lm_head_weight(params: Params, cfg: LlamaConfig) -> Tensor:
+    """[H, V] head weight in compute dtype (tied-embedding aware)."""
+    if cfg.tie_word_embeddings:
+        return params["embed_tokens"].to(cfg.dtype).T
+    return params["lm_head"].to(cfg.dtype)
+
+
+register_attention_backend("sdpa", sdpa_attention)
 
 
 # ---- KV-cache inference path --------------------------------------------------

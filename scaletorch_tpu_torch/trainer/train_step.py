@@ -1,0 +1,150 @@
+"""The single-device training step (counterpart of the one-device path of
+scaletorch_tpu/parallel/spmd.make_spmd_train_step, with
+scaletorch_tpu/trainer/train_step.guarded_update).
+
+``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
+opt_state, metrics)``. Per step:
+
+  1. the loss of ``spmd._build_losses.loss_fn``: the decoder forward with
+     ``return_hidden=True``, then the chunked fused LM head + cross
+     entropy (``fused_vocab_parallel_cross_entropy``, chunk
+     ``SCALETORCH_TPU_CE_CHUNK``, default 1024);
+  2. the gradients of the loss, averaged over the batch's leading
+     accumulation axis (one microbatch: no accumulation buffer at all);
+  3. the gradients promoted to fp32, their global norm, and the clip to
+     ``max_grad_norm`` (the metrics report the norm before the clip);
+  4. the gradients cast back to each parameter's dtype, and
+     ``guarded_update``: a non-finite loss or norm leaves the parameters
+     and moments as they were and reports ``update_skipped = 1``.
+
+Parameters and optimizer state are updated in place and returned.
+``metrics`` holds 0-d device tensors: reading them is the caller's
+synchronisation point.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from scaletorch_tpu_torch.models import llama
+from scaletorch_tpu_torch.parallel.tensor_parallel import (
+    fused_vocab_parallel_cross_entropy,
+)
+from scaletorch_tpu_torch.trainer.optimizer import (
+    AdamW,
+    guarded_update,
+    tree_leaves,
+)
+
+Tensor = torch.Tensor
+Batch = Dict[str, Tensor]  # input_ids/target_ids [accum, micro_bs, seq]
+
+
+def ce_chunk_size() -> int:
+    """``SCALETORCH_TPU_CE_CHUNK`` (default 1024), as the reference reads
+    it."""
+    return int(os.environ.get("SCALETORCH_TPU_CE_CHUNK") or 1024)
+
+
+def global_grad_norm(grads: List[Tensor]) -> Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32."""
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for g in grads:
+        total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: List[Tensor],
+                        max_norm: float) -> Tuple[List[Tensor], Tensor]:
+    """(clipped grads, pre-clip norm): scale by min(1, max_norm / norm)."""
+    norm = global_grad_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return [g * scale for g in grads], norm
+
+
+def make_loss_fn(cfg, *, attention_backend: str,
+                 gradient_checkpointing: bool,
+                 remat_policy: str = "nothing_saveable") -> Callable:
+    """loss(params, microbatch) -> fp32 scalar: the hidden states of the
+    decoder through the chunked fused head + cross entropy."""
+    chunk = ce_chunk_size()
+
+    def loss_fn(params, mb: Dict[str, Tensor]) -> Tensor:
+        hidden = llama.forward(
+            params, mb["input_ids"], cfg,
+            positions=mb["position_ids"],
+            attention_backend=attention_backend,
+            gradient_checkpointing=gradient_checkpointing,
+            remat_policy=remat_policy,
+            return_hidden=True,
+        )
+        head = llama.lm_head_weight(params, cfg)
+        return fused_vocab_parallel_cross_entropy(
+            hidden, head, mb["target_ids"], axis=None, chunk_size=chunk)
+
+    return loss_fn
+
+
+def make_train_step(
+    cfg,
+    optimizer: AdamW,
+    *,
+    attention_backend: str = "sdpa",
+    gradient_checkpointing: bool = False,
+    remat_policy: str = "nothing_saveable",
+    max_grad_norm: float = 0.0,
+) -> Callable:
+    """Build ``step(params, opt_state, batch)``. ``batch`` leaves live on
+    the parameters' device: ``input_ids``/``target_ids`` [accum, micro_bs,
+    seq], ``position_ids`` [accum, seq]."""
+    loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
+                           gradient_checkpointing=gradient_checkpointing,
+                           remat_policy=remat_policy)
+
+    def micro(batch, a):
+        return {k: v[a] for k, v in batch.items()}
+
+    def step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        accum = batch["input_ids"].shape[0]
+        loss = loss_fn(params, micro(batch, 0))
+        grads = list(torch.autograd.grad(loss, leaves))
+        if accum > 1:
+            grads = [g.float() for g in grads]
+            for a in range(1, accum):
+                loss_a = loss_fn(params, micro(batch, a))
+                for acc, g in zip(grads, torch.autograd.grad(loss_a, leaves)):
+                    acc.add_(g.float())
+                loss = loss + loss_a
+            grads = [g / accum for g in grads]
+            loss = loss / accum
+        loss = loss.detach()
+        grads = [g.float() for g in grads]
+        if max_grad_norm and max_grad_norm > 0:
+            grads, grad_norm = clip_by_global_norm(grads, max_grad_norm)
+        else:
+            grad_norm = global_grad_norm(grads)
+        grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
+        tree = _like(params, grads)
+        ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+        params, opt_state, skipped = guarded_update(
+            optimizer, params, opt_state, tree, ok)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
+                   "update_skipped": skipped}
+        return params, opt_state, metrics
+
+    return step
+
+
+def _like(tree, leaves: List[Tensor]):
+    """``leaves`` (in ``tree_leaves`` order) in the shape of ``tree``."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in t.items()}
+
+    return build(tree)

@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points, and the card's identity.
+"""Device resolution for the port's entry points, the card's identity and
+its peak rate.
 
 Every entry point (``InferenceEngine``, ``init_params``, the model
 constructor) takes ``device=None``, which means the CUDA card. There is
@@ -47,3 +48,27 @@ def card_name_and_power_limit() -> Optional[str]:
     ).stdout
     lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
     return lines[0] if lines else None
+
+
+# Peak dense bf16 FLOP/s per card, by substring of
+# torch.cuda.get_device_name() (NVIDIA data sheets; the H100 SXM figure is
+# the reference's h100 entry, its sparse 1979e12 halved).
+_DEVICE_FLOPS = {
+    "h100 80gb hbm3": 989.5e12,  # H100 SXM
+    "h100 sxm": 989.5e12,
+}
+
+
+def get_theoretical_flops(name: Optional[str] = None) -> float:
+    """Peak dense bf16 FLOP/s of the card called ``name`` (default: card
+    0). A card the table does not know raises: there is no default
+    peak."""
+    if name is None:
+        name = torch.cuda.get_device_name(0)
+    kind = name.lower()
+    for sub, flops in _DEVICE_FLOPS.items():
+        if sub in kind:
+            return flops
+    raise KeyError(
+        f"no peak bf16 FLOP/s known for {name!r}; known: "
+        f"{sorted(_DEVICE_FLOPS)}")

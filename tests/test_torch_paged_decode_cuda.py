@@ -23,6 +23,8 @@ from scaletorch_tpu_torch.ops import _build
 
 tpa = importlib.import_module("scaletorch_tpu_torch.ops.paged_attention")
 
+pytestmark = pytest.mark.cuda
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
