@@ -57,7 +57,40 @@ is non-zero; no phase catches an exception):
                 tokens/s, MFU and peak memory as the entry reports them.
  10. train_profile — torch.profiler over 2 steady steps of the same
                 trainer.
- 11. kernels  — every Pallas kernel of the JAX package, ported or not.
+     The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
+     (full width, random weights from a seeded generator, the grouped-MLP
+     kernels switched on through the config or the environment):
+ 11. kernel_grouped_mlp — K5 (forward), K6 (dx) and K7 (dW) against their
+                plain versions in fp32 and bf16 at three shapes: train (E
+                128, G 1, C 320, H 2048, I 768, counts from a real routing
+                of seeded tokens plus one expert at 0 and one at C; K5-K7),
+                prefill (G 8, C 512, dropless; K5) and decode (G 8, C 1;
+                K5). Max abs, whole-tensor and worst-tile (worst-expert for
+                dW) relative errors against stated limits, beside two
+                controls that must fail them (one filled slot tile
+                skipped; K7 with dO unmasked past the count); each
+                kernel's time, its plain version's, the einsum path's
+                (several cuBLAS calls, not one) and the bound.
+ 12. moe_decode_parity — 4 layers, fp32, dropless: teacher-forced paged
+                decode of 2 x 64 tokens through K4 + K5 and through the
+                gather path + einsum path; max |logit difference| <= 1e-3.
+ 13. moe_serve — the engine at full width and depth (48 layers), bf16,
+                dropless, the traffic of phase 6: every outcome ok, page
+                conservation, 48 K4 and 48 K5 launches per decode step,
+                peak memory; the same traffic through the gather path +
+                einsum path gives the greedy agreement (printed); then
+                torch.profiler over 16 steady decode ticks, as phase 7.
+ 14. moe_train_parity — 2 layers, fp32, 2 x 1024 tokens, GC: the loss (CE
+                + aux) and every gradient with the kernels on (K5-K7 and
+                K1-K3) against the einsum path (K1-K3).
+ 15. moe_train — benchmark_config on make_bench_args("qwen3-30b-a3b",
+                seq=4096, gc=True) cut to 4 layers, kernels on: 2 warm-up
+                and 5 timed steps, finite losses, no skipped update, and
+                8 / 4 / 4 / 8 / 4 / 4 launches of K1 / K2 / K3 / K5 / K6 /
+                K7 per step; tokens/s, MFU over the active parameters,
+                peak memory, the routing statistics.
+ 16. moe_train_profile — torch.profiler over 2 steady steps of it.
+ 17. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line, the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -65,7 +98,9 @@ Then the seconds each phase took, the per-kernel contract line, the nvidia-smi l
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import statistics
 import sys
 import time
@@ -83,11 +118,20 @@ from scaletorch_tpu_torch.inference import (
 )
 from scaletorch_tpu_torch.models import (
     LlamaForCausalLM,
+    Qwen3MoEForCausalLM,
     init_params,
     model_config,
 )
+from scaletorch_tpu_torch.models import qwen3_moe
 from scaletorch_tpu_torch.ops import _build
 from scaletorch_tpu_torch.ops import flash as tf
+from scaletorch_tpu_torch.ops import grouped_mlp as gm
+from scaletorch_tpu_torch.parallel.expert_parallel import (
+    expert_capacity,
+    moe_mlp,
+    slot_fill_counts_indexed,
+    top_k_routing_indexed,
+)
 from scaletorch_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_ref,
@@ -148,7 +192,37 @@ PORTED = {
            "source": "scaletorch_tpu_torch/csrc/flash_bwd.cu"},
     "K4": {"name": "paged_decode", "route": "cuda",
            "source": "scaletorch_tpu_torch/csrc/paged_decode.cu"},
+    "K5": {"name": gm.K5_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/grouped_mlp_fwd.cu"},
+    "K6": {"name": gm.K6_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/grouped_mlp_bwd.cu"},
+    "K7": {"name": gm.K7_NAME, "route": "cuda",
+           "source": "scaletorch_tpu_torch/csrc/grouped_mlp_bwd.cu"},
 }
+
+# ---- Qwen3-30B-A3B ---------------------------------------------------------------
+MOE_MODEL = "qwen3-30b-a3b"
+DROPLESS_CF = 16.0  # E / k: every (token, choice) keeps its slot
+MOE_TRAIN_SEQ, MOE_TRAIN_LAYERS = 4096, 4
+MOE_DECODE_PARITY_LAYERS, MOE_TRAIN_PARITY_LAYERS = 4, 2
+# K5-K7 vs plain versions: the relative L2 error of the whole tensor
+# ("rel"), of its worst 64-row slot tile of one (expert, group) for out
+# and dx or of its worst expert for dW ("tile_rel"), and the max abs
+# error over the tensor's largest magnitude ("max_abs_rel", coarse).
+# Each limit sits above the sound kernels' reading and below the readings
+# of the controls (phase 11 prints all three).
+GMLP_TOLERANCE = {
+    torch.float32: {"max_abs_rel": 1e-5, "rel": 1e-5, "tile_rel": 1e-4},
+    torch.bfloat16: {"max_abs_rel": 1e-2, "rel": 3e-3, "tile_rel": 1e-2},
+}
+GMLP_SHAPES = {  # name: (groups, tokens per group, capacity factor, bwd)
+    "train": (1, MOE_TRAIN_SEQ, 1.25, True),
+    "prefill": (8, PREFILL_LEN, DROPLESS_CF, False),
+    "decode": (8, 1, DROPLESS_CF, False),
+}
+# kernels on vs the einsum path through the whole fp32 model (the
+# limits of the flash vs sdpa training parity)
+MOE_TRAIN_PARITY = {"loss_abs": 1e-4, "grad_rel": 1e-3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -641,13 +715,17 @@ def profiled(run, steps: int) -> dict:
 
 
 def phase_profile(model32) -> None:
+    cfg = model_config(MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
+                                         cfg)
+    profile_decode(model, cfg, "profile")
+
+
+def profile_decode(model, cfg, phase: str) -> None:
     """Where a decode step's time goes: torch.profiler over a steady
     window of decode ticks of the serving engine (8 active slots, no
     admission inside the window). Device busy share = the kernels' summed
     device time over the window's wall time (one stream: no overlap)."""
-    cfg = model_config(MODEL, dtype=torch.bfloat16)
-    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
-                                         cfg)
     window = 16
     with torch.inference_mode():
         eng = InferenceEngine(
@@ -667,7 +745,7 @@ def phase_profile(model32) -> None:
 
         stats = profiled(run, window)
     check(eng.metrics.prefill_calls == 1, "admission inside the window")
-    emit("profile", window_decode_steps=window, **stats)
+    emit(phase, window_decode_steps=window, **stats)
 
 
 # ---- 8. full-width training parity, flash kernels vs sdpa --------------------
@@ -688,7 +766,7 @@ def phase_train_parity() -> None:
                                gradient_checkpointing=True)
         _build.reset_launch_counts()
         t0 = time.monotonic()
-        loss = loss_fn(params, mb)
+        loss, _ = loss_fn(params, mb)
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
         runs[backend] = (float(loss.detach()), grads, dict(_build.launch_counts),
@@ -750,13 +828,434 @@ def phase_train():
     return trainer, launches
 
 
-def phase_train_profile(trainer) -> None:
+def phase_train_profile(trainer, phase: str = "train_profile") -> None:
     def run():
         for _ in range(PROFILE_STEPS):
             trainer.step()
 
-    emit("train_profile", window_train_steps=PROFILE_STEPS,
+    emit(phase, window_train_steps=PROFILE_STEPS,
          **profiled(run, PROFILE_STEPS))
+
+
+# ---- 11. the grouped-MLP kernels against their plain versions -----------------
+def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
+    """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES. Counts come from
+    routing seeded hidden states through a seeded router, as a layer
+    routes them; the train shape also gets one expert at 0 and one at C.
+    x and dO are random in every row, past the counts too, so the
+    kernels' masks are what keeps those rows out."""
+    cfg = model_config(MOE_MODEL)
+    e, k, h, i = (cfg.num_experts, cfg.num_experts_per_tok,
+                  cfg.hidden_size, cfg.moe_intermediate_size)
+    groups, tokens, cf, _ = GMLP_SHAPES[shape]
+    cap = expert_capacity(tokens, e, k, cf)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(
+            dtype)
+
+    hidden = torch.randn(groups, tokens, h, generator=gen, device="cuda")
+    router = torch.randn(h, e, generator=gen, device="cuda") * 0.02
+    routing, _ = top_k_routing_indexed(hidden @ router, k, cap)
+    counts = slot_fill_counts_indexed(routing, e, cap)
+    if shape == "train":
+        counts[0], counts[1] = 0, cap
+    x = rnd(e, groups, cap, h)
+    wg, wu = rnd(e, h, i, scale=h ** -0.5), rnd(e, h, i, scale=h ** -0.5)
+    wd = rnd(e, i, h, scale=i ** -0.5)
+    return x, counts.contiguous(), wg, wu, wd, rnd(e, groups, cap, h)
+
+
+def slot_tile_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest relative L2 error of one TILE-row slot tile of one
+    (expert, group) of [E, G, C, H] tensors (all-zero tiles skipped)."""
+    e, g, c, _ = b.shape
+    pad = (-c) % TILE
+
+    def per_tile(x):
+        rows = F.pad(x.float().square().sum(-1), (0, pad))
+        return rows.view(e, g, -1, TILE).sum(-1)
+
+    return worst_ratio(per_tile(a.float() - b.float()), per_tile(b))
+
+
+def expert_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest relative L2 error of one expert's weight gradient."""
+    return worst_ratio((a.float() - b.float()).square().flatten(1).sum(-1),
+                       b.float().square().flatten(1).sum(-1))
+
+
+def worst_ratio(num: torch.Tensor, den: torch.Tensor) -> float:
+    ratios = (num[den > 0] / den[den > 0]).sqrt()
+    return float(ratios.max()) if ratios.numel() else 0.0
+
+
+def gmlp_errors(got: dict, ref: dict) -> dict:
+    """Every reading of the tensors ``got`` against ``ref`` (same keys)."""
+    errs = {}
+    for name, want in ref.items():
+        a = got[name]
+        errs[f"{name}_max_abs"] = max_abs(a, want)
+        errs[f"{name}_max_abs_rel"] = max_abs(a, want) / max(
+            float(want.float().abs().max()), 1e-30)
+        errs[f"{name}_rel"] = rel_err(a, want)
+        errs[f"{name}_tile_rel"] = (expert_rel_max(a, want)
+                                    if name.startswith("dw")
+                                    else slot_tile_rel_max(a, want))
+    return errs
+
+
+def gmlp_violations(errs: dict, tol: dict) -> list:
+    return [f"{key} {v} > {tol[key.split('_', 1)[1]]}"
+            for key, v in errs.items()
+            if not key.endswith("_max_abs") and not v <= tol[
+                key.split("_", 1)[1]]]
+
+
+def gmlp_bound(kid: str, x, counts, wg) -> tuple:
+    """(bound ms, what bounds it): the larger of the bytes the function
+    must move (the counted x / dO rows, the weights of the experts that
+    have rows, each read once; every output written once) over HBM
+    bandwidth and its flops (2 per multiply-add: 6 H I a row for K5, 10
+    for K6, 12 for K7, as the TPU kernels recompute) over the peak."""
+    e, g, c, h = x.shape
+    i = wg.shape[-1]
+    elem = x.element_size()
+    rows = int(counts.sum())
+    weights = 3 * h * i * elem * int((counts.sum(1) > 0).sum())
+    row_bytes = rows * h * elem
+    full = e * g * c * h * elem
+    flops, nbytes = {
+        "K5": (6 * h * i * rows, weights + row_bytes + full),
+        "K6": (10 * h * i * rows, weights + 2 * row_bytes + full),
+        "K7": (12 * h * i * rows,
+               weights + 2 * row_bytes + 3 * e * h * i * elem),
+    }[kid]
+    nbytes += 4 * e * g  # counts
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[x.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def skip_one_slot_tile(got: dict, args, counts) -> dict:
+    """``got`` as kernels that skip one filled slot tile would give it:
+    the last (partial) tile of the (expert, group) with the most rows,
+    where the skip is least visible in the weight gradients, is left out
+    of out and dx (zero rows) and of dWg, dWu, dWd."""
+    x, _, wg, wu, wd, dout = args
+    flat = int(torch.argmax(counts.flatten()))
+    e, g = divmod(flat, counts.shape[1])
+    n = int(counts[e, g])
+    t0 = (n - 1) // TILE * TILE
+    out = {k: v.clone() for k, v in got.items()}
+    for name in ("out", "dx"):
+        if name in out:
+            out[name][e, g, t0:n] = 0
+    if "dwg" in out:
+        cut = counts.clone()
+        cut[e, g] = t0
+        full = gm.grouped_mlp_dw_ref(x, counts, wg, wu, wd, dout)
+        part = gm.grouped_mlp_dw_ref(x, cut, wg, wu, wd, dout)
+        for name, a, b in zip(("dwg", "dwu", "dwd"), full, part):
+            out[name] = (out[name].float() - (a.float() - b.float())).to(
+                a.dtype)
+    return out
+
+
+def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
+    args = gmlp_inputs(shape, dtype, seed=2024)
+    x, counts, wg, wu, wd, dout = args
+    fwd_args = args[:5]
+    bwd = GMLP_SHAPES[shape][3]
+    tol = GMLP_TOLERANCE[dtype]
+    got = {"out": gm.grouped_mlp_forward(*fwd_args)}
+    ref = {"out": gm.masked_grouped_mlp(*fwd_args)}
+    if bwd:
+        grads = gm.grouped_mlp_block_grads(*args)
+        got["dx"] = gm.grouped_mlp_dx(*args, grads)
+        got["dwg"], got["dwu"], got["dwd"] = gm.grouped_mlp_dw(*args, grads)
+        ref["dx"] = gm.grouped_mlp_dx_ref(*args)
+        ref["dwg"], ref["dwu"], ref["dwd"] = gm.grouped_mlp_dw_ref(*args)
+    torch.cuda.synchronize()
+    for name, t in got.items():
+        check(bool(torch.isfinite(t).all()), f"{shape} {dtype}: {name}")
+    past = (torch.arange(x.shape[2], device="cuda")[None, None]
+            >= counts[..., None])
+    zeros = all(bool((got[n][past] == 0).all()) for n in ("out", "dx")
+                if n in got)
+    errs = gmlp_errors(got, ref)
+    controls = {}
+    faulty = {"skip_one_tile": skip_one_slot_tile(got, args, counts)}
+    if bwd:
+        # a K7 that forgets the dO mask sums the covering tiles' rows
+        tiles = torch.clamp((counts + TILE - 1) // TILE * TILE,
+                            max=x.shape[2]).to(torch.int32)
+        unmasked = dict(got)
+        unmasked["dwg"], unmasked["dwu"], unmasked["dwd"] = (
+            gm.grouped_mlp_dw_ref(x, tiles, wg, wu, wd, dout))
+        faulty["dw_unmasked_dout"] = unmasked
+    for name, f in faulty.items():
+        c_errs = gmlp_errors(f, ref)
+        controls[name] = {**c_errs, "over_limit": gmlp_violations(c_errs,
+                                                                  tol)}
+    reps = 5
+    row = {"shape": shape, "dtype": str(dtype).replace("torch.", ""),
+           "x": list(x.shape), "hidden_intermediate": list(wg.shape[1:]),
+           "rows": int(counts.sum()), "filled_experts": int(
+               (counts.sum(1) > 0).sum()),
+           "structural_zeros": zeros, "tolerance": tol, **errs,
+           "controls": controls, "kernels": {}}
+    e, g, c, h = x.shape
+    lib_in = [t.detach().clone().requires_grad_() for t in
+              (x.view(e, g * c, h), wg, wu, wd)]
+    lib_out = moe_mlp(*lib_in)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_in, dout.view(e, g * c, h),
+                                   retain_graph=True)
+
+    timed = {"K5": (lambda: gm.grouped_mlp_forward(*fwd_args),
+                    lambda: gm.masked_grouped_mlp(*fwd_args),
+                    lambda: moe_mlp(x.view(e, g * c, h), wg, wu, wd))}
+    if bwd:
+        timed["K6"] = (lambda: gm.grouped_mlp_dx(*args),
+                       lambda: gm.grouped_mlp_dx_ref(*args), lib_bwd)
+        timed["K7"] = (lambda: gm.grouped_mlp_dw(*args),
+                       lambda: gm.grouped_mlp_dw_ref(*args), None)
+        row["grads_pass_ms"] = time_ms(
+            lambda: gm.grouped_mlp_block_grads(*args), flush, reps)
+        row["backward_ms"] = time_ms(
+            lambda: (gm.grouped_mlp_dx(*args, grads),
+                     gm.grouped_mlp_dw(*args, grads)), flush, reps)
+    lib_bwd_ms = None
+    for kid, (kernel_fn, plain_fn, lib_fn) in timed.items():
+        bound_ms, bound_by = gmlp_bound(kid, x, counts, wg)
+        if lib_fn is None:
+            lib_ms = lib_bwd_ms  # one autograd backward gives dx and dW
+        else:
+            lib_ms = time_ms(lib_fn, flush, reps)
+            if kid == "K6":
+                lib_bwd_ms = lib_ms
+        row["kernels"][kid] = {
+            "kernel_ms": time_ms(kernel_fn, flush, reps),
+            "plain_ms": time_ms(plain_fn, flush, reps),
+            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    row["library"] = ("the einsum path: three cuBLAS bmm calls and the "
+                      "swiglu kernels (forward), their autograd (backward)"
+                      "; several calls, not one")
+    del lib_out, lib_in
+    emit("kernel_grouped_mlp", **row)
+    violations = gmlp_violations(errs, tol)
+    check(zeros, f"{shape} {dtype}: rows past the counts are not zero")
+    check(not violations, f"{shape} {dtype}: kernels vs plain: {violations}")
+    for name, c in controls.items():
+        check(bool(c["over_limit"]),
+              f"{shape} {dtype}: the {name} control passes every check")
+    if bwd:
+        check(any(v.startswith("dw") for v in
+                  controls["dw_unmasked_dout"]["over_limit"]),
+              f"{shape} {dtype}: unmasked dO passes the dW checks")
+    return row
+
+
+def phase_kernel_grouped_mlp() -> dict:
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for shape in GMLP_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            row = gmlp_case(shape, dtype, flush)
+            results[(shape, row["dtype"])] = row
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---- 12. Qwen3-30B-A3B decode parity, K4 + K5 vs gather + einsum -------------------
+def moe_model(dtype: torch.dtype, layers=None, **overrides):
+    """(config, model) of Qwen3-30B-A3B with random weights drawn in place
+    from a seeded generator, the grouped-MLP kernels on."""
+    cfg = model_config(MOE_MODEL, dtype=dtype, use_grouped_mlp_kernel=True,
+                       **({"num_hidden_layers": layers} if layers else {}),
+                       **overrides)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return cfg, Qwen3MoEForCausalLM(cfg, "cuda").init_weights_(gen)
+
+
+def phase_moe_decode_parity() -> None:
+    cfg, model = moe_model(torch.float32, MOE_DECODE_PARITY_LAYERS,
+                           capacity_factor=DROPLESS_CF)
+    off = dataclasses.replace(cfg, use_grouped_mlp_kernel=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        via_kernels = teacher_forced_decode_paged(model, cfg, tokens,
+                                                  page_size=PAGE_SIZE)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        via_plain = teacher_forced_decode_paged(
+            model, off, tokens, page_size=PAGE_SIZE, kernel=False)
+    err = float((via_kernels - via_plain).abs().max())
+    layers = cfg.num_hidden_layers
+    # prefill_len 1: every one of the 64 calls is one token a slot, so K4
+    # serves the prefill too
+    want = {"paged_decode": layers * 64, gm.K5_NAME: layers * 64}
+    check(bool(torch.isfinite(via_kernels).all()), "non-finite logits")
+    check(launches == want, f"launches {launches}, want {want}")
+    check(err <= PARITY_TOLERANCE,
+          f"K4 + K5 vs gather + einsum max |dlogit| {err} > "
+          f"{PARITY_TOLERANCE}")
+    emit("moe_decode_parity", model=MOE_MODEL, layers=layers,
+         dtype="float32", capacity_factor=cfg.capacity_factor,
+         tokens=list(tokens.shape), max_abs_logit_diff=err,
+         tolerance=PARITY_TOLERANCE, launches=launches)
+
+
+# ---- 13. serving Qwen3-30B-A3B at full depth -------------------------------------
+def phase_moe_serve() -> dict:
+    cfg, model = moe_model(torch.bfloat16, capacity_factor=DROPLESS_CF)
+    off = dataclasses.replace(cfg, use_grouped_mlp_kernel=False)
+    prompts = traffic(cfg.vocab_size)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        eng, results, ptrs, stats = serve(model, cfg, prompts, None)
+        launches = dict(_build.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prefills = eng.metrics.prefill_calls
+        outcomes = [r.outcome for r in results]
+        check(all(o == "ok" for o in outcomes), f"outcomes {outcomes}")
+        eng.allocator.check_conservation()
+        check((eng.cache.k.data_ptr(), eng.cache.v.data_ptr()) == ptrs,
+              "the page pools moved")
+        del eng
+        torch.cuda.empty_cache()
+        _, ref_results, _, ref_stats = serve(model, off, prompts, False)
+    torch.cuda.empty_cache()
+    profile_decode(model, cfg, "moe_serve_profile")
+    layers, steps = cfg.num_hidden_layers, stats["decode_steps"]
+    k4 = launches.get("paged_decode", 0)
+    k5_decode = launches.get(gm.K5_NAME, 0) - layers * prefills
+    check(k4 == layers * steps and k5_decode == layers * steps,
+          f"K4 {k4}, K5 {launches.get(gm.K5_NAME, 0)} over {steps} decode "
+          f"steps and {prefills} prefills: want {layers} each per step")
+    same_req = sum(a.tokens == b.tokens for a, b in zip(results, ref_results))
+    same_tok = sum(x == y for a, b in zip(results, ref_results)
+                   for x, y in zip(a.tokens, b.tokens))
+    emit("moe_serve", model=MOE_MODEL, layers=layers, dtype="bfloat16",
+         capacity_factor=cfg.capacity_factor, slots=SLOTS, max_seq=MAX_SEQ,
+         prefill_len=PREFILL_LEN, page_size=PAGE_SIZE,
+         requests=len(prompts), outcomes=sorted(set(outcomes)),
+         launches=launches, prefill_calls=prefills,
+         k4_per_decode_step=k4 / steps, k5_per_decode_step=k5_decode / steps,
+         peak_memory_gb=peak_gb, **stats,
+         gather_einsum_path={k: ref_stats[k] for k in
+                             ("wall_s", "tokens_per_s", "decode_tokens_per_s",
+                              "mean_ttft_s", "tpot_p50_s", "decode_steps")},
+         greedy_agreement={"requests": f"{same_req}/{len(results)}",
+                           "tokens": same_tok / sum(len(r.tokens)
+                                                    for r in results)})
+    return launches
+
+
+# ---- 14. training parity, kernels on vs the einsum path ---------------------------
+def phase_moe_train_parity() -> None:
+    cfg = model_config(MOE_MODEL, dtype=torch.float32,
+                       num_hidden_layers=MOE_TRAIN_PARITY_LAYERS,
+                       use_grouped_mlp_kernel=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = qwen3_moe.init_params(cfg, gen, "cuda", requires_grad=True)
+    b, s = 2, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                           device="cuda")
+    mb = {"input_ids": tokens[:, :-1], "target_ids": tokens[:, 1:],
+          "position_ids": torch.arange(s, device="cuda")}
+    leaves = tree_leaves(params)
+    runs = {}
+    for kernel in (True, False):
+        loss_fn = make_loss_fn(
+            dataclasses.replace(cfg, use_grouped_mlp_kernel=kernel),
+            attention_backend="flash", gradient_checkpointing=True)
+        _build.reset_launch_counts()
+        loss, stats = loss_fn(params, mb)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs[kernel] = (float(loss.detach()), grads,
+                        dict(_build.launch_counts),
+                        {k: float(v) for k, v in stats.items()})
+    (loss_k, g_k, launches_k, stats_k), (loss_e, g_e, launches_e, _) = (
+        runs[True], runs[False])
+    norm_k = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_k)))
+    norm_e = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g_e)))
+    diff = float(torch.sqrt(sum(((a - c).float() ** 2).sum()
+                                for a, c in zip(g_k, g_e))))
+    worst = max(rel_err(a, c) for a, c in zip(g_k, g_e))
+    layers = cfg.num_hidden_layers
+    flash = {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers, tf.K3_NAME: layers}
+    want = {**flash, gm.K5_NAME: 2 * layers, gm.GRADS_NAME: layers,
+            gm.K6_NAME: layers, gm.K7_NAME: layers}
+    check(all(bool(torch.isfinite(g).all()) for g in g_k), "non-finite grad")
+    check(launches_k == want, f"kernel launches {launches_k}, want {want}")
+    check(launches_e == flash, f"einsum-path launches {launches_e}")
+    d_loss = abs(loss_k - loss_e)
+    check(d_loss <= MOE_TRAIN_PARITY["loss_abs"],
+          f"|dloss| {d_loss} > {MOE_TRAIN_PARITY['loss_abs']}")
+    check(diff / norm_e <= MOE_TRAIN_PARITY["grad_rel"],
+          f"|g_kernel - g_einsum| / |g_einsum| {diff / norm_e}")
+    emit("moe_train_parity", model=MOE_MODEL, layers=layers,
+         dtype="float32", tokens=[b, s], gradient_checkpointing=True,
+         loss_kernels=loss_k, loss_einsum=loss_e, loss_abs_diff=d_loss,
+         grad_norm_kernels=norm_k, grad_norm_einsum=norm_e,
+         grad_rel_l2_diff=diff / norm_e, worst_leaf_rel_diff=worst,
+         routing=stats_k, tolerance=MOE_TRAIN_PARITY,
+         kernel_launches=launches_k)
+
+
+# ---- 15. training Qwen3-30B-A3B cut to 4 layers ------------------------------------
+def phase_moe_train():
+    cfg = make_bench_args(MOE_MODEL, seq=MOE_TRAIN_SEQ, gc=True,
+                          extra={"num_hidden_layers": MOE_TRAIN_LAYERS})
+    before = os.environ.get(qwen3_moe.GROUPED_MLP_ENV)
+    os.environ[qwen3_moe.GROUPED_MLP_ENV] = "1"  # read once, by the config
+    try:
+        res = benchmark_config(cfg, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
+                               before_window=_build.reset_launch_counts)
+    finally:
+        if before is None:
+            del os.environ[qwen3_moe.GROUPED_MLP_ENV]
+        else:
+            os.environ[qwen3_moe.GROUPED_MLP_ENV] = before
+    launches = dict(_build.launch_counts)
+    trainer = res.pop("trainer")
+    check(trainer.model_cfg.use_grouped_mlp_kernel, "the kernel is off")
+    losses = res["warmup_losses"] + res["losses"]
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(not any(res["update_skipped"]),
+          f"update_skipped {res['update_skipped']}")
+    layers = trainer.model_cfg.num_hidden_layers
+    names = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME, gm.K5_NAME, gm.K6_NAME,
+             gm.K7_NAME)
+    per_step = {n: launches.get(n, 0) / TRAIN_STEPS for n in names}
+    want = dict(zip(names, (2 * layers, layers, layers, 2 * layers, layers,
+                            layers)))
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    emit("moe_train", model=MOE_MODEL, layers=layers,
+         sequence_length=cfg.sequence_length,
+         micro_batch_size=cfg.micro_batch_size,
+         gradient_checkpointing=cfg.gradient_checkpointing, dtype=cfg.dtype,
+         capacity_factor=trainer.model_cfg.capacity_factor,
+         attention_backend=trainer.attention_backend,
+         warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
+         active_params=trainer.mfu_params, peak_flops=trainer.peak_flops(),
+         launches=launches, launches_per_step=per_step, **res)
+    return trainer, launches
 
 
 def main() -> int:
@@ -787,6 +1286,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer, train_launches = timed("train", phase_train)
     timed("train_profile", phase_train_profile, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    gmlp = timed("kernel_grouped_mlp", phase_kernel_grouped_mlp)
+    torch.cuda.empty_cache()
+    timed("moe_decode_parity", phase_moe_decode_parity)
+    torch.cuda.empty_cache()
+    timed("moe_serve", phase_moe_serve)
+    torch.cuda.empty_cache()
+    timed("moe_train_parity", phase_moe_train_parity)
+    torch.cuda.empty_cache()
+    moe_trainer, moe_launches = timed("moe_train", phase_moe_train)
+    timed("moe_train_profile", phase_train_profile, moe_trainer,
+          "moe_train_profile")
     emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     emit("kernels", kernels=[
         {"id": kid, "function": fn, "at": at,
@@ -816,6 +1328,19 @@ def main() -> int:
         "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"],
     })
+    # K5-K7 at the train shape in bf16, launches from the moe_train window
+    train16 = gmlp[("train", "bfloat16")]
+    gmlp_err = {"K5": train16["out_max_abs"], "K6": train16["dx_max_abs"],
+                "K7": max(train16[f"{n}_max_abs"]
+                          for n in ("dwg", "dwu", "dwd"))}
+    for kid in ("K5", "K6", "K7"):
+        t = train16["kernels"][kid]
+        rows.append({
+            **PORTED[kid], "replaces": at[kid],
+            "launches": moe_launches.get(PORTED[kid]["name"], 0),
+            "max_abs_err": gmlp_err[kid], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

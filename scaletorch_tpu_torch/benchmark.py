@@ -26,8 +26,10 @@ def benchmark_config(cfg, warmup: int = 3, steps: int = 10,
     """One timed run: {tokens_per_second, mfu, loss, step_time_s,
     memory_gb, num_params, num_chips, device} as the reference reports
     them, plus each step's ``warmup_losses``, ``losses``, ``grad_norms``
-    and ``update_skipped``, and the ``trainer`` itself for a caller that
-    goes on with it (drop it before serialising the result).
+    and ``update_skipped`` (and, for a MoE model, each step's
+    ``moe_dropped_fraction`` and ``moe_load_cv``), and the ``trainer``
+    itself for a caller that goes on with it (drop it before serialising
+    the result). For a MoE model the MFU counts the active parameters.
 
     ``device=None`` is the CUDA card (and raises without one); MFU and
     memory are reported for a card only. ``before_window`` is called once
@@ -66,6 +68,8 @@ def benchmark_config(cfg, warmup: int = 3, steps: int = 10,
         "losses": losses,
         "grad_norms": [float(m["grad_norm"]) for m in window],
         "update_skipped": [float(m["update_skipped"]) for m in window],
+        **{k: [float(m[k]) for m in window] for k in window[0]
+           if k.startswith("moe_")},
         "trainer": trainer,
     }
 
@@ -82,16 +86,14 @@ def make_bench_args(
     extra: Optional[Dict[str, Any]] = None,
 ):
     """ScaleTorchTPUArguments for a named preset and run shape, as the
-    reference builds them (synthetic data, clip 1.0, quiet logging)."""
-    import dataclasses
-
+    reference builds them (synthetic data, clip 1.0, quiet logging). The
+    preset goes in whole: a field the config lacks raises, so no
+    architecture field is dropped on the way."""
     from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
     from scaletorch_tpu_torch.models.presets import preset
 
-    fields = {f.name for f in dataclasses.fields(ScaleTorchTPUArguments)}
-    arch = {k: v for k, v in preset(model).items() if k in fields}
     kwargs = dict(
-        arch,
+        preset(model),
         sequence_length=seq,
         micro_batch_size=micro_bs,
         gradient_accumulation_steps=grad_accum,

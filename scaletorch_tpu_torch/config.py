@@ -2,8 +2,8 @@
 scaletorch_tpu/config.py that the single-device training slice reads.
 
 The dataclasses keep the reference's names, field names and defaults:
-``ModelArguments`` (its architecture fields, ``config.py:98-113``, plus
-``model_type``), ``LrSchedulerArguments``, ``OptimizerArguments`` and
+``ModelArguments`` (its architecture fields, ``config.py:98-150``, the
+MoE fields included, plus ``model_type``), ``LrSchedulerArguments``, ``OptimizerArguments`` and
 ``TrainingArguments`` (``config.py:343-412``, whole), and the data and
 logging fields the slice reads. They compose into
 ``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
@@ -37,7 +37,7 @@ class DataArguments:
 @dataclass
 class ModelArguments:
     model_type: str = field(
-        default="llama", metadata={"help": "llama | qwen3"})
+        default="llama", metadata={"help": "llama | qwen3 | qwen3_moe"})
     hidden_size: int = 2048
     intermediate_size: Optional[int] = None
     num_hidden_layers: int = 24
@@ -54,6 +54,27 @@ class ModelArguments:
         metadata={"help": "auto | flash | sdpa: auto resolves like the "
                           "reference (FLASH_ATTEN -> flash, else sdpa); "
                           "flash runs the CUDA kernels K1-K3."})
+    # MoE knobs (qwen3_moe)
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    moe_capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.001
+    router_z_loss_coef: float = 0.0
+    moe_dispatch: str = field(
+        default="auto",
+        metadata={"help": "auto | einsum | index: capacity-dispatch token "
+                          "movement; auto picks index (a scatter/gather of "
+                          "the moving rows) at every expert count."})
+    mlp_only_layers: Optional[List[int]] = field(
+        default=None,
+        metadata={"help": "qwen3_moe layer indices forced to a dense "
+                          "SwiGLU MLP (space-separated; a single -1 clears "
+                          "the list)."})
+    decoder_sparse_step: Optional[int] = field(
+        default=None,
+        metadata={"help": "A qwen3_moe layer is sparse only when (idx+1) is "
+                          "divisible by this (default 1: every layer)."})
 
 
 @dataclass
@@ -152,10 +173,13 @@ class ScaleTorchTPUArguments(
 
 
 def _parser_type(annotation: str):
+    """(type, nargs) of a field's annotation."""
     base = annotation.replace("Optional[", "").rstrip("]")
+    if base.startswith("List["):
+        return _parser_type(base[len("List["):])[0], "+"
     if base == "bool":
-        return _as_bool
-    return {"int": int, "float": float, "str": str}[base]
+        return _as_bool, None
+    return {"int": int, "float": float, "str": str}[base], None
 
 
 def _as_bool(text: str) -> bool:
@@ -171,14 +195,15 @@ def parse_args(args: Optional[List[str]] = None) -> ScaleTorchTPUArguments:
     """``--field value`` for every field (booleans take true/false; a bare
     ``--flag`` means true)."""
     parser = argparse.ArgumentParser(
-        description="Train a Llama/Qwen3 model with the PyTorch port.")
+        description="Train a Llama/Qwen3/Qwen3-MoE model with the PyTorch "
+                    "port.")
     for f in dataclasses.fields(ScaleTorchTPUArguments):
-        kind = _parser_type(f.type)
+        kind, nargs = _parser_type(f.type)
         help_text = f.metadata.get("help", "")
         if kind is _as_bool:
             parser.add_argument(f"--{f.name}", type=_as_bool, nargs="?",
                                 const=True, default=f.default, help=help_text)
         else:
-            parser.add_argument(f"--{f.name}", type=kind, default=f.default,
-                                help=help_text)
+            parser.add_argument(f"--{f.name}", type=kind, nargs=nargs,
+                                default=f.default, help=help_text)
     return ScaleTorchTPUArguments(**vars(parser.parse_args(args)))

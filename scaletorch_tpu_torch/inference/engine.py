@@ -211,12 +211,14 @@ class InferenceEngine:
 
     Parameters
     ----------
-    params : the model — a ``LlamaForCausalLM`` (or any module with
-        ``forward_cached``), or a parameter tree in the reference layout
-        (torch tensors or numpy arrays, e.g. ``init_params``' output or
-        a JAX tree through ``np.asarray``), which is loaded into a new
-        ``LlamaForCausalLM`` on ``device``.
-    cfg : the model's config (``LlamaConfig`` or ``Qwen3Config``).
+    params : the model — a ``LlamaForCausalLM`` or ``Qwen3MoEForCausalLM``
+        (or any module with ``forward_cached``), or a parameter tree in the
+        reference layout (torch tensors or numpy arrays, e.g.
+        ``init_params``' output or a JAX tree through ``np.asarray``),
+        which is loaded into a new model of the config's family on
+        ``device``.
+    cfg : the model's config (``LlamaConfig``, ``Qwen3Config`` or
+        ``Qwen3MoEConfig``).
     max_slots : decode batch size B (fixed).
     max_seq : cache length S_max (prompt + generation cap per slot).
     prefill_len : static prompt-buffer length P_max (default
@@ -375,9 +377,14 @@ class InferenceEngine:
     def _resolve_model(self, params, cfg) -> torch.nn.Module:
         if not isinstance(params, torch.nn.Module):
             from scaletorch_tpu_torch.models.llama import LlamaForCausalLM
+            from scaletorch_tpu_torch.models.qwen3_moe import (
+                Qwen3MoEConfig,
+                Qwen3MoEForCausalLM,
+            )
 
-            return LlamaForCausalLM.from_params(params, cfg,
-                                                device=self.device)
+            cls = (Qwen3MoEForCausalLM if isinstance(cfg, Qwen3MoEConfig)
+                   else LlamaForCausalLM)
+            return cls.from_params(params, cfg, device=self.device)
         dev = next(params.parameters()).device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev != self.device):

@@ -1,4 +1,5 @@
-"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3).
+"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3) and
+Qwen3-MoE.
 
 Importing the package registers the attention backends: ``sdpa``
 (``llama.py``) and ``flash`` (``ops/flash_attention.py``, the CUDA
@@ -20,5 +21,9 @@ from scaletorch_tpu_torch.models.presets import (  # noqa: F401
     preset,
 )
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config  # noqa: F401
+from scaletorch_tpu_torch.models.qwen3_moe import (  # noqa: F401
+    Qwen3MoEConfig,
+    Qwen3MoEForCausalLM,
+)
 
 import scaletorch_tpu_torch.ops.flash_attention  # noqa: E402,F401

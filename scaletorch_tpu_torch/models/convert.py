@@ -4,7 +4,10 @@ The JAX package's parameters are a nested dict (``embed_tokens``,
 ``layers.{...}`` stacked on axis 0, ``norm``, optional ``lm_head``);
 ``jax.tree.map(np.asarray, params)`` gives it as numpy arrays, which is
 what the parity tests hand over. ``load_numpy_params`` fills a serving
-``LlamaForCausalLM``; ``params_from_numpy`` builds the training
+``LlamaForCausalLM`` or ``Qwen3MoEForCausalLM`` (the MoE keys ``router``
+and ``expert_{gate,up,down}_proj`` stacked over the sparse layers, each
+cast to its parameter's dtype: the router stays fp32, the experts take
+the compute dtype); ``params_from_numpy`` builds the training
 parameter dict (fp32 leaves with ``requires_grad``) and
 ``params_to_numpy`` turns it back. Torch tensors in the same layout
 (``llama.init_params``) load the same way.

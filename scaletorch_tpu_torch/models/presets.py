@@ -2,14 +2,11 @@
 
 Field values match the published HF configs for Qwen/Qwen3-*; the MoE
 presets match Qwen/Qwen3-30B-A3B's shape family. Each preset is a kwargs
-dict; ``model_config`` turns a dense one into the port's config class.
-The MoE presets are kept so the two packages list the same names, but
-the port has no MoE forward yet.
+dict; ``model_config`` turns it into the port's config class.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict
 
 _QWEN3_COMMON = dict(
@@ -156,18 +153,18 @@ def preset(name: str) -> Dict[str, Any]:
 
 
 def model_config(name: str, **overrides: Any):
-    """The port's config for a dense preset (``Qwen3Config`` for
-    ``model_type="qwen3"``), with ``overrides`` (e.g. ``dtype``,
-    ``num_hidden_layers``) applied on top."""
+    """The port's config for a preset (``Qwen3Config`` for
+    ``model_type="qwen3"``, ``Qwen3MoEConfig`` for ``"qwen3_moe"``), with
+    ``overrides`` (e.g. ``dtype``, ``num_hidden_layers``) applied on top.
+    Every preset field must be a field of the class: none is dropped."""
     from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
+    from scaletorch_tpu_torch.models.qwen3_moe import Qwen3MoEConfig
 
     kw = preset(name)
     model_type = kw.pop("model_type")
-    if model_type != "qwen3":
-        raise TypeError(
-            f"preset {name!r} is a {model_type!r} model; the port serves "
-            "dense Llama/Qwen3 models only so far")
-    fields = {f.name for f in dataclasses.fields(Qwen3Config)}
-    kw = {k: v for k, v in kw.items() if k in fields}
+    classes = {"qwen3": Qwen3Config, "qwen3_moe": Qwen3MoEConfig}
+    if model_type not in classes:
+        raise TypeError(f"preset {name!r} is a {model_type!r} model; the "
+                        f"port has {sorted(classes)}")
     kw.update(overrides)
-    return Qwen3Config(**kw)
+    return classes[model_type](**kw)

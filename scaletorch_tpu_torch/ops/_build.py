@@ -29,7 +29,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 # one source per kernel library; every one is built by ``build()``
-KERNEL_SOURCES = ("paged_decode", "flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("paged_decode", "flash_fwd", "flash_bwd", "grouped_mlp_fwd",
+                  "grouped_mlp_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

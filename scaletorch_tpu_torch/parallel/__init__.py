@@ -1,4 +1,5 @@
 """Parallelism of the PyTorch port. So far only the single-device
-(``axis=None``) forms of the vocab-parallel losses
-(``parallel/tensor_parallel.py``); the mesh, tensor, pipeline, context
-and expert parallelism are later slices."""
+(``axis=None``) forms: the vocab-parallel losses
+(``parallel/tensor_parallel.py``) and the MoE routing and token movement
+(``parallel/expert_parallel.py``); the mesh, tensor, pipeline, context
+and expert-parallel exchanges are later slices."""

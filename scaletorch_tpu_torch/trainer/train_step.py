@@ -8,7 +8,10 @@ opt_state, metrics)``. Per step:
   1. the loss of ``spmd._build_losses.loss_fn``: the decoder forward with
      ``return_hidden=True``, then the chunked fused LM head + cross
      entropy (``fused_vocab_parallel_cross_entropy``, chunk
-     ``SCALETORCH_TPU_CE_CHUNK``, default 1024);
+     ``SCALETORCH_TPU_CE_CHUNK``, default 1024); a Qwen3-MoE forward
+     also returns its router aux loss, which joins the loss, and its
+     routing statistics (``moe_dropped_fraction``, ``moe_load_cv``),
+     which join the metrics (averaged over the microbatches);
   2. the gradients of the loss, averaged over the batch's leading
      accumulation axis (one microbatch: no accumulation buffer at all);
   3. the gradients promoted to fp32, their global norm, and the clip to
@@ -29,7 +32,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from scaletorch_tpu_torch.models import llama
+from scaletorch_tpu_torch.models import llama, qwen3_moe
 from scaletorch_tpu_torch.parallel.tensor_parallel import (
     fused_vocab_parallel_cross_entropy,
 )
@@ -68,22 +71,30 @@ def clip_by_global_norm(grads: List[Tensor],
 def make_loss_fn(cfg, *, attention_backend: str,
                  gradient_checkpointing: bool,
                  remat_policy: str = "nothing_saveable") -> Callable:
-    """loss(params, microbatch) -> fp32 scalar: the hidden states of the
-    decoder through the chunked fused head + cross entropy."""
+    """loss(params, microbatch) -> (fp32 scalar, routing stats): the
+    hidden states of the decoder through the chunked fused head + cross
+    entropy, plus the router aux loss for a Qwen3-MoE config, whose
+    routing statistics come beside it (empty for a dense model)."""
     chunk = ce_chunk_size()
+    is_moe = isinstance(cfg, qwen3_moe.Qwen3MoEConfig)
+    model = qwen3_moe if is_moe else llama
 
-    def loss_fn(params, mb: Dict[str, Tensor]) -> Tensor:
-        hidden = llama.forward(
+    def loss_fn(params, mb: Dict[str, Tensor]
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        out = model.forward(
             params, mb["input_ids"], cfg,
             positions=mb["position_ids"],
             attention_backend=attention_backend,
             gradient_checkpointing=gradient_checkpointing,
             remat_policy=remat_policy,
             return_hidden=True,
+            **({"return_moe_stats": True} if is_moe else {}),
         )
-        head = llama.lm_head_weight(params, cfg)
-        return fused_vocab_parallel_cross_entropy(
-            hidden, head, mb["target_ids"], axis=None, chunk_size=chunk)
+        hidden, aux, stats = out if is_moe else (out, 0.0, {})
+        head = model.lm_head_weight(params, cfg)
+        loss = fused_vocab_parallel_cross_entropy(
+            hidden, head, mb["target_ids"], axis=None, chunk_size=chunk) + aux
+        return loss, stats
 
     return loss_fn
 
@@ -110,17 +121,19 @@ def make_train_step(
     def step(params, opt_state, batch):
         leaves = tree_leaves(params)
         accum = batch["input_ids"].shape[0]
-        loss = loss_fn(params, micro(batch, 0))
+        loss, stats = loss_fn(params, micro(batch, 0))
         grads = list(torch.autograd.grad(loss, leaves))
         if accum > 1:
             grads = [g.float() for g in grads]
             for a in range(1, accum):
-                loss_a = loss_fn(params, micro(batch, a))
+                loss_a, stats_a = loss_fn(params, micro(batch, a))
                 for acc, g in zip(grads, torch.autograd.grad(loss_a, leaves)):
                     acc.add_(g.float())
                 loss = loss + loss_a
+                stats = {k: v + stats_a[k] for k, v in stats.items()}
             grads = [g / accum for g in grads]
             loss = loss / accum
+            stats = {k: v / accum for k, v in stats.items()}
         loss = loss.detach()
         grads = [g.float() for g in grads]
         if max_grad_norm and max_grad_norm > 0:
@@ -133,7 +146,8 @@ def make_train_step(
         params, opt_state, skipped = guarded_update(
             optimizer, params, opt_state, tree, ok)
         metrics = {"loss": loss, "grad_norm": grad_norm,
-                   "update_skipped": skipped}
+                   "update_skipped": skipped,
+                   **{k: v.detach() for k, v in stats.items()}}
         return params, opt_state, metrics
 
     return step

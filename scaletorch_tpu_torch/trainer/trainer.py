@@ -1,8 +1,8 @@
 """The single-device training loop (counterpart of the one-device subset
 of scaletorch_tpu/trainer/trainer.Trainer).
 
-``Trainer(cfg, device=None)`` builds the model config, the fp32 master
-parameters (seeded), AdamW with its schedule, the synthetic loader and
+``Trainer(cfg, device=None)`` builds the model config (Llama, Qwen3 or
+Qwen3-MoE), the fp32 master parameters (seeded), AdamW with its schedule, the synthetic loader and
 the train step; ``step(batch=None)`` runs one optimizer step and
 ``train(num_steps=None)`` runs the loop with a log line every
 ``log_frequency`` steps. ``device=None`` means the CUDA card and raises
@@ -24,7 +24,7 @@ from scaletorch_tpu_torch.data.dataloader import (
     SyntheticDataLoader,
     device_batch,
 )
-from scaletorch_tpu_torch.models import llama
+from scaletorch_tpu_torch.models import llama, qwen3_moe
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
 from scaletorch_tpu_torch.models.registry import resolve_attention_backend
 from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
@@ -62,12 +62,28 @@ def build_model_config(cfg: ScaleTorchTPUArguments):
         dtype=_DTYPE[cfg.dtype],
         param_dtype=torch.float32,
     )
+    if cfg.model_type == "qwen3_moe":
+        return qwen3_moe.Qwen3MoEConfig(
+            qk_norm=True,
+            num_experts=cfg.num_experts,
+            num_experts_per_tok=cfg.num_experts_per_tok,
+            moe_intermediate_size=cfg.moe_intermediate_size
+            or (cfg.intermediate_size or 4 * cfg.hidden_size),
+            capacity_factor=cfg.moe_capacity_factor,
+            moe_dispatch=cfg.moe_dispatch,
+            mlp_only_layers=tuple(
+                i for i in (cfg.mlp_only_layers or ()) if i >= 0),
+            decoder_sparse_step=cfg.decoder_sparse_step or 1,
+            aux_loss_coef=cfg.router_aux_loss_coef,
+            z_loss_coef=cfg.router_z_loss_coef,
+            **common,
+        )
     if cfg.model_type == "qwen3":
         return Qwen3Config(qk_norm=True, **common)
     if cfg.model_type == "llama":
         return llama.LlamaConfig(**common)
     raise ValueError(f"model_type {cfg.model_type!r} is not ported; the "
-                     "port trains llama and qwen3")
+                     "port trains llama, qwen3 and qwen3_moe")
 
 
 class Trainer:
@@ -96,7 +112,9 @@ class Trainer:
         torch.manual_seed(cfg.seed)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed)
-        self.params = llama.init_params(self.model_cfg, gen, self.device,
+        self.is_moe = isinstance(self.model_cfg, qwen3_moe.Qwen3MoEConfig)
+        model = qwen3_moe if self.is_moe else llama
+        self.params = model.init_params(self.model_cfg, gen, self.device,
                                         requires_grad=True)
         self.optimizer, self.schedule = create_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.params)
@@ -117,6 +135,10 @@ class Trainer:
             max_grad_norm=cfg.max_grad_norm,
         )
         self.num_params = get_num_params(self.params)
+        # MoE MFU counts the parameters a token touches (the reference's
+        # active-parameter MFU)
+        self.mfu_params = (self.model_cfg.num_active_params() if self.is_moe
+                           else self.num_params)
         self.global_step = 0
         self.tokens_seen = 0
         self.history: list = []
@@ -159,7 +181,7 @@ class Trainer:
         if peak is None:
             return tok_s, None
         cfg = self.model_cfg
-        return tok_s, get_mfu(tok_s, self.num_params, cfg.num_hidden_layers,
+        return tok_s, get_mfu(tok_s, self.mfu_params, cfg.num_hidden_layers,
                               cfg.num_attention_heads, cfg.actual_head_dim,
                               self.cfg.sequence_length, peak_flops=peak)
 

@@ -1,8 +1,8 @@
 """PyTorch port, the hand-written CUDA flash-attention kernels on the card.
 
 K1 (forward), K2 (dQ) and K3 (dK, dV) against their plain PyTorch
-versions on the same inputs, at head_dim 64 and 128, n_rep 1, 2 and 4,
-fp32 and bf16, causal and not, with a sequence that is a multiple of the
+versions on the same inputs, at head_dim 64 and 128, n_rep 1, 2, 4 and 8
+(Qwen3-30B-A3B's 32 query over 4 KV heads), fp32 and bf16, causal and not, with a sequence that is a multiple of the
 kernels' 64-row tiles and one that is not. Every test needs a CUDA card
 and skips without one (decided in a fixture, at run time). The file
 imports no JAX, so it runs on the GPU machine, where the repository's
@@ -87,7 +87,7 @@ def assert_close(dtype, got, want, *, out=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("seq", [256, 200])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_kernels_match_plain_versions(cuda, dtype, head_dim, n_rep, seq,

@@ -194,11 +194,16 @@ def test_default_device_needs_a_card():
 
 
 def test_moe_configs_have_no_port_forward():
+    """The JAX package's MoE config has no port forward; the port's own
+    MoE config (from the same preset) has the MoE one."""
+    from scaletorch_tpu_torch.models import qwen3_moe as tqwen3_moe
+
     cfg = jqwen3_moe.Qwen3MoEConfig(**{**SMALL, "num_experts": 4})
     with pytest.raises(TypeError, match="Llama family"):
         tdecode.resolve_forward_cached(cfg)
-    with pytest.raises(TypeError, match="qwen3_moe"):
-        model_config("moe-tiny")
+    tcfg = model_config("moe-tiny")
+    assert isinstance(tcfg, tqwen3_moe.Qwen3MoEConfig)
+    assert tdecode.resolve_forward_cached(tcfg) is tqwen3_moe.forward_cached
 
 
 def test_presets_are_a_copy_of_the_reference():
