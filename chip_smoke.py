@@ -12,8 +12,8 @@ is non-zero; no phase catches an exception):
                 torch.cuda.get_device_name(0); no card, no run.
   2. build    — nvcc builds every kernel source in
                 scaletorch_tpu_torch/csrc/ (paged_decode, flash_fwd,
-                flash_bwd) into build/kernels/, all compiles started
-                together.
+                flash_bwd, grouped_mlp_fwd, grouped_mlp_bwd) into
+                build/kernels/, all compiles started together.
   3. kernel_paged_decode — the paged-decode kernel (K4) against its plain
                 PyTorch version at the serving shapes of Qwen3-0.6B
                 (Hq 16, Hkv 8, D 128, 8 slots, page 16, 128 pages per
@@ -29,7 +29,11 @@ is non-zero; no phase catches an exception):
                 fail the checks, and a lower-precision plain version); each
                 kernel's time, its plain version's, the library yardstick
                 (scaled_dot_product_attention forward, and its autograd
-                backward for K2 + K3 together) and the bound.
+                backward for K2 + K3 together), the bound, the share of
+                the bound reached and the TFLOP/s. K2 and K3 run twice and
+                must agree bit for bit; bf16 K2 and K3 run again at
+                Qwen3-30B-A3B's training shape (Hq 32, Hkv 4, S 4096),
+                checked against their plain versions and timed.
   5. decode_parity — Qwen3-0.6B at full width, fp32, random weights from
                 a seeded generator: teacher-forced paged decode of
                 2 x 64 tokens through the kernel and through the gather
@@ -363,33 +367,33 @@ def phase_kernel() -> dict:
 
 
 # ---- 4. the flash kernels against their plain versions -----------------------
-def flash_inputs(dtype: torch.dtype, seed: int):
-    """q, k, v, dO at the training shape of the headline row."""
-    cfg = model_config(MODEL)
+def flash_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
+                 seq: int = TRAIN_SEQ):
+    """q, k, v, dO at the training shape of ``model``'s cell."""
+    cfg = model_config(model)
     hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.actual_head_dim)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
 
     def rnd(heads):
-        return torch.randn(1, heads, TRAIN_SEQ, d, generator=gen,
+        return torch.randn(1, heads, seq, d, generator=gen,
                            device="cuda").to(dtype)
 
     return rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
 
 
-def flash_bound(kernel: str, q, k):
-    """(bound ms, what bounds it) of one causal call: the larger of its
-    bytes (each input read once, each output written once) over HBM
-    bandwidth and its flops (2 per multiply-add of its products over the
-    visible (query, key) pairs) over the dtype's peak."""
+def flash_work(kernel: str, q, k):
+    """(flops, bytes) of one causal call: 2 flops per multiply-add of its
+    products over the visible (query, key) pairs; each input read once,
+    each output written once."""
     b, hq, s, d = q.shape
     elem = q.element_size()
     q_bytes = b * hq * s * d * elem
     kv_bytes = b * k.shape[1] * s * d * elem
     row_bytes = 4 * b * hq * s  # one fp32 per query row: lse or delta
     pairs = b * hq * s * (s + 1) // 2
-    flops, nbytes = {
+    return {
         # O, LSE from Q, K, V: Q K^T and P V
         "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
         # dQ from Q, K, V, dO, LSE, delta: Q K^T, dO V^T, dS K
@@ -397,10 +401,20 @@ def flash_bound(kernel: str, q, k):
         # dK, dV from the same: Q K^T, dO V^T, P^T dO, dS^T Q
         "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
     }[kernel]
+
+
+def flash_timing(kid: str, q, k, kernel_ms: float) -> dict:
+    """One causal call's time beside its bound (the larger of its bytes
+    over HBM bandwidth and its flops over the dtype's peak), what bounds
+    it, the share of the bound the kernel reaches and its TFLOP/s."""
+    flops, nbytes = flash_work(kid, q, k)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    return {"kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_share": bound_ms / kernel_ms,
+            "tflops": flops / kernel_ms / 1e9}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -546,7 +560,6 @@ def phase_kernel_flash() -> dict:
                "controls": controls, "kernels": {}}
         lib_bwd_ms = None
         for kid, (kernel_fn, plain_fn, lib_fn) in times.items():
-            bound_ms, bound_by = flash_bound(kid, q, k)
             if kid == "K3" and lib_bwd_ms is not None:
                 lib_ms = lib_bwd_ms  # one backward call computes dQ, dK, dV
             else:
@@ -554,11 +567,18 @@ def phase_kernel_flash() -> dict:
             if kid == "K2":
                 lib_bwd_ms = lib_ms
             row["kernels"][kid] = {
-                "kernel_ms": time_ms(kernel_fn, flush, reps),
+                **flash_timing(kid, q, k, time_ms(kernel_fn, flush, reps)),
                 "plain_ms": time_ms(plain_fn, flush, reps),
                 "library_ms": lib_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
             }
+        # no atomics: a second run of K2 and K3 gives the same bits
+        again = (tf.flash_dq(*bwd_args, causal=True),
+                 *tf.flash_dkv(*bwd_args, causal=True))
+        row["bitwise_deterministic"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(again, (dq, dk, dv)))
+        del again
+        if dtype == torch.bfloat16:
+            row["moe_shape"] = flash_backward_moe_shape(flush, reps)
         del lib_out, lib_in
         results[row["dtype"]] = row
         emit("kernel_flash", **row)
@@ -568,7 +588,58 @@ def phase_kernel_flash() -> dict:
         want = {"out_tile_rel", "dq_tile_rel", "dk_tile_rel", "dv_tile_rel"}
         check(want <= seen, f"{dtype}: a skipped tile passes the checks of "
                             f"{sorted(want - seen)}")
+        check(row["bitwise_deterministic"],
+              f"{dtype}: two runs of K2 and K3 differ")
+        if "moe_shape" in row:
+            check(not row["moe_shape"]["over_limit"],
+                  f"{dtype}: K2/K3 vs plain at the MoE shape: "
+                  f"{row['moe_shape']['over_limit']}")
     return results
+
+
+def flash_backward_moe_shape(flush, reps: int) -> dict:
+    """bf16 K2 and K3 at Qwen3-30B-A3B's training shape (B 1, Hq 32, Hkv 4,
+    S 4096, D 128, causal) against their plain versions, with their times
+    beside the plain versions' and the SDPA backward's."""
+    tol = FLASH_TOLERANCE[torch.bfloat16]
+    q, k, v, dout = flash_inputs(torch.bfloat16, seed=4322, model=MOE_MODEL,
+                                 seq=MOE_TRAIN_SEQ)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    bwd_args = (q, k, v, dout, ref_lse, tf.attention_delta(ref_out, dout))
+    got = (tf.flash_dq(*bwd_args, causal=True),
+           *tf.flash_dkv(*bwd_args, causal=True))
+    ref = (tf.flash_dq_ref(*bwd_args, causal=True),
+           *tf.flash_dkv_ref(*bwd_args, causal=True))
+    torch.cuda.synchronize()
+    row = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
+           "causal": True}
+    limits = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        check(bool(torch.isfinite(a).all()), f"MoE shape: non-finite {name}")
+        row[f"{name}_max_abs"] = max_abs(a, b)
+        row[f"{name}_rel"] = rel_err(a, b)
+        row[f"{name}_tile_rel"] = tile_rel_max(a, b)
+        limits[f"{name}_rel"] = tol["grad_rel"]
+        limits[f"{name}_tile_rel"] = tol["grad_tile_rel"]
+    row["over_limit"] = [f"{key} {row[key]} > {limit}"
+                         for key, limit in limits.items()
+                         if not row[key] <= limit]
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout,
+                                                 retain_graph=True),
+                     flush, reps)
+    calls = {"K2": (tf.flash_dq, tf.flash_dq_ref),
+             "K3": (tf.flash_dkv, tf.flash_dkv_ref)}
+    row["kernels"] = {
+        kid: {**flash_timing(kid, q, k, time_ms(
+                  lambda: kernel(*bwd_args, causal=True), flush, reps)),
+              "plain_ms": time_ms(lambda: plain(*bwd_args, causal=True),
+                                  flush, reps),
+              "library_ms": lib_ms}
+        for kid, (kernel, plain) in calls.items()}
+    return row
 
 
 # ---- 5. full-width decode parity, kernel vs gather path ----------------------

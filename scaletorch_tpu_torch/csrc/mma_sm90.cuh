@@ -1,0 +1,191 @@
+// Register-level building blocks for tensor-core kernels on Hopper (sm_90a):
+//
+//   * `mma_bf16`: one mma.sync m16n8k16, bf16 inputs, fp32 sums kept in
+//     registers (D = A * B + D);
+//   * `ldmatrix_x4` / `ldmatrix_x4_trans`: four 8x8 bf16 matrices from
+//     shared memory into the fragment layout `mma_bf16` takes;
+//   * `cp_async_16` / `cp_async_4` with `cp_async_commit` and
+//     `cp_async_wait<N>`: copies from global into shared memory that run
+//     beside the math, zero-filled where the source row does not exist;
+//   * `SwizzledTile`: a tile of rows of 16-byte chunks whose chunk index is
+//     XORed with (row % 8), so the eight row addresses of one ldmatrix (or
+//     one 8-thread phase of cp.async) fall on distinct banks without
+//     padding;
+//   * `acc_to_a`: two m16n8 fp32 accumulators (16 columns) rounded to bf16
+//     as the A fragment of the next m16n8k16, so a product's result (P, dS)
+//     feeds the next product without leaving registers.
+//
+// Fragment layouts (PTX ISA, "mma.m16n8k16", lane = 4 * g + t):
+//   A (16x16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..),
+//                         a[2] = (g, 2t+8..),    a[3] = (g+8, 2t+8..)
+//   B (16x8, "col"):      b[0] = (k 2t..2t+1, n g), b[1] = (k 2t+8.., n g)
+//   C (16x8, fp32):       c[0..1] = (g, 2t..2t+1), c[2..3] = (g+8, 2t..)
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// D += A * B on one warp; a: 4 x bf16x2, b: 2 x bf16x2, d: 4 x fp32.
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Lanes 8i..8i+7 give the row addresses of matrix i; lane 4g+t receives
+// (row g, columns 2t, 2t+1) of matrix i in r[i] (`.trans`: rows 2t, 2t+1
+// of column g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16 bytes global -> shared, bypassing L1; zeros when !valid (src is then
+// not read, but must still be a valid pointer).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(__cvta_generic_to_global(src)),
+                 "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (for fp32 vectors whose rows are not 16-byte
+// aligned); zero when !valid.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(dst), "l"(__cvta_generic_to_global(src)),
+                 "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier over `threads` threads (whole warps) under id 1..15; id 0 is
+// __syncthreads()'s.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Round two floats to bf16 (nearest even) and pack them, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The C fragments of columns 16k..16k+7 (c0) and 16k+8..16k+15 (c1) as
+// the A fragment of k-step k, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
+                                         const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A [ROWS][COLS] bf16 tile in shared memory, row-major, 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8). COLS is 64 or 128 (8 or 16 chunks).
+template <int ROWS, int COLS>
+struct SwizzledTile {
+  static_assert(COLS % 64 == 0, "rows of whole 8-chunk swizzle groups");
+  static constexpr int kChunks = COLS / 8;
+  static constexpr int kRowBytes = COLS * 2;
+  static constexpr int kBytes = ROWS * kRowBytes;
+
+  __device__ __forceinline__ static uint32_t offset(int row, int chunk) {
+    return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+  }
+
+  // Rows row0.. of a [n_rows, COLS] row-major global matrix into the tile
+  // at `base`, as 16-byte cp.async copies by THREADS threads; rows at or
+  // past n_rows are zero.
+  template <int THREADS>
+  __device__ __forceinline__ static void load_async(
+      uint32_t base, const __nv_bfloat16* src, int row0, int n_rows,
+      int tid) {
+    static_assert(ROWS * kChunks % THREADS == 0, "whole passes");
+#pragma unroll
+    for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
+      const int idx = tid + it * THREADS;
+      const int r = idx / kChunks;
+      const int c = idx % kChunks;
+      const bool valid = row0 + r < n_rows;
+      const __nv_bfloat16* p =
+          valid ? src + (size_t)(row0 + r) * COLS + c * 8 : src;
+      cp_async_16(base + offset(r, c), p, valid);
+    }
+  }
+};
+
+// Per-lane constants of the ldmatrix addresses into a SwizzledTile
+// (lane = threadIdx.x % 32). Tiles are addressed in 16-row, 16-column
+// blocks (row0 % 16 == 0, col0 % 16 == 0), so (row % 8) is the lane's own:
+//   * `a_row`, `a_x16`: the A operand of rows m0.. (row-major [m][k]) and
+//     the B operand of a [k][n] row-major tile through `.trans`: lane l
+//     addresses row m0 + l % 16, chunk k0 / 8 + l / 16;
+//   * `b_row`, `b_x16`: the B operand of an [n][k] row-major tile (no
+//     transpose): lane l addresses row n0 + l % 8 + 8 * (l / 16), chunk
+//     k0 / 8 + (l / 8) % 2. One x4 load gives b[0], b[1] of n-tiles n0 and
+//     n0 + 8.
+// `*_x16` is the lane's chunk bit and its row's swizzle, folded into the
+// XOR mask of byte-address bits 4..6.
+struct LaneAddr {
+  int a_row, b_row;
+  uint32_t a_x16, b_x16;
+  __device__ __forceinline__ explicit LaneAddr(int lane)
+      : a_row(lane & 15),
+        b_row((lane & 7) | ((lane >> 4) << 3)),
+        a_x16(((lane >> 4) ^ (lane & 7)) << 4),
+        b_x16((((lane >> 3) & 1) ^ (lane & 7)) << 4) {}
+};
+
+// The lane's ldmatrix row address for the 16x16 block at (row0, col0) of
+// a SwizzledTile at shared address `tile` (a multiple of 128) with row
+// pitch ROW_BYTES. The unswizzled address of the block's chunk has bits
+// 4..6 equal to (col0 / 8) % 8 and carries nothing above them, so the
+// swizzle is one XOR after an add whose row0, col0 part is a constant.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t a_addr(const LaneAddr& l, uint32_t tile,
+                                           int row0, int col0) {
+  return (tile + (row0 + l.a_row) * ROW_BYTES + col0 * 2) ^ l.a_x16;
+}
+
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t b_addr(const LaneAddr& l, uint32_t tile,
+                                           int row0, int col0) {
+  return (tile + (row0 + l.b_row) * ROW_BYTES + col0 * 2) ^ l.b_x16;
+}
+
+}  // namespace mma

@@ -2,11 +2,14 @@
 
 K1 (forward), K2 (dQ) and K3 (dK, dV) against their plain PyTorch
 versions on the same inputs, at head_dim 64 and 128, n_rep 1, 2, 4 and 8
-(Qwen3-30B-A3B's 32 query over 4 KV heads), fp32 and bf16, causal and not, with a sequence that is a multiple of the
-kernels' 64-row tiles and one that is not. Every test needs a CUDA card
-and skips without one (decided in a fixture, at run time). The file
-imports no JAX, so it runs on the GPU machine, where the repository's
-conftest (which sets JAX up) cannot load:
+(Qwen3-30B-A3B's 32 query over 4 KV heads), fp32 and bf16, causal and
+not, at sequences on both sides of the kernels' 64-row tiles and 32-row
+register chunks (1, 63, 127, 129, 200, 256, 1000); Sq != Skv through
+``flash_block_backward``; bf16 K2/K3 at Qwen3-30B-A3B's training shape;
+and two runs of K2/K3 that must agree bit for bit (no atomics). Every
+test needs a CUDA card and skips without one (decided in a fixture, at
+run time). The file imports no JAX, so it runs on the GPU machine, where
+the repository's conftest (which sets JAX up) cannot load:
 
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_flash_cuda.py
@@ -34,6 +37,8 @@ OUT_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-3}
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 OUT_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 GRAD_TILE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1.5e-3}
+# |dQ|, |dK| where they are exactly 0 (one key); the noise is ~1e-7
+ZERO_GRAD_TOL = 1e-5
 TILE = 64
 
 
@@ -88,7 +93,7 @@ def assert_close(dtype, got, want, *, out=False):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
-@pytest.mark.parametrize("seq", [256, 200])
+@pytest.mark.parametrize("seq", [1, 63, 127, 129, 200, 256, 1000])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_kernels_match_plain_versions(cuda, dtype, head_dim, n_rep, seq,
                                       causal):
@@ -112,8 +117,15 @@ def test_kernels_match_plain_versions(cuda, dtype, head_dim, n_rep, seq,
         assert torch.isfinite(t).all()
     assert_close(dtype, out, ref_out, out=True)
     assert float((lse - ref_lse).abs().max()) <= LSE_TOL[dtype]
-    assert_close(dtype, dq, ref_dq)
-    assert_close(dtype, dk, ref_dk)
+    if seq == 1:
+        # one key: the softmax is constant, so dS, dQ and dK are exactly 0
+        # and both sides hold rounding noise, which no relative limit can
+        # compare; both are held to 0 instead
+        for got in (dq, ref_dq, dk, ref_dk):
+            assert float(got.abs().max()) <= ZERO_GRAD_TOL
+    else:
+        assert_close(dtype, dq, ref_dq)
+        assert_close(dtype, dk, ref_dk)
     assert_close(dtype, dv, ref_dv)
 
 
@@ -149,25 +161,66 @@ def test_transposed_inputs_are_made_contiguous(cuda):
     assert_close(torch.bfloat16, out, ref, out=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("split", [128, 100, 200])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_block_backward_against_a_global_statistic(cuda, causal):
-    """Two key blocks: the block gradients against the merged (out, lse)
-    add up to the whole sequence's gradients."""
-    q, k, v, dout = inputs(cuda, torch.float32, 128, 2, 256)
+def test_block_backward_against_a_global_statistic(cuda, causal, split,
+                                                   dtype):
+    """The gradients of one key block (the first ``split`` keys) seen by
+    the query rows from ``split`` on, without a mask, against the whole
+    sequence's merged (out, lse): Sq = 256 - split and Skv = split differ
+    unless split is 128."""
+    q, k, v, dout = inputs(cuda, dtype, 128, 2, 256)
     out, lse = tf.flash_forward_with_lse(q, k, v, causal=causal)
     whole = tf.flash_block_backward(q, k, v, out, lse, dout, causal=causal)
-    # the second key block seen by the second query half, without a mask
-    h = 128
-    qb, kb, vb = q[:, :, h:], k[:, :, :h], v[:, :, :h]
-    part = tf.flash_block_backward(qb, kb, vb, out[:, :, h:],
-                                   lse[:, :, h:].contiguous(),
-                                   dout[:, :, h:], causal=False)
-    ref = tf.flash_dq_ref(qb, kb, vb, dout[:, :, h:], lse[:, :, h:],
-                          tf.attention_delta(out[:, :, h:], dout[:, :, h:]),
-                          causal=False)
+    qb, kb, vb = q[:, :, split:], k[:, :, :split], v[:, :, :split]
+    ob, lb, dob = out[:, :, split:], lse[:, :, split:].contiguous(), \
+        dout[:, :, split:]
+    part = tf.flash_block_backward(qb, kb, vb, ob, lb, dob, causal=False)
+    delta = tf.attention_delta(ob, dob)
+    ref_dq = tf.flash_dq_ref(qb, kb, vb, dob, lb, delta, causal=False)
+    ref_dk, ref_dv = tf.flash_dkv_ref(qb, kb, vb, dob, lb, delta,
+                                      causal=False)
     torch.cuda.synchronize()
     assert all(torch.isfinite(t).all() for t in whole + part)
-    assert_close(torch.float32, part[0], ref)
+    assert part[0].shape == qb.shape and part[1].shape == kb.shape
+    for got, want in zip(part, (ref_dq, ref_dk, ref_dv)):
+        assert_close(dtype, got, want)
+
+
+def test_backward_at_the_moe_training_shape(cuda):
+    """bf16 K2 and K3 at Qwen3-30B-A3B's attention in its training cell:
+    B 1, Hq 32 over Hkv 4 (n_rep 8), S 4096, D 128, causal."""
+    q, k, v, dout = inputs(cuda, torch.bfloat16, 128, 8, 4096, b=1, hkv=4)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    delta = tf.attention_delta(ref_out, dout)
+    args = (q, k, v, dout, ref_lse, delta)
+    dq = tf.flash_dq(*args, causal=True)
+    dk, dv = tf.flash_dkv(*args, causal=True)
+    ref_dq = tf.flash_dq_ref(*args, causal=True)
+    ref_dk, ref_dv = tf.flash_dkv_ref(*args, causal=True)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), (ref_dq, ref_dk, ref_dv)):
+        assert torch.isfinite(got).all()
+        assert_close(torch.bfloat16, got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_backward_is_bitwise_deterministic(cuda, dtype, causal):
+    """No atomics: two runs of K2 and K3 on the same inputs agree bit for
+    bit (n_rep 4, so K3 sums query heads; a ragged last tile)."""
+    q, k, v, dout = inputs(cuda, dtype, 128, 4, 1000, b=1)
+    out, lse = tf.flash_forward(q, k, v, causal=causal)
+    delta = tf.attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta)
+    runs = [(tf.flash_dq(*args, causal=causal),
+             *tf.flash_dkv(*args, causal=causal)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_unsupported_inputs_raise_before_launch(cuda):
