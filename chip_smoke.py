@@ -13,7 +13,10 @@ is non-zero; no phase catches an exception):
   2. build    — nvcc builds every kernel source in
                 scaletorch_tpu_torch/csrc/ (paged_decode, flash_fwd,
                 flash_bwd, grouped_mlp_fwd, grouped_mlp_bwd) into
-                build/kernels/, all compiles started together.
+                build/kernels/, all compiles started together; prints
+                each kernel's registers, stack frame and spill bytes from
+                ptxas's report in build/kernels/<source>.log and fails if
+                a tensor-core (mma.sync) kernel uses local memory.
   3. kernel_paged_decode — the paged-decode kernel (K4) against its plain
                 PyTorch version at the serving shapes of Qwen3-0.6B
                 (Hq 16, Hkv 8, D 128, 8 slots, page 16, 128 pages per
@@ -273,9 +276,17 @@ def phase_device() -> dict:
 def phase_build() -> None:
     t0 = time.monotonic()
     seconds = _build.build()
+    resources = _build.build_resources()
     emit("build", sources=list(_build.KERNEL_SOURCES),
          compile_s=seconds, seconds=time.monotonic() - t0,
-         build_dir=str(_build.BUILD_DIR))
+         build_dir=str(_build.BUILD_DIR), resources=resources)
+    # the mma.sync kernels keep their accumulators in registers: no spill
+    # and no stack frame (an array indexed at run time lands there)
+    local = [f"{src}: {kernel} {res}" for src, kernels in resources.items()
+             for kernel, res in kernels.items()
+             if "mma" in kernel and any(res.get(key, 0) for key in (
+                 "stack_frame", "spill_stores", "spill_loads"))]
+    check(not local, f"tensor-core kernels use local memory: {local}")
 
 
 # ---- 3. the paged-decode kernel against its plain version --------------------
@@ -578,7 +589,7 @@ def phase_kernel_flash() -> dict:
             bool(torch.equal(a, b)) for a, b in zip(again, (dq, dk, dv)))
         del again
         if dtype == torch.bfloat16:
-            row["moe_shape"] = flash_backward_moe_shape(flush, reps)
+            row["moe_shape"] = flash_moe_shape(flush, reps)
         del lib_out, lib_in
         results[row["dtype"]] = row
         emit("kernel_flash", **row)
@@ -592,20 +603,22 @@ def phase_kernel_flash() -> dict:
               f"{dtype}: two runs of K2 and K3 differ")
         if "moe_shape" in row:
             check(not row["moe_shape"]["over_limit"],
-                  f"{dtype}: K2/K3 vs plain at the MoE shape: "
+                  f"{dtype}: K1-K3 vs plain at the MoE shape: "
                   f"{row['moe_shape']['over_limit']}")
     return results
 
 
-def flash_backward_moe_shape(flush, reps: int) -> dict:
-    """bf16 K2 and K3 at Qwen3-30B-A3B's training shape (B 1, Hq 32, Hkv 4,
-    S 4096, D 128, causal) against their plain versions, with their times
-    beside the plain versions' and the SDPA backward's."""
+def flash_moe_shape(flush, reps: int) -> dict:
+    """bf16 K1, K2 and K3 at Qwen3-30B-A3B's training shape (B 1, Hq 32,
+    Hkv 4, S 4096, D 128, causal) against their plain versions, with their
+    times beside the plain versions' and the SDPA forward's (K1) and
+    backward's (K2, K3)."""
     tol = FLASH_TOLERANCE[torch.bfloat16]
     q, k, v, dout = flash_inputs(torch.bfloat16, seed=4322, model=MOE_MODEL,
                                  seq=MOE_TRAIN_SEQ)
     ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
     bwd_args = (q, k, v, dout, ref_lse, tf.attention_delta(ref_out, dout))
+    out, lse = tf.flash_forward(q, k, v, causal=True)
     got = (tf.flash_dq(*bwd_args, causal=True),
            *tf.flash_dkv(*bwd_args, causal=True))
     ref = (tf.flash_dq_ref(*bwd_args, causal=True),
@@ -613,7 +626,14 @@ def flash_backward_moe_shape(flush, reps: int) -> dict:
     torch.cuda.synchronize()
     row = {"shape": {"q": list(q.shape), "kv": list(k.shape)},
            "causal": True}
-    limits = {}
+    check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+          "MoE shape: non-finite out or lse")
+    row["lse_max_abs"] = max_abs(lse, ref_lse)
+    row["out_max_abs"] = max_abs(out, ref_out)
+    row["out_rel"] = rel_err(out, ref_out)
+    row["out_tile_rel"] = tile_rel_max(out, ref_out)
+    limits = {key: tol[key] for key in ("lse_max_abs", "out_max_abs",
+                                        "out_rel", "out_tile_rel")}
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         check(bool(torch.isfinite(a).all()), f"MoE shape: non-finite {name}")
         row[f"{name}_max_abs"] = max_abs(a, b)
@@ -624,21 +644,28 @@ def flash_backward_moe_shape(flush, reps: int) -> dict:
     row["over_limit"] = [f"{key} {row[key]} > {limit}"
                          for key, limit in limits.items()
                          if not row[key] <= limit]
+    del out, lse, got, ref
     lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
                                              enable_gqa=True)
-    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout,
-                                                 retain_graph=True),
-                     flush, reps)
-    calls = {"K2": (tf.flash_dq, tf.flash_dq_ref),
-             "K3": (tf.flash_dkv, tf.flash_dkv_ref)}
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout,
+                                                     retain_graph=True),
+                         flush, reps)
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), flush, reps)
+    calls = {
+        "K1": (lambda: tf.flash_forward(q, k, v, causal=True),
+               lambda: tf.flash_forward_ref(q, k, v, causal=True),
+               lib_fwd_ms),
+        "K2": (lambda: tf.flash_dq(*bwd_args, causal=True),
+               lambda: tf.flash_dq_ref(*bwd_args, causal=True), lib_bwd_ms),
+        "K3": (lambda: tf.flash_dkv(*bwd_args, causal=True),
+               lambda: tf.flash_dkv_ref(*bwd_args, causal=True), lib_bwd_ms),
+    }
     row["kernels"] = {
-        kid: {**flash_timing(kid, q, k, time_ms(
-                  lambda: kernel(*bwd_args, causal=True), flush, reps)),
-              "plain_ms": time_ms(lambda: plain(*bwd_args, causal=True),
-                                  flush, reps),
-              "library_ms": lib_ms}
-        for kid, (kernel, plain) in calls.items()}
+        kid: {**flash_timing(kid, q, k, time_ms(kernel, flush, reps)),
+              "plain_ms": time_ms(plain, flush, reps), "library_ms": lib_ms}
+        for kid, (kernel, plain, lib_ms) in calls.items()}
     return row
 
 

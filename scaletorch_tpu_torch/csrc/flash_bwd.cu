@@ -63,8 +63,6 @@ namespace {
 using namespace flash;
 using bf16 = __nv_bfloat16;
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // ---- bf16 K2: dQ on mma.sync ---------------------------------------------------
 namespace k2 {
 constexpr int kWarps = 4;
@@ -560,10 +558,10 @@ flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_rows<T, D, BK>(k_s, L::LDT, k_bh, j * BK, skv);
     load_rows<T, D, BK>(v_s, L::LDT, v_bh, j * BK, skv);
     __syncthreads();
-    tile_gemm<T, BQ, BK, D, true, false, false>(q_s, L::LDT, k_s, L::LDT,
-                                                s_s, L::LDS);
-    tile_gemm<T, BQ, BK, D, true, false, false>(do_s, L::LDT, v_s, L::LDT,
-                                                dp_s, L::LDS);
+    tile_gemm<BQ, BK, D, true, false, false>(q_s, L::LDT, k_s, L::LDT,
+                                             s_s, L::LDS);
+    tile_gemm<BQ, BK, D, true, false, false>(do_s, L::LDT, v_s, L::LDT,
+                                             dp_s, L::LDS);
     __syncthreads();
     for (int idx = threadIdx.x; idx < BQ * BK; idx += kThreads) {
       const int r = idx / BK;
@@ -576,8 +574,8 @@ flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ds_s[r * L::LDP + c] = Cvt<T>::from(ds);  // ds in k's dtype
     }
     __syncthreads();
-    tile_gemm<T, BQ, D, BK, true, true, true>(ds_s, L::LDP, k_s, L::LDT,
-                                              dq_s, L::LDO);
+    tile_gemm<BQ, D, BK, true, true, true>(ds_s, L::LDP, k_s, L::LDT,
+                                           dq_s, L::LDO);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BQ * D; idx += kThreads) {
@@ -669,10 +667,10 @@ flash_dkv_fp32_kernel(const float* __restrict__ q,
       load_vector<BQ3>(lse_s, lse + q_row0, i * BQ3, sq);
       load_vector<BQ3>(delta_s, delta + q_row0, i * BQ3, sq);
       __syncthreads();
-      tile_gemm<T, BQ3, BK, D, true, false, false>(q_s, L::LDT, k_s, L::LDT,
-                                                   s_s, L::LDS);
-      tile_gemm<T, BQ3, BK, D, true, false, false>(do_s, L::LDT, v_s,
-                                                   L::LDT, dp_s, L::LDS);
+      tile_gemm<BQ3, BK, D, true, false, false>(q_s, L::LDT, k_s, L::LDT,
+                                                s_s, L::LDS);
+      tile_gemm<BQ3, BK, D, true, false, false>(do_s, L::LDT, v_s,
+                                                L::LDT, dp_s, L::LDS);
       __syncthreads();
       for (int idx = threadIdx.x; idx < BQ3 * BK; idx += kThreads) {
         const int rr = idx / BK;
@@ -692,10 +690,10 @@ flash_dkv_fp32_kernel(const float* __restrict__ q,
       }
       __syncthreads();
       // dV[key][d] += sum_row P[row][key] dO[row][d]: A = P^T (col-major)
-      tile_gemm<T, BK, D, BQ3, false, true, true>(p_s, L::LDP, do_s, L::LDT,
-                                                  dv_s, L::LDO);
-      tile_gemm<T, BK, D, BQ3, false, true, true>(ds_s, L::LDP, q_s, L::LDT,
-                                                  dk_s, L::LDO);
+      tile_gemm<BK, D, BQ3, false, true, true>(p_s, L::LDP, do_s, L::LDT,
+                                               dv_s, L::LDO);
+      tile_gemm<BK, D, BQ3, false, true, true>(ds_s, L::LDP, q_s, L::LDT,
+                                               dk_s, L::LDO);
     }
   }
   __syncthreads();
@@ -718,24 +716,6 @@ struct Args {
   bool causal;
   cudaStream_t stream;
 };
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-// A 1-D grid of tiles x heads x batch, or cudaErrorInvalidValue past 2^31.
-cudaError_t grid_1d(int tiles, int heads, int batch, dim3* grid) {
-  const long long n = (long long)tiles * heads * batch;
-  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
-  *grid = dim3(static_cast<unsigned>(n));
-  return cudaSuccess;
-}
 
 template <int D>
 cudaError_t launch_dq_bf16(const Args& a) {

@@ -1,9 +1,12 @@
 // Shared pieces of the grouped-MLP kernels (grouped_mlp_fwd.cu: K5,
-// grouped_mlp_bwd.cu: K6 and K7): the tile sizes, a tile load from global
-// into padded shared memory that zero-fills rows past a limit (the fill
-// count), and a register accumulator for one BM x BN fp32 output tile.
+// grouped_mlp_bwd.cu: K6 and K7): the tile sizes, the fill-count clamp,
+// the entries' shape check, and the shared-memory tile path: a tile load
+// from global into padded shared memory that zero-fills rows past a limit
+// (the fill count), and a register accumulator for one BM x BN fp32
+// output tile.
 //
-// Every product of the three kernels is a sum over k steps of
+// The tile path serves K6, K7 and K5's fp32 launches (bf16 K5 runs on
+// mma.sync, mma_sm90.cuh). Every product is a sum over k steps of
 // A[BM][BK] * B[BK][BN] with A and B staged in shared memory, each
 // row-major or column-major as the caller says. bf16 tiles run on the
 // tensor cores (wmma 16x16x16, fp32 accumulation, the fragments held in
@@ -11,6 +14,10 @@
 // TF32), each thread owning a 16-strided sub-grid of the output tile.
 
 #pragma once
+
+#include <mma.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 

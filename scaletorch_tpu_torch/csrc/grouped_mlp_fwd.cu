@@ -27,22 +27,276 @@
 // load: the up CTA returns, the down CTA writes its zeros. Rows of a
 // partial tile past the count load as zeros and are written as zeros.
 // BM is 16 when C <= 16 (decode: one slot a group) and 64 otherwise.
-// What it leaves on the table: synchronous tile loads (no cp.async/TMA),
-// wmma instead of wgmma, the h round trip through device memory, and one
-// CTA per tile even where the tile is empty.
+//
+// bf16: a pipelined grouped GEMM on tensor-core mma.sync (mma_sm90.cuh).
+//   * Each k step (64 deep) moves the A tile (x, then h) and the weight
+//     tiles (Wg and Wu, then Wd) into XOR-swizzled shared memory through a
+//     four-stage cp.async ring: three steps of weights (up to 48 KB a CTA,
+//     two to five CTAs an SM) are in flight while one is multiplied,
+//     which is what a byte-bound kernel needs to come near HBM bandwidth.
+//     A rows past the fill count are zero-size copies.
+//   * A comes in through ldmatrix, the row-major [k][n] weights through
+//     ldmatrix.trans; the sums are m16n8k16 accumulators in registers.
+//     At BM 64 the 4 warps split the 64 x 64 tile 2 x 2 (32 x 32 each);
+//     at BM 16 they split N (16 x 16 each).
+//   * up keeps x Wg and x Wu in registers and applies swiglu there; down
+//     applies the count mask there. Both stage their tile through the free
+//     ring so the stores to global are 16 bytes wide.
+//   * BN = 64 for both launches: at the training shape (E 128, G 1, C 320,
+//     H 2048, I 768) an expert with every slot filled has 12 x 5 up and
+//     32 x 5 down CTAs, 7680 and 20480 in all, tens of waves on 132 SMs;
+//     BN 128 would halve the A re-reads but needs H % 128 == 0 and, for up,
+//     40 KB stages (one CTA an SM at four stages).
+// What it still leaves: every 64-row slot tile of an expert reads that
+// expert's weights again, and every 64-column tile its A rows again (from
+// L2, whose bandwidth the training shape then leans on: a 64 x 64 output
+// tile does 32-43 flops per byte it loads); the h round trip through
+// device memory; mma.sync instead of wgmma + TMA.
+// fp32: shared-memory tiles with the register accumulator's fp32
+// FMA products (grouped_mlp_common.cuh, no TF32).
 //
 // The C entry returns the cudaError_t of cudaGetLastError() after the
 // launches (cudaErrorInvalidValue for a shape it was not built for). It
 // launches on the caller's stream, allocates nothing, does not synchronise.
 
 #include "grouped_mlp_common.cuh"
+#include "mma_sm90.cuh"
 
 namespace {
 
 using namespace gmlp;
+using bf16 = __nv_bfloat16;
 
-template <typename T, int BM>
+// ---- bf16 on mma.sync ---------------------------------------------------------------
+namespace k5 {
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 4;  // ring depth
+static_assert(BN == 64 && BK == 64, "64 x 64 swizzled tiles");
+
+// The warp grid over a BM x BN output tile: 2 x 2 warps of 32 x 32 at BM
+// 64, 1 x 4 warps of 16 x 16 at BM 16.
+template <int BM>
+struct Warps {
+  static constexpr int WM = BM >= 32 ? 2 : 1;
+  static constexpr int WN = kWarps / WM;
+  static constexpr int MW = BM / WM;  // rows of a warp
+  static constexpr int NW = BN / WN;  // columns of a warp
+  static constexpr int MT = MW / 16;  // its m-tiles
+  static constexpr int NT = NW / 8;   // its n-tiles
+  static_assert(MW % 16 == 0 && NW % 16 == 0, "whole 16 x 16 blocks");
+};
+
+// A stage: the A tile [BM][BK], then NB weight tiles [BK][BN].
+template <int BM, int NB>
+struct Layout {
+  using ATile = mma::SwizzledTile<BM, BK>;
+  using BTile = mma::SwizzledTile<BK, BN>;
+  using OTile = mma::SwizzledTile<BM, BN>;  // the output, after the loop
+  static constexpr int kStageBytes = ATile::kBytes + NB * BTile::kBytes;
+  static constexpr int kBytes = kStages * kStageBytes;
+  static_assert(OTile::kBytes <= kBytes, "the output tile fits the ring");
+};
+
+// sum over k of A[BM][k] * B_b[k][BN] for NB weight matrices B_b, into
+// acc[b][mt][nt][4] of this warp's block. A's rows at or past `count`
+// load as zeros.
+template <int BM, int NB>
+struct RingGemm {
+  using W = Warps<BM>;
+  using L = Layout<BM, NB>;
+  using ATile = typename L::ATile;
+  using BTile = typename L::BTile;
+
+  // a: the A matrix's column 0 of row 0 (row stride lda); b[i]: the
+  // weight matrix i's first column of this CTA (row stride ldb)
+  __device__ __forceinline__ static void run(
+      float (&acc)[NB][W::MT][W::NT][4], uint32_t base, const bf16* a,
+      size_t lda, int row0, int count, const bf16* const (&b)[NB],
+      size_t ldb, int depth) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int m0 = (warp / W::WN) * W::MW;
+    const int n0 = (warp % W::WN) * W::NW;
+    const mma::LaneAddr la(lane);
+    const int nk = depth / BK;
+    auto load = [&](int kt) {
+      const uint32_t dst = base + (kt % kStages) * L::kStageBytes;
+      ATile::template load_async_strided<kThreads>(dst, a + kt * BK, lda,
+                                                   row0, count, tid);
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        BTile::template load_async_strided<kThreads>(
+            dst + ATile::kBytes + i * BTile::kBytes,
+            b[i] + (size_t)kt * BK * ldb, ldb, 0, BK, tid);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+#pragma unroll
+      for (int mt = 0; mt < W::MT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < W::NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][mt][nt][e] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < kStages - 1; ++kt) {
+      if (kt < nk) load(kt);
+      mma::cp_async_commit();  // one group per stage, empty or not
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      mma::cp_async_wait<kStages - 2>();  // step kt
+      __syncthreads();  // ... seen by all; step kt - 1's stage is free
+      if (kt + kStages - 1 < nk) load(kt + kStages - 1);
+      mma::cp_async_commit();
+      const uint32_t as = base + (kt % kStages) * L::kStageBytes;
+      const uint32_t bs = as + ATile::kBytes;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t af[W::MT][4];
+#pragma unroll
+        for (int mt = 0; mt < W::MT; ++mt) {
+          mma::ldmatrix_x4(af[mt], mma::a_addr<ATile::kRowBytes>(
+                                       la, as, m0 + mt * 16, kk * 16));
+        }
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+#pragma unroll
+          for (int np = 0; np < W::NT / 2; ++np) {
+            uint32_t bf[4];
+            mma::ldmatrix_x4_trans(
+                bf, mma::a_addr<BTile::kRowBytes>(la, bs + i * BTile::kBytes,
+                                                  kk * 16, n0 + np * 16));
+#pragma unroll
+            for (int mt = 0; mt < W::MT; ++mt) {
+              mma::mma_bf16(acc[i][mt][2 * np], af[mt], bf[0], bf[1]);
+              mma::mma_bf16(acc[i][mt][2 * np + 1], af[mt], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+  }
+
+  // this warp's block of the output tile in bf16 (f(row, c0, c1) gives the
+  // pair at (row, col), (row, col + 1)) into the swizzled tile at smem
+  template <typename F>
+  __device__ __forceinline__ static void stage(unsigned char* smem,
+                                               const F& f) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int m0 = (warp / W::WN) * W::MW;
+    const int n0 = (warp % W::WN) * W::NW;
+#pragma unroll
+    for (int mt = 0; mt < W::MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < W::NT; ++nt) {
+        const int col = n0 + nt * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int r = m0 + mt * 16 + (lane >> 2) + 8 * x;
+          *reinterpret_cast<uint32_t*>(smem + L::OTile::offset(r, col / 8) +
+                                       (col % 8) * 2) = f(r, mt, nt, x);
+        }
+      }
+    }
+  }
+
+  // rows < rows of the staged tile to dst (row stride ld), 16 bytes a copy
+  __device__ __forceinline__ static void store(const unsigned char* smem,
+                                               bf16* dst, size_t ld,
+                                               int rows) {
+    using O = typename L::OTile;
+    for (int idx = threadIdx.x; idx < BM * O::kChunks; idx += kThreads) {
+      const int r = idx / O::kChunks;
+      const int c = idx % O::kChunks;
+      if (r < rows) {
+        *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
+            *reinterpret_cast<const uint4*>(smem + O::offset(r, c));
+      }
+    }
+  }
+};
+}  // namespace k5
+
+template <int BM>
+__global__ void __launch_bounds__(k5::kThreads, 2)
+gmlp_up_mma_kernel(const bf16* __restrict__ x, const int* __restrict__ counts,
+                   const bf16* __restrict__ wg, const bf16* __restrict__ wu,
+                   bf16* __restrict__ h, int groups, int cap, int hid,
+                   int inter) {
+  using G = k5::RingGemm<BM, 2>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int eg = blockIdx.z;
+  const int row0 = blockIdx.y * BM;
+  const int count = fill_count(counts, eg, cap);
+  if (row0 >= count) return;  // nothing of this tile is read downstream
+  const int e = eg / groups;
+  const int n0 = blockIdx.x * BN;
+  const size_t w0 = (size_t)e * hid * inter + n0;
+  const bf16* const b[2] = {wg + w0, wu + w0};
+  float acc[2][G::W::MT][G::W::NT][4];  // x Wg, x Wu
+  G::run(acc, mma::smem_u32(smem), x + (size_t)eg * cap * hid, hid, row0,
+         count, b, inter, hid);
+  G::stage(smem, [&](int, int mt, int nt, int xr) {
+    float v[2];
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      const float g = acc[0][mt][nt][2 * xr + y];
+      v[y] = g * sigmoid(g) * acc[1][mt][nt][2 * xr + y];
+    }
+    return mma::pack_bf16(v[0], v[1]);
+  });
+  __syncthreads();
+  G::store(smem, h + ((size_t)eg * cap + row0) * inter + n0, inter,
+           min(BM, cap - row0));
+}
+
+template <int BM>
+__global__ void __launch_bounds__(k5::kThreads, 2)
+gmlp_down_mma_kernel(const bf16* __restrict__ h,
+                     const int* __restrict__ counts,
+                     const bf16* __restrict__ wd, bf16* __restrict__ out,
+                     int groups, int cap, int hid, int inter) {
+  using G = k5::RingGemm<BM, 1>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int eg = blockIdx.z;
+  const int row0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int count = fill_count(counts, eg, cap);
+  const int rows = min(BM, cap - row0);
+  bf16* out_t = out + ((size_t)eg * cap + row0) * hid + n0;
+  if (row0 >= count) {  // a tile past the fill count: structural zeros
+    for (int idx = threadIdx.x; idx < rows * (BN / 8); idx += k5::kThreads) {
+      *reinterpret_cast<uint4*>(out_t + (size_t)(idx / (BN / 8)) * hid +
+                                (idx % (BN / 8)) * 8) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int e = eg / groups;
+  const bf16* const b[1] = {wd + (size_t)e * inter * hid + n0};
+  float acc[1][G::W::MT][G::W::NT][4];
+  G::run(acc, mma::smem_u32(smem), h + (size_t)eg * cap * inter, inter, row0,
+         count, b, hid, inter);
+  G::stage(smem, [&](int r, int mt, int nt, int xr) {
+    const bool in = row0 + r < count;
+    return mma::pack_bf16(in ? acc[0][mt][nt][2 * xr] : 0.f,
+                          in ? acc[0][mt][nt][2 * xr + 1] : 0.f);
+  });
+  __syncthreads();
+  G::store(smem, out_t, hid, rows);
+}
+
+// ---- fp32: shared-memory tiles, FMA products ---------------------------------------
+template <int BM>
 struct UpSmem {
+  using T = float;
   static constexpr int LDA = BK + Pad<T>::value;
   static constexpr int LDB = BN + Pad<T>::value;
   static constexpr int LDC = BN + 4;
@@ -56,12 +310,15 @@ struct UpSmem {
   static constexpr int kBytes = kStage > kEpi ? kStage : kEpi;
 };
 
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-gmlp_up_kernel(const T* __restrict__ x, const int* __restrict__ counts,
-               const T* __restrict__ wg, const T* __restrict__ wu,
-               T* __restrict__ h, int groups, int cap, int hid, int inter) {
-  using L = UpSmem<T, BM>;
+gmlp_up_fp32_kernel(const float* __restrict__ x,
+                    const int* __restrict__ counts,
+                    const float* __restrict__ wg,
+                    const float* __restrict__ wu, float* __restrict__ h,
+                    int groups, int cap, int hid, int inter) {
+  using T = float;
+  using L = UpSmem<BM>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int eg = blockIdx.z;
   const int row0 = blockIdx.y * BM;
@@ -101,12 +358,13 @@ gmlp_up_kernel(const T* __restrict__ x, const int* __restrict__ counts,
     const int c = idx % BN;
     const float g = cg_s[r * L::LDC + c];
     const float u = cu_s[r * L::LDC + c];
-    h_t[(size_t)r * inter + c] = Cvt<T>::from(g * sigmoid(g) * u);
+    h_t[(size_t)r * inter + c] = g * sigmoid(g) * u;
   }
 }
 
-template <typename T, int BM>
+template <int BM>
 struct DownSmem {
+  using T = float;
   static constexpr int LDA = BK + Pad<T>::value;
   static constexpr int LDB = BN + Pad<T>::value;
   static constexpr int LDC = BN + 4;
@@ -117,12 +375,14 @@ struct DownSmem {
   static constexpr int kBytes = kStage > kEpi ? kStage : kEpi;
 };
 
-template <typename T, int BM>
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-gmlp_down_kernel(const T* __restrict__ h, const int* __restrict__ counts,
-                 const T* __restrict__ wd, T* __restrict__ out, int groups,
-                 int cap, int hid, int inter) {
-  using L = DownSmem<T, BM>;
+gmlp_down_fp32_kernel(const float* __restrict__ h,
+                      const int* __restrict__ counts,
+                      const float* __restrict__ wd, float* __restrict__ out,
+                      int groups, int cap, int hid, int inter) {
+  using T = float;
+  using L = DownSmem<BM>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int eg = blockIdx.z;
   const int row0 = blockIdx.y * BM;
@@ -132,7 +392,7 @@ gmlp_down_kernel(const T* __restrict__ h, const int* __restrict__ counts,
   T* out_t = out + ((size_t)eg * cap + row0) * hid + n0;
   if (row0 >= count) {  // a tile past the fill count: structural zeros
     for (int idx = threadIdx.x; idx < rows * BN; idx += kThreads) {
-      out_t[(size_t)(idx / BN) * hid + idx % BN] = Cvt<T>::from(0.f);
+      out_t[(size_t)(idx / BN) * hid + idx % BN] = 0.f;
     }
     return;
   }
@@ -158,11 +418,12 @@ gmlp_down_kernel(const T* __restrict__ h, const int* __restrict__ counts,
   for (int idx = threadIdx.x; idx < rows * BN; idx += kThreads) {
     const int r = idx / BN;
     const int c = idx % BN;
-    const float v = (row0 + r < count) ? c_s[r * L::LDC + c] : 0.f;
-    out_t[(size_t)r * hid + c] = Cvt<T>::from(v);
+    out_t[(size_t)r * hid + c] = (row0 + r < count) ? c_s[r * L::LDC + c]
+                                                    : 0.f;
   }
 }
 
+// ---- launches ------------------------------------------------------------------------
 struct Args {
   const void *x, *counts, *wg, *wu, *wd;
   void *h, *out;
@@ -170,36 +431,45 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int BM>
-cudaError_t launch(const Args& a) {
-  auto up = gmlp_up_kernel<T, BM>;
-  auto down = gmlp_down_kernel<T, BM>;
-  constexpr int up_bytes = UpSmem<T, BM>::kBytes;
-  constexpr int down_bytes = DownSmem<T, BM>::kBytes;
+template <typename T, typename Up, typename Down>
+cudaError_t launch_pair(const Args& a, Up up, Down down, int up_bytes,
+                        int down_bytes, int threads, int bm) {
   cudaError_t err = cudaFuncSetAttribute(
       up, cudaFuncAttributeMaxDynamicSharedMemorySize, up_bytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       down, cudaFuncAttributeMaxDynamicSharedMemorySize, down_bytes);
   if (err != cudaSuccess) return err;
-  const int tiles = (a.cap + BM - 1) / BM;
+  const int tiles = (a.cap + bm - 1) / bm;
   const int eg = a.experts * a.groups;
-  up<<<dim3(a.inter / BN, tiles, eg), kThreads, up_bytes, a.stream>>>(
+  up<<<dim3(a.inter / BN, tiles, eg), threads, up_bytes, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const int*>(a.counts),
       static_cast<const T*>(a.wg), static_cast<const T*>(a.wu),
       static_cast<T*>(a.h), a.groups, a.cap, a.hid, a.inter);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  down<<<dim3(a.hid / BN, tiles, eg), kThreads, down_bytes, a.stream>>>(
+  down<<<dim3(a.hid / BN, tiles, eg), threads, down_bytes, a.stream>>>(
       static_cast<const T*>(a.h), static_cast<const int*>(a.counts),
       static_cast<const T*>(a.wd), static_cast<T*>(a.out), a.groups, a.cap,
       a.hid, a.inter);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_rows(const Args& a) {
-  return a.cap <= 16 ? launch<T, 16>(a) : launch<T, 64>(a);
+template <int BM>
+cudaError_t launch(int dtype, const Args& a) {
+  switch (dtype) {
+    case 0:
+      return launch_pair<float>(a, gmlp_up_fp32_kernel<BM>,
+                                gmlp_down_fp32_kernel<BM>,
+                                UpSmem<BM>::kBytes, DownSmem<BM>::kBytes,
+                                kThreads, BM);
+    case 1:
+      return launch_pair<bf16>(a, gmlp_up_mma_kernel<BM>,
+                               gmlp_down_mma_kernel<BM>,
+                               k5::Layout<BM, 2>::kBytes,
+                               k5::Layout<BM, 1>::kBytes, k5::kThreads, BM);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -216,9 +486,5 @@ extern "C" int st_grouped_mlp_fwd(const void* x, const void* counts,
   }
   const Args a{x, counts, wg, wu, wd, h, out, experts, groups, cap, hid,
                inter, static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case 0: return dispatch_rows<float>(a);
-    case 1: return dispatch_rows<__nv_bfloat16>(a);
-    default: return cudaErrorInvalidValue;
-  }
+  return a.cap <= 16 ? launch<16>(dtype, a) : launch<64>(dtype, a);
 }

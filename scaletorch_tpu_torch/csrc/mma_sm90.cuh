@@ -116,7 +116,8 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
 }
 
 // A [ROWS][COLS] bf16 tile in shared memory, row-major, 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8). COLS is 64 or 128 (8 or 16 chunks).
+// row r stored at chunk c ^ (r % 8). COLS is a multiple of 64 (whole
+// 8-chunk swizzle groups).
 template <int ROWS, int COLS>
 struct SwizzledTile {
   static_assert(COLS % 64 == 0, "rows of whole 8-chunk swizzle groups");
@@ -135,6 +136,16 @@ struct SwizzledTile {
   __device__ __forceinline__ static void load_async(
       uint32_t base, const __nv_bfloat16* src, int row0, int n_rows,
       int tid) {
+    load_async_strided<THREADS>(base, src, COLS, row0, n_rows, tid);
+  }
+
+  // The same for COLS columns of a wider row-major matrix: row r starts at
+  // src + r * ld (src points at the block's first column; ld and the
+  // column offset keep 16-byte alignment).
+  template <int THREADS>
+  __device__ __forceinline__ static void load_async_strided(
+      uint32_t base, const __nv_bfloat16* src, size_t ld, int row0,
+      int n_rows, int tid) {
     static_assert(ROWS * kChunks % THREADS == 0, "whole passes");
 #pragma unroll
     for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
@@ -143,7 +154,7 @@ struct SwizzledTile {
       const int c = idx % kChunks;
       const bool valid = row0 + r < n_rows;
       const __nv_bfloat16* p =
-          valid ? src + (size_t)(row0 + r) * COLS + c * 8 : src;
+          valid ? src + (size_t)(row0 + r) * ld + c * 8 : src;
       cp_async_16(base + offset(r, c), p, valid);
     }
   }

@@ -18,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -112,6 +113,64 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, "
+                          r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_resources(log_text: str) -> Dict[str, Dict[str, int]]:
+    """Registers, stack frame and spill bytes of each kernel (by mangled
+    name) from the ``ptxas -v`` report in a compile log: ``{"registers",
+    "stack_frame", "spill_stores", "spill_loads"}``."""
+    found: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in log_text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = found.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            entry["stack_frame"] = int(m.group(1))
+            entry["spill_stores"] = int(m.group(2))
+            entry["spill_loads"] = int(m.group(3))
+        m = _PTXAS_REGISTERS.search(line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return found
+
+
+def short_kernel_names(mangled: Iterable[str]) -> Dict[str, str]:
+    """Mangled kernel name -> ``name<template args>`` through ``c++filt``
+    (the mangled name itself where ``c++filt`` is missing)."""
+    mangled = list(mangled)
+    tool = shutil.which("c++filt")
+    if tool is None or not mangled:
+        return {m: m for m in mangled}
+    lines = subprocess.run([tool], input="\n".join(mangled), text=True,
+                           capture_output=True, check=True).stdout.splitlines()
+    short = {}
+    for m, full in zip(mangled, lines):
+        full = full.replace("(anonymous namespace)::", "")
+        short[m] = full.split("(", 1)[0].split(" ", 1)[-1]
+    return short
+
+
+def build_resources(names: Iterable[str] = KERNEL_SOURCES
+                    ) -> Dict[str, Dict[str, Dict[str, int]]]:
+    """Per source, each kernel's registers, stack frame and spill bytes
+    from the log of its last compile in ``build/kernels/<source>.log``."""
+    out = {}
+    for name in names:
+        found = kernel_resources((BUILD_DIR / f"{name}.log").read_text())
+        short = short_kernel_names(found)
+        out[name] = {short[m]: res for m, res in found.items()}
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

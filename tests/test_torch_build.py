@@ -78,3 +78,39 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
     assert "scaletorch_tpu_torch" in out.stderr
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiifb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_fwd_mma_kernelILi128EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiifb
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_S2_PfS3_iiiifb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_fwd_fp32_kernelILi64EEEvPKfS2_S2_PfS3_iiiifb
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 404 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_gives_registers_and_spills_per_kernel():
+    found = _build.kernel_resources(PTXAS_LOG)
+    assert list(found.values()) == [
+        {"stack_frame": 0, "spill_stores": 0, "spill_loads": 0,
+         "registers": 168},
+        {"stack_frame": 8, "spill_stores": 8, "spill_loads": 4,
+         "registers": 255}]
+    names = _build.short_kernel_names(found)
+    assert set(names) == set(found)
+    if any(n != m for m, n in names.items()):  # c++filt is on the host
+        assert sorted(names.values()) == ["flash_fwd_fp32_kernel<64>",
+                                          "flash_fwd_mma_kernel<128>"]
+
+
+def test_build_resources_reads_each_source_log(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    (tmp_path / "flash_fwd.log").write_text(PTXAS_LOG)
+    out = _build.build_resources(["flash_fwd"])
+    assert list(out) == ["flash_fwd"]
+    assert sorted(r["registers"] for r in out["flash_fwd"].values()) == [
+        168, 255]

@@ -5,10 +5,10 @@ versions on the same inputs, at head_dim 64 and 128, n_rep 1, 2, 4 and 8
 (Qwen3-30B-A3B's 32 query over 4 KV heads), fp32 and bf16, causal and
 not, at sequences on both sides of the kernels' 64-row tiles and 32-row
 register chunks (1, 63, 127, 129, 200, 256, 1000); Sq != Skv through
-``flash_block_backward``; bf16 K2/K3 at Qwen3-30B-A3B's training shape;
-and two runs of K2/K3 that must agree bit for bit (no atomics). Every
-test needs a CUDA card and skips without one (decided in a fixture, at
-run time). The file imports no JAX, so it runs on the GPU machine, where
+``flash_block_backward``; bf16 K1, K2 and K3 at Qwen3-30B-A3B's training
+shape; and two runs of K2/K3 that must agree bit for bit (no atomics).
+Every test needs a CUDA card and skips without one (decided in a
+fixture, at run time). The file imports no JAX, so it runs on the GPU machine, where
 the repository's conftest (which sets JAX up) cannot load:
 
     python -m pytest --noconftest -p no:cacheprovider \\
@@ -187,6 +187,22 @@ def test_block_backward_against_a_global_statistic(cuda, causal, split,
     assert part[0].shape == qb.shape and part[1].shape == kb.shape
     for got, want in zip(part, (ref_dq, ref_dk, ref_dv)):
         assert_close(dtype, got, want)
+
+
+def test_forward_at_the_moe_training_shape(cuda):
+    """bf16 K1 at Qwen3-30B-A3B's attention in its training cell (B 1, Hq
+    32 over Hkv 4, S 4096, D 128, causal): out and LSE against the plain
+    version under chip_smoke.py's bf16 limits, the per-tile check
+    included."""
+    q, k, v, _ = inputs(cuda, torch.bfloat16, 128, 8, 4096, b=1, hkv=4)
+    before = _build.launch_counts[tf.K1_NAME]
+    out, lse = tf.flash_forward(q, k, v, causal=True)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tf.K1_NAME] == before + 1
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert_close(torch.bfloat16, out, ref_out, out=True)
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL[torch.bfloat16]
 
 
 def test_backward_at_the_moe_training_shape(cuda):

@@ -3,9 +3,11 @@
 K5 (forward), K6 (dx) and K7 (dWg, dWu, dWd), with the grads pass they
 share, against their plain PyTorch versions on the same inputs: a small
 width (H 128, I 192) and Qwen3-30B-A3B's (H 2048, I 768), capacities 1,
-40 and 200, fill counts 0, partial and C (an expert whose counts are all
-0 among them), fp32 and bf16, random rows past the counts and a dense
-random cotangent (so the masks matter). Every test needs a CUDA card and
+16, 17, 40, 64, 65, 200 and 320 (both sides of K5's 16-row decode tiles
+and of the 64-row slot tiles, and the training cell's C), fill counts 0,
+partial and C (an expert whose counts are all 0 among them), fp32 and
+bf16, random rows past the counts (which must come out exactly 0) and a
+dense random cotangent (so the masks matter). Every test needs a CUDA card and
 skips without one (decided in a fixture, at run time). The file imports
 no JAX, so it runs on the GPU machine without the repository's conftest:
 
@@ -114,7 +116,7 @@ def structural_zeros(t, counts):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("width", [(128, 192), (2048, 768)],
                          ids=["small", "full"])
-@pytest.mark.parametrize("cap", [1, 40, 200])
+@pytest.mark.parametrize("cap", [1, 16, 17, 40, 64, 65, 200, 320])
 def test_kernels_match_plain_versions(cuda, dtype, width, cap):
     h, i = width
     x, counts, wg, wu, wd, dout = problem(cuda, dtype, 6, 3, cap, h, i)
