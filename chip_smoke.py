@@ -5,6 +5,12 @@ Run from the root of a checkout, with one visible card:
 
     python3 chip_smoke.py
 
+`python3 chip_smoke.py kernel_grouped_mlp` runs the device, build and
+kernel_grouped_mlp phases alone, bf16 only: copied into a checkout of
+another commit and run there, it times that commit's kernels by the
+same yardstick (compare two commits in one call: parent, change,
+change, parent).
+
 Phases, each printing one JSON line (any failure raises and the exit code
 is non-zero; no phase catches an exception):
 
@@ -22,7 +28,9 @@ is non-zero; no phase catches an exception):
                 (Hq 16, Hkv 8, D 128, 8 slots, page 16, 128 pages per
                 slot), fp32 and bf16; its time, the plain version's, a
                 library yardstick's (gather + scaled_dot_product_attention,
-                which the port never calls) and the memory bound.
+                which the port never calls) and the memory bound; then
+                against its plain version at qwen3-14b's heads (n_rep 5,
+                D 128) and dense-tiny's (n_rep 2, D 32).
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
                 dV) against their plain versions at the training shape of
                 Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
@@ -36,7 +44,10 @@ is non-zero; no phase catches an exception):
                 the bound reached and the TFLOP/s. K2 and K3 run twice and
                 must agree bit for bit; bf16 K2 and K3 run again at
                 Qwen3-30B-A3B's training shape (Hq 32, Hkv 4, S 4096),
-                checked against their plain versions and timed.
+                checked against their plain versions and timed; K1-K3
+                also at qwen3-14b's heads (Hq 40, Hkv 8, D 128) and
+                dense-tiny's (Hq 8, Hkv 4, D 32), S 2048, against their
+                plain versions under the same limits.
   5. decode_parity — Qwen3-0.6B at full width, fp32, random weights from
                 a seeded generator: teacher-forced paged decode of
                 2 x 64 tokens through the kernel and through the gather
@@ -51,55 +62,68 @@ is non-zero; no phase catches an exception):
   7. profile  — torch.profiler over 16 steady decode ticks of the same
                 engine: wall and device time per step, the device's busy
                 share, and the kernels that take the device time.
-  8. train_parity — Qwen3-0.6B at full width and depth, fp32, random
+  8. geometry_serve — the presets' other head geometries through K4: a
+                paged engine at dense-tiny (head_dim 32), fp32, whose
+                greedy tokens must equal the dense engine's, K4 launched
+                once a layer a decode step; and a 2-layer cut of
+                qwen3-14b's width (n_rep 5), fp32, teacher-forced paged
+                decode of 2 x 64 tokens through K4 and through the gather
+                path, max |logit difference| <= 1e-3.
+  9. train_parity — Qwen3-0.6B at full width and depth, fp32, random
                 weights from a seeded generator, 2 x 1024 tokens, gradient
                 checkpointing: the loss and every gradient through the
                 flash backend (K1-K3) and through sdpa.
-  9. train    — the port's benchmark entry (benchmark_config) on the
+ 10. train    — the port's benchmark entry (benchmark_config) on the
                 bench headline row (qwen3-0.6b, seq 8192, micro-batch 1,
                 gradient checkpointing, bf16 compute, fp32 masters, AdamW):
                 its Trainer takes 2 warm-up and 5 timed steps on synthetic
                 data with the kernels counted: finite losses, no skipped
                 update, and 56 / 28 / 28 launches of K1 / K2 / K3 per step;
                 tokens/s, MFU and peak memory as the entry reports them.
- 10. train_profile — torch.profiler over 2 steady steps of the same
+ 11. train_profile — torch.profiler over 2 steady steps of the same
                 trainer.
      The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
      (full width, random weights from a seeded generator, the grouped-MLP
      kernels switched on through the config or the environment):
- 11. kernel_grouped_mlp — K5 (forward), K6 (dx) and K7 (dW) against their
+ 12. kernel_grouped_mlp — K5 (forward), K6 (dx) and K7 (dW) against their
                 plain versions in fp32 and bf16 at three shapes: train (E
                 128, G 1, C 320, H 2048, I 768, counts from a real routing
                 of seeded tokens plus one expert at 0 and one at C; K5-K7),
                 prefill (G 8, C 512, dropless; K5) and decode (G 8, C 1;
                 K5). Max abs, whole-tensor and worst-tile (worst-expert for
-                dW) relative errors against stated limits, beside two
-                controls that must fail them (one filled slot tile
-                skipped; K7 with dO unmasked past the count); each
-                kernel's time, its plain version's, the einsum path's
-                (several cuBLAS calls, not one) and the bound.
- 12. moe_decode_parity — 4 layers, fp32, dropless: teacher-forced paged
+                dW) relative errors against stated limits (s, dG and dU of
+                the backward's grads pass too), beside two controls that
+                must fail them (one filled slot tile skipped; K7 with dO
+                unmasked past the count); two runs of the backward must
+                agree bit for bit; each launch's time (the grads pass, K6
+                and K7 each alone, and the whole backward as
+                _GroupedSwiGLU.backward runs it), its plain version's, the
+                einsum path's (several cuBLAS calls, not one) and the
+                bound of its own work.
+ 13. moe_decode_parity — 4 layers, fp32, dropless: teacher-forced paged
                 decode of 2 x 64 tokens through K4 + K5 and through the
                 gather path + einsum path; max |logit difference| <= 1e-3.
- 13. moe_serve — the engine at full width and depth (48 layers), bf16,
+ 14. moe_serve — the engine at full width and depth (48 layers), bf16,
                 dropless, the traffic of phase 6: every outcome ok, page
                 conservation, 48 K4 and 48 K5 launches per decode step,
                 peak memory; the same traffic through the gather path +
                 einsum path gives the greedy agreement (printed); then
                 torch.profiler over 16 steady decode ticks, as phase 7.
- 14. moe_train_parity — 2 layers, fp32, 2 x 1024 tokens, GC: the loss (CE
+ 15. moe_train_parity — 2 layers, fp32, 2 x 1024 tokens, GC: the loss (CE
                 + aux) and every gradient with the kernels on (K5-K7 and
                 K1-K3) against the einsum path (K1-K3).
- 15. moe_train — benchmark_config on make_bench_args("qwen3-30b-a3b",
+ 16. moe_train — benchmark_config on make_bench_args("qwen3-30b-a3b",
                 seq=4096, gc=True) cut to 4 layers, kernels on: 2 warm-up
                 and 5 timed steps, finite losses, no skipped update, and
                 8 / 4 / 4 / 8 / 4 / 4 launches of K1 / K2 / K3 / K5 / K6 /
-                K7 per step; tokens/s, MFU over the active parameters,
-                peak memory, the routing statistics.
- 16. moe_train_profile — torch.profiler over 2 steady steps of it.
- 17. kernels  — every Pallas kernel of the JAX package, ported or not.
+                K7 per step, and 4 grads passes; tokens/s, MFU over the
+                active parameters, peak memory, the routing statistics and
+                the rows routed per layer.
+ 17. moe_train_profile — torch.profiler over 2 steady steps of it.
+ 18. kernels  — every Pallas kernel of the JAX package, ported or not.
 
-Then the seconds each phase took, the per-kernel contract line, the nvidia-smi line, and last:
+Then the seconds each phase took, the per-kernel contract line (K1-K7,
+and the grads pass that K6 and K7 share), the nvidia-smi line, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -149,6 +173,10 @@ from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
 from scaletorch_tpu_torch.utils.device import card_name_and_power_limit
 
 MODEL = "qwen3-0.6b"
+# the presets' other head geometries: n_rep 5 at D 128, D 32 at n_rep 2
+GEOMETRY_MODELS = ("qwen3-14b", "dense-tiny")
+GEOMETRY_SEQ = 2048  # K1-K3 at those heads
+GEOMETRY_PARITY_LAYERS = 2  # the qwen3-14b decode-parity cut
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 / fp32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -206,6 +234,11 @@ PORTED = {
     "K7": {"name": gm.K7_NAME, "route": "cuda",
            "source": "scaletorch_tpu_torch/csrc/grouped_mlp_bwd.cu"},
 }
+# the pass that computes _block_grads once for K6 and K7 (the TPU kernels
+# each recompute it): a launch of its own on the main path
+GRADS_PASS = {"name": gm.GRADS_NAME, "route": "cuda",
+              "source": "scaletorch_tpu_torch/csrc/grouped_mlp_bwd.cu",
+              "replaces": "scaletorch_tpu/ops/pallas/grouped_mlp.py:110"}
 
 # ---- Qwen3-30B-A3B ---------------------------------------------------------------
 MOE_MODEL = "qwen3-30b-a3b"
@@ -290,10 +323,11 @@ def phase_build() -> None:
 
 
 # ---- 3. the paged-decode kernel against its plain version --------------------
-def decode_inputs(dtype: torch.dtype, seed: int):
-    """Serving-shaped inputs: shuffled physical pages, positions that
-    include 0, both sides of a page boundary and the last position."""
-    cfg = model_config(MODEL)
+def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL):
+    """Serving-shaped inputs at ``model``'s heads: shuffled physical
+    pages, positions that include 0, both sides of a page boundary and
+    the last position."""
+    cfg = model_config(model)
     b, hq, hkv = SLOTS, cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.actual_head_dim
     dev = torch.device("cuda")
@@ -372,9 +406,30 @@ def phase_kernel() -> dict:
             "bound_ms": decode_bound_ms(q, pool_k, positions),
             "bound_by": "bytes",
         }
+        row["geometries"] = {m: paged_geometry(m, dtype, flush)
+                             for m in GEOMETRY_MODELS}
         results[row["dtype"]] = row
         emit("kernel_paged_decode", **row)
+        for m, g in row["geometries"].items():
+            check(g["max_abs_err"] <= TOLERANCE[dtype],
+                  f"{dtype} {m}: kernel vs plain max abs "
+                  f"{g['max_abs_err']} > {TOLERANCE[dtype]}")
     return results
+
+
+def paged_geometry(model: str, dtype: torch.dtype, flush) -> dict:
+    """K4 against its plain version at another preset's heads."""
+    inputs = decode_inputs(dtype, seed=1235, model=model)
+    q, pool_k = inputs[:2]
+    out = paged_decode_attention(*inputs)
+    ref = paged_decode_attention_ref(*inputs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{dtype} {model}: non-finite")
+    return {"q": list(q.shape), "pool": list(pool_k.shape),
+            "n_rep": q.shape[1] // pool_k.shape[1],
+            "max_abs_err": max_abs(out, ref),
+            "kernel_ms": time_ms(lambda: paged_decode_attention(*inputs),
+                                 flush)}
 
 
 # ---- 4. the flash kernels against their plain versions -----------------------
@@ -590,6 +645,8 @@ def phase_kernel_flash() -> dict:
         del again
         if dtype == torch.bfloat16:
             row["moe_shape"] = flash_moe_shape(flush, reps)
+        row["geometries"] = {m: flash_geometry(m, dtype)
+                             for m in GEOMETRY_MODELS}
         del lib_out, lib_in
         results[row["dtype"]] = row
         emit("kernel_flash", **row)
@@ -605,7 +662,30 @@ def phase_kernel_flash() -> dict:
             check(not row["moe_shape"]["over_limit"],
                   f"{dtype}: K1-K3 vs plain at the MoE shape: "
                   f"{row['moe_shape']['over_limit']}")
+        for m, g in row["geometries"].items():
+            check(not g["over_limit"],
+                  f"{dtype}: K1-K3 vs plain at {m}'s heads: "
+                  f"{g['over_limit']}")
     return results
+
+
+def flash_geometry(model: str, dtype: torch.dtype) -> dict:
+    """K1, K2 and K3 against their plain versions at another preset's
+    heads (B 1, S GEOMETRY_SEQ, causal), under FLASH_TOLERANCE."""
+    q, k, v, dout = flash_inputs(dtype, seed=4323, model=model,
+                                 seq=GEOMETRY_SEQ)
+    out, lse = tf.flash_forward(q, k, v, causal=True)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    bwd_args = (q, k, v, dout, ref_lse, tf.attention_delta(ref_out, dout))
+    got = (out, lse, tf.flash_dq(*bwd_args, causal=True),
+           *tf.flash_dkv(*bwd_args, causal=True))
+    ref = flash_plain(*bwd_args)
+    torch.cuda.synchronize()
+    for t in got:
+        check(bool(torch.isfinite(t).all()), f"{dtype} {model}: non-finite")
+    errs = flash_errors(got, ref)
+    return {"q": list(q.shape), "kv": list(k.shape), **errs,
+            "over_limit": flash_violations(errs, FLASH_TOLERANCE[dtype])}
 
 
 def flash_moe_shape(flush, reps: int) -> dict:
@@ -846,7 +926,85 @@ def profile_decode(model, cfg, phase: str) -> None:
     emit(phase, window_decode_steps=window, **stats)
 
 
-# ---- 8. full-width training parity, flash kernels vs sdpa --------------------
+# ---- 8. the presets' other head geometries through K4 --------------------------
+def phase_geometry_serve() -> dict:
+    """dense-tiny (head_dim 32): the paged engine through K4 against the
+    dense engine, greedy tokens equal. qwen3-14b's width cut to 2 layers
+    (n_rep 5): teacher-forced paged decode through K4 against the gather
+    path. Both fp32, random weights from a seeded generator."""
+    cfg = model_config("dense-tiny", dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = LlamaForCausalLM.from_params(init_params(cfg, gen, "cuda"), cfg)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(3, 120, 12)]
+    runs = {}
+    with torch.inference_mode():
+        for layout in ("paged", "dense"):
+            eng = InferenceEngine(
+                model, cfg, max_slots=4, max_seq=256, prefill_len=128,
+                sampling=SamplingParams(temperature=0.0),
+                cache_layout=layout, page_size=PAGE_SIZE)
+            _build.reset_launch_counts()
+            ids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            results = eng.run()
+            runs[layout] = ([results[i] for i in ids],
+                            _build.launch_counts["paged_decode"],
+                            eng.metrics.decode_steps)
+            if layout == "paged":
+                eng.allocator.check_conservation()
+    (paged, k4, steps), (dense, k4_dense, _) = runs["paged"], runs["dense"]
+    outcomes = [r.outcome for r in paged + dense]
+    check(all(o == "ok" for o in outcomes), f"outcomes {outcomes}")
+    same = [a.tokens == b.tokens for a, b in zip(paged, dense)]
+    check(all(same), f"dense-tiny: paged (K4) vs dense greedy tokens differ "
+                     f"in {same.count(False)} of {len(same)} requests")
+    layers = cfg.num_hidden_layers
+    check(k4 == layers * steps and k4_dense == 0,
+          f"dense-tiny: K4 launched {k4} times over {steps} decode steps "
+          f"(dense: {k4_dense}), want {layers} a step")
+    row = {"dense_tiny": {
+        "heads": [cfg.num_attention_heads, cfg.num_key_value_heads],
+        "head_dim": cfg.actual_head_dim, "layers": layers,
+        "dtype": "float32", "requests": len(prompts),
+        "paged_equals_dense": True, "decode_steps": steps,
+        "k4_launches": k4}}
+    del model
+
+    cfg = model_config("qwen3-14b", dtype=torch.float32,
+                       num_hidden_layers=GEOMETRY_PARITY_LAYERS)
+    gen.manual_seed(0)
+    model = LlamaForCausalLM.from_params(init_params(cfg, gen, "cuda"), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        via_kernel = teacher_forced_decode_paged(model, cfg, tokens,
+                                                 page_size=PAGE_SIZE)
+        torch.cuda.synchronize()
+        k4 = _build.launch_counts["paged_decode"]
+        via_gather = teacher_forced_decode_paged(
+            model, cfg, tokens, page_size=PAGE_SIZE, kernel=False)
+    err = float((via_kernel - via_gather).abs().max())
+    check(bool(torch.isfinite(via_kernel).all()), "qwen3-14b: non-finite")
+    # prefill_len 1: each of the 64 calls is one token a slot, through K4
+    check(k4 == cfg.num_hidden_layers * tokens.shape[1],
+          f"qwen3-14b: K4 launched {k4} times")
+    check(err <= PARITY_TOLERANCE,
+          f"qwen3-14b: K4 vs gather max |dlogit| {err} > {PARITY_TOLERANCE}")
+    row["qwen3_14b"] = {
+        "heads": [cfg.num_attention_heads, cfg.num_key_value_heads],
+        "head_dim": cfg.actual_head_dim, "hidden": cfg.hidden_size,
+        "layers": cfg.num_hidden_layers, "dtype": "float32",
+        "tokens": list(tokens.shape), "max_abs_logit_diff": err,
+        "tolerance": PARITY_TOLERANCE, "k4_launches": k4}
+    del model
+    emit("geometry_serve", **row)
+    return row
+
+
+# ---- 9. full-width training parity, flash kernels vs sdpa --------------------
 def phase_train_parity() -> None:
     cfg = model_config(MODEL, dtype=torch.float32)
     gen = torch.Generator(device="cuda")
@@ -898,7 +1056,7 @@ def phase_train_parity() -> None:
          flash_s=s_f, sdpa_s=s_s)
 
 
-# ---- 9. training on the headline row -------------------------------------------
+# ---- 10. training on the headline row ------------------------------------------
 def phase_train():
     cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
     res = benchmark_config(cfg, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS,
@@ -935,7 +1093,7 @@ def phase_train_profile(trainer, phase: str = "train_profile") -> None:
          **profiled(run, PROFILE_STEPS))
 
 
-# ---- 11. the grouped-MLP kernels against their plain versions -----------------
+# ---- 12. the grouped-MLP kernels against their plain versions -----------------
 def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
     """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES. Counts come from
     routing seeded hidden states through a seeded router, as a layer
@@ -1012,26 +1170,42 @@ def gmlp_violations(errs: dict, tol: dict) -> list:
                 key.split("_", 1)[1]]]
 
 
-def gmlp_bound(kid: str, x, counts, wg) -> tuple:
-    """(bound ms, what bounds it): the larger of the bytes the function
-    must move (the counted x / dO rows, the weights of the experts that
-    have rows, each read once; every output written once) over HBM
-    bandwidth and its flops (2 per multiply-add: 6 H I a row for K5, 10
-    for K6, 12 for K7, as the TPU kernels recompute) over the peak."""
+def gmlp_work(kid: str, x, counts, wg) -> tuple:
+    """(flops, bytes) of one launch's own work (2 flops per multiply-add;
+    each input read once: the counted rows of x, dO, s, dG, dU, the
+    weights of the experts that have rows; each output written once):
+      K5:    x Wg, x Wu, h Wd (6 H I a row); out over every slot;
+      grads: x Wg, x Wu, dO Wd^T (6 H I a row); s, dG, dU over the rows;
+      K6:    dG Wg^T, dU Wu^T (4 H I a row) from dG, dU and two weights;
+             dx over every slot;
+      K7:    x^T dG, x^T dU, s^T dO (6 H I a row) from x, dO, s, dG, dU;
+             the three gradients of every expert;
+      backward: grads + K6 + K7, what _GroupedSwiGLU.backward launches."""
+    if kid == "backward":
+        parts = [gmlp_work(k, x, counts, wg) for k in ("grads", "K6", "K7")]
+        return tuple(sum(p[n] for p in parts) for n in range(2))
     e, g, c, h = x.shape
     i = wg.shape[-1]
     elem = x.element_size()
     rows = int(counts.sum())
-    weights = 3 * h * i * elem * int((counts.sum(1) > 0).sum())
-    row_bytes = rows * h * elem
+    weight = h * i * elem * int((counts.sum(1) > 0).sum())
+    x_rows = rows * h * elem
+    i_rows = rows * i * elem
     full = e * g * c * h * elem
     flops, nbytes = {
-        "K5": (6 * h * i * rows, weights + row_bytes + full),
-        "K6": (10 * h * i * rows, weights + 2 * row_bytes + full),
-        "K7": (12 * h * i * rows,
-               weights + 2 * row_bytes + 3 * e * h * i * elem),
+        "K5": (6 * h * i * rows, 3 * weight + x_rows + full),
+        "grads": (6 * h * i * rows, 3 * weight + 2 * x_rows + 3 * i_rows),
+        "K6": (4 * h * i * rows, 2 * weight + 2 * i_rows + full),
+        "K7": (6 * h * i * rows,
+               2 * x_rows + 3 * i_rows + 3 * e * h * i * elem),
     }[kid]
-    nbytes += 4 * e * g  # counts
+    return flops, nbytes + 4 * e * g  # counts
+
+
+def gmlp_bound(kid: str, x, counts, wg) -> tuple:
+    """(bound ms, what bounds it): the larger of the launch's bytes over
+    HBM bandwidth and its flops over the dtype's peak (gmlp_work)."""
+    flops, nbytes = gmlp_work(kid, x, counts, wg)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[x.dtype]
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
@@ -1063,25 +1237,50 @@ def skip_one_slot_tile(got: dict, args, counts) -> dict:
     return out
 
 
+def gmlp_backward(args):
+    """What _GroupedSwiGLU.backward launches: the grads pass, K6, K7."""
+    grads = gm.grouped_mlp_block_grads(*args)
+    return (*grads, gm.grouped_mlp_dx(*args, grads),
+            *gm.grouped_mlp_dw(*args, grads))
+
+
 def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
     args = gmlp_inputs(shape, dtype, seed=2024)
     x, counts, wg, wu, wd, dout = args
     fwd_args = args[:5]
     bwd = GMLP_SHAPES[shape][3]
     tol = GMLP_TOLERANCE[dtype]
+    past = (torch.arange(x.shape[2], device="cuda")[None, None]
+            >= counts[..., None])
     got = {"out": gm.grouped_mlp_forward(*fwd_args)}
     ref = {"out": gm.masked_grouped_mlp(*fwd_args)}
+    deterministic = None
     if bwd:
-        grads = gm.grouped_mlp_block_grads(*args)
-        got["dx"] = gm.grouped_mlp_dx(*args, grads)
-        got["dwg"], got["dwu"], got["dwd"] = gm.grouped_mlp_dw(*args, grads)
-        ref["dx"] = gm.grouped_mlp_dx_ref(*args)
-        ref["dwg"], ref["dwu"], ref["dwd"] = gm.grouped_mlp_dw_ref(*args)
+        backward = gmlp_backward(args)
+        grads = backward[:3]
+        ref_grads = gm.grouped_mlp_block_grads_ref(*args)
+        # the workspace rows of slot tiles past a count are never written
+        # (K6 and K7 never read them): both sides compare as zeros there
+        for name, a, b in zip(("s", "dg", "du"), grads, ref_grads):
+            got[name] = a.masked_fill(past[..., None], 0)
+            ref[name] = b.masked_fill(past[..., None], 0)
+        got["dx"] = backward[3]
+        got["dwg"], got["dwu"], got["dwd"] = backward[4:]
+        ref["dx"] = gm.grouped_mlp_dx_ref(*args, ref_grads)
+        ref["dwg"], ref["dwu"], ref["dwd"] = gm.grouped_mlp_dw_ref(
+            *args, ref_grads)
+        # no atomics: a second backward gives the same bits
+        again = gmlp_backward(args)
+        deterministic = all(
+            bool(torch.equal(a, b)) for a, b in zip(
+                [got[n] for n in ("dx", "dwg", "dwu", "dwd")], again[3:]))
+        deterministic &= all(
+            bool(torch.equal(a.masked_fill(past[..., None], 0), got[n]))
+            for a, n in zip(again[:3], ("s", "dg", "du")))
+        del backward, again, ref_grads
     torch.cuda.synchronize()
     for name, t in got.items():
         check(bool(torch.isfinite(t).all()), f"{shape} {dtype}: {name}")
-    past = (torch.arange(x.shape[2], device="cuda")[None, None]
-            >= counts[..., None])
     zeros = all(bool((got[n][past] == 0).all()) for n in ("out", "dx")
                 if n in got)
     errs = gmlp_errors(got, ref)
@@ -1104,8 +1303,8 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
            "x": list(x.shape), "hidden_intermediate": list(wg.shape[1:]),
            "rows": int(counts.sum()), "filled_experts": int(
                (counts.sum(1) > 0).sum()),
-           "structural_zeros": zeros, "tolerance": tol, **errs,
-           "controls": controls, "kernels": {}}
+           "structural_zeros": zeros, "bitwise_deterministic": deterministic,
+           "tolerance": tol, **errs, "controls": controls, "kernels": {}}
     e, g, c, h = x.shape
     lib_in = [t.detach().clone().requires_grad_() for t in
               (x.view(e, g * c, h), wg, wu, wd)]
@@ -1119,29 +1318,39 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
                     lambda: gm.masked_grouped_mlp(*fwd_args),
                     lambda: moe_mlp(x.view(e, g * c, h), wg, wu, wd))}
     if bwd:
-        timed["K6"] = (lambda: gm.grouped_mlp_dx(*args),
-                       lambda: gm.grouped_mlp_dx_ref(*args), lib_bwd)
-        timed["K7"] = (lambda: gm.grouped_mlp_dw(*args),
-                       lambda: gm.grouped_mlp_dw_ref(*args), None)
-        row["grads_pass_ms"] = time_ms(
-            lambda: gm.grouped_mlp_block_grads(*args), flush, reps)
-        row["backward_ms"] = time_ms(
-            lambda: (gm.grouped_mlp_dx(*args, grads),
-                     gm.grouped_mlp_dw(*args, grads)), flush, reps)
-    lib_bwd_ms = None
+        # each launch alone, from the grads pass's (s, dG, dU); then the
+        # three together, as the autograd backward runs them. The einsum
+        # path's one autograd backward gives dx and dW: it is the yardstick
+        # of K6, K7 and the whole backward.
+        timed["grads"] = (lambda: gm.grouped_mlp_block_grads(*args),
+                          lambda: gm.grouped_mlp_block_grads_ref(*args),
+                          None)
+        timed["K6"] = (lambda: gm.grouped_mlp_dx(*args, grads),
+                       lambda: gm.grouped_mlp_dx_ref(*args, grads), lib_bwd)
+        timed["K7"] = (lambda: gm.grouped_mlp_dw(*args, grads),
+                       lambda: gm.grouped_mlp_dw_ref(*args, grads), lib_bwd)
+        timed["backward"] = (lambda: gmlp_backward(args),
+                             lambda: (gm.grouped_mlp_dx_ref(*args),
+                                      gm.grouped_mlp_dw_ref(*args)),
+                             lib_bwd)
+    lib_ms = {}
     for kid, (kernel_fn, plain_fn, lib_fn) in timed.items():
         bound_ms, bound_by = gmlp_bound(kid, x, counts, wg)
-        if lib_fn is None:
-            lib_ms = lib_bwd_ms  # one autograd backward gives dx and dW
-        else:
-            lib_ms = time_ms(lib_fn, flush, reps)
-            if kid == "K6":
-                lib_bwd_ms = lib_ms
+        if lib_fn is not None and lib_fn not in lib_ms:
+            lib_ms[lib_fn] = time_ms(lib_fn, flush, reps)
         row["kernels"][kid] = {
             "kernel_ms": time_ms(kernel_fn, flush, reps),
             "plain_ms": time_ms(plain_fn, flush, reps),
-            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "library_ms": lib_ms.get(lib_fn), "bound_ms": bound_ms,
             "bound_by": bound_by}
+        row["kernels"][kid]["bound_share"] = (
+            bound_ms / row["kernels"][kid]["kernel_ms"])
+    if bwd:
+        k = row["kernels"]
+        row["grads_pass_ms"] = k["grads"]["kernel_ms"]
+        row["grads_pass_bound_ms"] = k["grads"]["bound_ms"]
+        row["backward_ms"] = k["backward"]["kernel_ms"]
+        row["backward_bound_ms"] = k["backward"]["bound_ms"]
     row["library"] = ("the einsum path: three cuBLAS bmm calls and the "
                       "swiglu kernels (forward), their autograd (backward)"
                       "; several calls, not one")
@@ -1150,6 +1359,8 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
     violations = gmlp_violations(errs, tol)
     check(zeros, f"{shape} {dtype}: rows past the counts are not zero")
     check(not violations, f"{shape} {dtype}: kernels vs plain: {violations}")
+    check(deterministic is not False,
+          f"{shape} {dtype}: two runs of the backward differ")
     for name, c in controls.items():
         check(bool(c["over_limit"]),
               f"{shape} {dtype}: the {name} control passes every check")
@@ -1160,18 +1371,19 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
     return row
 
 
-def phase_kernel_grouped_mlp() -> dict:
+def phase_kernel_grouped_mlp(shapes=tuple(GMLP_SHAPES),
+                             dtypes=(torch.float32, torch.bfloat16)) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
-    for shape in GMLP_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for shape in shapes:
+        for dtype in dtypes:
             row = gmlp_case(shape, dtype, flush)
             results[(shape, row["dtype"])] = row
             torch.cuda.empty_cache()
     return results
 
 
-# ---- 12. Qwen3-30B-A3B decode parity, K4 + K5 vs gather + einsum -------------------
+# ---- 13. Qwen3-30B-A3B decode parity, K4 + K5 vs gather + einsum -------------------
 def moe_model(dtype: torch.dtype, layers=None, **overrides):
     """(config, model) of Qwen3-30B-A3B with random weights drawn in place
     from a seeded generator, the grouped-MLP kernels on."""
@@ -1215,7 +1427,7 @@ def phase_moe_decode_parity() -> None:
          tolerance=PARITY_TOLERANCE, launches=launches)
 
 
-# ---- 13. serving Qwen3-30B-A3B at full depth -------------------------------------
+# ---- 14. serving Qwen3-30B-A3B at full depth -------------------------------------
 def phase_moe_serve() -> dict:
     cfg, model = moe_model(torch.bfloat16, capacity_factor=DROPLESS_CF)
     off = dataclasses.replace(cfg, use_grouped_mlp_kernel=False)
@@ -1262,7 +1474,7 @@ def phase_moe_serve() -> dict:
     return launches
 
 
-# ---- 14. training parity, kernels on vs the einsum path ---------------------------
+# ---- 15. training parity, kernels on vs the einsum path ---------------------------
 def phase_moe_train_parity() -> None:
     cfg = model_config(MOE_MODEL, dtype=torch.float32,
                        num_hidden_layers=MOE_TRAIN_PARITY_LAYERS,
@@ -1316,7 +1528,7 @@ def phase_moe_train_parity() -> None:
          kernel_launches=launches_k)
 
 
-# ---- 15. training Qwen3-30B-A3B cut to 4 layers ------------------------------------
+# ---- 16. training Qwen3-30B-A3B cut to 4 layers ------------------------------------
 def phase_moe_train():
     cfg = make_bench_args(MOE_MODEL, seq=MOE_TRAIN_SEQ, gc=True,
                           extra={"num_hidden_layers": MOE_TRAIN_LAYERS})
@@ -1339,11 +1551,17 @@ def phase_moe_train():
           f"update_skipped {res['update_skipped']}")
     layers = trainer.model_cfg.num_hidden_layers
     names = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME, gm.K5_NAME, gm.K6_NAME,
-             gm.K7_NAME)
+             gm.K7_NAME, gm.GRADS_NAME)
     per_step = {n: launches.get(n, 0) / TRAIN_STEPS for n in names}
     want = dict(zip(names, (2 * layers, layers, layers, 2 * layers, layers,
-                            layers)))
+                            layers, layers)))
     check(per_step == want, f"launches per step {per_step}, want {want}")
+    # the counts' sum of a layer: every kept (token, choice), averaged over
+    # the layers and the timed steps (the kernel cell routes 32593 rows)
+    mcfg = trainer.model_cfg
+    routed = [cfg.sequence_length * cfg.micro_batch_size
+              * mcfg.num_experts_per_tok * (1.0 - d)
+              for d in res["moe_dropped_fraction"]]
     emit("moe_train", model=MOE_MODEL, layers=layers,
          sequence_length=cfg.sequence_length,
          micro_batch_size=cfg.micro_batch_size,
@@ -1352,17 +1570,26 @@ def phase_moe_train():
          attention_backend=trainer.attention_backend,
          warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
          active_params=trainer.mfu_params, peak_flops=trainer.peak_flops(),
-         launches=launches, launches_per_step=per_step, **res)
+         launches=launches, launches_per_step=per_step,
+         rows_routed_per_layer=statistics.mean(routed), **res)
     return trainer, launches
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        if argv != ["kernel_grouped_mlp"]:
+            print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+            return 2
+        phase_device()
+        phase_build()
+        phase_kernel_grouped_mlp(dtypes=(torch.bfloat16,))
+        return 0
     seconds = {}
 
     def timed(name, fn, *args):
@@ -1379,6 +1606,8 @@ def main() -> int:
     launches = timed("serve", phase_serve, model32)
     timed("profile", phase_profile, model32)
     del model32
+    torch.cuda.empty_cache()
+    timed("geometry_serve", phase_geometry_serve)
     torch.cuda.empty_cache()
     timed("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
@@ -1426,16 +1655,20 @@ def main() -> int:
         "bound_by": bf16["bound_by"],
         "library_ms": bf16["library_ms"],
     })
-    # K5-K7 at the train shape in bf16, launches from the moe_train window
+    # K5-K7 and the grads pass at the train shape in bf16 (K6 and K7 each
+    # alone), launches from the moe_train window
     train16 = gmlp[("train", "bfloat16")]
     gmlp_err = {"K5": train16["out_max_abs"], "K6": train16["dx_max_abs"],
                 "K7": max(train16[f"{n}_max_abs"]
                           for n in ("dwg", "dwu", "dwd"))}
-    for kid in ("K5", "K6", "K7"):
+    gmlp_err["grads"] = max(train16[f"{n}_max_abs"] for n in ("s", "dg", "du"))
+    for kid, entry in (("K5", {**PORTED["K5"], "replaces": at["K5"]}),
+                       ("grads", GRADS_PASS),
+                       ("K6", {**PORTED["K6"], "replaces": at["K6"]}),
+                       ("K7", {**PORTED["K7"], "replaces": at["K7"]})):
         t = train16["kernels"][kid]
         rows.append({
-            **PORTED[kid], "replaces": at[kid],
-            "launches": moe_launches.get(PORTED[kid]["name"], 0),
+            **entry, "launches": moe_launches.get(entry["name"], 0),
             "max_abs_err": gmlp_err[kid], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -1448,4 +1681,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

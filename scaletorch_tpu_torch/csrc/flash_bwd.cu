@@ -801,6 +801,7 @@ int dispatch(const Args& a, int head_dim, int dtype) {
     return cudaErrorInvalidValue;
   }
   switch (head_dim) {
+    case 32: return launch<DKV, 32>(dtype, a);
     case 64: return launch<DKV, 64>(dtype, a);
     case 128: return launch<DKV, 128>(dtype, a);
     default: return cudaErrorInvalidValue;

@@ -484,6 +484,7 @@ extern "C" int st_flash_fwd(const void* q, const void* k, const void* v,
                batch, num_q_heads, num_kv_heads, seq_q, seq_kv,
                scale, causal != 0, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
+    case 32: return launch<32>(dtype, a);
     case 64: return launch<64>(dtype, a);
     case 128: return launch<128>(dtype, a);
     default: return cudaErrorInvalidValue;

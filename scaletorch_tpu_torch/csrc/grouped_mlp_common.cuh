@@ -1,23 +1,17 @@
 // Shared pieces of the grouped-MLP kernels (grouped_mlp_fwd.cu: K5,
 // grouped_mlp_bwd.cu: K6 and K7): the tile sizes, the fill-count clamp,
-// the entries' shape check, and the shared-memory tile path: a tile load
-// from global into padded shared memory that zero-fills rows past a limit
-// (the fill count), and a register accumulator for one BM x BN fp32
-// output tile.
+// the entries' shape check, and the fp32 tile path: a tile load from
+// global into padded shared memory that zero-fills rows past a limit (the
+// fill count), and a register accumulator for one BM x BN fp32 output
+// tile.
 //
-// The tile path serves K6, K7 and K5's fp32 launches (bf16 K5 runs on
-// mma.sync, mma_sm90.cuh). Every product is a sum over k steps of
+// The tile path serves the fp32 launches; the bf16 ones run on mma.sync
+// (gmlp_ring.cuh). Every fp32 product is a sum over k steps of
 // A[BM][BK] * B[BK][BN] with A and B staged in shared memory, each
-// row-major or column-major as the caller says. bf16 tiles run on the
-// tensor cores (wmma 16x16x16, fp32 accumulation, the fragments held in
-// registers across the k loop); fp32 tiles run as plain fp32 FMAs (no
+// row-major or column-major as the caller says, as plain fp32 FMAs (no
 // TF32), each thread owning a 16-strided sub-grid of the output tile.
 
 #pragma once
-
-#include <mma.h>
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -25,7 +19,6 @@ namespace gmlp {
 
 using flash::Cvt;
 using flash::kThreads;
-using flash::kWarps;
 using flash::Pad;
 using flash::round_up_128;
 
@@ -117,64 +110,6 @@ struct TileAcc<float, BM, BNT> {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         c[(tr + 16 * i) * ldc + tc + 16 * j] = v[i][j];
-      }
-    }
-  }
-};
-
-template <int BM, int BNT>
-struct TileAcc<__nv_bfloat16, BM, BNT> {
-  static_assert(BM % 16 == 0 && BNT % 16 == 0, "tile shape");
-  static constexpr int FN = BNT / 16;
-  static constexpr int NF = (BM / 16) * FN;
-  static constexpr int PER = (NF + kWarps - 1) / kWarps;  // fragments a warp
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[PER];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < PER; ++j) nvcuda::wmma::fill_fragment(f[j], 0.f);
-  }
-
-  template <int K, bool A_ROW, bool B_ROW>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* a, int lda,
-                                      const __nv_bfloat16* b, int ldb) {
-    using namespace nvcuda;
-    using ALayout = typename std::conditional<A_ROW, wmma::row_major,
-                                              wmma::col_major>::type;
-    using BLayout = typename std::conditional<B_ROW, wmma::row_major,
-                                              wmma::col_major>::type;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int idx = warp + j * kWarps;
-      if (idx < NF) {  // warp-uniform
-        const int fm = idx / FN;
-        const int fn = idx % FN;
-#pragma unroll
-        for (int k = 0; k < K; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> af;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-          const __nv_bfloat16* ap =
-              A_ROW ? a + fm * 16 * lda + k : a + fm * 16 + k * lda;
-          const __nv_bfloat16* bp =
-              B_ROW ? b + k * ldb + fn * 16 : b + k + fn * 16 * ldb;
-          wmma::load_matrix_sync(af, ap, lda);
-          wmma::load_matrix_sync(bf, bp, ldb);
-          wmma::mma_sync(f[j], af, bf, f[j]);
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* c, int ldc) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int idx = warp + j * kWarps;
-      if (idx < NF) {
-        nvcuda::wmma::store_matrix_sync(
-            c + (idx / FN) * 16 * ldc + (idx % FN) * 16, f[j], ldc,
-            nvcuda::wmma::mem_row_major);
       }
     }
   }

@@ -28,7 +28,8 @@
 // partial tile past the count load as zeros and are written as zeros.
 // BM is 16 when C <= 16 (decode: one slot a group) and 64 otherwise.
 //
-// bf16: a pipelined grouped GEMM on tensor-core mma.sync (mma_sm90.cuh).
+// bf16: a pipelined grouped GEMM on tensor-core mma.sync (the ring of
+// gmlp_ring.cuh, shared with the backward's kernels).
 //   * Each k step (64 deep) moves the A tile (x, then h) and the weight
 //     tiles (Wg and Wu, then Wd) into XOR-swizzled shared memory through a
 //     four-stage cp.async ring: three steps of weights (up to 48 KB a CTA,
@@ -59,32 +60,31 @@
 // launches (cudaErrorInvalidValue for a shape it was not built for). It
 // launches on the caller's stream, allocates nothing, does not synchronise.
 
-#include "grouped_mlp_common.cuh"
-#include "mma_sm90.cuh"
+#include "gmlp_ring.cuh"
 
 namespace {
 
 using namespace gmlp;
 using bf16 = __nv_bfloat16;
 
-// ---- bf16 on mma.sync ---------------------------------------------------------------
+// ---- bf16 on mma.sync (gmlp_ring.cuh) ------------------------------------------------
 namespace k5 {
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 4;  // ring depth
-static_assert(BN == 64 && BK == 64, "64 x 64 swizzled tiles");
+static_assert(BN == 64 && BK == gring::BK, "64 x 64 swizzled tiles");
 
 // The warp grid over a BM x BN output tile: 2 x 2 warps of 32 x 32 at BM
 // 64, 1 x 4 warps of 16 x 16 at BM 16.
 template <int BM>
-struct Warps {
-  static constexpr int WM = BM >= 32 ? 2 : 1;
-  static constexpr int WN = kWarps / WM;
-  static constexpr int MW = BM / WM;  // rows of a warp
-  static constexpr int NW = BN / WN;  // columns of a warp
-  static constexpr int MT = MW / 16;  // its m-tiles
-  static constexpr int NT = NW / 8;   // its n-tiles
-  static_assert(MW % 16 == 0 && NW % 16 == 0, "whole 16 x 16 blocks");
+using Warps = gring::Warps<BM, BN, (BM >= 32 ? 2 : 1), (BM >= 32 ? 2 : 4)>;
+
+// up: x Wg and x Wu, sharing x; down: h Wd
+template <int NB>
+struct Plan {
+  static constexpr int kNA = 1, kNP = NB, kNAcc = NB;
+  static constexpr bool kATrans = false;
+  __host__ __device__ static constexpr int a_of(int) { return 0; }
+  __host__ __device__ static constexpr int acc_of(int p) { return p; }
+  __host__ __device__ static constexpr bool b_col(int) { return false; }
 };
 
 // A stage: the A tile [BM][BK], then NB weight tiles [BK][BN].
@@ -92,146 +92,62 @@ template <int BM, int NB>
 struct Layout {
   using ATile = mma::SwizzledTile<BM, BK>;
   using BTile = mma::SwizzledTile<BK, BN>;
-  using OTile = mma::SwizzledTile<BM, BN>;  // the output, after the loop
   static constexpr int kStageBytes = ATile::kBytes + NB * BTile::kBytes;
   static constexpr int kBytes = kStages * kStageBytes;
-  static_assert(OTile::kBytes <= kBytes, "the output tile fits the ring");
+  static_assert(Warps<BM>::OTile::kBytes <= kBytes,
+                "the output tile fits the ring");
 };
 
-// sum over k of A[BM][k] * B_b[k][BN] for NB weight matrices B_b, into
-// acc[b][mt][nt][4] of this warp's block. A's rows at or past `count`
-// load as zeros.
+// sum over k < depth of A[BM][k] * B_i[k][BN] for the NB weight matrices
+// B_i, into acc[i] of this warp's block. a: the A matrix's row 0, column 0
+// (row stride lda); A's rows at or past `count` load as zeros. b[i]: the
+// weight matrix i's first column of this CTA (row stride ldb).
 template <int BM, int NB>
-struct RingGemm {
+__device__ __forceinline__ void ring_gemm(
+    typename gring::Products<Warps<BM>, Plan<NB>>::Acc& acc, uint32_t base,
+    const bf16* a, size_t lda, int row0, int count,
+    const bf16* const (&b)[NB], size_t ldb, int depth) {
   using W = Warps<BM>;
   using L = Layout<BM, NB>;
-  using ATile = typename L::ATile;
-  using BTile = typename L::BTile;
-
-  // a: the A matrix's column 0 of row 0 (row stride lda); b[i]: the
-  // weight matrix i's first column of this CTA (row stride ldb)
-  __device__ __forceinline__ static void run(
-      float (&acc)[NB][W::MT][W::NT][4], uint32_t base, const bf16* a,
-      size_t lda, int row0, int count, const bf16* const (&b)[NB],
-      size_t ldb, int depth) {
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int m0 = (warp / W::WN) * W::MW;
-    const int n0 = (warp % W::WN) * W::NW;
-    const mma::LaneAddr la(lane);
-    const int nk = depth / BK;
-    auto load = [&](int kt) {
-      const uint32_t dst = base + (kt % kStages) * L::kStageBytes;
-      ATile::template load_async_strided<kThreads>(dst, a + kt * BK, lda,
-                                                   row0, count, tid);
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        BTile::template load_async_strided<kThreads>(
-            dst + ATile::kBytes + i * BTile::kBytes,
-            b[i] + (size_t)kt * BK * ldb, ldb, 0, BK, tid);
-      }
-    };
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-#pragma unroll
-      for (int mt = 0; mt < W::MT; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < W::NT; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][mt][nt][e] = 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int kt = 0; kt < kStages - 1; ++kt) {
-      if (kt < nk) load(kt);
-      mma::cp_async_commit();  // one group per stage, empty or not
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      mma::cp_async_wait<kStages - 2>();  // step kt
-      __syncthreads();  // ... seen by all; step kt - 1's stage is free
-      if (kt + kStages - 1 < nk) load(kt + kStages - 1);
-      mma::cp_async_commit();
-      const uint32_t as = base + (kt % kStages) * L::kStageBytes;
-      const uint32_t bs = as + ATile::kBytes;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t af[W::MT][4];
-#pragma unroll
-        for (int mt = 0; mt < W::MT; ++mt) {
-          mma::ldmatrix_x4(af[mt], mma::a_addr<ATile::kRowBytes>(
-                                       la, as, m0 + mt * 16, kk * 16));
-        }
+  using Pr = gring::Products<W, Plan<NB>>;
+  const int tid = threadIdx.x;
+  const mma::LaneAddr la(tid & 31);
+  const int m0 = W::m0();
+  const int n0 = W::n0();
+  Pr::zero(acc);
+  gring::Ring<kStages>::run(
+      depth / BK,
+      [&](int kt, int slot) {
+        const uint32_t dst = base + slot * L::kStageBytes;
+        L::ATile::template load_async_strided<W::kThreads>(
+            dst, a + kt * BK, lda, row0, count, tid);
 #pragma unroll
         for (int i = 0; i < NB; ++i) {
-#pragma unroll
-          for (int np = 0; np < W::NT / 2; ++np) {
-            uint32_t bf[4];
-            mma::ldmatrix_x4_trans(
-                bf, mma::a_addr<BTile::kRowBytes>(la, bs + i * BTile::kBytes,
-                                                  kk * 16, n0 + np * 16));
-#pragma unroll
-            for (int mt = 0; mt < W::MT; ++mt) {
-              mma::mma_bf16(acc[i][mt][2 * np], af[mt], bf[0], bf[1]);
-              mma::mma_bf16(acc[i][mt][2 * np + 1], af[mt], bf[2], bf[3]);
-            }
-          }
+          L::BTile::template load_async_strided<W::kThreads>(
+              dst + L::ATile::kBytes + i * L::BTile::kBytes,
+              b[i] + (size_t)kt * BK * ldb, ldb, 0, BK, tid);
         }
-      }
-    }
-    mma::cp_async_wait<0>();
-    __syncthreads();  // every warp is done with the ring
-  }
-
-  // this warp's block of the output tile in bf16 (f(row, c0, c1) gives the
-  // pair at (row, col), (row, col + 1)) into the swizzled tile at smem
-  template <typename F>
-  __device__ __forceinline__ static void stage(unsigned char* smem,
-                                               const F& f) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int m0 = (warp / W::WN) * W::MW;
-    const int n0 = (warp % W::WN) * W::NW;
+      },
+      [&](int, int slot) {
+        const uint32_t as = base + slot * L::kStageBytes;
+        const uint32_t at[1] = {as};
+        uint32_t bt[NB];
 #pragma unroll
-    for (int mt = 0; mt < W::MT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < W::NT; ++nt) {
-        const int col = n0 + nt * 8 + 2 * (lane & 3);
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int r = m0 + mt * 16 + (lane >> 2) + 8 * x;
-          *reinterpret_cast<uint32_t*>(smem + L::OTile::offset(r, col / 8) +
-                                       (col % 8) * 2) = f(r, mt, nt, x);
+        for (int i = 0; i < NB; ++i) {
+          bt[i] = as + L::ATile::kBytes + i * L::BTile::kBytes;
         }
-      }
-    }
-  }
-
-  // rows < rows of the staged tile to dst (row stride ld), 16 bytes a copy
-  __device__ __forceinline__ static void store(const unsigned char* smem,
-                                               bf16* dst, size_t ld,
-                                               int rows) {
-    using O = typename L::OTile;
-    for (int idx = threadIdx.x; idx < BM * O::kChunks; idx += kThreads) {
-      const int r = idx / O::kChunks;
-      const int c = idx % O::kChunks;
-      if (r < rows) {
-        *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
-            *reinterpret_cast<const uint4*>(smem + O::offset(r, c));
-      }
-    }
-  }
-};
+        Pr::step(acc, at, bt, la, m0, n0);
+      });
+}
 }  // namespace k5
 
 template <int BM>
-__global__ void __launch_bounds__(k5::kThreads, 2)
+__global__ void __launch_bounds__(k5::Warps<BM>::kThreads, 2)
 gmlp_up_mma_kernel(const bf16* __restrict__ x, const int* __restrict__ counts,
                    const bf16* __restrict__ wg, const bf16* __restrict__ wu,
                    bf16* __restrict__ h, int groups, int cap, int hid,
                    int inter) {
-  using G = k5::RingGemm<BM, 2>;
+  using W = k5::Warps<BM>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int eg = blockIdx.z;
   const int row0 = blockIdx.y * BM;
@@ -241,10 +157,10 @@ gmlp_up_mma_kernel(const bf16* __restrict__ x, const int* __restrict__ counts,
   const int n0 = blockIdx.x * BN;
   const size_t w0 = (size_t)e * hid * inter + n0;
   const bf16* const b[2] = {wg + w0, wu + w0};
-  float acc[2][G::W::MT][G::W::NT][4];  // x Wg, x Wu
-  G::run(acc, mma::smem_u32(smem), x + (size_t)eg * cap * hid, hid, row0,
-         count, b, inter, hid);
-  G::stage(smem, [&](int, int mt, int nt, int xr) {
+  typename gring::Products<W, k5::Plan<2>>::Acc acc;  // x Wg, x Wu
+  k5::ring_gemm<BM, 2>(acc, mma::smem_u32(smem), x + (size_t)eg * cap * hid,
+                       hid, row0, count, b, inter, hid);
+  gring::stage_tile<W>(smem, [&](int, int mt, int nt, int xr) {
     float v[2];
 #pragma unroll
     for (int y = 0; y < 2; ++y) {
@@ -254,17 +170,17 @@ gmlp_up_mma_kernel(const bf16* __restrict__ x, const int* __restrict__ counts,
     return mma::pack_bf16(v[0], v[1]);
   });
   __syncthreads();
-  G::store(smem, h + ((size_t)eg * cap + row0) * inter + n0, inter,
-           min(BM, cap - row0));
+  gring::store_tile<W>(smem, h + ((size_t)eg * cap + row0) * inter + n0,
+                       inter, min(BM, cap - row0));
 }
 
 template <int BM>
-__global__ void __launch_bounds__(k5::kThreads, 2)
+__global__ void __launch_bounds__(k5::Warps<BM>::kThreads, 2)
 gmlp_down_mma_kernel(const bf16* __restrict__ h,
                      const int* __restrict__ counts,
                      const bf16* __restrict__ wd, bf16* __restrict__ out,
                      int groups, int cap, int hid, int inter) {
-  using G = k5::RingGemm<BM, 1>;
+  using W = k5::Warps<BM>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int eg = blockIdx.z;
   const int row0 = blockIdx.y * BM;
@@ -273,24 +189,22 @@ gmlp_down_mma_kernel(const bf16* __restrict__ h,
   const int rows = min(BM, cap - row0);
   bf16* out_t = out + ((size_t)eg * cap + row0) * hid + n0;
   if (row0 >= count) {  // a tile past the fill count: structural zeros
-    for (int idx = threadIdx.x; idx < rows * (BN / 8); idx += k5::kThreads) {
-      *reinterpret_cast<uint4*>(out_t + (size_t)(idx / (BN / 8)) * hid +
-                                (idx % (BN / 8)) * 8) = make_uint4(0, 0, 0, 0);
-    }
+    gring::store_zeros<W>(out_t, hid, rows);
     return;
   }
   const int e = eg / groups;
   const bf16* const b[1] = {wd + (size_t)e * inter * hid + n0};
-  float acc[1][G::W::MT][G::W::NT][4];
-  G::run(acc, mma::smem_u32(smem), h + (size_t)eg * cap * inter, inter, row0,
-         count, b, hid, inter);
-  G::stage(smem, [&](int r, int mt, int nt, int xr) {
+  typename gring::Products<W, k5::Plan<1>>::Acc acc;
+  k5::ring_gemm<BM, 1>(acc, mma::smem_u32(smem),
+                       h + (size_t)eg * cap * inter, inter, row0, count, b,
+                       hid, inter);
+  gring::stage_tile<W>(smem, [&](int r, int mt, int nt, int xr) {
     const bool in = row0 + r < count;
     return mma::pack_bf16(in ? acc[0][mt][nt][2 * xr] : 0.f,
                           in ? acc[0][mt][nt][2 * xr + 1] : 0.f);
   });
   __syncthreads();
-  G::store(smem, out_t, hid, rows);
+  gring::store_tile<W>(smem, out_t, hid, rows);
 }
 
 // ---- fp32: shared-memory tiles, FMA products ---------------------------------------
@@ -467,7 +381,8 @@ cudaError_t launch(int dtype, const Args& a) {
       return launch_pair<bf16>(a, gmlp_up_mma_kernel<BM>,
                                gmlp_down_mma_kernel<BM>,
                                k5::Layout<BM, 2>::kBytes,
-                               k5::Layout<BM, 1>::kBytes, k5::kThreads, BM);
+                               k5::Layout<BM, 1>::kBytes,
+                               k5::Warps<BM>::kThreads, BM);
     default: return cudaErrorInvalidValue;
   }
 }

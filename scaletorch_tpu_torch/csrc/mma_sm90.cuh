@@ -8,9 +8,10 @@
 //     `cp_async_wait<N>`: copies from global into shared memory that run
 //     beside the math, zero-filled where the source row does not exist;
 //   * `SwizzledTile`: a tile of rows of 16-byte chunks whose chunk index is
-//     XORed with (row % 8), so the eight row addresses of one ldmatrix (or
-//     one 8-thread phase of cp.async) fall on distinct banks without
-//     padding;
+//     XORed with (row % 8) (rows of 32 bf16, 64 bytes, pair up into one
+//     128-byte line swizzled by the line's index), so the eight row
+//     addresses of one ldmatrix (or one 8-thread phase of cp.async) fall
+//     on distinct banks without padding;
 //   * `acc_to_a`: two m16n8 fp32 accumulators (16 columns) rounded to bf16
 //     as the A fragment of the next m16n8k16, so a product's result (P, dS)
 //     feeds the next product without leaving registers.
@@ -115,18 +116,27 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// A [ROWS][COLS] bf16 tile in shared memory, row-major, 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8). COLS is a multiple of 64 (whole
-// 8-chunk swizzle groups).
+// A [ROWS][COLS] bf16 tile in shared memory, row-major. COLS is 32 or a
+// multiple of 64. With COLS a multiple of 64, 16-byte chunk c of row r is
+// stored at chunk c ^ (r % 8). With COLS 32, rows 2l and 2l + 1 share the
+// 128-byte line l, whose eight chunks are XORed with (l % 8): eight rows
+// r0 .. r0 + 7 (r0 % 8 == 0) of one chunk column then fall on eight
+// distinct 16-byte bank groups.
 template <int ROWS, int COLS>
 struct SwizzledTile {
-  static_assert(COLS % 64 == 0, "rows of whole 8-chunk swizzle groups");
+  static_assert(COLS == 32 || COLS % 64 == 0,
+                "rows of 32 bf16 or of whole 8-chunk swizzle groups");
   static constexpr int kChunks = COLS / 8;
   static constexpr int kRowBytes = COLS * 2;
   static constexpr int kBytes = ROWS * kRowBytes;
+  static constexpr int kLineShift = COLS == 32 ? 1 : 0;  // row -> line
 
+  // The swizzle XORs byte-address bits 4..6 only; below a row pitch that
+  // is a multiple of 128 those bits hold the chunk, at pitch 64 bit 6
+  // holds the row's half of its line.
   __device__ __forceinline__ static uint32_t offset(int row, int chunk) {
-    return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+    return (row * kRowBytes + (chunk << 4)) ^
+           (((row >> kLineShift) & 7) << 4);
   }
 
   // Rows row0.. of a [n_rows, COLS] row-major global matrix into the tile
@@ -141,18 +151,19 @@ struct SwizzledTile {
 
   // The same for COLS columns of a wider row-major matrix: row r starts at
   // src + r * ld (src points at the block's first column; ld and the
-  // column offset keep 16-byte alignment).
+  // column offset keep 16-byte alignment). Chunks at or past column
+  // n_cols of the block are zero too (n_cols a multiple of 8).
   template <int THREADS>
   __device__ __forceinline__ static void load_async_strided(
       uint32_t base, const __nv_bfloat16* src, size_t ld, int row0,
-      int n_rows, int tid) {
+      int n_rows, int tid, int n_cols = COLS) {
     static_assert(ROWS * kChunks % THREADS == 0, "whole passes");
 #pragma unroll
     for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
       const int idx = tid + it * THREADS;
       const int r = idx / kChunks;
       const int c = idx % kChunks;
-      const bool valid = row0 + r < n_rows;
+      const bool valid = row0 + r < n_rows && c * 8 < n_cols;
       const __nv_bfloat16* p =
           valid ? src + (size_t)(row0 + r) * ld + c * 8 : src;
       cp_async_16(base + offset(r, c), p, valid);
@@ -162,41 +173,49 @@ struct SwizzledTile {
 
 // Per-lane constants of the ldmatrix addresses into a SwizzledTile
 // (lane = threadIdx.x % 32). Tiles are addressed in 16-row, 16-column
-// blocks (row0 % 16 == 0, col0 % 16 == 0), so (row % 8) is the lane's own:
+// blocks (row0 % 16 == 0, col0 % 16 == 0), so the swizzle of every row a
+// lane addresses is the lane's own:
 //   * `a_row`, `a_x16`: the A operand of rows m0.. (row-major [m][k]) and
 //     the B operand of a [k][n] row-major tile through `.trans`: lane l
 //     addresses row m0 + l % 16, chunk k0 / 8 + l / 16;
 //   * `b_row`, `b_x16`: the B operand of an [n][k] row-major tile (no
-//     transpose): lane l addresses row n0 + l % 8 + 8 * (l / 16), chunk
+//     transpose), and the A operand of a [k][m] tile through `.trans`:
+//     lane l addresses row n0 + l % 8 + 8 * (l / 16), chunk
 //     k0 / 8 + (l / 8) % 2. One x4 load gives b[0], b[1] of n-tiles n0 and
-//     n0 + 8.
+//     n0 + 8 (or a[0..3] of the 16 x 16 A block at (m0, k0)).
 // `*_x16` is the lane's chunk bit and its row's swizzle, folded into the
-// XOR mask of byte-address bits 4..6.
+// XOR mask of byte-address bits 4..6, for a row pitch that is a multiple
+// of 128 bytes; `*_x16n` is the same for the 64-byte rows of 32 bf16.
 struct LaneAddr {
   int a_row, b_row;
-  uint32_t a_x16, b_x16;
+  uint32_t a_x16, b_x16, a_x16n, b_x16n;
   __device__ __forceinline__ explicit LaneAddr(int lane)
       : a_row(lane & 15),
         b_row((lane & 7) | ((lane >> 4) << 3)),
         a_x16(((lane >> 4) ^ (lane & 7)) << 4),
-        b_x16((((lane >> 3) & 1) ^ (lane & 7)) << 4) {}
+        b_x16((((lane >> 3) & 1) ^ (lane & 7)) << 4),
+        a_x16n(((lane >> 4) ^ ((lane & 15) >> 1)) << 4),
+        b_x16n((((lane >> 3) & 1) ^ ((lane & 7) >> 1) ^
+                ((lane >> 4) << 2)) << 4) {}
 };
 
 // The lane's ldmatrix row address for the 16x16 block at (row0, col0) of
 // a SwizzledTile at shared address `tile` (a multiple of 128) with row
-// pitch ROW_BYTES. The unswizzled address of the block's chunk has bits
-// 4..6 equal to (col0 / 8) % 8 and carries nothing above them, so the
-// swizzle is one XOR after an add whose row0, col0 part is a constant.
+// pitch ROW_BYTES. The unswizzled address of the block's chunk has the
+// lane's chunk bit (bit 4) clear and carries nothing out of bits 4..6, so
+// the swizzle is one XOR after an add whose row0, col0 part is a constant.
 template <int ROW_BYTES>
 __device__ __forceinline__ uint32_t a_addr(const LaneAddr& l, uint32_t tile,
                                            int row0, int col0) {
-  return (tile + (row0 + l.a_row) * ROW_BYTES + col0 * 2) ^ l.a_x16;
+  return (tile + (row0 + l.a_row) * ROW_BYTES + col0 * 2) ^
+         (ROW_BYTES == 64 ? l.a_x16n : l.a_x16);
 }
 
 template <int ROW_BYTES>
 __device__ __forceinline__ uint32_t b_addr(const LaneAddr& l, uint32_t tile,
                                            int row0, int col0) {
-  return (tile + (row0 + l.b_row) * ROW_BYTES + col0 * 2) ^ l.b_x16;
+  return (tile + (row0 + l.b_row) * ROW_BYTES + col0 * 2) ^
+         (ROW_BYTES == 64 ? l.b_x16n : l.b_x16);
 }
 
 }  // namespace mma

@@ -230,12 +230,20 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// Every n_rep of 1..8 (the presets use 2, 4, 5 and 8) and head_dim 32,
+// 64 and 128. At D 32 a lane holds one element of a row (E = 1) and the
+// K/V loads are 2-byte (bf16) or 4-byte (fp32) scalars, still one
+// contiguous 64- or 128-byte row a warp.
 template <typename T, int D>
 cudaError_t dispatch_rep(int n_rep, const Args& a) {
   switch (n_rep) {
     case 1: return launch<T, D, 1>(a);
     case 2: return launch<T, D, 2>(a);
+    case 3: return launch<T, D, 3>(a);
     case 4: return launch<T, D, 4>(a);
+    case 5: return launch<T, D, 5>(a);
+    case 6: return launch<T, D, 6>(a);
+    case 7: return launch<T, D, 7>(a);
     case 8: return launch<T, D, 8>(a);
     default: return cudaErrorInvalidValue;
   }
@@ -244,6 +252,7 @@ cudaError_t dispatch_rep(int n_rep, const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int head_dim, int n_rep, const Args& a) {
   switch (head_dim) {
+    case 32: return dispatch_rep<T, 32>(n_rep, a);
     case 64: return dispatch_rep<T, 64>(n_rep, a);
     case 128: return dispatch_rep<T, 128>(n_rep, a);
     default: return cudaErrorInvalidValue;

@@ -53,6 +53,10 @@ K7_NAME = "grouped_mlp_dw"
 GRADS_NAME = "grouped_mlp_grads"
 
 WIDTH_MULTIPLE = 64
+# rows of an expert (its filled 64-row slot tiles over all groups) that
+# bf16 K7 keeps resident in shared memory; past it, K7 streams them
+# (csrc/grouped_mlp_bwd.cu, k7::kResRows)
+K7_RESIDENT_ROWS = 320
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _kernels = {}

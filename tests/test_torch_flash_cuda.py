@@ -1,12 +1,14 @@
 """PyTorch port, the hand-written CUDA flash-attention kernels on the card.
 
 K1 (forward), K2 (dQ) and K3 (dK, dV) against their plain PyTorch
-versions on the same inputs, at head_dim 64 and 128, n_rep 1, 2, 4 and 8
-(Qwen3-30B-A3B's 32 query over 4 KV heads), fp32 and bf16, causal and
+versions on the same inputs, at head_dim 32, 64 and 128 and n_rep 1, 2,
+4, 5 and 8 (every preset's geometry: dense-tiny's D 32, qwen3-14b's 40
+query over 8 KV heads, Qwen3-30B-A3B's 32 over 4), fp32 and bf16, causal and
 not, at sequences on both sides of the kernels' 64-row tiles and 32-row
 register chunks (1, 63, 127, 129, 200, 256, 1000); Sq != Skv through
 ``flash_block_backward``; bf16 K1, K2 and K3 at Qwen3-30B-A3B's training
-shape; and two runs of K2/K3 that must agree bit for bit (no atomics).
+shape; two runs of K2/K3 that must agree bit for bit (no atomics); and
+the dQ of one-row tiles against float64, as close as the plain version.
 Every test needs a CUDA card and skips without one (decided in a
 fixture, at run time). The file imports no JAX, so it runs on the GPU machine, where
 the repository's conftest (which sets JAX up) cannot load:
@@ -91,8 +93,8 @@ def assert_close(dtype, got, want, *, out=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 5, 8])
 @pytest.mark.parametrize("seq", [1, 63, 127, 129, 200, 256, 1000])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_kernels_match_plain_versions(cuda, dtype, head_dim, n_rep, seq,
@@ -127,6 +129,41 @@ def test_kernels_match_plain_versions(cuda, dtype, head_dim, n_rep, seq,
         assert_close(dtype, dq, ref_dq)
         assert_close(dtype, dk, ref_dk)
     assert_close(dtype, dv, ref_dv)
+
+
+def row_rel(a, b):
+    """Relative L2 error of each row of [B, H, D] tensors."""
+    return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_single_row_tile_dq_is_as_close_to_float64_as_the_plain_version(
+        cuda, head_dim):
+    """At S 129 the last 64-row tile of a head holds one query row, and a
+    bf16 dQ row carries two roundings to bf16 (dS before its product, the
+    output after it) in the kernel and in the plain version alike. Held
+    against float64 (dS unrounded), the kernel's rows are as close as the
+    plain version's: the mean and the largest relative error of those
+    rows within 5% of the plain version's."""
+    q, k, v, dout = inputs(cuda, torch.bfloat16, head_dim, 8, 129)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    delta = tf.attention_delta(ref_out, dout)
+    args = (q, k, v, dout, ref_lse, delta)
+    dq = tf.flash_dq(*args, causal=True)
+    dq_ref = tf.flash_dq_ref(*args, causal=True)
+    qd, kd, vd, od = (t.double() for t in (q, k, v, dout))
+    kd, vd = kd.repeat_interleave(8, 1), vd.repeat_interleave(8, 1)
+    scale = head_dim ** -0.5
+    s = (qd @ kd.transpose(-1, -2) * scale).masked_fill(
+        torch.ones(129, 129, dtype=torch.bool, device=cuda).triu(1), -1e30)
+    p = torch.exp(s - ref_lse.double()[..., None])
+    ds = p * (od @ vd.transpose(-1, -2) - delta.double()[..., None]) * scale
+    exact = (ds @ kd)[:, :, 128]
+    torch.cuda.synchronize()
+    kernel = row_rel(dq.double()[:, :, 128], exact)
+    plain = row_rel(dq_ref.double()[:, :, 128], exact)
+    assert float(kernel.mean()) <= 1.05 * float(plain.mean())
+    assert float(kernel.max()) <= 1.05 * float(plain.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -242,7 +279,7 @@ def test_backward_is_bitwise_deterministic(cuda, dtype, causal):
 def test_unsupported_inputs_raise_before_launch(cuda):
     q, k, v, _ = inputs(cuda, torch.float32, 64, 2, 64)
     with pytest.raises(ValueError, match="head_dim"):
-        tf.flash_forward(q[..., :32], k[..., :32], v[..., :32], causal=True)
+        tf.flash_forward(q[..., :16], k[..., :16], v[..., :16], causal=True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tf.flash_forward(q.half(), k.half(), v.half(), causal=True)
     with pytest.raises(TypeError, match="want"):

@@ -7,7 +7,10 @@ width (H 128, I 192) and Qwen3-30B-A3B's (H 2048, I 768), capacities 1,
 and of the 64-row slot tiles, and the training cell's C), fill counts 0,
 partial and C (an expert whose counts are all 0 among them), fp32 and
 bf16, random rows past the counts (which must come out exactly 0) and a
-dense random cotangent (so the masks matter). Every test needs a CUDA card and
+dense random cotangent (so the masks matter); experts whose counts are all
+0 among full ones (zero gradients, zero dx); bf16 K7 with an expert's rows
+inside and past the buffer it keeps resident (320 rows: the streaming
+path); and two runs of K7 that must agree bit for bit (no atomics). Every test needs a CUDA card and
 skips without one (decided in a fixture, at run time). The file imports
 no JAX, so it runs on the GPU machine without the repository's conftest:
 
@@ -166,3 +169,62 @@ def test_unsupported_inputs_raise_before_launch(cuda):
                                wd.half())
     with pytest.raises(TypeError, match="int32"):
         gm.grouped_mlp_forward(x, counts.long(), wg, wu, wd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_experts_without_rows_get_zero_gradients(cuda, dtype):
+    """Every other expert has all its counts at 0, the rest are full."""
+    x, counts, wg, wu, wd, dout = problem(cuda, dtype, 6, 2, 96, 2048, 768)
+    counts[0::2] = 0
+    counts[1::2] = 96
+    grads = gm.grouped_mlp_block_grads(x, counts, wg, wu, wd, dout)
+    dx = gm.grouped_mlp_dx(x, counts, wg, wu, wd, dout, grads)
+    dws = gm.grouped_mlp_dw(x, counts, wg, wu, wd, dout, grads)
+    torch.cuda.synchronize()
+    assert not dx[0::2].any() and structural_zeros(dx, counts)
+    for got, want in zip(dws, gm.grouped_mlp_dw_ref(x, counts, wg, wu, wd,
+                                                    dout)):
+        assert not got[0::2].any()
+        assert_close(dtype, got, want, per_weight=True)
+
+
+@pytest.mark.parametrize("groups,cap", [(1, 320), (2, 320), (3, 200)],
+                         ids=["resident", "streams_640", "streams_3x200"])
+def test_dw_inside_and_past_the_resident_buffer(cuda, groups, cap):
+    """bf16 K7 keeps an expert's rows resident up to K7_RESIDENT_ROWS and
+    streams them past it; both paths against the plain version, at
+    Qwen3-30B-A3B's width, with full, partial and empty experts."""
+    x, counts, wg, wu, wd, dout = problem(cuda, torch.bfloat16, 5, groups,
+                                          cap, 2048, 768)
+    counts[2] = cap  # an expert at every slot of every group
+    rows = ((counts.long() + 63) // 64 * 64).sum(1)  # whole slot tiles
+    assert int(rows[2]) == groups * ((cap + 63) // 64 * 64)
+    assert (int(rows.max()) > gm.K7_RESIDENT_ROWS) == (groups > 1)
+    dws = gm.grouped_mlp_dw(x, counts, wg, wu, wd, dout)
+    torch.cuda.synchronize()
+    for got, want in zip(dws, gm.grouped_mlp_dw_ref(x, counts, wg, wu, wd,
+                                                    dout)):
+        assert_close(torch.bfloat16, got, want, per_weight=True)
+    assert all(not w[0].any() for w in dws)  # expert 0 has no rows
+
+
+@pytest.mark.parametrize("groups,cap", [(1, 320), (2, 320)],
+                         ids=["resident", "streams"])
+def test_dw_is_bitwise_deterministic(cuda, groups, cap):
+    """No atomics: two runs of K7 (and of the grads pass and K6) on the
+    same inputs agree bit for bit, on both K7 paths."""
+    args = problem(cuda, torch.bfloat16, 4, groups, cap, 2048, 768)
+    runs = []
+    for _ in range(2):
+        grads = gm.grouped_mlp_block_grads(*args)
+        runs.append((*grads, gm.grouped_mlp_dx(*args, grads),
+                     *gm.grouped_mlp_dw(*args, grads)))
+    torch.cuda.synchronize()
+    counts = args[1]
+    past = (torch.arange(args[0].shape[2], device=cuda)[None, None]
+            >= counts[..., None])
+    for k, (a, b) in enumerate(zip(*runs)):
+        if k < 3:  # workspace rows past the counts are never written
+            a, b = a[~past], b[~past]
+        assert torch.equal(a, b)

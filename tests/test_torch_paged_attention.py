@@ -202,7 +202,7 @@ class TestKernelInputChecks:
         elif case == "ragged_gqa":
             a["q"] = a["q"][:, :3].contiguous()
         elif case == "n_rep":
-            a["q"] = torch.zeros(3, 6, 64)
+            a["q"] = torch.zeros(3, 18, 64)  # 9 per kv head, past the built 8
         elif case == "noncontiguous":
             a["q"] = a["q"].transpose(0, 1).contiguous().transpose(0, 1)
         elif case == "batch":

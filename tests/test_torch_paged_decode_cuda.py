@@ -1,5 +1,9 @@
 """PyTorch port, the hand-written CUDA paged-decode kernel on the card.
 
+The kernel against its plain version at every geometry it is built for
+(head_dim 32, 64 and 128; n_rep 1 to 8, which covers every preset's:
+dense-tiny's D 32, qwen3-14b's n_rep 5), and the paged engine through the
+kernel against the gather path at n_rep 2 / D 64 and n_rep 5 / D 32.
 Every test here needs a CUDA card and skips without one (decided in a
 fixture, at run time). The file imports no JAX, so it runs on the GPU
 machine, where the repository's conftest (which sets JAX up) cannot load:
@@ -59,8 +63,8 @@ def inputs(dev, dtype, head_dim, n_rep, b=5, hkv=2, page=16, max_pages=9):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [64, 128])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_kernel_matches_plain_version(cuda, dtype, head_dim, n_rep):
     args = inputs(cuda, dtype, head_dim, n_rep)
     before = _build.launch_counts[tpa.KERNEL_NAME]
@@ -93,19 +97,25 @@ def test_dispatcher_sends_decode_to_the_kernel(cuda):
 def test_unsupported_shapes_raise_before_launch(cuda):
     q, pk, pv, tables, positions = inputs(cuda, torch.float32, 64, 2)
     with pytest.raises(ValueError, match="head_dim"):
-        tpa.paged_decode_attention(q[..., :32].contiguous(),
-                                   pk[..., :32].contiguous(),
-                                   pv[..., :32].contiguous(), tables,
+        tpa.paged_decode_attention(q[..., :16].contiguous(),
+                                   pk[..., :16].contiguous(),
+                                   pv[..., :16].contiguous(), tables,
+                                   positions)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        tpa.paged_decode_attention(torch.cat([q] * 5, dim=1), pk, pv, tables,
                                    positions)
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_decode_attention(q, pk, pv, tables.long(), positions)
 
 
-def test_engine_kernel_and_gather_path_agree(cuda):
+@pytest.mark.parametrize("heads,head_dim", [((4, 2), 64), ((10, 2), 32)],
+                         ids=["n_rep2_d64", "n_rep5_d32"])
+def test_engine_kernel_and_gather_path_agree(cuda, heads, head_dim):
     cfg = LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
-                      num_hidden_layers=2, num_attention_heads=4,
-                      num_key_value_heads=2, head_dim=64, qk_norm=True,
-                      tie_word_embeddings=True, dtype=torch.float32)
+                      num_hidden_layers=2, num_attention_heads=heads[0],
+                      num_key_value_heads=heads[1], head_dim=head_dim,
+                      qk_norm=True, tie_word_embeddings=True,
+                      dtype=torch.float32)
     params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
     prompts = [[(7 * i + j) % 256 for j in range(5 + 3 * i)]
                for i in range(5)]
