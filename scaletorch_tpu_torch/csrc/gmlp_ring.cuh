@@ -18,10 +18,11 @@
 //     tile of a weight read transposed (ldmatrix: Wd^T in the grads pass,
 //     Wg^T and Wu^T in K6). Every tile is a SwizzledTile; the callers load
 //     rows at or past a fill count as zero-size copies, so they add 0.
-//   * `for_each_pair`, `stage_tile`, `store_tile`, `store_zeros`: the
-//     epilogue. A warp's accumulator pairs go as bf16 into a swizzled
-//     [BM][BN] tile (a drained ring or a buffer of its own) and leave in
-//     16-byte stores.
+//   * `for_each_pair`, `stage_tile`, `store_tile`, `store_warp_block`,
+//     `store_zeros`: the epilogue. A warp's accumulator pairs go as bf16
+//     into a swizzled [BM][BN] tile (a drained ring) and leave in 16-byte
+//     stores, or, mid-loop (K7), into the warp's own block, which the warp
+//     stores alone.
 //
 // A plan P is a struct of
 //   kNA, kNP, kNAcc          A operands, products (= B operands), sums
@@ -212,6 +213,35 @@ __device__ __forceinline__ void store_tile(const unsigned char* tile,
           *reinterpret_cast<const uint4*>(tile + O::offset(r, c));
     }
   }
+}
+
+// The warp's own MW x NW block of the output, f(row, mt, nt, x) (packed
+// bf16x2), staged in the warp's own swizzled tile at `tile` and stored by
+// the warp alone, 16 bytes a copy, rows < rows of dst (row stride ld): no
+// barrier across the CTA, so the other warps go on with their products.
+template <typename W, typename F>
+__device__ __forceinline__ void store_warp_block(unsigned char* tile,
+                                                 bf16* dst, size_t ld,
+                                                 int rows, const F& f) {
+  using T = mma::SwizzledTile<W::MW, W::NW>;
+  const int lane = threadIdx.x & 31;
+  const int m0 = W::m0();
+  const int n0 = W::n0();
+  for_each_pair<W>([&](int row, int col, int mt, int nt, int x) {
+    *reinterpret_cast<uint32_t*>(tile + T::offset(row - m0, (col - n0) / 8) +
+                                 (col % 8) * 2) = f(row, mt, nt, x);
+  });
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < W::MW * T::kChunks; idx += 32) {
+    const int r = idx / T::kChunks;
+    const int c = idx % T::kChunks;
+    if (m0 + r < rows) {
+      *reinterpret_cast<uint4*>(dst + (size_t)(m0 + r) * ld + n0 + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + T::offset(r, c));
+    }
+  }
+  __syncwarp();  // read before the warp stages its next block here
 }
 
 // Zeros into rows < rows and columns < cols of a BM x BN block of dst.

@@ -57,13 +57,16 @@
 //     past the count load as zeros (the TPU dW kernel's dO mask). An
 //     expert whose counts are all 0 writes zeros. Where the rows do not
 //     fit the resident buffer, A streams through the ring beside B (the
-//     resident buffer holds its stages). Each column tile leaves through a
-//     32 KB buffer of its own while the next tile's loads are in flight.
+//     resident buffer holds its stages). A summed column tile leaves warp
+//     by warp: each warp stages its own 32 x 32 blocks in a buffer of its
+//     own and stores them, with no barrier across the CTA, while the next
+//     tile's loads are in flight. The loader and the consumer step through
+//     the walk with cursors: no division or search per k step.
 // What they still leave: mma.sync instead of wgmma + TMA; the s / dG / dU
 // round trip through device memory; the grads pass and K6 re-read an
 // expert's weights for each 128-row slot tile and their A rows for each
 // column tile (from L2).
-// fp32: the PR 3 tile path (grouped_mlp_common.cuh's FMA products).
+// fp32: the tile path of grouped_mlp_common.cuh (plain FMA products).
 //
 // Each C entry returns the cudaError_t of cudaGetLastError() after its
 // launch (cudaErrorInvalidValue for a shape it was not built for). They
@@ -288,8 +291,10 @@ static_assert(kResRows % BK == 0 && kStages * ATile::kBytes <= kResBytes,
               "the resident buffer holds A's stages when A streams");
 constexpr int kRing = kResBytes;  // B's stages
 constexpr int kStageBytes = 2 * BTile::kBytes;
-constexpr int kOut = kRing + kStages * kStageBytes;  // two staged tiles
-constexpr int kBytes = kOut + 2 * W::OTile::kBytes;
+// then each warp's staged output blocks, one per product
+constexpr int kOut = kRing + kStages * kStageBytes;
+constexpr int kWarpBlockBytes = W::MW * W::NW * 2;
+constexpr int kBytes = kOut + W::kThreads / 32 * 2 * kWarpBlockBytes;
 
 // x^T dG and x^T dU (NP 2), or s^T dO (NP 1): A read as [rows][M] tiles
 template <int NP>
@@ -369,6 +374,7 @@ __device__ __forceinline__ void dw_walk(
     }
   }
   const mma::LaneAddr la(tid & 31);
+  const int warp = tid >> 5;
   const int wm0 = W::m0();
   const int wn0 = W::n0();
   typename Pr::Acc acc;
@@ -400,25 +406,21 @@ __device__ __forceinline__ void dw_walk(
         Pr::step(acc, a, b, la, wm0, wn0);
         if (ckt == nk - 1) {  // column tile cj is summed: write it
           const int n0 = (j0 + cj) * BNT;
-          gring::stage_tile<W>(smem + kOut, [&](int, int mt, int nt,
-                                                int xr) {
-            return mma::pack_bf16(acc[0][mt][nt][2 * xr],
-                                  acc[0][mt][nt][2 * xr + 1]);
-          });
+          // each warp stages and stores its own 32 x 32 blocks: no barrier
+          unsigned char* blk = smem + kOut + warp * NP * kWarpBlockBytes;
+          gring::store_warp_block<W>(
+              blk, out[0] + (size_t)m0 * n_dim + n0, n_dim, m_rows,
+              [&](int, int mt, int nt, int xr) {
+                return mma::pack_bf16(acc[0][mt][nt][2 * xr],
+                                      acc[0][mt][nt][2 * xr + 1]);
+              });
           if constexpr (NP == 2) {
-            gring::stage_tile<W>(smem + kOut + W::OTile::kBytes,
-                                 [&](int, int mt, int nt, int xr) {
-                                   return mma::pack_bf16(
-                                       acc[1][mt][nt][2 * xr],
-                                       acc[1][mt][nt][2 * xr + 1]);
-                                 });
-          }
-          __syncthreads();
-#pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            gring::store_tile<W>(smem + kOut + p * W::OTile::kBytes,
-                                 out[p] + (size_t)m0 * n_dim + n0, n_dim,
-                                 m_rows);
+            gring::store_warp_block<W>(
+                blk + kWarpBlockBytes, out[1] + (size_t)m0 * n_dim + n0,
+                n_dim, m_rows, [&](int, int mt, int nt, int xr) {
+                  return mma::pack_bf16(acc[1][mt][nt][2 * xr],
+                                        acc[1][mt][nt][2 * xr + 1]);
+                });
           }
           Pr::zero(acc);
           ++cj;
@@ -472,7 +474,7 @@ inline int dw_units(int hid, int inter) {
          ceil_div(inter, k7::BM) * ceil_div(hid / k7::BNT, k7::kWalkDown);
 }
 
-// fp32 keeps the PR 3 tile path: shared-memory tiles and the register
+// fp32 keeps the tile path: shared-memory tiles and the register
 // accumulator's fp32 FMA products (grouped_mlp_common.cuh, no TF32).
 namespace f32 {
 using T = float;
