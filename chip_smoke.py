@@ -5,11 +5,12 @@ Run from the root of a checkout, with one visible card:
 
     python3 chip_smoke.py
 
-`python3 chip_smoke.py kernel_grouped_mlp` runs the device, build and
-kernel_grouped_mlp phases alone, bf16 only: copied into a checkout of
-another commit and run there, it times that commit's kernels by the
-same yardstick (compare two commits in one call: parent, change,
-change, parent).
+It takes no arguments. One phase alone, e.g. the grouped-MLP kernels in
+bf16 (copied into a checkout of another commit and run there, this times
+that commit's kernels by the same yardstick):
+
+    python -c "import torch, chip_smoke as c; c.phase_device(); \
+c.phase_build(); c.phase_kernel_grouped_mlp(dtypes=(torch.bfloat16,))"
 
 Phases, each printing one JSON line (any failure raises and the exit code
 is non-zero; no phase catches an exception):
@@ -98,8 +99,9 @@ is non-zero; no phase catches an exception):
                 agree bit for bit; each launch's time (the grads pass, K6
                 and K7 each alone, and the whole backward as
                 _GroupedSwiGLU.backward runs it), its plain version's, the
-                einsum path's (several cuBLAS calls, not one) and the
-                bound of its own work.
+                library's (cuBLAS bmm of the launch's own products for K6
+                and K7; the einsum path for K5 and the whole backward;
+                several calls, not one) and the bound of its own work.
  13. moe_decode_parity — 4 layers, fp32, dropless: teacher-forced paged
                 decode of 2 x 64 tokens through K4 + K5 and through the
                 gather path + einsum path; max |logit difference| <= 1e-3.
@@ -1319,16 +1321,28 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
                     lambda: moe_mlp(x.view(e, g * c, h), wg, wu, wd))}
     if bwd:
         # each launch alone, from the grads pass's (s, dG, dU); then the
-        # three together, as the autograd backward runs them. The einsum
-        # path's one autograd backward gives dx and dW: it is the yardstick
-        # of K6, K7 and the whole backward.
+        # three together, as the autograd backward runs them. Each launch's
+        # library yardstick is the cuBLAS batched products of its own
+        # function over every slot; the einsum path's one autograd backward
+        # (dx and dW) is the yardstick of the whole backward.
+        gc = g * c
+        s_, dg_, du_ = (got[n].view(e, gc, -1) for n in ("s", "dg", "du"))
+        x_, do_ = x.view(e, gc, h), dout.view(e, gc, h)
+
+        def lib_dx():
+            return torch.baddbmm(torch.bmm(dg_, wg.mT), du_, wu.mT)
+
+        def lib_dw():
+            return (torch.bmm(x_.mT, dg_), torch.bmm(x_.mT, du_),
+                    torch.bmm(s_.mT, do_))
+
         timed["grads"] = (lambda: gm.grouped_mlp_block_grads(*args),
                           lambda: gm.grouped_mlp_block_grads_ref(*args),
                           None)
         timed["K6"] = (lambda: gm.grouped_mlp_dx(*args, grads),
-                       lambda: gm.grouped_mlp_dx_ref(*args, grads), lib_bwd)
+                       lambda: gm.grouped_mlp_dx_ref(*args, grads), lib_dx)
         timed["K7"] = (lambda: gm.grouped_mlp_dw(*args, grads),
-                       lambda: gm.grouped_mlp_dw_ref(*args, grads), lib_bwd)
+                       lambda: gm.grouped_mlp_dw_ref(*args, grads), lib_dw)
         timed["backward"] = (lambda: gmlp_backward(args),
                              lambda: (gm.grouped_mlp_dx_ref(*args),
                                       gm.grouped_mlp_dw_ref(*args)),
@@ -1351,9 +1365,11 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
         row["grads_pass_bound_ms"] = k["grads"]["bound_ms"]
         row["backward_ms"] = k["backward"]["kernel_ms"]
         row["backward_bound_ms"] = k["backward"]["bound_ms"]
-    row["library"] = ("the einsum path: three cuBLAS bmm calls and the "
-                      "swiglu kernels (forward), their autograd (backward)"
-                      "; several calls, not one")
+    row["library"] = ("K5: the einsum path (three cuBLAS bmm calls and "
+                      "the swiglu kernels); K6: bmm + baddbmm (dG Wg^T + "
+                      "dU Wu^T); K7: three bmm (x^T dG, x^T dU, s^T dO); "
+                      "backward: the einsum path's autograd; every slot, "
+                      "several calls, not one")
     del lib_out, lib_in
     emit("kernel_grouped_mlp", **row)
     violations = gmlp_violations(errs, tol)
@@ -1371,11 +1387,10 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
     return row
 
 
-def phase_kernel_grouped_mlp(shapes=tuple(GMLP_SHAPES),
-                             dtypes=(torch.float32, torch.bfloat16)) -> dict:
+def phase_kernel_grouped_mlp(dtypes=(torch.float32, torch.bfloat16)) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
-    for shape in shapes:
+    for shape in GMLP_SHAPES:
         for dtype in dtypes:
             row = gmlp_case(shape, dtype, flush)
             results[(shape, row["dtype"])] = row
@@ -1575,21 +1590,13 @@ def phase_moe_train():
     return trainer, launches
 
 
-def main(argv) -> int:
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if argv:
-        if argv != ["kernel_grouped_mlp"]:
-            print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
-            return 2
-        phase_device()
-        phase_build()
-        phase_kernel_grouped_mlp(dtypes=(torch.bfloat16,))
-        return 0
     seconds = {}
 
     def timed(name, fn, *args):
@@ -1681,4 +1688,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

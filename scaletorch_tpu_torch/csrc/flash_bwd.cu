@@ -9,6 +9,8 @@
 // caller):
 //   P  = exp(scale * Q K^T (masked to -1e30) - LSE)
 //   dS = P * (dO V^T - delta) * scale
+//   (bf16 at head_dim 64 and 128: P = exp2(S * scale log2 e - LSE log2 e),
+//   `bwd_prob`)
 //   K2: dQ = sum over key tiles of dS K                (ds rounded to k's dtype)
 //   K3: dV = sum of P^T dO, dK = sum of dS^T Q over the query tiles and
 //       over the n_rep query heads of a KV head   (p rounded to dO's dtype,
@@ -62,6 +64,22 @@ namespace {
 
 using namespace flash;
 using bf16 = __nv_bfloat16;
+
+// bf16 P of a raw score s (Q K^T, unscaled) from its row's LSE (lse2 =
+// LSE log2 e). At head_dim 32 a row of dQ has too few elements to average
+// one dS that rounds to bf16 the other way, so there P is formed exactly as
+// the plain versions form it: expf of the scaled score minus LSE, each
+// step rounded apart. The wider heads keep the cheaper exp2f of a folded
+// scale, one fma.
+template <int D>
+__device__ __forceinline__ float bwd_prob(float s, float scale, float scale2,
+                                          float lse, float lse2) {
+  if constexpr (D == 32) {
+    return expf(__fsub_rn(__fmul_rn(s, scale), lse));
+  } else {
+    return exp2f(fmaf(s, scale2, -lse2));
+  }
+}
 
 // ---- bf16 K2: dQ on mma.sync ---------------------------------------------------
 namespace k2 {
@@ -136,12 +154,13 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // this thread's query rows: g and g + 8 of its warp's 16 (lane = 4g + t)
   const int warp_row0 = i * BQ + warp * 16;
   int row[2];
-  float lse2[2], dlt[2];
+  float lse1[2], lse2[2], dlt[2];
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     row[x] = warp_row0 + (lane >> 2) + 8 * x;
     const bool in = row[x] < sq;
-    lse2[x] = in ? lse[q_row0 + row[x]] * kLog2e : 0.f;
+    lse1[x] = in ? lse[q_row0 + row[x]] : 0.f;
+    lse2[x] = lse1[x] * kLog2e;
     dlt[x] = in ? delta[q_row0 + row[x]] : 0.f;
   }
   const float scale2 = scale * kLog2e;
@@ -209,7 +228,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int x = e >> 1;
           const int key = key0 + n * 8 + 2 * t + (e & 1);
           const bool off = masked(causal, row[x], key, skv);
-          const float p = off ? 0.f : exp2f(fmaf(s[n][e], scale2, -lse2[x]));
+          const float p =
+              off ? 0.f
+                  : bwd_prob<D>(s[n][e], scale, scale2, lse1[x], lse2[x]);
           dp[n][e] = p * (dp[n][e] - dlt[x]) * scale;
         }
       }
@@ -415,8 +436,9 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bool off = qi >= sq || masked(causal, qi, key[e >> 1], skv);
           const float lse_q = (e & 1) ? l2.y : l2.x;
           const float delta_q = (e & 1) ? d2.y : d2.x;
-          const float p =
-              off ? 0.f : exp2f(fmaf(s[n][e], scale2, -lse_q * kLog2e));
+          const float p = off ? 0.f
+                              : bwd_prob<D>(s[n][e], scale, scale2, lse_q,
+                                            lse_q * kLog2e);
           dp[n][e] = p * (dp[n][e] - delta_q) * scale;
           s[n][e] = p;
         }

@@ -860,3 +860,7 @@ extern "C" int st_grouped_mlp_bwd_dw(const void* x, const void* counts,
                groups, cap, hid, inter, static_cast<cudaStream_t>(stream)};
   return dispatch(kDw, a, dtype);
 }
+
+// bf16 K7's resident buffer in A rows (k7::kResRows): an expert whose
+// filled slot tiles hold more rows streams them through the ring
+extern "C" int st_grouped_mlp_bwd_resident_rows() { return k7::kResRows; }

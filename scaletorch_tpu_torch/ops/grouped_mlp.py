@@ -53,10 +53,6 @@ K7_NAME = "grouped_mlp_dw"
 GRADS_NAME = "grouped_mlp_grads"
 
 WIDTH_MULTIPLE = 64
-# rows of an expert (its filled 64-row slot tiles over all groups) that
-# bf16 K7 keeps resident in shared memory; past it, K7 streams them
-# (csrc/grouped_mlp_bwd.cu, k7::kResRows)
-K7_RESIDENT_ROWS = 320
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _kernels = {}
@@ -161,6 +157,15 @@ def _entry(library: str, symbol: str, n_pointers: int):
         fn.restype = ctypes.c_int
         _kernels[key] = (lib, fn)
     return _kernels[key]
+
+
+def dw_resident_rows() -> int:
+    """Rows of an expert (its filled 64-row slot tiles over all groups)
+    that bf16 K7 keeps resident in shared memory; past it, K7 streams
+    them. Read from the built kernel library."""
+    fn = _build.load(BWD_LIBRARY).st_grouped_mlp_bwd_resident_rows
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def _check(x: Tensor, counts: Tensor, wg: Tensor, wu: Tensor, wd: Tensor,

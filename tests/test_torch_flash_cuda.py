@@ -24,6 +24,8 @@ another order than the plain versions. bf16: a probability or dS that
 lands on the other side of a bf16 rounding step moves by one bf16 ulp.
 """
 
+import json
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -162,6 +164,22 @@ def test_single_row_tile_dq_is_as_close_to_float64_as_the_plain_version(
     torch.cuda.synchronize()
     kernel = row_rel(dq.double()[:, :, 128], exact)
     plain = row_rel(dq_ref.double()[:, :, 128], exact)
+    # the one-row tiles' readings (shown with pytest -rP): how far the
+    # kernel's rows lie from the plain version's, and in how many elements,
+    # by how many bf16 steps of the plain value, they differ
+    got, want = dq.double()[:, :, 128], dq_ref.double()[:, :, 128]
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                      - 7)
+    print(json.dumps({
+        "head_dim": head_dim,
+        "kernel_vs_plain_row_rel_max": float(row_rel(got, want).max()),
+        "elements_differing": int((got != want).sum()),
+        "elements": got.numel(),
+        "max_bf16_steps": float(((got - want).abs() / step).max()),
+        "kernel_vs_float64_mean_max": [float(kernel.mean()),
+                                       float(kernel.max())],
+        "plain_vs_float64_mean_max": [float(plain.mean()),
+                                      float(plain.max())]}))
     assert float(kernel.mean()) <= 1.05 * float(plain.mean())
     assert float(kernel.max()) <= 1.05 * float(plain.max())
 

@@ -192,7 +192,7 @@ def test_experts_without_rows_get_zero_gradients(cuda, dtype):
 @pytest.mark.parametrize("groups,cap", [(1, 320), (2, 320), (3, 200)],
                          ids=["resident", "streams_640", "streams_3x200"])
 def test_dw_inside_and_past_the_resident_buffer(cuda, groups, cap):
-    """bf16 K7 keeps an expert's rows resident up to K7_RESIDENT_ROWS and
+    """bf16 K7 keeps an expert's rows resident up to dw_resident_rows() and
     streams them past it; both paths against the plain version, at
     Qwen3-30B-A3B's width, with full, partial and empty experts."""
     x, counts, wg, wu, wd, dout = problem(cuda, torch.bfloat16, 5, groups,
@@ -200,7 +200,7 @@ def test_dw_inside_and_past_the_resident_buffer(cuda, groups, cap):
     counts[2] = cap  # an expert at every slot of every group
     rows = ((counts.long() + 63) // 64 * 64).sum(1)  # whole slot tiles
     assert int(rows[2]) == groups * ((cap + 63) // 64 * 64)
-    assert (int(rows.max()) > gm.K7_RESIDENT_ROWS) == (groups > 1)
+    assert (int(rows.max()) > gm.dw_resident_rows()) == (groups > 1)
     dws = gm.grouped_mlp_dw(x, counts, wg, wu, wd, dout)
     torch.cuda.synchronize()
     for got, want in zip(dws, gm.grouped_mlp_dw_ref(x, counts, wg, wu, wd,
