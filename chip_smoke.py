@@ -27,11 +27,20 @@ is non-zero; no phase catches an exception):
   3. kernel_paged_decode — the paged-decode kernel (K4) against its plain
                 PyTorch version at the serving shapes of Qwen3-0.6B
                 (Hq 16, Hkv 8, D 128, 8 slots, page 16, 128 pages per
-                slot), fp32 and bf16; its time, the plain version's, a
-                library yardstick's (gather + scaled_dot_product_attention,
-                which the port never calls) and the memory bound; then
-                against its plain version at qwen3-14b's heads (n_rep 5,
-                D 128) and dense-tiny's (n_rep 2, D 32).
+                slot), fp32 and bf16: max abs and the worst slot's
+                relative error against stated limits, beside a control
+                (the plain version with one page of the longest slot
+                dropped, which must fail them); two calls equal bit for
+                bit; its time, the plain version's, a library
+                yardstick's (gather + scaled_dot_product_attention, which
+                the port never calls), the memory bound, the share of it
+                reached, and the device time of each kernel K4 launches
+                (split, merge); the same at Qwen3-30B-A3B's heads (Hq 32,
+                Hkv 4, n_rep 8) and at one slot of 32768 keys; then
+                at qwen3-14b's heads (n_rep 5, D 128) and dense-tiny's
+                (n_rep 2, D 32). (`phase_k4_variants`, not part of this
+                run, times K4 built with 128, 256 and 512 keys per split,
+                and with the merge in the last CTA.)
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
                 dV) against their plain versions at the training shape of
                 Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
@@ -62,7 +71,8 @@ is non-zero; no phase catches an exception):
                 asserted: bf16 can diverge late in a sequence).
   7. profile  — torch.profiler over 16 steady decode ticks of the same
                 engine: wall and device time per step, the device's busy
-                share, and the kernels that take the device time.
+                share, K4's device time and kernel launches per step, and
+                the kernels that take the device time.
   8. geometry_serve — the presets' other head geometries through K4: a
                 paged engine at dense-tiny (head_dim 32), fp32, whose
                 greedy tokens must equal the dense engine's, K4 launched
@@ -134,6 +144,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -186,6 +197,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SLOTS, PAGE_SIZE, MAX_SEQ, PREFILL_LEN = 8, 16, 2048, 512
 PAGES_PER_SLOT = MAX_SEQ // PAGE_SIZE
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K4 vs its plain version: the worst slot's relative L2 error, which sits
+# below the reading of the one-page-dropped control (bf16's max abs limit
+# cannot see a dropped page among 2048 keys; phase 3 prints both)
+DECODE_SLOT_REL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LONG_CONTEXT = 32768  # keys of the one-slot K4 row
+# time_ms's spin before each timed call: ~2 ms at the H100's ~1.98 GHz,
+# longer than the host takes to enqueue any call timed here
+HOST_HEADSTART_CYCLES = 4_000_000
 PARITY_TOLERANCE = 1e-3
 # the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
 TRAIN_SEQ = 8192
@@ -279,13 +298,17 @@ def check(cond: bool, what: str) -> None:
 def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
     """Median device time of one call, each call timed alone with CUDA
     events after a write of ``flush`` (larger than the 50 MB L2), so
-    every call finds its inputs cold, as a decode step's layer does."""
+    every call finds its inputs cold, as a decode step's layer does. A
+    spin of the card (``torch.cuda._sleep``) after the flush gives the
+    host time to enqueue the call, so the events time the card's work
+    and not the host's enqueue of a call of a few microseconds."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_HEADSTART_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -325,28 +348,34 @@ def phase_build() -> None:
 
 
 # ---- 3. the paged-decode kernel against its plain version --------------------
-def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL):
+def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
+                  slots: int = SLOTS, max_seq: int = MAX_SEQ,
+                  positions=None):
     """Serving-shaped inputs at ``model``'s heads: shuffled physical
-    pages, positions that include 0, both sides of a page boundary and
-    the last position."""
+    pages of PAGE_SIZE, ``max_seq // PAGE_SIZE`` per slot; positions that
+    include 0, both sides of a page boundary and the last position
+    (``positions`` replaces them)."""
     cfg = model_config(model)
-    b, hq, hkv = SLOTS, cfg.num_attention_heads, cfg.num_key_value_heads
+    b, hq, hkv = slots, cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.actual_head_dim
+    pages = max_seq // PAGE_SIZE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    n_pages = b * PAGES_PER_SLOT + 1
+    n_pages = b * pages + 1
     pool_k = torch.randn(n_pages, hkv, PAGE_SIZE, d, generator=gen,
                          device=dev).to(dtype)
     pool_v = torch.randn(n_pages, hkv, PAGE_SIZE, d, generator=gen,
                          device=dev).to(dtype)
     q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
     tables = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1)
-    tables = tables.to(torch.int32).view(b, PAGES_PER_SLOT).contiguous()
-    rest = torch.randint(1, MAX_SEQ, (b - 4,), generator=gen, device=dev)
-    positions = torch.cat([
-        torch.tensor([0, PAGE_SIZE - 1, PAGE_SIZE, MAX_SEQ - 1], device=dev),
-        rest]).to(torch.int32)
+    tables = tables.to(torch.int32).view(b, pages).contiguous()
+    if positions is None:
+        rest = torch.randint(1, max_seq, (b - 4,), generator=gen, device=dev)
+        positions = torch.cat([
+            torch.tensor([0, PAGE_SIZE - 1, PAGE_SIZE, max_seq - 1],
+                         device=dev), rest])
+    positions = torch.as_tensor(positions, device=dev).to(torch.int32)
     return q, pool_k, pool_v, tables, positions
 
 
@@ -378,40 +407,128 @@ def library_attention(q, pool_k, pool_v, tables, positions):
     return out[:, :, 0, :]
 
 
+def slot_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest relative L2 error of one slot's output [Hq, D]: a fault
+    confined to one slot, which the batch's max abs can miss, shows here."""
+    diff = (a.float() - b.float()).flatten(1).norm(dim=1)
+    return float((diff / b.float().flatten(1).norm(dim=1)).max())
+
+
+def drop_one_page(tables, positions):
+    """The control's inputs: the longest slot without its middle live page
+    (its later pages move up one, its position falls by a page), so the
+    plain version on them attends every key but that page's."""
+    slot = int(positions.argmax())
+    pos = int(positions[slot])
+    drop = (pos // PAGE_SIZE + 1) // 2
+    tables, positions = tables.clone(), positions.clone()
+    row = tables[slot]
+    row[drop:-1] = row[drop + 1:].clone()
+    positions[slot] = pos - PAGE_SIZE
+    return tables, positions
+
+
+def decode_row(inputs, flush) -> dict:
+    """K4 against its plain version on ``inputs``: max abs and worst-slot
+    relative error, two calls bit for bit, the kernel's, the plain
+    version's and the library's time, and the bound."""
+    q, pool_k, pool_v, tables, positions = inputs
+    dtype = q.dtype
+    out = paged_decode_attention(*inputs)
+    again = paged_decode_attention(*inputs)
+    ref = paged_decode_attention_ref(*inputs)
+    lib = library_attention(*inputs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{dtype}: non-finite output")
+    check(torch.equal(out, again), f"{dtype}: two calls differ")
+    row = {
+        "dtype": str(dtype).replace("torch.", ""),
+        "shape": {"q": list(q.shape), "pool": list(pool_k.shape),
+                  "page_tables": list(tables.shape)},
+        "n_rep": q.shape[1] // pool_k.shape[1],
+        "max_abs_err": max_abs(out, ref), "tolerance": TOLERANCE[dtype],
+        "slot_rel_err": slot_rel_max(out, ref),
+        "slot_rel_tolerance": DECODE_SLOT_REL[dtype],
+        "library_max_abs_err": max_abs(lib, ref),
+        "two_calls_equal": True,
+        "kernel_ms": time_ms(lambda: paged_decode_attention(*inputs), flush),
+        "plain_ms": time_ms(lambda: paged_decode_attention_ref(*inputs),
+                            flush),
+        "library_ms": time_ms(lambda: library_attention(*inputs), flush),
+        "bound_ms": decode_bound_ms(q, pool_k, positions),
+        "bound_by": "bytes",
+    }
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    row["device_us_by_kernel"] = k4_device_us(inputs)
+    return row
+
+
+def k4_device_us(inputs, calls: int = 10) -> dict:
+    """Device microseconds per K4 call of each kernel it launches (the
+    split kernel and, where the shapes give more than one split, the
+    merge), from torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            paged_decode_attention(*inputs)
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        name = re.search(r"paged_decode_\w+<[^>]*>", e.key)
+        if e.device_type == DeviceType.CUDA and name:
+            found[name.group(0)] = e.self_device_time_total / calls
+    return found
+
+
+def check_decode_row(row: dict, what: str) -> None:
+    check(row["max_abs_err"] <= row["tolerance"],
+          f"{what}: kernel vs plain max abs {row['max_abs_err']} > "
+          f"{row['tolerance']}")
+    check(row["slot_rel_err"] <= row["slot_rel_tolerance"],
+          f"{what}: kernel vs plain worst slot rel {row['slot_rel_err']} > "
+          f"{row['slot_rel_tolerance']}")
+
+
 def phase_kernel() -> dict:
+    """The serving shape of Qwen3-0.6B, then Qwen3-30B-A3B's heads (n_rep
+    8), one slot at 32768 keys, qwen3-14b's heads (n_rep 5) and
+    dense-tiny's (D 32). At the serving shape, a control: the plain
+    version with one page of the longest slot dropped must fail the
+    checks (both readings are printed)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         inputs = decode_inputs(dtype, seed=1234)
+        row = decode_row(inputs, flush)
+        row["positions"] = inputs[4].tolist()
+        check_decode_row(row, str(dtype))
         q, pool_k, pool_v, tables, positions = inputs
+        dropped = paged_decode_attention_ref(
+            q, pool_k, pool_v, *drop_one_page(tables, positions))
         out = paged_decode_attention(*inputs)
-        ref = paged_decode_attention_ref(*inputs)
-        lib = library_attention(*inputs)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        lib_err = float((lib.float() - ref.float()).abs().max())
-        check(bool(torch.isfinite(out).all()), f"{dtype}: non-finite output")
-        check(err <= TOLERANCE[dtype],
-              f"{dtype}: kernel vs plain max abs {err} > {TOLERANCE[dtype]}")
-        row = {
-            "dtype": str(dtype).replace("torch.", ""),
-            "shape": {"q": list(q.shape), "pool": list(pool_k.shape),
-                      "page_tables": list(tables.shape)},
-            "positions": positions.tolist(),
-            "max_abs_err": err, "tolerance": TOLERANCE[dtype],
-            "library_max_abs_err": lib_err,
-            "kernel_ms": time_ms(lambda: paged_decode_attention(*inputs),
-                                 flush),
-            "plain_ms": time_ms(lambda: paged_decode_attention_ref(*inputs),
-                                flush),
-            "library_ms": time_ms(lambda: library_attention(*inputs), flush),
-            "bound_ms": decode_bound_ms(q, pool_k, positions),
-            "bound_by": "bytes",
+        control = {"max_abs_err": max_abs(out, dropped),
+                   "slot_rel_err": slot_rel_max(out, dropped)}
+        check(control["max_abs_err"] > TOLERANCE[dtype]
+              or control["slot_rel_err"] > DECODE_SLOT_REL[dtype],
+              f"{dtype}: the one-page-dropped control passes the checks "
+              f"{control}")
+        row["control_one_page_dropped"] = control
+        row["rows"] = {
+            "qwen3_30b_a3b_heads": decode_row(
+                decode_inputs(dtype, seed=1236, model=MOE_MODEL), flush),
+            "b1_32768_keys": decode_row(
+                decode_inputs(dtype, seed=1237, slots=1,
+                              max_seq=LONG_CONTEXT,
+                              positions=[LONG_CONTEXT - 1]), flush),
         }
         row["geometries"] = {m: paged_geometry(m, dtype, flush)
                              for m in GEOMETRY_MODELS}
         results[row["dtype"]] = row
         emit("kernel_paged_decode", **row)
+        for name, r in row["rows"].items():
+            check_decode_row(r, f"{dtype} {name}")
         for m, g in row["geometries"].items():
             check(g["max_abs_err"] <= TOLERANCE[dtype],
                   f"{dtype} {m}: kernel vs plain max abs "
@@ -419,19 +536,94 @@ def phase_kernel() -> dict:
     return results
 
 
+# builds of K4 that phase_k4_variants times against each other: the
+# number of keys per split, and where the splits are merged
+K4_VARIANTS = {
+    "kps128": ("-DST_PAGED_DECODE_KEYS_PER_SPLIT=128",),
+    "kps256": (),
+    "kps512": ("-DST_PAGED_DECODE_KEYS_PER_SPLIT=512",),
+    "merge_in_last_cta": ("-DST_PAGED_DECODE_MERGE_IN_LAST_CTA",),
+}
+
+
+def phase_k4_variants(names=tuple(K4_VARIANTS)) -> dict:
+    """Not part of a full run: K4 built as each variant in ``names``
+    (K4_VARIANTS: nvcc -D flags on the same source), checked against the
+    plain version and timed in bf16 at phase 3's serving, MoE-heads and
+    32768-key rows and at the serve cell's contexts (8 slots, 100-464
+    keys), the variants in turns, twice. Prints the median of each
+    (variant, row)."""
+    import ctypes
+    import subprocess
+
+    from scaletorch_tpu_torch.ops import paged_attention as tpa
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    dtype = torch.bfloat16
+    serve_positions = np.random.default_rng(5).integers(100, 465, SLOTS)
+    rows = {
+        "qwen3_0.6b_b8": decode_inputs(dtype, seed=1234),
+        "serve_contexts": decode_inputs(dtype, seed=1238,
+                                        positions=serve_positions.tolist()),
+        "qwen3_30b_a3b_heads": decode_inputs(dtype, seed=1236,
+                                             model=MOE_MODEL),
+        "b1_32768_keys": decode_inputs(dtype, seed=1237, slots=1,
+                                       max_seq=LONG_CONTEXT,
+                                       positions=[LONG_CONTEXT - 1]),
+    }
+    built = tpa._load_kernel()
+    procs = {}
+    for name in names:
+        path = _build.BUILD_DIR / f"libpaged_decode-{name}.so"
+        cmd = _build.nvcc_command("paged_decode", path) + list(
+            K4_VARIANTS[name])
+        procs[name] = (path, subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    variants = {}
+    for name, (path, proc) in procs.items():
+        check(proc.wait() == 0, f"nvcc failed for K4 variant {name}")
+        lib = ctypes.CDLL(str(path))
+        fn = lib.st_paged_decode_attention
+        fn.argtypes, fn.restype = built[1].argtypes, built[1].restype
+        variants[name] = (lib, fn, lib.st_paged_decode_keys_per_split())
+    times = {name: {row: [] for row in rows} for name in names}
+    try:
+        for _ in range(2):
+            for name, entry in variants.items():
+                tpa._kernel_fn = entry
+                for row, inputs in rows.items():
+                    out = paged_decode_attention(*inputs)
+                    err = max_abs(out, paged_decode_attention_ref(*inputs))
+                    check(err <= TOLERANCE[dtype], f"{name} {row}: {err}")
+                    check(torch.equal(out, paged_decode_attention(*inputs)),
+                          f"{name} {row}: two calls differ")
+                    times[name][row].append(time_ms(
+                        lambda: paged_decode_attention(*inputs), flush))
+    finally:
+        tpa._kernel_fn = built
+    result = {name: {row: statistics.median(t) for row, t in r.items()}
+              for name, r in times.items()}
+    emit("k4_variants", dtype="bfloat16",
+         flags={n: list(K4_VARIANTS[n]) for n in names},
+         serve_positions=serve_positions.tolist(), kernel_ms=result,
+         runs=times)
+    return result
+
+
 def paged_geometry(model: str, dtype: torch.dtype, flush) -> dict:
     """K4 against its plain version at another preset's heads."""
     inputs = decode_inputs(dtype, seed=1235, model=model)
-    q, pool_k = inputs[:2]
+    q, pool_k, _, _, positions = inputs
     out = paged_decode_attention(*inputs)
     ref = paged_decode_attention_ref(*inputs)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{dtype} {model}: non-finite")
+    kernel_ms = time_ms(lambda: paged_decode_attention(*inputs), flush)
+    bound = decode_bound_ms(q, pool_k, positions)
     return {"q": list(q.shape), "pool": list(pool_k.shape),
             "n_rep": q.shape[1] // pool_k.shape[1],
-            "max_abs_err": max_abs(out, ref),
-            "kernel_ms": time_ms(lambda: paged_decode_attention(*inputs),
-                                 flush)}
+            "max_abs_err": max_abs(out, ref), "kernel_ms": kernel_ms,
+            "bound_ms": bound, "bound_share": bound / kernel_ms}
 
 
 # ---- 4. the flash kernels against their plain versions -----------------------
@@ -884,11 +1076,16 @@ def profiled(run, steps: int) -> dict:
                if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # K4: its split kernel and, where a slot spans splits, its merge
+    k4 = [e for e in kernels if "paged_decode" in e.key]
     return dict(
         wall_ms_per_step=1e3 * wall / steps,
         device_ms_per_step=1e-3 * device_us / steps,
         device_busy_share=(1e-6 * device_us / wall) if wall else None,
         kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        k4_device_ms_per_step=1e-3 * sum(e.self_device_time_total
+                                         for e in k4) / steps,
+        k4_kernel_launches_per_step=sum(e.count for e in k4) / steps,
         top_kernels=[{"name": e.key[:80], "calls_per_step": e.count / steps,
                       "ms_per_step": 1e-3 * e.self_device_time_total / steps}
                      for e in top])

@@ -9,11 +9,17 @@ physical pool page. Three implementations of attention against it:
   * **the CUDA kernel** (``paged_decode_attention`` on a CUDA tensor):
     one query token per slot, written by hand for Hopper in
     ``csrc/paged_decode.cu``. It replaces the Pallas kernel
-    ``_paged_decode_kernel`` and reads only the live pages.
+    ``_paged_decode_kernel`` and reads only the live pages. It cuts each
+    slot's keys into splits of ``KEYS_PER_SPLIT`` (``split_plan``: from
+    the shapes alone), computes each split's softmax state on its own
+    CTA and merges the live splits in a fixed order, through an fp32
+    workspace that the wrapper allocates.
   * **its plain version** (``paged_decode_attention_ref``): the gather
     of both pools, the ``seq_limit`` crop, then ``cached_sdpa_attention``
     — what the JAX dispatcher's fallback does at S = 1. The CPU path and
     the tests use it; with a card present, nothing on the main path does.
+    ``paged_decode_split_ref`` models the kernel's split and merge in
+    plain PyTorch for the tests.
   * **the gather path** for prefill (S > 1) in ``paged_attention``.
 
 Writes (``paged_write_kv``) scatter token ``t`` to ``(table[b, t //
@@ -45,8 +51,16 @@ KERNEL_NAME = "paged_decode"
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 SUPPORTED_N_REP = tuple(range(1, 9))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# keys of one split: the kernel's compile-time constant, which the
+# wrapper reads from the built library
+KEYS_PER_SPLIT = 256
+_MASKED = -1e30  # the Pallas kernel's mask value
 
 _kernel_fn = None
+# (device, stream) -> int32 counters of the splits of each (slot, KV head)
+# that have finished, zero between calls (the kernel's last split of a
+# (slot, head) resets its own)
+_split_counters: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -141,15 +155,112 @@ def _gather_attention(q, pool_k, pool_v, page_tables, q_positions, *,
     return cached_sdpa_attention(q, k, v, q_positions, scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# the split plan and its plain model
+# ---------------------------------------------------------------------------
+def split_plan(max_pages: int, page_size: int,
+               keys_per_split: int = KEYS_PER_SPLIT) -> int:
+    """Splits of every slot's key range: ``ceil(max_pages * page_size /
+    keys_per_split)``. A function of the shapes alone, so the kernel's
+    grid and workspace never depend on the positions."""
+    return -(-(max_pages * page_size) // keys_per_split)
+
+
+def split_ranges(positions, max_pages: int, page_size: int,
+                 keys_per_split: int = KEYS_PER_SPLIT) -> list:
+    """The live splits of each slot, as ``[(first key, last key), ...]``:
+    split s holds keys ``s * keys_per_split ..`` up to the slot's last
+    visible key ``min(position, max_pages * page_size - 1)``. A slot's
+    splits depend on its own position only, never on the batch."""
+    keys = max_pages * page_size
+    ranges = []
+    for pos in positions:
+        last = min(int(pos), keys - 1)
+        ranges.append([(k0, min(k0 + keys_per_split - 1, last))
+                       for k0 in range(0, last + 1, keys_per_split)])
+    return ranges
+
+
+def workspace_shape(batch: int, num_q_heads: int, head_dim: int,
+                    splits: int) -> Tuple[int, int, int, int]:
+    """The kernel's fp32 workspace: per split and query row, the partial
+    softmax state ``(m, l, acc[head_dim])``."""
+    return (splits, batch, num_q_heads, head_dim + 2)
+
+
+def paged_decode_split_ref(
+    q: Tensor,
+    pool_k: Tensor,
+    pool_v: Tensor,
+    page_tables: Tensor,
+    positions: Tensor,
+    *,
+    scale: Optional[float] = None,
+    keys_per_split: int = KEYS_PER_SPLIT,
+) -> Tensor:
+    """The kernel's split and merge in plain PyTorch (for the tests): each
+    split's unnormalised state ``m = max s``, ``l = sum p``, ``acc = p V``
+    over its keys (a split with no visible key counts as ``m = -1e30, l =
+    0, acc = 0``), then ``M = max m``, ``L = sum l e^(m - M)``, ``out =
+    sum acc e^(m - M) / max(L, 1e-30)``. Scores in fp32, scaled after the
+    product; p rounded to the cache dtype before P V."""
+    b, hq, d = q.shape
+    _, hkv, page_size, _ = pool_k.shape
+    max_pages = page_tables.shape[1]
+    n_rep = hq // hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    splits = split_plan(max_pages, page_size, keys_per_split)
+    pad = splits * keys_per_split - max_pages * page_size
+
+    def by_split(pool):  # [B, Hkv, splits, keys_per_split, D]
+        dense = paged_gather_kv(pool, page_tables)
+        dense = torch.nn.functional.pad(dense, (0, 0, 0, pad))
+        return dense.view(b, hkv, splits, keys_per_split, d)
+
+    k, v = by_split(pool_k), by_split(pool_v)
+    qg = q.view(b, hkv, n_rep, d)
+    s = torch.einsum("bhrd,bhskd->bhsrk", qg.float(), k.float()) * scale
+    key = torch.arange(splits * keys_per_split, device=q.device)
+    last = positions.long().clamp(max=max_pages * page_size - 1)
+    visible = (key[None, :] <= last[:, None]).view(
+        b, 1, splits, 1, keys_per_split)
+    s = torch.where(visible, s, torch.full_like(s, _MASKED))
+    m = s.amax(dim=-1)                                     # [B,Hkv,S,R]
+    p = torch.where(visible, torch.exp(s - m[..., None]),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhsrk,bhskd->bhsrd", p.to(pool_v.dtype).float(),
+                       v.float())
+    big_m = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - big_m)
+    big_l = (l * w).sum(dim=2)
+    out = (acc * w[..., None]).sum(dim=2) / big_l.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _counters(device: torch.device, stream: int, n: int) -> Tensor:
+    """At least ``n`` zeroed counters, one buffer per (device, stream):
+    two streams never share one."""
+    buf = _split_counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _split_counters[(device, stream)] = buf
+    return buf
+
+
 def _load_kernel():
     global _kernel_fn
     if _kernel_fn is None:
         lib = _build.load(KERNEL_NAME)
         fn = lib.st_paged_decode_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _kernel_fn = (lib, fn)
+        keys_per_split = lib.st_paged_decode_keys_per_split
+        keys_per_split.restype = ctypes.c_int
+        _kernel_fn = (lib, fn, keys_per_split())
     return _kernel_fn
 
 
@@ -215,7 +326,9 @@ def paged_decode_attention(
     int32, keys at positions <= ``positions`` [B] int32 -> [B, Hq, D].
 
     On a CUDA tensor this launches the hand-written kernel (or raises);
-    on a CPU tensor it computes the kernel's plain version.
+    on a CPU tensor it computes the kernel's plain version. The kernel's
+    grid and its fp32 workspace follow from the shapes alone: nothing is
+    read back from the card.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
@@ -223,15 +336,22 @@ def paged_decode_attention(
     _check_kernel_inputs(q, pool_k, pool_v, page_tables, positions)
     b, hq, d = q.shape
     _, hkv, page_size, _ = pool_k.shape
+    max_pages = page_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    lib, fn = _load_kernel()
+    lib, fn, keys_per_split = _load_kernel()
     out = torch.empty_like(q)
+    splits = split_plan(max_pages, page_size, keys_per_split)
+    workspace = torch.empty(workspace_shape(b, hq, d, splits),
+                            dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, b * hkv)
     rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             page_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, hq, hkv, d, page_size, page_tables.shape[1], float(scale),
-            _DTYPE_CODES[q.dtype], stream)
+            workspace.data_ptr(), workspace.numel() * 4,
+            counters.data_ptr(), counters.numel(), b, hq, hkv, d,
+            page_size, max_pages, float(scale), _DTYPE_CODES[q.dtype],
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"paged-decode kernel launch failed: "

@@ -2,8 +2,11 @@
 
 The kernel against its plain version at every geometry it is built for
 (head_dim 32, 64 and 128; n_rep 1 to 8, which covers every preset's:
-dense-tiny's D 32, qwen3-14b's n_rep 5), and the paged engine through the
-kernel against the gather path at n_rep 2 / D 64 and n_rep 5 / D 32.
+dense-tiny's D 32, qwen3-14b's n_rep 5), at contexts that span several
+of its key splits (page sizes 1, 4, 16 and 64) and at one slot of 32768
+keys; two calls equal bit for bit; a slot's output the same bits alone
+and inside a batch of 8; and the paged engine through the kernel against
+the gather path at n_rep 2 / D 64 and n_rep 5 / D 32.
 Every test here needs a CUDA card and skips without one (decided in a
 fixture, at run time). The file imports no JAX, so it runs on the GPU
 machine, where the repository's conftest (which sets JAX up) cannot load:
@@ -41,11 +44,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(dev, dtype, head_dim, n_rep, b=5, hkv=2, page=16, max_pages=9):
+def inputs(dev, dtype, head_dim, n_rep, b=5, hkv=2, page=16, max_pages=9,
+           positions=None):
     """Shuffled pages; positions at 0, both sides of a page boundary, the
-    table's last key and one past the table's reach."""
+    table's last key and one past the table's reach (``positions``
+    replaces them, one per slot)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1000 * n_rep + head_dim)
+    if positions is not None:
+        b = len(positions)
     n_pages = b * max_pages + 1
     pool_k = torch.randn(n_pages, hkv, page, head_dim, generator=gen,
                          device=dev).to(dtype)
@@ -56,9 +63,18 @@ def inputs(dev, dtype, head_dim, n_rep, b=5, hkv=2, page=16, max_pages=9):
     tables = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1)
     tables = tables.to(torch.int32).view(b, max_pages).contiguous()
     last = max_pages * page - 1
-    positions = torch.tensor([0, page - 1, page, last, last + 5],
-                             dtype=torch.int32, device=dev)
+    if positions is None:
+        positions = [0, page - 1, page, last, last + 5]
+    positions = torch.tensor(positions, dtype=torch.int32, device=dev)
     return q, pool_k, pool_v, tables, positions
+
+
+def max_err(args):
+    out = tpa.paged_decode_attention(*args)
+    ref = tpa.paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    return float((out.float() - ref.float()).abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -75,6 +91,88 @@ def test_kernel_matches_plain_version(cuda, dtype, head_dim, n_rep):
     assert out.dtype == dtype and out.shape == args[0].shape
     assert torch.isfinite(out).all()
     assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype]
+
+
+KPS = tpa.KEYS_PER_SPLIT
+
+
+def test_library_splits_as_the_wrapper_plans(cuda):
+    assert tpa._load_kernel()[2] == KPS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n_rep,head_dim", [(1, 64), (5, 128), (8, 32)])
+@pytest.mark.parametrize("page", [1, 4, 16, 64])
+def test_contexts_across_several_splits(cuda, dtype, n_rep, head_dim, page):
+    """Positions on both sides of split boundaries, in the fourth split,
+    at the table's last key and past it: tiles straddle pages at every
+    page size, and slots of one batch span 1 to 5 splits."""
+    max_pages = -(-(4 * KPS + 100) // page)
+    last = max_pages * page - 1
+    args = inputs(cuda, dtype, head_dim, n_rep, page=page,
+                  max_pages=max_pages,
+                  positions=[0, KPS - 1, KPS, KPS + 1, 3 * KPS + 17, last,
+                             last + 5])
+    assert max_err(args) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_two_calls_equal_bit_for_bit(cuda, dtype):
+    args = inputs(cuda, dtype, 128, 8, page=16, max_pages=64,
+                  positions=[5, 300, 1023, 700, 1000])
+    first = tpa.paged_decode_attention(*args)
+    second = tpa.paged_decode_attention(*args)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_a_slot_alone_and_in_a_batch_agree_bit_for_bit(cuda, dtype):
+    q, pk, pv, tables, positions = inputs(
+        cuda, dtype, 128, 2, page=16, max_pages=80,
+        positions=[0, 15, 256, 511, 700, 1279, 1000, 1300])
+    batch = tpa.paged_decode_attention(q, pk, pv, tables, positions)
+    for i in range(q.shape[0]):
+        alone = tpa.paged_decode_attention(
+            q[i:i + 1].contiguous(), pk, pv, tables[i:i + 1].contiguous(),
+            positions[i:i + 1].contiguous())
+        assert torch.equal(alone[0], batch[i]), f"slot {i}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_one_slot_of_32768_keys(cuda, dtype):
+    """Qwen3-0.6B's heads (16 / 8, D 128), page 16, the whole table."""
+    args = inputs(cuda, dtype, 128, 2, hkv=8, page=16, max_pages=2048,
+                  positions=[32767])
+    assert max_err(args) <= TOL[dtype]
+
+
+def test_a_short_workspace_is_refused(cuda):
+    q, pk, pv, tables, positions = inputs(cuda, torch.float32, 64, 2,
+                                          max_pages=40)
+    lib, fn, kps = tpa._load_kernel()
+    b, hq, d = q.shape
+    splits = tpa.split_plan(40, 16, kps)
+    assert splits > 1
+    need = 4 * splits * b * hq * (d + 2)
+    work = torch.empty(need // 4, device=cuda)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    counters = torch.zeros(b * 2, dtype=torch.int32, device=cuda)
+
+    def call(nbytes):
+        return fn(q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                  tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+                  work.data_ptr(), nbytes, counters.data_ptr(),
+                  counters.numel(), b, hq, 2, d, 16, 40, 0.125, 0, stream)
+
+    assert call(need - 4) != 0
+    assert call(need) == 0
+    torch.cuda.synchronize()
 
 
 def test_dispatcher_sends_decode_to_the_kernel(cuda):
