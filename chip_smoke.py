@@ -34,13 +34,13 @@ is non-zero; no phase catches an exception):
                 bit; its time, the plain version's, a library
                 yardstick's (gather + scaled_dot_product_attention, which
                 the port never calls), the memory bound, the share of it
-                reached, and the device time of each kernel K4 launches
-                (split, merge); the same at Qwen3-30B-A3B's heads (Hq 32,
+                reached, and K4's device time (torch.profiler, inputs
+                hot in L2); the same at Qwen3-30B-A3B's heads (Hq 32,
                 Hkv 4, n_rep 8) and at one slot of 32768 keys; then
                 at qwen3-14b's heads (n_rep 5, D 128) and dense-tiny's
                 (n_rep 2, D 32). (`phase_k4_variants`, not part of this
-                run, times K4 built with 128, 256 and 512 keys per split,
-                and with the merge in the last CTA.)
+                run, times K4 built with 128, 256 and 512 keys per
+                split.)
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
                 dV) against their plain versions at the training shape of
                 Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
@@ -431,7 +431,8 @@ def drop_one_page(tables, positions):
 def decode_row(inputs, flush) -> dict:
     """K4 against its plain version on ``inputs``: max abs and worst-slot
     relative error, two calls bit for bit, the kernel's, the plain
-    version's and the library's time, and the bound."""
+    version's and the library's time, the bound, and the device time of
+    the kernel per call."""
     q, pool_k, pool_v, tables, positions = inputs
     dtype = q.dtype
     out = paged_decode_attention(*inputs)
@@ -464,9 +465,9 @@ def decode_row(inputs, flush) -> dict:
 
 
 def k4_device_us(inputs, calls: int = 10) -> dict:
-    """Device microseconds per K4 call of each kernel it launches (the
-    split kernel and, where the shapes give more than one split, the
-    merge), from torch.profiler over ``calls`` calls."""
+    """Device microseconds per K4 call of each kernel it launches, from
+    torch.profiler over ``calls`` calls (back to back: the inputs stay
+    in L2 where they fit)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -537,12 +538,11 @@ def phase_kernel() -> dict:
 
 
 # builds of K4 that phase_k4_variants times against each other: the
-# number of keys per split, and where the splits are merged
+# number of keys per split (256 is the built one)
 K4_VARIANTS = {
     "kps128": ("-DST_PAGED_DECODE_KEYS_PER_SPLIT=128",),
     "kps256": (),
     "kps512": ("-DST_PAGED_DECODE_KEYS_PER_SPLIT=512",),
-    "merge_in_last_cta": ("-DST_PAGED_DECODE_MERGE_IN_LAST_CTA",),
 }
 
 
@@ -1076,7 +1076,6 @@ def profiled(run, steps: int) -> dict:
                if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    # K4: its split kernel and, where a slot spans splits, its merge
     k4 = [e for e in kernels if "paged_decode" in e.key]
     return dict(
         wall_ms_per_step=1e3 * wall / steps,

@@ -50,19 +50,23 @@
 //     shared memory. A slot whose keys fit in one split writes its output
 //     there. Otherwise each split writes an unnormalised fp32 partial
 //     (m, l, acc[D]) per query row into the workspace [splits, B, Hq,
-//     D + 2], and a second launch (grid (Hq, B), 1024 threads) merges the
-//     slot's live splits in a fixed order:
+//     D + 2] and counts itself in on the (slot, KV head)'s counter; the
+//     last CTA to do so resets the counter and merges the slot's live
+//     splits in a fixed order:
 //       M = max_s m_s,  L = sum_s l_s e^(m_s - M),
 //       out = sum_s acc_s e^(m_s - M) / max(L, 1e-30).
-//     Splits that never ran are never read. No atomic operation touches
-//     the data, so two runs are equal bit for bit.
+//     Splits that never ran are never read. The only atomic operation
+//     is the count; none touches the data, so two runs are equal bit for
+//     bit. (Chosen over a second launch for the merge by timing both on
+//     the H100; PERF.md has the numbers.)
 //
 // The C entry returns the cudaError_t of cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for a shape it was not built for or a
-// workspace too small). It launches on the caller's stream, allocates
-// nothing, reads no device memory on the host and does not synchronise:
-// the grids and the workspace follow from the shapes, so a CUDA graph can
-// capture it.
+// launch (cudaErrorInvalidValue for a shape it was not built for, or a
+// workspace or counter buffer too small). It launches one kernel on the
+// caller's stream, allocates nothing, reads no device memory on the host
+// and does not synchronise: the grid and the workspace follow from the
+// shapes and the counters are zero between calls, so a CUDA graph can
+// capture it. Calls that run at once must not share a counter buffer.
 
 #include <limits.h>
 
@@ -88,7 +92,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTileKeys = 16;           // keys of one warp's tile
 constexpr int BK = kWarps * kTileKeys;  // keys of one ring stage
 constexpr int kMaxRep = 8;              // query rows of a KV head, at most
-constexpr int kMergeThreads = 1024;
 static_assert(kKeysPerSplit % BK == 0, "a split is whole ring stages");
 
 template <typename T, int D>
@@ -232,10 +235,14 @@ __device__ __forceinline__ void finish(const WarpStates<T, D>& w,
   }
 }
 
-// The merge done by the last CTA of a (slot, KV head) to finish, found
-// through a counter that it resets itself (the variant built with
-// ST_PAGED_DECODE_MERGE_IN_LAST_CTA; otherwise a second launch merges).
-// The order of the sums is fixed, whichever CTA is last.
+// The merge of a slot's live splits, done by the last CTA of the (slot,
+// KV head) to finish: each CTA counts itself in after its partial is
+// written, and the one that brings the count to the number of live
+// splits resets the counter for the next call and merges. One warp a row
+// finds M and L; then groups of D/2 threads (two columns each) sum every
+// G-th split's row, kUnroll splits' loads in flight, and the groups' sums
+// are added in group order. The order of every sum is fixed, whichever
+// CTA comes last.
 template <typename T, int D, int NREP>
 __device__ __forceinline__ void merge_in_last_cta(const Split& s,
                                                   const float* part,
@@ -293,18 +300,25 @@ __device__ __forceinline__ void merge_in_last_cta(const Split& s,
   __syncthreads();
   const int c2 = threadIdx.x % C2;
   const int grp = threadIdx.x / C2;
+  constexpr int kUnroll = 16 / NREP > 1 ? 16 / NREP : 2;
   float2 a[NREP];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) a[r] = make_float2(0.f, 0.f);
-#pragma unroll 4
-  for (int sp = grp; sp < n_live; sp += G) {
+  for (int sp0 = grp; sp0 < n_live; sp0 += G * kUnroll) {
 #pragma unroll
-    for (int r = 0; r < NREP; ++r) {
-      const float* pr = rows + r * width + sp * stride;
-      const float w = expf(__ldcg(pr) - stat[2 * r]);
-      const float2 v = __ldcg(reinterpret_cast<const float2*>(pr + 2) + c2);
-      a[r].x += v.x * w;
-      a[r].y += v.y * w;
+    for (int u = 0; u < kUnroll; ++u) {
+      const int sp = sp0 + u * G;
+      if (sp < n_live) {
+#pragma unroll
+        for (int r = 0; r < NREP; ++r) {
+          const float* pr = rows + r * width + sp * stride;
+          const float w = expf(__ldcg(pr) - stat[2 * r]);
+          const float2 v =
+              __ldcg(reinterpret_cast<const float2*>(pr + 2) + c2);
+          a[r].x += v.x * w;
+          a[r].y += v.y * w;
+        }
+      }
     }
   }
 #pragma unroll
@@ -497,10 +511,8 @@ paged_decode_mma_kernel(const bf16* __restrict__ q,
   }
   __syncthreads();
   finish<bf16, D, NREP>(w, s, out, part, batch, hkv);
-#ifdef ST_PAGED_DECODE_MERGE_IN_LAST_CTA
   merge_in_last_cta<bf16, D, NREP>(s, part, counters, out, batch, hkv,
                                    reinterpret_cast<float*>(smem + L::kRing));
-#endif
 }
 
 // ---- fp32 on CUDA cores -------------------------------------------------------------
@@ -673,90 +685,8 @@ paged_decode_fp32_kernel(const float* __restrict__ q,
   }
   __syncthreads();
   finish<float, D, NREP>(w, s, out, part, batch, hkv);
-#ifdef ST_PAGED_DECODE_MERGE_IN_LAST_CTA
   merge_in_last_cta<float, D, NREP>(s, part, counters, out, batch, hkv,
                                     reinterpret_cast<float*>(smem + L::kRing));
-#endif
-}
-
-// ---- the merge of a slot's live splits ---------------------------------------------
-// A sum or max over the CTA in a fixed order: butterflies in each warp,
-// then the warps' results in warp order. Every thread gets the result.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* warp_s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  if ((threadIdx.x & 31) == 0) warp_s[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float r = warp_s[0];
-#pragma unroll
-  for (int w = 1; w < kMergeThreads / 32; ++w) {
-    r = kMax ? fmaxf(r, warp_s[w]) : r + warp_s[w];
-  }
-  __syncthreads();  // warp_s is free again
-  return r;
-}
-
-// One CTA per (q head, slot). Each thread takes splits tid, tid +
-// kMergeThreads, ... for M and L. The acc rows go kMergeThreads splits at
-// a time: each split's weight e^(m_s - M) lands in shared memory, and
-// kMergeThreads / d groups of d threads sum every group-th split's row
-// (eight loads in flight a thread), then the groups' sums are added in
-// group order.
-template <typename T>
-__global__ void __launch_bounds__(kMergeThreads)
-paged_decode_merge_kernel(const float* __restrict__ part,
-                          const int32_t* __restrict__ positions,
-                          T* __restrict__ out, int batch, int hq, int d,
-                          int page_size, int max_pages) {
-  const int row = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int last = min(positions[b], max_pages * page_size - 1);
-  const int n_live = last / kKeysPerSplit + 1;
-  if (n_live <= 1) return;  // the split kernel wrote this slot's rows
-  __shared__ float w_s[kMergeThreads];
-  __shared__ float red[kMergeThreads];
-  __shared__ float warp_s[kMergeThreads / 32];
-  const size_t width = d + 2;
-  const size_t stride = (size_t)batch * hq * width;  // one split
-  const float* p = part + ((size_t)b * hq + row) * width;
-  float mx = kMasked;
-  for (int sp = tid; sp < n_live; sp += kMergeThreads) {
-    mx = fmaxf(mx, p[sp * stride]);
-  }
-  mx = block_reduce<true>(mx, warp_s);
-  const int groups = kMergeThreads / d;
-  const int grp = tid / d;
-  const int col = tid % d;
-  float lsum = 0.f, a = 0.f;
-  for (int c0 = 0; c0 < n_live; c0 += kMergeThreads) {
-    const int sp = c0 + tid;
-    float w = 0.f;
-    if (sp < n_live) {
-      w = expf(p[sp * stride] - mx);
-      lsum += p[sp * stride + 1] * w;
-    }
-    w_s[tid] = w;
-    __syncthreads();
-    const int n = min(kMergeThreads, n_live - c0);
-    const float* acc = p + (size_t)c0 * stride + 2 + col;
-#pragma unroll 8
-    for (int k = grp; k < n; k += groups) a += acc[k * stride] * w_s[k];
-    __syncthreads();
-  }
-  lsum = block_reduce<false>(lsum, warp_s);
-  red[tid] = a;
-  __syncthreads();
-  if (tid < d) {
-    float sum = 0.f;
-    for (int x = 0; x < groups; ++x) sum += red[x * d + tid];
-    out[((size_t)b * hq + row) * d + tid] =
-        Cvt<T>::from(sum / fmaxf(lsum, 1e-30f));
-  }
 }
 
 struct Args {
@@ -787,24 +717,14 @@ template <typename T, int D, int NREP>
 cudaError_t launch(const Args& a) {
   constexpr int bytes = Layout<T, D>::kBytes;
   auto kernel = split_kernel<T, D, NREP>();
-  cudaError_t err = flash::allow_smem(kernel, bytes);
+  const cudaError_t err = flash::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const T* q = static_cast<const T*>(a.q);
-  T* out = static_cast<T*>(a.out);
   kernel<<<dim3(a.splits, a.hkv, a.batch), kThreads, bytes, a.stream>>>(
-      q, static_cast<const T*>(a.pool_k), static_cast<const T*>(a.pool_v),
-      a.page_tables, a.positions, out, a.part, a.counters, a.batch, a.hkv,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.pool_k),
+      static_cast<const T*>(a.pool_v), a.page_tables, a.positions,
+      static_cast<T*>(a.out), a.part, a.counters, a.batch, a.hkv,
       a.page_size, a.max_pages, a.scale);
-  err = cudaGetLastError();
-#ifndef ST_PAGED_DECODE_MERGE_IN_LAST_CTA
-  if (err != cudaSuccess || a.splits == 1) return err;
-  paged_decode_merge_kernel<T><<<dim3(a.hq, a.batch), kMergeThreads, 0,
-                                 a.stream>>>(a.part, a.positions, out,
-                                             a.batch, a.hq, D, a.page_size,
-                                             a.max_pages);
-  err = cudaGetLastError();
-#endif
-  return err;
+  return cudaGetLastError();
 }
 
 // Every n_rep of 1..8 (the presets use 2, 4, 5 and 8) and head_dim 32,
@@ -841,7 +761,9 @@ extern "C" int st_paged_decode_keys_per_split() { return kKeysPerSplit; }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, both pools and out share it).
 // workspace: fp32 [splits, batch, num_q_heads, head_dim + 2], splits =
-// ceil(max_pages * page_size / keys per split); read only when splits > 1.
+// ceil(max_pages * page_size / keys per split); counters: int32, at least
+// batch * num_kv_heads, zero before the first call (the kernel leaves them
+// zero). Both are used only when splits > 1.
 extern "C" int st_paged_decode_attention(
     const void* q, const void* pool_k, const void* pool_v,
     const void* page_tables, const void* positions, void* out,

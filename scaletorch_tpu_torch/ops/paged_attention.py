@@ -12,8 +12,9 @@ physical pool page. Three implementations of attention against it:
     ``_paged_decode_kernel`` and reads only the live pages. It cuts each
     slot's keys into splits of ``KEYS_PER_SPLIT`` (``split_plan``: from
     the shapes alone), computes each split's softmax state on its own
-    CTA and merges the live splits in a fixed order, through an fp32
-    workspace that the wrapper allocates.
+    CTA, and the last CTA of a (slot, KV head) merges the live splits in
+    a fixed order, through an fp32 workspace that the wrapper allocates
+    and a buffer of counters that it keeps per (device, stream).
   * **its plain version** (``paged_decode_attention_ref``): the gather
     of both pools, the ``seq_limit`` crop, then ``cached_sdpa_attention``
     — what the JAX dispatcher's fallback does at S = 1. The CPU path and

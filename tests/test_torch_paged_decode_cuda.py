@@ -4,8 +4,9 @@ The kernel against its plain version at every geometry it is built for
 (head_dim 32, 64 and 128; n_rep 1 to 8, which covers every preset's:
 dense-tiny's D 32, qwen3-14b's n_rep 5), at contexts that span several
 of its key splits (page sizes 1, 4, 16 and 64) and at one slot of 32768
-keys; two calls equal bit for bit; a slot's output the same bits alone
-and inside a batch of 8; and the paged engine through the kernel against
+keys; two calls equal bit for bit, on one stream and on two; a slot's
+output the same bits alone and inside a batch of 8; and the paged
+engine through the kernel against
 the gather path at n_rep 2 / D 64 and n_rep 5 / D 32.
 Every test here needs a CUDA card and skips without one (decided in a
 fixture, at run time). The file imports no JAX, so it runs on the GPU
@@ -125,6 +126,25 @@ def test_two_calls_equal_bit_for_bit(cuda, dtype):
     first = tpa.paged_decode_attention(*args)
     second = tpa.paged_decode_attention(*args)
     assert torch.equal(first, second)
+
+
+def test_each_stream_has_its_counters_and_leaves_them_zero(cuda):
+    """The last split of a (slot, head) resets its counter: a call on a
+    second stream (its own counters) gives the same bits, and every
+    counter is 0 afterwards."""
+    args = inputs(cuda, torch.bfloat16, 64, 4, page=16, max_pages=64,
+                  positions=[1000, 300, 5, 1023])
+    first = tpa.paged_decode_attention(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = tpa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    streams = {key for key in tpa._split_counters if key[0] == first.device}
+    assert len(streams) >= 2
+    for buf in tpa._split_counters.values():
+        assert int(buf.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
