@@ -75,10 +75,6 @@
 #include "flash_common.cuh"
 #include "mma_sm90.cuh"
 
-#ifndef ST_PAGED_DECODE_KEYS_PER_SPLIT
-#define ST_PAGED_DECODE_KEYS_PER_SPLIT 256
-#endif
-
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -86,7 +82,7 @@ using flash::Cvt;
 using flash::kLog2e;
 using flash::kMasked;
 
-constexpr int kKeysPerSplit = ST_PAGED_DECODE_KEYS_PER_SPLIT;
+constexpr int kKeysPerSplit = 256;  // chosen over 128 and 512 (PERF.md §6)
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileKeys = 16;           // keys of one warp's tile
@@ -240,9 +236,8 @@ __device__ __forceinline__ void finish(const WarpStates<T, D>& w,
 // written, and the one that brings the count to the number of live
 // splits resets the counter for the next call and merges. One warp a row
 // finds M and L; then groups of D/2 threads (two columns each) sum every
-// G-th split's row, kUnroll splits' loads in flight, and the groups' sums
-// are added in group order. The order of every sum is fixed, whichever
-// CTA comes last.
+// G-th split's row, and the groups' sums are added in group order. The
+// order of every sum is fixed, whichever CTA comes last.
 template <typename T, int D, int NREP>
 __device__ __forceinline__ void merge_in_last_cta(const Split& s,
                                                   const float* part,
@@ -300,25 +295,18 @@ __device__ __forceinline__ void merge_in_last_cta(const Split& s,
   __syncthreads();
   const int c2 = threadIdx.x % C2;
   const int grp = threadIdx.x / C2;
-  constexpr int kUnroll = 16 / NREP > 1 ? 16 / NREP : 2;
   float2 a[NREP];
 #pragma unroll
   for (int r = 0; r < NREP; ++r) a[r] = make_float2(0.f, 0.f);
-  for (int sp0 = grp; sp0 < n_live; sp0 += G * kUnroll) {
+#pragma unroll 4
+  for (int sp = grp; sp < n_live; sp += G) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int sp = sp0 + u * G;
-      if (sp < n_live) {
-#pragma unroll
-        for (int r = 0; r < NREP; ++r) {
-          const float* pr = rows + r * width + sp * stride;
-          const float w = expf(__ldcg(pr) - stat[2 * r]);
-          const float2 v =
-              __ldcg(reinterpret_cast<const float2*>(pr + 2) + c2);
-          a[r].x += v.x * w;
-          a[r].y += v.y * w;
-        }
-      }
+    for (int r = 0; r < NREP; ++r) {
+      const float* pr = rows + r * width + sp * stride;
+      const float w = expf(__ldcg(pr) - stat[2 * r]);
+      const float2 v = __ldcg(reinterpret_cast<const float2*>(pr + 2) + c2);
+      a[r].x += v.x * w;
+      a[r].y += v.y * w;
     }
   }
 #pragma unroll

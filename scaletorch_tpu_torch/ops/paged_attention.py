@@ -10,8 +10,8 @@ physical pool page. Three implementations of attention against it:
     one query token per slot, written by hand for Hopper in
     ``csrc/paged_decode.cu``. It replaces the Pallas kernel
     ``_paged_decode_kernel`` and reads only the live pages. It cuts each
-    slot's keys into splits of ``KEYS_PER_SPLIT`` (``split_plan``: from
-    the shapes alone), computes each split's softmax state on its own
+    slot's keys into splits of ``keys_per_split()`` keys (``split_plan``:
+    from the shapes alone), computes each split's softmax state on its own
     CTA, and the last CTA of a (slot, KV head) merges the live splits in
     a fixed order, through an fp32 workspace that the wrapper allocates
     and a buffer of counters that it keeps per (device, stream).
@@ -52,9 +52,6 @@ KERNEL_NAME = "paged_decode"
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 SUPPORTED_N_REP = tuple(range(1, 9))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# keys of one split: the kernel's compile-time constant, which the
-# wrapper reads from the built library
-KEYS_PER_SPLIT = 256
 _MASKED = -1e30  # the Pallas kernel's mask value
 
 _kernel_fn = None
@@ -159,27 +156,11 @@ def _gather_attention(q, pool_k, pool_v, page_tables, q_positions, *,
 # ---------------------------------------------------------------------------
 # the split plan and its plain model
 # ---------------------------------------------------------------------------
-def split_plan(max_pages: int, page_size: int,
-               keys_per_split: int = KEYS_PER_SPLIT) -> int:
+def split_plan(max_pages: int, page_size: int, keys_per_split: int) -> int:
     """Splits of every slot's key range: ``ceil(max_pages * page_size /
     keys_per_split)``. A function of the shapes alone, so the kernel's
     grid and workspace never depend on the positions."""
     return -(-(max_pages * page_size) // keys_per_split)
-
-
-def split_ranges(positions, max_pages: int, page_size: int,
-                 keys_per_split: int = KEYS_PER_SPLIT) -> list:
-    """The live splits of each slot, as ``[(first key, last key), ...]``:
-    split s holds keys ``s * keys_per_split ..`` up to the slot's last
-    visible key ``min(position, max_pages * page_size - 1)``. A slot's
-    splits depend on its own position only, never on the batch."""
-    keys = max_pages * page_size
-    ranges = []
-    for pos in positions:
-        last = min(int(pos), keys - 1)
-        ranges.append([(k0, min(k0 + keys_per_split - 1, last))
-                       for k0 in range(0, last + 1, keys_per_split)])
-    return ranges
 
 
 def workspace_shape(batch: int, num_q_heads: int, head_dim: int,
@@ -196,14 +177,15 @@ def paged_decode_split_ref(
     page_tables: Tensor,
     positions: Tensor,
     *,
+    keys_per_split: int,
     scale: Optional[float] = None,
-    keys_per_split: int = KEYS_PER_SPLIT,
 ) -> Tensor:
-    """The kernel's split and merge in plain PyTorch (for the tests): each
-    split's unnormalised state ``m = max s``, ``l = sum p``, ``acc = p V``
-    over its keys (a split with no visible key counts as ``m = -1e30, l =
-    0, acc = 0``), then ``M = max m``, ``L = sum l e^(m - M)``, ``out =
-    sum acc e^(m - M) / max(L, 1e-30)``. Scores in fp32, scaled after the
+    """The kernel's split and merge in plain PyTorch (for the tests), with
+    splits of ``keys_per_split`` keys: each split's unnormalised state
+    ``m = max s``, ``l = sum p``, ``acc = p V`` over its keys (a split
+    with no visible key counts as ``m = -1e30, l = 0, acc = 0``), then
+    ``M = max m``, ``L = sum l e^(m - M)``, ``out = sum acc e^(m - M) /
+    max(L, 1e-30)``. Scores in fp32, scaled after the
     product; p rounded to the cache dtype before P V."""
     b, hq, d = q.shape
     _, hkv, page_size, _ = pool_k.shape
@@ -259,10 +241,16 @@ def _load_kernel():
                        + [ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        keys_per_split = lib.st_paged_decode_keys_per_split
-        keys_per_split.restype = ctypes.c_int
-        _kernel_fn = (lib, fn, keys_per_split())
+        kps = lib.st_paged_decode_keys_per_split
+        kps.restype = ctypes.c_int
+        _kernel_fn = (lib, fn, kps())
     return _kernel_fn
+
+
+def keys_per_split() -> int:
+    """Keys of one split: the kernel's compile-time constant, read from
+    the built library (which this builds on first use)."""
+    return _load_kernel()[2]
 
 
 def _check_kernel_inputs(q, pool_k, pool_v, page_tables, positions) -> None:
@@ -340,9 +328,9 @@ def paged_decode_attention(
     max_pages = page_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    lib, fn, keys_per_split = _load_kernel()
+    lib, fn, kps = _load_kernel()
     out = torch.empty_like(q)
-    splits = split_plan(max_pages, page_size, keys_per_split)
+    splits = split_plan(max_pages, page_size, kps)
     workspace = torch.empty(workspace_shape(b, hq, d, splits),
                             dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
