@@ -64,18 +64,37 @@ is non-zero; no phase catches an exception):
   6. serve    — the paged engine at Qwen3-0.6B width in bf16 serves 16
                 greedy requests (half behind a shared 256-token prefix)
                 with the kernel counted: every outcome ok, prefix hits,
-                page conservation, pools updated in place, and 28 kernel
-                launches per decode step. The same traffic through the
-                gather path gives the greedy agreement (printed, not
-                asserted: bf16 can diverge late in a sequence).
-  7. profile  — torch.profiler over 16 steady decode ticks of the same
-                engine: wall and device time per step, the device's busy
-                share, K4's device time and kernel launches per step, and
+                page conservation, pools updated in place; the engine
+                captured its prefill and decode steps once each as CUDA
+                graphs and replayed them once a step, with 28 kernel
+                launches per decode replay (launch counts = the capture
+                warm-ups' plus each capture's once per replay); TPOT p50,
+                decode tokens/s, replays and peak memory. The same
+                traffic through the gather path (a second graphed engine,
+                built after the first is freed) gives the greedy
+                agreement (printed, not asserted: bf16 can diverge late
+                in a sequence).
+  7. profile  — torch.profiler over 16 steady decode ticks (16 replays)
+                of the same engine: wall and device time per step, the
+                device's busy share, K4's device time, kernel launches
+                per step as the trace counts them inside the graph (K4
+                once a layer, checked where the trace shows them), and
                 the kernels that take the device time.
+ 7b. decode_graph — the one-capture contract at the same width: every
+                prefill and 16 decode replays of three engines (paged
+                through K4, paged through the gather path, dense) equal
+                to the eager step function on the same buffers bit for
+                bit; paged (gather) == dense greedy tokens; sampled
+                tokens (temperature 0.8, top-p 0.9, 12 requests on 8
+                slots) the same per request in two submission orders;
+                one capture of each step through a prefix hit, a cancel,
+                a deadline and a quarantine forced inside the graph
+                (NaN logits on a poison token), every static buffer in
+                place.
   8. geometry_serve — the presets' other head geometries through K4: a
                 paged engine at dense-tiny (head_dim 32), fp32, whose
                 greedy tokens must equal the dense engine's, K4 launched
-                once a layer a decode step; and a 2-layer cut of
+                once a layer a decode replay; and a 2-layer cut of
                 qwen3-14b's width (n_rep 5), fp32, teacher-forced paged
                 decode of 2 x 64 tokens through K4 and through the gather
                 path, max |logit difference| <= 1e-3.
@@ -115,11 +134,13 @@ is non-zero; no phase catches an exception):
                 decode of 2 x 64 tokens through K4 + K5 and through the
                 gather path + einsum path; max |logit difference| <= 1e-3.
  14. moe_serve — the engine at full width and depth (48 layers), bf16,
-                dropless, the traffic of phase 6: every outcome ok, page
-                conservation, 48 K4 and 48 K5 launches per decode step,
-                peak memory; the same traffic through the gather path +
-                einsum path gives the greedy agreement (printed); then
-                torch.profiler over 16 steady decode ticks, as phase 7.
+                dropless, the traffic of phase 6, graphed as there: every
+                outcome ok, page conservation, one capture of each step,
+                48 K4 and 48 K5 launches per decode replay and 48 K5 per
+                prefill replay, peak memory; the same traffic through the
+                gather path + einsum path gives the greedy agreement
+                (printed); then torch.profiler over 16 steady decode
+                ticks, as phase 7 (K5 48 a replay in the trace too).
  15. moe_train_parity — 2 layers, fp32, 2 x 1024 tokens, GC: the loss (CE
                 + aux) and every gradient with the kernels on (K5-K7 and
                 K1-K3) against the einsum path (K1-K3).
@@ -141,6 +162,7 @@ and the grads pass that K6 and K7 share), the nvidia-smi line, and last:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -155,6 +177,7 @@ from scaletorch_tpu_torch.benchmark import benchmark_config, make_bench_args
 from scaletorch_tpu_torch.inference import (
     InferenceEngine,
     SamplingParams,
+    StaticStep,
     teacher_forced_decode,
     teacher_forced_decode_paged,
 )
@@ -194,6 +217,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # serving shapes of the paged engine at Qwen3-0.6B width
 SLOTS, PAGE_SIZE, MAX_SEQ, PREFILL_LEN = 8, 16, 2048, 512
 PAGES_PER_SLOT = MAX_SEQ // PAGE_SIZE
+DECODE_GRAPH_STEPS = 16  # decode replays held to the eager step each
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K4 vs its plain version: the worst slot's relative L2 error, which sits
 # below the reading of the one-page-dropped control (bf16's max abs limit
@@ -923,12 +947,51 @@ def traffic(vocab: int, seed: int = 7):
     return prompts
 
 
+def serving_engine(model, cfg, **kw) -> InferenceEngine:
+    """The serve cell's engine: 8 slots, paged, prefix cache on, greedy
+    unless ``kw`` says otherwise; its steps are captured here."""
+    base = dict(max_slots=SLOTS, max_seq=MAX_SEQ, prefill_len=PREFILL_LEN,
+                sampling=SamplingParams(temperature=0.0),
+                cache_layout="paged", page_size=PAGE_SIZE,
+                prefix_cache=True)
+    return InferenceEngine(model, cfg, **{**base, **kw})
+
+
+def check_one_capture(eng: InferenceEngine, what: str) -> dict:
+    """The one-capture contract after a run: each step captured once and
+    replayed once per engine step, and ``launch_counts`` (reset before the
+    engine was built) equal to the capture warm-ups' launches plus each
+    capture's launches once per replay, so the counts keep meaning
+    launches on the card. Returns the replay counts and the launches of
+    one replay of each step."""
+    dec, pre = eng._decode, eng._prefill
+    check(eng.decode_compile_count == 1 and eng.prefill_compile_count == 1,
+          f"{what}: captured decode {eng.decode_compile_count} and prefill "
+          f"{eng.prefill_compile_count} times, want 1 each")
+    check(dec.replays == eng.metrics.decode_steps
+          and pre.replays == eng.metrics.prefill_calls,
+          f"{what}: {dec.replays} decode / {pre.replays} prefill replays "
+          f"for {eng.metrics.decode_steps} / {eng.metrics.prefill_calls} "
+          "steps")
+    for name in set(dec.captured_launches) | set(pre.captured_launches):
+        want = sum(st.warmup_launches[name]
+                   + st.captured_launches[name] * st.replays
+                   for st in (dec, pre))
+        check(_build.launch_counts[name] == want,
+              f"{what}: {name} counted {_build.launch_counts[name]} "
+              f"launches, want {want} (warm-ups + per capture x replays)")
+    return {"decode_compile_count": eng.decode_compile_count,
+            "prefill_compile_count": eng.prefill_compile_count,
+            "decode_replays": dec.replays, "prefill_replays": pre.replays,
+            "decode_launches_per_replay": dict(dec.captured_launches),
+            "prefill_launches_per_replay": dict(pre.captured_launches)}
+
+
 def serve(model, cfg, prompts, paged_kernel):
-    eng = InferenceEngine(
-        model, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
-        prefill_len=PREFILL_LEN, sampling=SamplingParams(temperature=0.0),
-        cache_layout="paged", page_size=PAGE_SIZE, prefix_cache=True,
-        paged_kernel=paged_kernel)
+    """The serve cell's traffic through a new engine: 64 new tokens a
+    request. Returns the engine, the results in submission order, the
+    pools' pointers before the run and the run's numbers."""
+    eng = serving_engine(model, cfg, paged_kernel=paged_kernel)
     ptrs = (eng.cache.k.data_ptr(), eng.cache.v.data_ptr())
     ids = [eng.submit(p, max_new_tokens=64) for p in prompts]
     decode_tokens, decode_s = 0, 0.0
@@ -957,40 +1020,63 @@ def serve(model, cfg, prompts, paged_kernel):
     return eng, results, ptrs, stats
 
 
+def check_served(eng, results, ptrs, stats, what: str) -> list:
+    outcomes = [r.outcome for r in results]
+    check(all(o == "ok" for o in outcomes), f"{what}: outcomes {outcomes}")
+    check(stats["prefix_hits"] > 0, f"{what}: no prefix hit")
+    eng.allocator.check_conservation()
+    check((eng.cache.k.data_ptr(), eng.cache.v.data_ptr()) == ptrs,
+          f"{what}: the page pools moved")
+    return outcomes
+
+
+def agreement(tokens, ref_tokens) -> dict:
+    """Greedy agreement of two runs' token lists, request by request."""
+    same_req = sum(a == b for a, b in zip(tokens, ref_tokens))
+    same_tok = sum(x == y for a, b in zip(tokens, ref_tokens)
+                   for x, y in zip(a, b))
+    return {"requests": f"{same_req}/{len(tokens)}",
+            "tokens": same_tok / sum(len(t) for t in tokens)}
+
+
+def free_engine() -> None:
+    """Return a deleted engine's graph pools and buffers to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve(model32) -> int:
     cfg = model_config(MODEL, dtype=torch.bfloat16)
     model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
                                          cfg)
     prompts = traffic(cfg.vocab_size)
     with torch.inference_mode():
+        free_engine()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         eng, results, ptrs, stats = serve(model, cfg, prompts, None)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = _build.launch_counts["paged_decode"]
+        outcomes = check_served(eng, results, ptrs, stats, "serve")
+        graphs = check_one_capture(eng, "serve")
+        per_step = graphs["decode_launches_per_replay"].get("paged_decode")
+        check(per_step == cfg.num_hidden_layers,
+              f"paged_decode launched {per_step} times a decode replay, "
+              f"want {cfg.num_hidden_layers}")
+        del eng
+        free_engine()
         _, ref_results, _, ref_stats = serve(model, cfg, prompts, False)
-    outcomes = [r.outcome for r in results]
-    check(all(o == "ok" for o in outcomes), f"outcomes {outcomes}")
-    check(stats["prefix_hits"] > 0, "no prefix hit")
-    eng.allocator.check_conservation()
-    check((eng.cache.k.data_ptr(), eng.cache.v.data_ptr()) == ptrs,
-          "the page pools moved")
-    want = cfg.num_hidden_layers * stats["decode_steps"]
-    check(launches == want,
-          f"paged_decode launched {launches} times, want {want}")
-    same_req = sum(a.tokens == b.tokens for a, b in zip(results, ref_results))
-    same_tok = sum(x == y for a, b in zip(results, ref_results)
-                   for x, y in zip(a.tokens, b.tokens))
     emit("serve", model=MODEL, dtype="bfloat16", slots=SLOTS,
          max_seq=MAX_SEQ, prefill_len=PREFILL_LEN, page_size=PAGE_SIZE,
          requests=len(prompts), prompt_lens=[len(p) for p in prompts],
          outcomes=sorted(set(outcomes)), kernel_launches=launches,
-         launches_per_decode_step=launches / stats["decode_steps"],
-         **stats,
+         launches_per_decode_step=per_step, peak_memory_gb=peak_gb,
+         **stats, **graphs,
          gather_path={k: ref_stats[k] for k in
                       ("wall_s", "tokens_per_s", "decode_tokens_per_s",
-                       "mean_ttft_s", "decode_steps")},
-         greedy_agreement={"requests": f"{same_req}/{len(results)}",
-                           "tokens": same_tok / sum(len(r.tokens)
-                                                    for r in results)})
+                       "mean_ttft_s", "tpot_p50_s", "decode_steps")},
+         greedy_agreement=agreement([r.tokens for r in results],
+                                    [r.tokens for r in ref_results]))
     return launches
 
 
@@ -998,7 +1084,9 @@ def profiled(run, steps: int) -> dict:
     """torch.profiler over ``run()`` (``steps`` steps, ending in a
     synchronise): wall and device ms per step, the device's busy share
     (the kernels' summed device time over the window's wall time; one
-    stream, so no overlap), launches per step and the top kernels."""
+    stream, so no overlap), kernel launches per step as the trace counts
+    them (inside a replayed graph too), K4's and K5's among them, and the
+    top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1013,14 +1101,19 @@ def profiled(run, steps: int) -> dict:
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     k4 = [e for e in kernels if "paged_decode" in e.key]
+    k5 = [e for e in kernels if "gmlp_up" in e.key]  # one per K5 launch
+    graph_launches = sum(e.count for e in prof.key_averages()
+                         if e.key == "cudaGraphLaunch")
     return dict(
         wall_ms_per_step=1e3 * wall / steps,
         device_ms_per_step=1e-3 * device_us / steps,
         device_busy_share=(1e-6 * device_us / wall) if wall else None,
         kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        graph_launches_per_step=graph_launches / steps,
         k4_device_ms_per_step=1e-3 * sum(e.self_device_time_total
                                          for e in k4) / steps,
         k4_kernel_launches_per_step=sum(e.count for e in k4) / steps,
+        k5_kernel_launches_per_step=sum(e.count for e in k5) / steps,
         top_kernels=[{"name": e.key[:80], "calls_per_step": e.count / steps,
                       "ms_per_step": 1e-3 * e.self_device_time_total / steps}
                      for e in top])
@@ -1033,31 +1126,200 @@ def phase_profile(model32) -> None:
     profile_decode(model, cfg, "profile")
 
 
-def profile_decode(model, cfg, phase: str) -> None:
+def profile_decode(model, cfg, phase: str, k5_per_step: int = 0) -> None:
     """Where a decode step's time goes: torch.profiler over a steady
     window of decode ticks of the serving engine (8 active slots, no
-    admission inside the window). Device busy share = the kernels' summed
-    device time over the window's wall time (one stream: no overlap)."""
+    admission inside the window, so every tick is one decode replay).
+    Device busy share = the kernels' summed device time over the
+    window's wall time (one stream: no overlap). Where the trace shows
+    the kernels inside the replayed graph, K4 must appear once a layer a
+    step, and K5's ``k5_per_step`` times."""
     window = 16
     with torch.inference_mode():
-        eng = InferenceEngine(
-            model, cfg, max_slots=SLOTS, max_seq=MAX_SEQ,
-            prefill_len=PREFILL_LEN,
-            sampling=SamplingParams(temperature=0.0), cache_layout="paged",
-            page_size=PAGE_SIZE)
+        free_engine()
+        eng = serving_engine(model, cfg)
         for p in traffic(cfg.vocab_size)[:SLOTS]:
             eng.submit(p, max_new_tokens=64)
         for _ in range(4):  # admission and warm decode ticks
             eng.step()
         torch.cuda.synchronize()
+        replays = eng._decode.replays
 
         def run():
             for _ in range(window):
                 eng.step()
 
         stats = profiled(run, window)
+        replays = eng._decode.replays - replays
     check(eng.metrics.prefill_calls == 1, "admission inside the window")
-    emit(phase, window_decode_steps=window, **stats)
+    check(replays == window and eng.decode_compile_count == 1,
+          f"{replays} decode replays in a window of {window} ticks, "
+          f"{eng.decode_compile_count} captures")
+    seen = stats["kernel_launches_per_step"] > 0
+    if seen:
+        layers = cfg.num_hidden_layers
+        check(stats["k4_kernel_launches_per_step"] == layers
+              and stats["k5_kernel_launches_per_step"] == k5_per_step,
+              f"{phase}: the trace counts K4 "
+              f"{stats['k4_kernel_launches_per_step']} and K5 "
+              f"{stats['k5_kernel_launches_per_step']} a replay, want "
+              f"{layers} and {k5_per_step}")
+    emit(phase, window_decode_steps=window, decode_replays=replays,
+         trace_shows_graph_kernels=seen, **stats)
+    del eng
+    free_engine()
+
+
+# ---- 7b. the engine's one-capture contract at the serve cell -----------------
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def replay_vs_eager(eng: InferenceEngine, prompts, new_tokens: int) -> dict:
+    """Serve ``prompts`` greedily; before every replay, run the step
+    function itself eagerly on the same static buffers, and hold the
+    replay's outputs (token, logits, finite) to it bit for bit in the
+    rows the step serves (the others read the TRASH page, which the
+    eager run has just written). The eager run writes the K/V the replay
+    then writes again: every layer writes its position before it reads
+    it, so both see the same cache. Returns the tokens and the
+    comparisons made."""
+    compared = {"_prefill": "write_mask", "_decode": "active"}
+    for name, mask in list(compared.items()):
+        step = getattr(eng, name)
+        compared[name] = 0
+
+        def replay(step=step, name=name, mask=mask):
+            rows = step.inputs[mask].clone()
+            eager = [bits(t[rows]) for t in step.run_eager()]
+            out = StaticStep.replay(step)
+            same = all(torch.equal(a, bits(b[rows]))
+                       for a, b in zip(eager, out))
+            check(same, f"{name} replay {compared[name]} differs from the "
+                        "eager step function")
+            compared[name] += 1
+            return out
+
+        step.replay = replay
+    ids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    results = eng.run()
+    check(all(results[i].outcome == "ok" for i in ids), "outcomes")
+    check(eng.decode_compile_count == 1 == eng.prefill_compile_count,
+          "captures")
+    return {"tokens": [results[i].tokens for i in ids],
+            "prefill_replays_checked": compared["_prefill"],
+            "decode_replays_checked": compared["_decode"]}
+
+
+def poisoning(poison: int):
+    """A cached forward whose logits go NaN on every row fed the token
+    ``poison``: the engine's quarantine path, driven inside the graph."""
+    from scaletorch_tpu_torch.models import llama
+
+    def forward(model, tokens, cfg, cache, **kw):
+        logits, cache = llama.forward_cached(model, tokens, cfg, cache, **kw)
+        bad = (tokens == poison).any(dim=1)
+        return logits.masked_fill(bad[:, None, None], float("nan")), cache
+
+    return forward
+
+
+def static_pointers(eng: InferenceEngine) -> dict:
+    ptrs = {f"{step}.{name}": buf.data_ptr()
+            for step in ("_prefill", "_decode")
+            for name, buf in getattr(eng, step).inputs.items()}
+    ptrs.update(cache_k=eng.cache.k.data_ptr(), cache_v=eng.cache.v.data_ptr())
+    if eng.cache_layout == "paged":
+        ptrs["tables"] = eng._tables_dev.data_ptr()
+    return ptrs
+
+
+def phase_decode_graph(model32) -> dict:
+    """The engine's one-capture contract on Qwen3-0.6B, bf16, 8 slots:
+    replays equal to the eager step functions bit for bit (paged through
+    K4, paged through the gather path, dense; 16 decode steps each);
+    paged (gather) and dense greedy tokens equal; sampled tokens
+    (temperature 0.8, top-p 0.9) the same per request in two submission
+    orders; one capture of each step through a prefix hit, a cancel, a
+    deadline and a forced quarantine, every static buffer in place."""
+    cfg = model_config(MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
+                                         cfg)
+    prompts = traffic(cfg.vocab_size)
+    row = {}
+    with torch.inference_mode():
+        runs = {}
+        for name, kw in (("paged_k4", {}), ("paged_gather",
+                                            {"paged_kernel": False}),
+                         ("dense", {"cache_layout": "dense"})):
+            eng = serving_engine(model, cfg, **kw)
+            runs[name] = replay_vs_eager(eng, prompts[:SLOTS],
+                                         new_tokens=DECODE_GRAPH_STEPS + 1)
+            del eng
+            free_engine()
+            check(runs[name]["decode_replays_checked"] == DECODE_GRAPH_STEPS,
+                  f"{name}: {runs[name]['decode_replays_checked']} decode "
+                  f"replays checked, want {DECODE_GRAPH_STEPS}")
+        check(runs["paged_gather"]["tokens"] == runs["dense"]["tokens"],
+              "paged (gather path) and dense greedy tokens differ")
+        row["replay_equals_eager"] = {
+            name: {k: v for k, v in run.items() if k != "tokens"}
+            for name, run in runs.items()}
+        row["paged_gather_equals_dense"] = True
+        row["paged_k4_vs_dense"] = agreement(runs["paged_k4"]["tokens"],
+                                             runs["dense"]["tokens"])
+
+        sampled = SamplingParams(temperature=0.8, top_p=0.9)
+        orders = {}
+        for order in ("forward", "reversed"):
+            eng = serving_engine(model, cfg, sampling=sampled)
+            reqs = list(enumerate(prompts[:12]))
+            if order == "reversed":
+                reqs.reverse()
+            ids = {seed: eng.submit(p, max_new_tokens=16, seed=seed)
+                   for seed, p in reqs}
+            results = eng.run()
+            orders[order] = {seed: results[i].tokens
+                             for seed, i in ids.items()}
+            check(eng.decode_compile_count == 1 == eng.prefill_compile_count,
+                  "sampled run: captures")
+            del eng
+            free_engine()
+        check(orders["forward"] == orders["reversed"],
+              "sampled tokens depend on the submission order")
+        row["sampled_order_independent"] = {"requests": 12,
+                                            "temperature": 0.8, "top_p": 0.9}
+
+        poison = cfg.vocab_size - 1
+        _build.reset_launch_counts()
+        eng = serving_engine(model, cfg, forward_fn=poisoning(poison))
+        before = static_pointers(eng)
+        shared = [t for t in prompts[0][:256] if t != poison]
+        a = eng.submit(shared + [1, 2, 3], max_new_tokens=8)
+        eng.step()  # registers the shared pages
+        b = eng.submit(shared + [4, 5], max_new_tokens=8)
+        c = eng.submit([7, poison, 9], max_new_tokens=8)
+        d = eng.submit(prompts[1], max_new_tokens=64)
+        late = eng.submit([11, 12], max_new_tokens=8, ttl_s=1e-9)
+        eng.step()
+        eng.cancel(d)
+        results = eng.run()
+        outcomes = {k: results[i].outcome for k, i in
+                    (("a", a), ("b", b), ("c", c), ("d", d), ("late", late))}
+        check(outcomes == {"a": "ok", "b": "ok", "c": "quarantined",
+                           "d": "aborted", "late": "timeout"},
+              f"drill outcomes {outcomes}")
+        check(results[b].prefix_hit, "no prefix hit")
+        check(static_pointers(eng) == before, "a static buffer moved")
+        eng.allocator.check_conservation()
+        row["drill"] = {"outcomes": outcomes, "prefix_hit": True,
+                        "static_buffers_in_place": len(before),
+                        **check_one_capture(eng, "drill")}
+        del eng
+        free_engine()
+    emit("decode_graph", model=MODEL, dtype="bfloat16", slots=SLOTS,
+         decode_steps_compared=DECODE_GRAPH_STEPS, **row)
+    return row
 
 
 # ---- 8. the presets' other head geometries through K4 --------------------------
@@ -1076,18 +1338,22 @@ def phase_geometry_serve() -> dict:
     runs = {}
     with torch.inference_mode():
         for layout in ("paged", "dense"):
+            _build.reset_launch_counts()
             eng = InferenceEngine(
                 model, cfg, max_slots=4, max_seq=256, prefill_len=128,
                 sampling=SamplingParams(temperature=0.0),
                 cache_layout=layout, page_size=PAGE_SIZE)
-            _build.reset_launch_counts()
             ids = [eng.submit(p, max_new_tokens=32) for p in prompts]
             results = eng.run()
+            graphs = check_one_capture(eng, f"dense-tiny {layout}")
             runs[layout] = ([results[i] for i in ids],
-                            _build.launch_counts["paged_decode"],
+                            graphs["decode_launches_per_replay"].get(
+                                "paged_decode", 0),
                             eng.metrics.decode_steps)
             if layout == "paged":
                 eng.allocator.check_conservation()
+            del eng
+            free_engine()
     (paged, k4, steps), (dense, k4_dense, _) = runs["paged"], runs["dense"]
     outcomes = [r.outcome for r in paged + dense]
     check(all(o == "ok" for o in outcomes), f"outcomes {outcomes}")
@@ -1095,15 +1361,15 @@ def phase_geometry_serve() -> dict:
     check(all(same), f"dense-tiny: paged (K4) vs dense greedy tokens differ "
                      f"in {same.count(False)} of {len(same)} requests")
     layers = cfg.num_hidden_layers
-    check(k4 == layers * steps and k4_dense == 0,
-          f"dense-tiny: K4 launched {k4} times over {steps} decode steps "
-          f"(dense: {k4_dense}), want {layers} a step")
+    check(k4 == layers and k4_dense == 0,
+          f"dense-tiny: K4 launched {k4} times a decode replay (dense: "
+          f"{k4_dense}), want {layers}")
     row = {"dense_tiny": {
         "heads": [cfg.num_attention_heads, cfg.num_key_value_heads],
         "head_dim": cfg.actual_head_dim, "layers": layers,
         "dtype": "float32", "requests": len(prompts),
         "paged_equals_dense": True, "decode_steps": steps,
-        "k4_launches": k4}}
+        "k4_launches_per_decode_replay": k4}}
     del model
 
     cfg = model_config("qwen3-14b", dtype=torch.float32,
@@ -1579,45 +1845,41 @@ def phase_moe_serve() -> dict:
     cfg, model = moe_model(torch.bfloat16, capacity_factor=DROPLESS_CF)
     off = dataclasses.replace(cfg, use_grouped_mlp_kernel=False)
     prompts = traffic(cfg.vocab_size)
+    layers = cfg.num_hidden_layers
     with torch.inference_mode():
+        free_engine()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         eng, results, ptrs, stats = serve(model, cfg, prompts, None)
         launches = dict(_build.launch_counts)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         prefills = eng.metrics.prefill_calls
-        outcomes = [r.outcome for r in results]
-        check(all(o == "ok" for o in outcomes), f"outcomes {outcomes}")
-        eng.allocator.check_conservation()
-        check((eng.cache.k.data_ptr(), eng.cache.v.data_ptr()) == ptrs,
-              "the page pools moved")
+        outcomes = check_served(eng, results, ptrs, stats, "moe_serve")
+        graphs = check_one_capture(eng, "moe_serve")
+        per_decode = graphs["decode_launches_per_replay"]
+        per_prefill = graphs["prefill_launches_per_replay"]
+        want = {"paged_decode": layers, gm.K5_NAME: layers}
+        check(per_decode == want and per_prefill == {gm.K5_NAME: layers},
+              f"launches a decode replay {per_decode}, a prefill replay "
+              f"{per_prefill}: want {want} and K5 {layers}")
         del eng
-        torch.cuda.empty_cache()
+        free_engine()
         _, ref_results, _, ref_stats = serve(model, off, prompts, False)
-    torch.cuda.empty_cache()
-    profile_decode(model, cfg, "moe_serve_profile")
-    layers, steps = cfg.num_hidden_layers, stats["decode_steps"]
-    k4 = launches.get("paged_decode", 0)
-    k5_decode = launches.get(gm.K5_NAME, 0) - layers * prefills
-    check(k4 == layers * steps and k5_decode == layers * steps,
-          f"K4 {k4}, K5 {launches.get(gm.K5_NAME, 0)} over {steps} decode "
-          f"steps and {prefills} prefills: want {layers} each per step")
-    same_req = sum(a.tokens == b.tokens for a, b in zip(results, ref_results))
-    same_tok = sum(x == y for a, b in zip(results, ref_results)
-                   for x, y in zip(a.tokens, b.tokens))
+        free_engine()
+    profile_decode(model, cfg, "moe_serve_profile", k5_per_step=layers)
     emit("moe_serve", model=MOE_MODEL, layers=layers, dtype="bfloat16",
          capacity_factor=cfg.capacity_factor, slots=SLOTS, max_seq=MAX_SEQ,
          prefill_len=PREFILL_LEN, page_size=PAGE_SIZE,
          requests=len(prompts), outcomes=sorted(set(outcomes)),
          launches=launches, prefill_calls=prefills,
-         k4_per_decode_step=k4 / steps, k5_per_decode_step=k5_decode / steps,
-         peak_memory_gb=peak_gb, **stats,
+         k4_per_decode_step=per_decode["paged_decode"],
+         k5_per_decode_step=per_decode[gm.K5_NAME],
+         peak_memory_gb=peak_gb, **stats, **graphs,
          gather_einsum_path={k: ref_stats[k] for k in
                              ("wall_s", "tokens_per_s", "decode_tokens_per_s",
                               "mean_ttft_s", "tpot_p50_s", "decode_steps")},
-         greedy_agreement={"requests": f"{same_req}/{len(results)}",
-                           "tokens": same_tok / sum(len(r.tokens)
-                                                    for r in results)})
+         greedy_agreement=agreement([r.tokens for r in results],
+                                    [r.tokens for r in ref_results]))
     return launches
 
 
@@ -1744,6 +2006,7 @@ def main() -> int:
     model32 = timed("decode_parity", phase_decode_parity)
     launches = timed("serve", phase_serve, model32)
     timed("profile", phase_profile, model32)
+    timed("decode_graph", phase_decode_graph, model32)
     del model32
     torch.cuda.empty_cache()
     timed("geometry_serve", phase_geometry_serve)

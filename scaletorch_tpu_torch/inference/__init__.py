@@ -2,8 +2,9 @@
 
   * ``kv_cache``   — dense and paged KV layouts, the page allocator, the
     radix prefix cache and the paged-cache adapter ``PagedKVIO``;
-  * ``decode``     — the prefill / decode steps (dense and paged) and the
-    teacher-forced parity harnesses;
+  * ``decode``     — the prefill / decode steps (dense and paged),
+    ``StaticStep`` (a step over static buffers, captured once as a CUDA
+    graph on the card) and the teacher-forced parity harnesses;
   * ``sampling``   — greedy / temperature / top-k / top-p;
   * ``engine``     — ``InferenceEngine``: continuous batching over a
     fixed-slot batch;
@@ -28,6 +29,7 @@ from scaletorch_tpu_torch.inference.sampling import (  # noqa: F401
     sample,
 )
 from scaletorch_tpu_torch.inference.decode import (  # noqa: F401
+    StaticStep,
     make_decode_step,
     make_fill_slots_step,
     make_paged_decode_step,

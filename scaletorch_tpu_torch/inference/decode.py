@@ -1,34 +1,39 @@
-"""The engine steps: full-prompt prefill and one-token decode (PyTorch port).
+"""The engine steps: prefill and one-token decode over static buffers.
 
-Counterpart of scaletorch_tpu/inference/decode.py. PyTorch runs eagerly,
-so a step is a plain Python callable over static-shape buffers: the
+Counterpart of scaletorch_tpu/inference/decode.py (PyTorch port). A step
+function is a plain function of device tensors with static shapes: the
 prompt buffer is always ``[B, P]``, the decode batch always ``[B]``, and
 admissions change data, never shapes. The KV buffers are updated IN
-PLACE (the counterpart of the JAX package's cache donation): a step
-returns the same cache tensors it was given.
+PLACE (the counterpart of the JAX package's cache donation), so a step
+returns no cache.
 
-Host data (tokens, positions, masks, request seeds) comes in as numpy
-arrays and goes to the device in one packed upload per step; the
-request seeds stay on the host, where sampling seeds its generators.
-
-  * prefill(model, tokens [B, P], lengths [B], write_mask [B], cache,
-    seeds [B]) -> (first [B], last_logits [B, V] f32, finite [B], cache)
-  * decode(model, tokens [B], positions [B], active [B], cache, seeds)
-    -> (next [B], logits [B, V] f32, finite [B], cache)
+  * prefill(model, tokens [B, P] i32, lengths [B] i32, write_mask [B]
+    bool, cache, seeds [B] i64) -> (first [B] i64, last_logits [B, V]
+    f32, finite [B] bool)
+  * decode(model, tokens [B] i32, positions [B] i32, active [B] bool,
+    cache, seeds [B] i64) -> (next [B] i64, logits [B, V] f32, finite
+    [B] bool)
   * the paged twins take ``tail_lens``/``starts`` (prefill) and the page
     tables (both) and route the cache through ``PagedKVIO``.
+
+``StaticStep`` is what the engine runs: one step function bound to
+static input buffers, which each call fills from host arrays. On the
+card it is captured once as a CUDA graph and only replayed after that
+(the counterpart of the reference's one jit compile per step); on the
+CPU, which the caller must ask for, the same function runs eagerly over
+the same buffers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import collections
+import gc
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scaletorch_tpu_torch.inference.kv_cache import (
-    KVCache,
-    PagedKVCache,
     PagedKVIO,
     ceil_div,
     init_kv_cache,
@@ -39,8 +44,10 @@ from scaletorch_tpu_torch.inference.sampling import (
     finite_mask,
     sample,
 )
+from scaletorch_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
+StepOutput = Tuple[Tensor, Tensor, Tensor]
 
 
 def resolve_forward_cached(cfg) -> Callable:
@@ -59,10 +66,11 @@ def resolve_forward_cached(cfg) -> Callable:
     )
 
 
-def _upload(device: torch.device, *rows: np.ndarray) -> Tensor:
-    """Stack equal-length host rows as int32 and move them in one copy."""
-    packed = np.stack([np.asarray(r, dtype=np.int32) for r in rows])
-    return torch.from_numpy(packed).to(device)
+def _head(logits: Tensor, seeds: Tensor, positions: Tensor,
+          sampling: SamplingParams) -> StepOutput:
+    """(sampled token, fp32 logits, finite flag) of [B, V] logits."""
+    return (sample(logits, seeds, positions, sampling), logits.float(),
+            finite_mask(logits))
 
 
 def make_prefill_step(cfg, sampling: SamplingParams, *,
@@ -74,18 +82,13 @@ def make_prefill_step(cfg, sampling: SamplingParams, *,
     fwd = forward_fn or resolve_forward_cached(cfg)
 
     def prefill(model, tokens, lengths, write_mask, cache, seeds):
-        dev = cache[0].device
         b, p = tokens.shape
-        lengths = np.asarray(lengths)
-        tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(dev)
-        meta = _upload(dev, lengths, write_mask)
-        positions = torch.arange(p, device=dev, dtype=torch.int32).expand(b, p)
-        logits, new_cache = fwd(
-            model, tok, cfg, tuple(cache), positions=positions,
-            write_mask=meta[1].bool(), last_index=meta[0] - 1)
-        last = logits[:, 0, :]
-        first = sample(last, seeds, lengths - 1, sampling)
-        return first, last.float(), finite_mask(last), KVCache(*new_cache)
+        positions = torch.arange(p, device=tokens.device,
+                                 dtype=torch.int32).expand(b, p)
+        logits, _ = fwd(model, tokens, cfg, tuple(cache),
+                        positions=positions, write_mask=write_mask,
+                        last_index=lengths - 1)
+        return _head(logits[:, 0, :], seeds, lengths - 1, sampling)
 
     return prefill
 
@@ -98,15 +101,9 @@ def make_decode_step(cfg, sampling: SamplingParams, *,
     fwd = forward_fn or resolve_forward_cached(cfg)
 
     def decode(model, tokens, positions, active, cache, seeds):
-        dev = cache[0].device
-        meta = _upload(dev, tokens, positions, active)
-        logits, new_cache = fwd(
-            model, meta[0][:, None], cfg, tuple(cache),
-            positions=meta[1][:, None], write_mask=meta[2].bool())
-        step_logits = logits[:, 0, :]
-        nxt = sample(step_logits, seeds, positions, sampling)
-        return (nxt, step_logits.float(), finite_mask(step_logits),
-                KVCache(*new_cache))
+        logits, _ = fwd(model, tokens[:, None], cfg, tuple(cache),
+                        positions=positions[:, None], write_mask=active)
+        return _head(logits[:, 0, :], seeds, positions, sampling)
 
     return decode
 
@@ -115,7 +112,9 @@ def make_fill_slots_step() -> Callable:
     """In-place masked fill over axis 1 of every cache buffer (the SLOT
     axis dense, the PAGE axis paged): ``fill_slots(cache, mask [n] bool,
     value)`` sets the masked lines to ``value`` and leaves every other
-    byte untouched. Quarantine clears a poisoned slot's lines with it."""
+    byte untouched. Quarantine clears a poisoned slot's lines with it,
+    outside the captured steps, as the reference's fill step stays out
+    of its compile counts."""
 
     def fill_slots(cache, mask, value: float):
         m = torch.from_numpy(np.asarray(mask, bool)).to(cache[0].device)
@@ -140,20 +139,15 @@ def make_paged_prefill_step(cfg, sampling: SamplingParams, *,
 
     def prefill(model, tokens, tail_lens, starts, write_mask, page_tables,
                 pool, seeds):
-        dev = pool[0].device
-        b, p = tokens.shape
-        tail_lens, starts = np.asarray(tail_lens), np.asarray(starts)
-        tok = torch.from_numpy(np.asarray(tokens, np.int32)).to(dev)
-        meta = _upload(dev, tail_lens, starts, write_mask)
-        positions = meta[1][:, None] + torch.arange(
-            p, device=dev, dtype=torch.int32)
+        p = tokens.shape[1]
+        positions = starts[:, None] + torch.arange(
+            p, device=tokens.device, dtype=torch.int32)
         kv_io = PagedKVIO(page_tables, page_size, seq_limit=seq_limit)
-        logits, new_pool = fwd(
-            model, tok, cfg, tuple(pool), positions=positions,
-            write_mask=meta[2].bool(), kv_io=kv_io, last_index=meta[0] - 1)
-        last = logits[:, 0, :]
-        first = sample(last, seeds, starts + tail_lens - 1, sampling)
-        return first, last.float(), finite_mask(last), PagedKVCache(*new_pool)
+        logits, _ = fwd(model, tokens, cfg, tuple(pool), positions=positions,
+                        write_mask=write_mask, kv_io=kv_io,
+                        last_index=tail_lens - 1)
+        return _head(logits[:, 0, :], seeds, starts + tail_lens - 1,
+                     sampling)
 
     return prefill
 
@@ -170,20 +164,130 @@ def make_paged_decode_step(cfg, sampling: SamplingParams, *,
     fwd = forward_fn or resolve_forward_cached(cfg)
 
     def decode(model, tokens, positions, active, page_tables, pool, seeds):
-        dev = pool[0].device
-        meta = _upload(dev, tokens, positions, active)
         kv_io = PagedKVIO(page_tables, page_size, seq_limit=seq_limit,
                           kernel=kernel)
-        logits, new_pool = fwd(
-            model, meta[0][:, None], cfg, tuple(pool),
-            positions=meta[1][:, None], write_mask=meta[2].bool(),
-            kv_io=kv_io)
-        step_logits = logits[:, 0, :]
-        nxt = sample(step_logits, seeds, positions, sampling)
-        return (nxt, step_logits.float(), finite_mask(step_logits),
-                PagedKVCache(*new_pool))
+        logits, _ = fwd(model, tokens[:, None], cfg, tuple(pool),
+                        positions=positions[:, None], write_mask=active,
+                        kv_io=kv_io)
+        return _head(logits[:, 0, :], seeds, positions, sampling)
 
     return decode
+
+
+class StaticStep:
+    """One engine step bound to static buffers, captured once on the card.
+
+    ``fn(**inputs)`` runs the step over the named ``inputs`` (device
+    tensors made from the host arrays given here, which fix their
+    shapes and dtypes; their values must be safe to run, e.g. nothing
+    written) and the tensors it closes over (the model, the KV cache,
+    the page tables), and returns a tuple of tensors. A call
+    ``step(**arrays)`` copies each host array into its input and runs
+    the step; it returns the step's outputs, which on the card are the
+    graph's static outputs, overwritten by the next call.
+
+    On the card the constructor captures ``fn`` as a CUDA graph, as
+    ``torch.cuda.graphs`` prescribes: one warm-up run on a side stream
+    first, which does the first-use work capture forbids (the kernels'
+    build and load, cuBLAS's handle and workspace, K4's split counters
+    for the capture stream, allocated outside the graph's pool), then
+    the capture on the same stream into a memory pool of the graph's
+    own, with Python's cyclic collector run before it and held off
+    during it. A failed capture raises: there is no eager fallback.
+
+    The warm-up's kernel launches run and stay in
+    ``_build.launch_counts``; the capture's only record, so they are
+    taken out again, kept in ``captured_launches`` and added back on
+    every replay. The host arrays reach the card through pinned staging
+    twins, copied without a wait: every step ends in the host copy of
+    its tokens, which waits for the card, so a twin is free again when
+    the next call fills it.
+    """
+
+    def __init__(self, fn: Callable[..., Tuple[Tensor, ...]],
+                 inputs: Dict[str, np.ndarray], device: torch.device) -> None:
+        self.fn = fn
+        self.device = device
+        on_card = device.type == "cuda"
+        self.inputs = {name: torch.from_numpy(np.array(a)).to(device)
+                       for name, a in inputs.items()}
+        self._staging = {
+            name: (torch.empty_like(buf, device="cpu").pin_memory()
+                   if on_card else buf)
+            for name, buf in self.inputs.items()}
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.outputs: Optional[Tuple[Tensor, ...]] = None
+        self.captures = 0
+        self.replays = 0
+        self.warmup_launches: collections.Counter = collections.Counter()
+        self.captured_launches: collections.Counter = collections.Counter()
+        if on_card:
+            self._capture()
+
+    @property
+    def compile_count(self) -> int:
+        """Captures on the card; on the CPU, the one static step built."""
+        return self.captures if self.device.type == "cuda" else 1
+
+    def _capture(self) -> None:
+        counts = _build.launch_counts
+        before = collections.Counter(counts)
+        self.stream = torch.cuda.Stream(self.device)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode(), torch.cuda.stream(self.stream):
+            self.fn(**self.inputs)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        warm = collections.Counter(counts)
+        self.warmup_launches = warm - before
+        graph = torch.cuda.CUDAGraph()
+        # an unreachable engine's graph freed by the cyclic collector
+        # inside the capture would invalidate it: collect first, and keep
+        # the collector off until the capture ends
+        gc.collect()
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(
+                    graph, stream=self.stream):
+                outputs = self.fn(**self.inputs)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+        self.captured_launches = collections.Counter(counts) - warm
+        for name in self.captured_launches:
+            counts[name] = warm[name]
+            if not counts[name]:
+                del counts[name]
+        self.graph, self.outputs = graph, outputs
+        self.captures += 1
+
+    def load(self, **arrays: np.ndarray) -> None:
+        """Copy host arrays into the named inputs."""
+        for name, array in arrays.items():
+            staging = self._staging[name]
+            staging.numpy()[...] = array
+            if staging is not self.inputs[name]:
+                self.inputs[name].copy_(staging, non_blocking=True)
+
+    def run_eager(self) -> Tuple[Tensor, ...]:
+        """The step function itself over the current inputs (the CPU
+        path; on the card, the reference a replay is held against)."""
+        with torch.inference_mode():
+            return self.fn(**self.inputs)
+
+    def replay(self) -> Tuple[Tensor, ...]:
+        self.graph.replay()
+        self.replays += 1
+        _build.launch_counts.update(self.captured_launches)
+        return self.outputs
+
+    def __call__(self, **arrays: np.ndarray) -> Tuple[Tensor, ...]:
+        with torch.inference_mode():
+            self.load(**arrays)
+        if self.graph is None:
+            return self.run_eager()
+        return self.replay()
 
 
 def teacher_forced_decode(

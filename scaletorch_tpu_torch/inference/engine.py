@@ -9,8 +9,16 @@ Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
     and flipping their ``write_mask`` bit;
   * per-slot lengths and stop state live on the HOST; each decode step
     brings the sampled tokens and the finite mask back in one copy;
-  * the KV buffers are written in place through every step, so they
-    keep their ``data_ptr()`` (the counterpart of donation);
+  * each step runs over static device buffers (``StaticStep``): on the
+    card the engine captures its prefill step and its decode step once
+    each as CUDA graphs when it is built, and only replays them after
+    that, through admissions, prefix hits, cancels, deadlines and
+    quarantine (``prefill_compile_count`` / ``decode_compile_count``,
+    the reference's one jit compile per step); on the CPU the same
+    steps run eagerly. The sampler draws on the device;
+  * the KV buffers, the page tables and every step input are written in
+    place, so they keep their ``data_ptr()`` (the counterpart of
+    donation);
   * ``cache_layout="paged"`` swaps the dense per-slot buffers for a
     global page pool + per-slot page tables: page-budget-aware
     admission, a radix tree sharing page-aligned prompt prefixes, and
@@ -29,16 +37,18 @@ preemption handler, the serving watchdog, and warm prefix export/import.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scaletorch_tpu_torch.inference.decode import (
+    StaticStep,
     make_decode_step,
     make_fill_slots_step,
     make_paged_decode_step,
@@ -206,6 +216,13 @@ class _Slot:
         return self.request is not None
 
 
+def _to_host(out: Tuple[torch.Tensor, ...]) -> np.ndarray:
+    """A step's [2, B] (token, finite) rows on the host: the step's one
+    device-to-host copy, which waits for the card."""
+    token, _logits, finite = out
+    return torch.stack([token, finite.long()]).cpu().numpy()
+
+
 class InferenceEngine:
     """KV-cache decode with continuous batching.
 
@@ -246,7 +263,10 @@ class InferenceEngine:
         None takes the CUDA kernel on the card and the gather path on
         the CPU; False forces the gather path (the reference run).
     device : where the engine runs; None means the CUDA card and raises
-        without one. Pass ``"cpu"`` for the plain PyTorch path.
+        without one. Pass ``"cpu"`` for the plain PyTorch path. On the
+        card both steps are captured as CUDA graphs here, in the
+        constructor (a Qwen3-MoE config must move tokens by index:
+        the one-hot form cannot be captured).
     """
 
     def __init__(
@@ -288,6 +308,14 @@ class InferenceEngine:
                 f"cache_layout must be 'dense' or 'paged', "
                 f"got {cache_layout!r}")
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        resolved_dispatch = getattr(cfg, "resolved_moe_dispatch", None)
+        if on_card and resolved_dispatch and resolved_dispatch() != "index":
+            raise ValueError(
+                "the engine captures its steps as CUDA graphs on the card, "
+                "and the one-hot MoE movement (moe_dispatch='einsum') calls "
+                "nonzero, which capture forbids; use moe_dispatch='index' "
+                "or 'auto'")
         self.model = self._resolve_model(params, cfg)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -324,13 +352,19 @@ class InferenceEngine:
                     self.allocator.refcount,
                 ) if prefix_cache else None
             )
-            # per-slot page tables (host copy), the pages each slot holds
-            # a reference on (shared prefix pages first), and how many
-            # leading entries are FROZEN (shared or radix-registered)
-            self._tables = np.full(
-                (max_slots, self._pages_per_slot), TRASH_PAGE, np.int32)
-            # device copy, re-uploaded only after a host write
-            self._tables_dev: Optional[torch.Tensor] = None
+            # per-slot page tables (host copy, pinned on the card), the
+            # pages each slot holds a reference on (shared prefix pages
+            # first), and how many leading entries are FROZEN (shared or
+            # radix-registered)
+            tables = torch.full((max_slots, self._pages_per_slot),
+                                TRASH_PAGE, dtype=torch.int32,
+                                pin_memory=on_card)
+            self._tables_host = tables
+            self._tables = tables.numpy()
+            # the static device copy both steps read, refreshed with one
+            # copy_ before a step that follows a host write
+            self._tables_dev = tables.to(self.device, copy=True)
+            self._tables_dirty = False
             self._slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
             self._slot_frozen = [0] * max_slots
             logger.info(
@@ -341,12 +375,18 @@ class InferenceEngine:
                                layout="paged", page_size=page_size,
                                num_pages=num_pages) / 2**20,
                 self.device, ", prefix cache on" if prefix_cache else "")
-            self._prefill = make_paged_prefill_step(
-                cfg, sampling, page_size=page_size, seq_limit=max_seq,
-                forward_fn=forward_fn)
-            self._decode = make_paged_decode_step(
-                cfg, sampling, page_size=page_size, seq_limit=max_seq,
-                forward_fn=forward_fn, kernel=paged_kernel)
+            prefill = functools.partial(
+                make_paged_prefill_step(
+                    cfg, sampling, page_size=page_size, seq_limit=max_seq,
+                    forward_fn=forward_fn),
+                self.model, page_tables=self._tables_dev, pool=self.cache)
+            decode = functools.partial(
+                make_paged_decode_step(
+                    cfg, sampling, page_size=page_size, seq_limit=max_seq,
+                    forward_fn=forward_fn, kernel=paged_kernel),
+                self.model, page_tables=self._tables_dev, pool=self.cache)
+            prefill_meta = dict(tail_lens=np.ones(max_slots, np.int32),
+                                starts=np.zeros(max_slots, np.int32))
         else:
             self.cache = init_kv_cache(cfg, max_slots, max_seq,
                                        dtype=cache_dtype, device=self.device)
@@ -357,10 +397,24 @@ class InferenceEngine:
                 "on %s", max_slots, max_seq,
                 kv_cache_bytes(cfg, max_slots, max_seq,
                                dtype=cache_dtype) / 2**20, self.device)
-            self._prefill = make_prefill_step(cfg, sampling,
-                                              forward_fn=forward_fn)
-            self._decode = make_decode_step(cfg, sampling,
-                                            forward_fn=forward_fn)
+            prefill = functools.partial(
+                make_prefill_step(cfg, sampling, forward_fn=forward_fn),
+                self.model, cache=self.cache)
+            decode = functools.partial(
+                make_decode_step(cfg, sampling, forward_fn=forward_fn),
+                self.model, cache=self.cache)
+            prefill_meta = dict(lengths=np.ones(max_slots, np.int32))
+        # the inputs' first values write nothing (no slot masked in), so
+        # the capture's warm-up run leaves the cache as it was
+        b = max_slots
+        self._prefill = StaticStep(prefill, dict(
+            tokens=np.zeros((b, self.prefill_len), np.int32), **prefill_meta,
+            write_mask=np.zeros(b, bool), seeds=np.zeros(b, np.int64)),
+            self.device)
+        self._decode = StaticStep(decode, dict(
+            tokens=np.zeros(b, np.int32), positions=np.zeros(b, np.int32),
+            active=np.zeros(b, bool), seeds=np.zeros(b, np.int64)),
+            self.device)
         self._fill_slots = make_fill_slots_step()
 
         self._slots = [_Slot() for _ in range(max_slots)]
@@ -399,12 +453,24 @@ class InferenceEngine:
         self.metrics.prefix_pages = (
             len(self.radix) if self.radix is not None else 0)
 
-    def _tables_device(self) -> torch.Tensor:
-        """The page tables on the device, uploaded once per host mutation
-        rather than once per decode tick."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._tables).to(self.device)
-        return self._tables_dev
+    def _upload_tables(self) -> None:
+        """Refresh the static device page tables from the host copy, once
+        per host write rather than once per step."""
+        if self._tables_dirty:
+            with torch.inference_mode():
+                self._tables_dev.copy_(self._tables_host, non_blocking=True)
+            self._tables_dirty = False
+
+    # ---- compile accounting (the one-capture contract) --------------------
+    @property
+    def decode_compile_count(self) -> int:
+        """CUDA-graph captures of the decode step (on the CPU, the one
+        static step built)."""
+        return self._decode.compile_count
+
+    @property
+    def prefill_compile_count(self) -> int:
+        return self._prefill.compile_count
 
     def _request_pages(self, prompt_len: int, max_new_tokens: int) -> int:
         """Worst-case pages a request reserves: prompt plus generation,
@@ -542,7 +608,7 @@ class InferenceEngine:
             self._slot_pages[i] = []
             self._slot_frozen[i] = 0
             self._tables[i, :] = TRASH_PAGE
-            self._tables_dev = None
+            self._tables_dirty = True
             self._update_page_gauges()
 
     def _expire(self, now: float) -> None:
@@ -585,7 +651,8 @@ class InferenceEngine:
                                   detail=f"non-finite logits at {where}",
                                   now=now)
                 mask[i] = True
-        self.cache = self._fill_slots(self.cache, mask, 0.0)
+        with torch.inference_mode():
+            self._fill_slots(self.cache, mask, 0.0)
 
     def _admit(self) -> None:
         """Move queued requests into free slots and prefill them — ONE
@@ -629,16 +696,16 @@ class InferenceEngine:
             write_mask[i] = True
             admitted.append(i)
         t0 = time.monotonic()
-        first, _logits, finite, self.cache = self._prefill(
-            self.model, tokens, lengths, write_mask, self.cache, self._seeds)
-        self._after_prefill(admitted, first, finite, t0)
+        out = self._prefill(tokens=tokens, lengths=lengths,
+                            write_mask=write_mask, seeds=self._seeds)
+        self._after_prefill(admitted, out, t0)
 
-    def _after_prefill(self, admitted: List[int], first: torch.Tensor,
-                       finite: torch.Tensor, t0: float) -> None:
+    def _after_prefill(self, admitted: List[int],
+                       out: Tuple[torch.Tensor, ...], t0: float) -> None:
         """Bring the first tokens and the finite mask to the host (one
         copy), attribute the prefill's wall time, quarantine poisoned
         slots, register frozen prompt pages (paged) and emit."""
-        host = torch.stack([first.long(), finite.long()]).cpu().numpy()
+        host = _to_host(out)
         self.metrics.prefill_calls += 1
         now = time.monotonic()
         for i in admitted:
@@ -722,7 +789,7 @@ class InferenceEngine:
             self._slot_frozen[i] = shared // self.page_size
             self._tables[i, :] = TRASH_PAGE
             self._tables[i, : len(pages)] = pages
-            self._tables_dev = None
+            self._tables_dirty = True
             tail = req.prompt[shared:]
             tokens[i, : len(tail)] = tail
             tail_lens[i] = len(tail)
@@ -736,10 +803,10 @@ class InferenceEngine:
         if not admitted:
             return
         t0 = time.monotonic()
-        first, _logits, finite, self.cache = self._prefill(
-            self.model, tokens, tail_lens, starts, write_mask,
-            self._tables_device(), self.cache, self._seeds)
-        self._after_prefill(admitted, first, finite, t0)
+        self._upload_tables()
+        out = self._prefill(tokens=tokens, tail_lens=tail_lens, starts=starts,
+                            write_mask=write_mask, seeds=self._seeds)
+        self._after_prefill(admitted, out, t0)
 
     def _emit(self, i: int, token: int, now: float) -> None:
         """Record one generated token for slot i; retire the slot when a
@@ -791,12 +858,12 @@ class InferenceEngine:
                 tokens[i] = slot.tokens[-1]
                 positions[i] = slot.position + slot.generated - 1
                 active[i] = True
-            tables = (self._tables_device(),) if self._paged else ()
-            nxt, _logits, finite, self.cache = self._decode(
-                self.model, tokens, positions, active, *tables, self.cache,
-                self._seeds)
+            if self._paged:
+                self._upload_tables()
+            out = self._decode(tokens=tokens, positions=positions,
+                               active=active, seeds=self._seeds)
             self.metrics.decode_steps += 1
-            host = torch.stack([nxt.long(), finite.long()]).cpu().numpy()
+            host = _to_host(out)
             now = time.monotonic()
             poisoned = [i for i in active_idx if not host[1, i]]
             if poisoned:

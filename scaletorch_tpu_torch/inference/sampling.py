@@ -1,10 +1,13 @@
 """Token sampling: greedy / temperature / top-k / top-p (PyTorch port).
 
 Greedy is exact: ``torch.argmax`` returns the first maximum, as
-``jnp.argmax`` does. Sampled paths cannot reproduce JAX's threefry
-``fold_in`` keys; instead every token draws from a ``torch.Generator``
-seeded by (request seed, position), so a request's stream does not
-depend on the slot it landed in or on what its neighbours sample.
+``jnp.argmax`` does. A sampled token is drawn as the reference draws it
+(``jax.random.categorical``: a Gumbel-max over the filtered, scaled
+logits), from noise that is a function of (request seed, position,
+vocab index) alone: a counter-based hash computed on the logits' device
+with integer tensor ops. So a request's stream does not depend on the
+slot it landed in or on what its neighbours sample, and the draw runs
+inside a captured CUDA graph. JAX's threefry bits are not reproduced.
 
 Filter order follows the HF convention: temperature first, then top-k,
 then top-p on the already-scaled distribution.
@@ -13,15 +16,19 @@ then top-p on the already-scaled distribution.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Sequence, Union
 
-import numpy as np
 import torch
 
 Tensor = torch.Tensor
 
 _NEG_INF = torch.finfo(torch.float32).min
-_MASK64 = (1 << 64) - 1
+# The hash keeps its state in the low 32 bits of int64 tensors: every
+# value stays in [0, 2^32), so torch's arithmetic ``>>`` shifts in zeros,
+# and each multiplier is below 2^31, so no product reaches 2^63.
+_M32 = 0xFFFFFFFF
+_MUL1, _MUL2 = 0x21F0AAAD, 0x735A2D97  # lowbias32's (hash-prospector)
+_GOLDEN = 0x9E3779B9
 
 
 @dataclass(frozen=True)
@@ -69,37 +76,71 @@ def _filter_top_p(logits: Tensor, p: float) -> Tensor:
     return torch.where(logits < cutoff, _NEG_INF, logits)
 
 
-def position_seed(seed: int, position: int) -> int:
-    """A 63-bit generator seed for one (request seed, position) pair
-    (splitmix64 finalizer over the pair)."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(position) + 1) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
+def _filtered_logits(logits: Tensor, params: SamplingParams) -> Tensor:
+    """Temperature, then top-k, then top-p, in fp32; the filtered-out
+    entries hold ``_NEG_INF``."""
+    scaled = logits.float() / params.temperature
+    scaled = _filter_top_k(scaled, params.top_k)
+    return _filter_top_p(scaled, params.top_p)
 
 
 def _filtered_probs(logits: Tensor, params: SamplingParams) -> Tensor:
-    scaled = logits.float() / params.temperature
-    scaled = _filter_top_k(scaled, params.top_k)
-    scaled = _filter_top_p(scaled, params.top_p)
-    return torch.softmax(scaled, dim=-1)
+    return torch.softmax(_filtered_logits(logits, params), dim=-1)
 
 
-def sample(logits: Tensor, seeds: Sequence[int], positions: Sequence[int],
+def _mix32(x: Tensor) -> Tensor:
+    """lowbias32 over int64 tensors holding values in [0, 2^32): a
+    bijection of the 32-bit state with full avalanche."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL1) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MUL2) & _M32
+    return x ^ (x >> 15)
+
+
+def uniform_noise(seeds: Tensor, positions: Tensor, vocab: int) -> Tensor:
+    """[B, vocab] fp32 uniforms in (0, 1), a function of each row's
+    (seed, position) and the vocab index alone.
+
+    Each row's two 32-bit keys come from the 64-bit seed and the
+    position through ``_mix32``; each entry mixes its vocab index with
+    both keys in turn, so two rows are never shifted copies of each
+    other."""
+    s = seeds.long()
+    k1 = _mix32((s & _M32) ^ _GOLDEN)
+    k1 = _mix32(k1 ^ ((s >> 32) & _M32))
+    k1 = _mix32(k1 ^ (positions.long() & _M32))
+    k2 = _mix32(k1 ^ _GOLDEN)
+    idx = torch.arange(vocab, dtype=torch.long, device=s.device)
+    h = _mix32(_mix32(idx[None, :] ^ k1[:, None]) ^ k2[:, None])
+    return unit_interval(h)
+
+
+def unit_interval(h: Tensor) -> Tensor:
+    """32-bit hashes (int64 tensors in [0, 2^32)) -> fp32 in (0, 1): the
+    top 23 bits ``k`` give ``(k + 0.5) / 2^23``, exact in fp32, from
+    2^-24 to 1 - 2^-24, so ``-log(-log u)`` is finite."""
+    return ((h >> 9).float() + 0.5) * 2.0 ** -23
+
+
+def sample(logits: Tensor, seeds: Union[Tensor, Sequence[int]],
+           positions: Union[Tensor, Sequence[int]],
            params: SamplingParams) -> Tensor:
-    """[B, V] logits -> [B] int64 tokens. ``seeds``/``positions`` are the
-    host-side (request seed, position) of each row; greedy ignores them."""
+    """[B, V] logits -> [B] int64 tokens. ``seeds``/``positions`` [B] are
+    each row's (request seed, position); greedy ignores them. A sampled
+    row takes ``argmax(filtered + g)`` with Gumbel noise ``g = -log(-log
+    u)``, ``u = uniform_noise(...)``: a draw from the filtered
+    distribution (the Gumbel-max identity), computed on the logits'
+    device without a host read. A filtered-out entry (``_NEG_INF``) stays
+    below every kept one, whatever its noise."""
     if params.greedy:
         return torch.argmax(logits, dim=-1)
-    probs = _filtered_probs(logits, params)
-    seeds = np.asarray(seeds).tolist()
-    positions = np.asarray(positions).tolist()
-    out = torch.empty(logits.shape[0], dtype=torch.long, device=logits.device)
-    for b in range(logits.shape[0]):
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(position_seed(seeds[b], positions[b]))
-        out[b] = torch.multinomial(probs[b], 1, generator=gen)[0]
-    return out
+    dev = logits.device
+    seeds = torch.as_tensor(seeds, dtype=torch.long, device=dev)
+    positions = torch.as_tensor(positions, dtype=torch.long, device=dev)
+    u = uniform_noise(seeds, positions, logits.shape[-1])
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(_filtered_logits(logits, params) + gumbel, dim=-1)
 
 
 def finite_mask(logits: Tensor) -> Tensor:

@@ -250,12 +250,12 @@ def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None
 
 
 # ---- the MoE block and the training forward -------------------------------------
-def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
-              ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
-    """Post-attention MoE sub-block with residual -> (x, aux_loss, stats):
-    router (fp32) -> route -> dispatch -> experts -> combine. ``stats``
-    holds ``moe_dropped_fraction`` and ``moe_load_cv`` (the coefficient
-    of variation of the expert load, population std as ``jnp.std``)."""
+def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
+                    with_aux: bool
+                    ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
+    """Post-attention MoE sub-block with residual -> (x, the routing's aux
+    per group, or None without ``with_aux``): router (fp32) -> route ->
+    dispatch -> experts -> combine."""
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
     s = h.shape[1]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -263,9 +263,9 @@ def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
     cap = expert_capacity(s, e, k, cfg.capacity_factor)
     mode = cfg.resolved_moe_dispatch()
     state, aux = route_tokens(logits, k, cap, mode=mode,
-                              normalize_weights=cfg.norm_topk_prob)
+                              normalize_weights=cfg.norm_topk_prob,
+                              with_aux=with_aux)
     slots = dispatch_routed(h, state, mode=mode, num_experts=e, capacity=cap)
-    aux = {name: v.mean(dim=0) for name, v in aux.items()}  # over groups
     kernel = {}
     if cfg.use_grouped_mlp_kernel:
         kernel = dict(slot_counts=routed_fill_counts(
@@ -274,6 +274,17 @@ def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
                   layer["expert_down_proj"], compute_dtype=cfg.dtype,
                   **kernel)
     y = combine_routed(out, state, mode=mode, num_experts=e, capacity=cap)
+    return x + y.to(x.dtype), aux
+
+
+def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
+              ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
+    """Post-attention MoE sub-block with residual -> (x, aux_loss, stats):
+    router (fp32) -> route -> dispatch -> experts -> combine. ``stats``
+    holds ``moe_dropped_fraction`` and ``moe_load_cv`` (the coefficient
+    of variation of the expert load, population std as ``jnp.std``)."""
+    x, aux = _routed_experts(x, layer, cfg, with_aux=True)
+    aux = {name: v.mean(dim=0) for name, v in aux.items()}  # over groups
     aux_total = (cfg.aux_loss_coef * aux["aux_loss"]
                  + cfg.z_loss_coef * aux["z_loss"])
     load = aux["expert_load"]
@@ -281,7 +292,16 @@ def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
         "moe_dropped_fraction": aux["dropped_fraction"],
         "moe_load_cv": load.std(correction=0) / load.mean().clamp_min(1e-9),
     }
-    return x + y.to(x.dtype), aux_total, stats
+    return x, aux_total, stats
+
+
+def moe_block_serving(x: Tensor, layer: Dict[str, Tensor],
+                      cfg: Qwen3MoEConfig) -> Tensor:
+    """``moe_block``'s x, bit for bit, without the aux loss and the
+    routing statistics that only training reads (the reference discards
+    them in its cached forward and XLA drops the dead code; here they
+    would run, inside the serving graphs too)."""
+    return _routed_experts(x, layer, cfg, with_aux=False)[0]
 
 
 def _moe_layer(x, layer, cos, sin, cfg, attn_fn):
@@ -486,7 +506,7 @@ class Qwen3MoEForCausalLM(nn.Module):
             x = _llama.attention_block_cached(
                 x, layer, cache_k[i], cache_v[i], cos, sin, positions, cfg,
                 write_mask=write_mask, kv_io=kv_io)
-            x, _, _ = moe_block(x, layer, cfg)
+            x = moe_block_serving(x, layer, cfg)
         if last_index is not None:
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_index.long()][:, None]

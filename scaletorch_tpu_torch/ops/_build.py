@@ -9,7 +9,11 @@ so an edited source is rebuilt and a stale library is never loaded.
 
 ``launch_counts`` is the per-kernel launch counter: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. A CUDA graph's replay calls no
+wrapper: the engine's captured steps (``inference/decode.py``'s
+``StaticStep``) take back the launches their capture only recorded and
+add them again on every replay, so the counts keep meaning launches on
+the card.
 """
 
 from __future__ import annotations

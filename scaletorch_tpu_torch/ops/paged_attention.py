@@ -57,7 +57,9 @@ _MASKED = -1e30  # the Pallas kernel's mask value
 _kernel_fn = None
 # (device, stream) -> int32 counters of the splits of each (slot, KV head)
 # that have finished, zero between calls (the kernel's last split of a
-# (slot, head) resets its own)
+# (slot, head) resets its own). A captured step's warm-up creates its
+# capture stream's buffer outside the graph's pool, and the graph keeps
+# using it on every replay.
 _split_counters: dict = {}
 
 

@@ -51,10 +51,13 @@ def _grouped(t: Tensor, ndim: int) -> Tensor:
 
 
 def _route_core(router_logits: Tensor, top_k: int, capacity: int,
-                normalize_weights: bool):
+                normalize_weights: bool, with_aux: bool = True):
     """Routing math shared by both forms, per group: logits [G, N, E] ->
     (gate_idx [G, N, k] int64, gate_w [G, N, k] fp32, pos [G, N, k] int64,
-    kept [G, N, k] bool, aux {name: [G] or [G, E]})."""
+    kept [G, N, k] bool, aux {name: [G] or [G, E]}). Without
+    ``with_aux`` (serving) the aux losses and statistics, which only
+    training reads, are not computed and ``aux`` is None; the decisions
+    are the same."""
     g, n, e = router_logits.shape
     logits32 = router_logits.float()
     probs = torch.softmax(logits32, dim=-1)
@@ -77,6 +80,8 @@ def _route_core(router_logits: Tensor, top_k: int, capacity: int,
     pos = torch.empty_like(flat).scatter_(1, order, rank)
     pos = pos.view(g, top_k, n).transpose(1, 2)
     kept = pos < capacity
+    if not with_aux:
+        return gate_idx, gate_w, pos, kept, None
     # Switch aux loss E * sum_e f_e P_e / k over the pre-capacity choices
     f = load.float() / n  # [G, E]: choices per token, sums to k
     p = probs.mean(dim=1)
@@ -90,14 +95,15 @@ def _route_core(router_logits: Tensor, top_k: int, capacity: int,
 
 
 def top_k_routing(router_logits: Tensor, top_k: int, capacity: int, *,
-                  normalize_weights: bool = True):
+                  normalize_weights: bool = True, with_aux: bool = True):
     """One-hot form: router_logits [N, E] (or [G, N, E]) -> (dispatch
     [(G,) N, E, C] in {0, 1}, combine [(G,) N, E, C] = dispatch x gate
-    weight, aux). Dropped choices occupy no slot."""
+    weight, aux). Dropped choices occupy no slot. ``with_aux`` as in
+    ``_route_core``."""
     grouped = router_logits.ndim == 3
     logits = _grouped(router_logits, 2)
     gate_idx, gate_w, pos, kept, aux = _route_core(
-        logits, top_k, capacity, normalize_weights)
+        logits, top_k, capacity, normalize_weights, with_aux)
     g, n, e = logits.shape
     dispatch = torch.zeros(g, n, e, capacity, device=logits.device)
     combine = torch.zeros_like(dispatch)
@@ -108,18 +114,22 @@ def top_k_routing(router_logits: Tensor, top_k: int, capacity: int, *,
     combine[at] = gate_w[gi, ni, ki]
     if not grouped:
         dispatch, combine = dispatch[0], combine[0]
-        aux = {k: v[0] for k, v in aux.items()}
+        if aux is not None:
+            aux = {k: v[0] for k, v in aux.items()}
     return dispatch, combine, aux
 
 
 def top_k_routing_indexed(router_logits: Tensor, top_k: int, capacity: int,
-                          *, normalize_weights: bool = True):
+                          *, normalize_weights: bool = True,
+                          with_aux: bool = True):
     """Index form: the same decisions without the one-hots. Returns
     (routing, aux), routing = {expert_idx [.., k] int32, slot [.., k] int32
-    (>= capacity: dropped), weight [.., k] fp32 (0 for drops)}."""
+    (>= capacity: dropped), weight [.., k] fp32 (0 for drops)}.
+    ``with_aux`` as in ``_route_core``."""
     grouped = router_logits.ndim == 3
     gate_idx, gate_w, pos, kept, aux = _route_core(
-        _grouped(router_logits, 2), top_k, capacity, normalize_weights)
+        _grouped(router_logits, 2), top_k, capacity, normalize_weights,
+        with_aux)
     routing = {
         "expert_idx": gate_idx.to(torch.int32),
         "slot": pos.to(torch.int32),
@@ -127,7 +137,8 @@ def top_k_routing_indexed(router_logits: Tensor, top_k: int, capacity: int,
     }
     if not grouped:
         routing = {k: v[0] for k, v in routing.items()}
-        aux = {k: v[0] for k, v in aux.items()}
+        if aux is not None:
+            aux = {k: v[0] for k, v in aux.items()}
     return routing, aux
 
 
@@ -224,15 +235,19 @@ def resolve_moe_dispatch(mode: str, num_experts: int) -> str:
 
 
 def route_tokens(router_logits: Tensor, top_k: int, capacity: int, *,
-                 mode: str, normalize_weights: bool = True):
+                 mode: str, normalize_weights: bool = True,
+                 with_aux: bool = True):
     """(state, aux) for ``mode`` in {einsum, index}: the same decisions,
-    drops and aux losses in both forms."""
+    drops and aux losses in both forms (``aux`` None without
+    ``with_aux``)."""
     _check_mode(mode)
     if mode == "index":
         return top_k_routing_indexed(router_logits, top_k, capacity,
-                                     normalize_weights=normalize_weights)
+                                     normalize_weights=normalize_weights,
+                                     with_aux=with_aux)
     dispatch, combine, aux = top_k_routing(
-        router_logits, top_k, capacity, normalize_weights=normalize_weights)
+        router_logits, top_k, capacity, normalize_weights=normalize_weights,
+        with_aux=with_aux)
     return {"dispatch": dispatch, "combine": combine}, aux
 
 

@@ -115,14 +115,13 @@ def record_logits(eng):
     step serves (the admitted slots of a prefill, the active ones of a
     decode; the other rows compute garbage that goes nowhere)."""
     seen = []
-    mask_arg = {"_prefill": 4 if eng.cache_layout == "paged" else 3,
-                "_decode": 3}
-    for name, i in mask_arg.items():
+    mask_arg = {"_prefill": "write_mask", "_decode": "active"}
+    for name, mask in mask_arg.items():
         step = getattr(eng, name)
 
-        def wrapped(*args, _step=step, _i=i):
-            out = _step(*args)
-            seen.append(out[1][torch.from_numpy(np.asarray(args[_i]))])
+        def wrapped(_step=step, _mask=mask, **arrays):
+            out = _step(**arrays)
+            seen.append(out[1][torch.from_numpy(arrays[_mask])].clone())
             return out
 
         setattr(eng, name, wrapped)

@@ -1,9 +1,11 @@
 """PyTorch port, sampling: greedy is exact (first maximum, like
 ``jnp.argmax``); the top-k / top-p filters mask what the JAX package's
-mask; sampled tokens are deterministic per (request seed, position),
-independent of slot placement, and follow the filtered distribution.
-JAX's threefry draws cannot be reproduced in torch, so sampled paths are
-never compared token by token with the JAX package."""
+mask; sampled tokens (a Gumbel-max over noise hashed from (request
+seed, position, vocab index), on the logits' device) are deterministic
+per (request seed, position), independent of slot placement, and follow
+the filtered distribution. JAX's threefry draws cannot be reproduced in
+torch, so sampled paths are never compared token by token with the JAX
+package."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,8 +57,13 @@ def test_draws_depend_on_seed_and_position_only():
     b = tsampling.sample(logits[perm], [seeds[i] for i in perm],
                          [positions[i] for i in perm], params)
     assert torch.equal(b, a[perm])
-    assert tsampling.position_seed(3, 10) != tsampling.position_seed(3, 11)
-    assert tsampling.position_seed(3, 10) != tsampling.position_seed(4, 10)
+    # the noise is the hash of (seed, position, vocab index): a row moves
+    # with its pair and changes with either half of it
+    u = tsampling.uniform_noise(torch.tensor([3, 3, 4]),
+                                torch.tensor([10, 11, 10]), 50)
+    again = tsampling.uniform_noise(torch.tensor([3]), torch.tensor([10]), 50)
+    assert torch.equal(u[0], again[0])
+    assert not torch.equal(u[0], u[1]) and not torch.equal(u[0], u[2])
 
 
 @pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (2, 1.0), (0, 0.6)])
