@@ -79,7 +79,14 @@ is non-zero; no phase catches an exception):
                 device's busy share, K4's device time, kernel launches
                 per step as the trace counts them inside the graph (K4
                 once a layer, checked where the trace shows them), and
-                the kernels that take the device time.
+                the kernels that take the device time. The trace drops
+                the records of its first kernels, so one tick before
+                the window is traced and left out; a replay recorded
+                whole stands in for one that lost records, K4's count is
+                checked on the whole replays (at least half), and a
+                window that lost the record of a launch outside a graph
+                is profiled again (at most 3; the phase fails if every
+                one lost some).
  7b. decode_graph — the one-capture contract at the same width: every
                 prefill and 16 decode replays of three engines (paged
                 through K4, paged through the gather path, dense) equal
@@ -111,6 +118,35 @@ is non-zero; no phase catches an exception):
                 tokens/s, MFU and peak memory as the entry reports them.
  11. train_profile — torch.profiler over 2 steady steps of the same
                 trainer.
+ 11a. data_train — the headline row trained through ``Trainer`` from a
+                ``.jsonl`` of seeded documents written under build/ (a
+                byte tokenizer defined here), evaluated every 2 steps on
+                2 batches of a second file, checkpointed every 2 steps
+                (asynchronously, keep 1). Run A: 4 steps straight, twice
+                (the spread of the two is the limit: 0 when they agree bit
+                for bit); run B: 2 steps and the step-2 checkpoint; run C:
+                a fresh ``Trainer`` with ``resume="must"`` to step 4. C
+                must restore step 2, loader position 2 and AdamW's count,
+                keep A's learning rates exactly and its losses and val
+                losses within the limit; every train step launches K1 /
+                K2 / K3 56 / 28 / 28 times, every eval batch K1 28 times
+                and no K2 / K3; the cached eval set scores the same again.
+                Prints the seconds and tokens of reading and tokenizing
+                a 32 MiB corpus (one process), the free disk, the
+                checkpoint bytes, each save's blocking and total seconds,
+                the restore seconds, eval seconds a batch and the
+                data-fed tokens/s beside the ``train`` phase's synthetic
+                ones; deletes its files.
+ 11b. hf_roundtrip — seeded 0.6B parameters exported with
+                ``save_hf_params`` in bf16 as >= 2 shards plus the
+                config.json of ``hf_config_dict``; every tensor ``load_hf_params`` reads back
+                equals the source rounded to bf16 bit for bit; a
+                ``Trainer`` with ``model_name_or_path`` and
+                ``load_pretrained_weights`` gives the first loss, on a
+                fixed batch, of one handed the rounded parameters; paged,
+                graphed engines from the loaded and from the rounded
+                parameters serve 8 greedy requests with equal tokens.
+                Prints write and read GB/s.
      The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
      (full width, random weights from a seeded generator, the grouped-MLP
      kernels switched on through the config or the environment):
@@ -202,8 +238,16 @@ from scaletorch_tpu_torch.ops.paged_attention import (
     paged_decode_attention_ref,
     paged_gather_kv,
 )
+from scaletorch_tpu_torch.data.dataloader import SyntheticDataLoader
+from scaletorch_tpu_torch.data.dataset import (
+    DatasetProcessor,
+    chunks_to_array,
+)
+from scaletorch_tpu_torch.models.convert import flatten_params
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
 from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
+from scaletorch_tpu_torch.trainer.trainer import Trainer
+from scaletorch_tpu_torch.utils import hf_interop
 from scaletorch_tpu_torch.utils.device import card_name_and_power_limit
 
 MODEL = "qwen3-0.6b"
@@ -234,6 +278,13 @@ PARITY_TOLERANCE = 1e-3
 # the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
 TRAIN_SEQ = 8192
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 2, 5, 2
+# data_train: documents of DOC_BYTES bytes (a byte a token): 32 sequences
+# of 8193 tokens to train on, 4 held out; runs of DATA_STEPS steps
+DATA_DOCS, EVAL_DOCS, DOC_BYTES, DATA_STEPS = 64, 8, 4096, 4
+# and a 32 MiB corpus tokenized alone, for the preprocessing rate
+PREP_DOCS = 8192
+# hf_roundtrip: the bf16 export (1.19 GB at 0.6B) cut into >= 2 shards
+HF_SHARD_BYTES = 512 * 1024 ** 2
 # kernel vs plain version, on each of out, lse, dQ, dK, dV: max abs, the
 # relative L2 error of the whole tensor ("rel"), and the largest relative
 # L2 error of one TILE-row tile of one head ("tile_rel": a fault confined
@@ -1080,43 +1131,125 @@ def phase_serve(model32) -> int:
     return launches
 
 
-def profiled(run, steps: int) -> dict:
-    """torch.profiler over ``run()`` (``steps`` steps, ending in a
-    synchronise): wall and device ms per step, the device's busy share
-    (the kernels' summed device time over the window's wall time; one
-    stream, so no overlap), kernel launches per step as the trace counts
-    them (inside a replayed graph too), K4's and K5's among them, and the
-    top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# kernel-launch calls of the runtime and driver APIs: each leaves one
+# kernel record carrying its correlation id
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+PROFILE_WINDOWS = 3
+WINDOW_SPAN = "chip_smoke.window"
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        run()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    k4 = [e for e in kernels if "paged_decode" in e.key]
-    k5 = [e for e in kernels if "gmlp_up" in e.key]  # one per K5 launch
-    graph_launches = sum(e.count for e in prof.key_averages()
-                         if e.key == "cudaGraphLaunch")
+
+def profiled(step, steps: int) -> dict:
+    """torch.profiler over ``steps`` calls of ``step()`` (the window,
+    ending in a synchronise), after one call that is traced and left out
+    (the trace drops the records of the first kernels it sees: ~10
+    kernels late in this script): wall and device ms per step, the
+    device's busy share (the kernels' summed device time over the
+    window's wall time; one stream, so no overlap), kernel launches per
+    step (inside a replayed graph too), K4's and K5's among them, and
+    the top kernels. A trace that lost kernel records would read the
+    device time low: the numbers come from ``trace_records``, where a
+    replay recorded whole stands in for one that lost records. A window
+    that lost the record of a kernel launched outside a graph (nothing
+    stands in for it) is profiled again, up to PROFILE_WINDOWS windows
+    (``windows`` says how many ran), and the phase fails if every one
+    lost some."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    lost = []
+    while len(lost) < PROFILE_WINDOWS and (not lost or lost[-1]):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+            with record_function(WINDOW_SPAN):
+                t0 = time.monotonic()
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+        trace = trace_records(prof.profiler.kineto_results.events())
+        lost.append(trace["launches_lost"])
+    check(not lost[-1], f"each of {len(lost)} traces lost the records of "
+          f"kernels launched outside a graph ({lost}): their device time "
+          "would read low")
+    window = trace.pop("window")
     return dict(
+        windows=len(lost), launches_lost_by_window=lost, trace=trace,
         wall_ms_per_step=1e3 * wall / steps,
-        device_ms_per_step=1e-3 * device_us / steps,
-        device_busy_share=(1e-6 * device_us / wall) if wall else None,
-        kernel_launches_per_step=sum(e.count for e in kernels) / steps,
-        graph_launches_per_step=graph_launches / steps,
-        k4_device_ms_per_step=1e-3 * sum(e.self_device_time_total
-                                         for e in k4) / steps,
-        k4_kernel_launches_per_step=sum(e.count for e in k4) / steps,
-        k5_kernel_launches_per_step=sum(e.count for e in k5) / steps,
-        top_kernels=[{"name": e.key[:80], "calls_per_step": e.count / steps,
-                      "ms_per_step": 1e-3 * e.self_device_time_total / steps}
-                     for e in top])
+        device_ms_per_step=1e-3 * window["us"] / steps,
+        device_busy_share=1e-6 * window["us"] / wall,
+        kernel_launches_per_step=window["kernels"] / steps,
+        graph_launches_per_step=trace["replays"] / steps,
+        k4_device_ms_per_step=1e-3 * window["k4_us"] / steps,
+        k4_kernel_launches_per_step=window["k4"] / steps,
+        k5_kernel_launches_per_step=window["k5"] / steps,
+        top_kernels=[{"name": name[:80], "calls_per_step": n / steps,
+                      "ms_per_step": 1e-6 * ns / steps}
+                     for name, (n, ns) in sorted(
+                         window["by_name"].items(),
+                         key=lambda kv: -kv[1][1])[:8]])
+
+
+def trace_records(events) -> dict:
+    """The device records of the calls made inside the WINDOW_SPAN span
+    of a trace, grouped by the call that launched them (a record carries
+    its launch's correlation id). A ``LAUNCH_APIS`` call leaves one
+    record, and every replay of one graph (``cudaGraphLaunch``) the same
+    number: a launch with no record, or a replay with fewer than the
+    fullest, lost records. ``window`` sums device µs, kernels, K4's µs
+    and K4 and K5 launches over the window (each replay that lost
+    records counted as the mean of the whole ones) and, by kernel name,
+    the records and ns (as recorded)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type() != cuda]
+    span = [e for e in host if e.name() == WINDOW_SPAN]
+    lo, hi = (span[0].start_ns(), span[0].end_ns()) if span else (0, -1)
+    # the runtime's and driver's calls (an operator's id is another count)
+    calls = [e for e in host if lo <= e.start_ns() <= hi
+             and e.name().startswith("cu")]
+    made = {e.correlation_id() for e in calls}
+    launches = {e.correlation_id() for e in calls if e.name() in LAUNCH_APIS}
+    replays = {e.correlation_id(): [] for e in calls
+               if e.name() == "cudaGraphLaunch"}
+    outside, recorded, by_name = [], set(), {}
+    for e in events:
+        if (e.device_type() == cuda and not e.is_user_annotation()
+                and e.correlation_id() in made):
+            recorded.add(e.correlation_id())
+            replays.get(e.correlation_id(), outside).append(e)
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
+
+    def sums(records) -> dict:
+        k4 = [e for e in records if "paged_decode" in e.name()]
+        return {"us": 1e-3 * sum(e.duration_ns() for e in records),
+                "kernels": len(records), "k4_us":
+                1e-3 * sum(e.duration_ns() for e in k4), "k4": len(k4),
+                "k5": sum("gmlp_up" in e.name() for e in records)}
+
+    full = max(map(len, replays.values()), default=0)
+    whole = [sums(v) for v in replays.values() if len(v) == full]
+    partial = [sums(v) for v in replays.values() if len(v) < full]
+    window = sums(outside)
+    for key in window:
+        window[key] += sum(r[key] for r in whole)
+        if partial:
+            window[key] += len(partial) * sum(r[key] for r in whole) / len(
+                whole)
+    window["by_name"] = by_name
+    return {"launches": len(launches),
+            "launches_lost": len(launches - recorded),
+            "replays": len(replays), "whole": len(whole),
+            "kernels_per_replay": full,
+            "replay_kernels_lost": sum(full - r["kernels"] for r in partial),
+            "k4_per_whole_replay": sorted({r["k4"] for r in whole}),
+            "k5_per_whole_replay": sorted({r["k5"] for r in whole}),
+            "k4_per_partial_replay_max": max((r["k4"] for r in partial),
+                                             default=0),
+            "k5_per_partial_replay_max": max((r["k5"] for r in partial),
+                                             default=0),
+            "window": window}
 
 
 def phase_profile(model32) -> None:
@@ -1132,8 +1265,9 @@ def profile_decode(model, cfg, phase: str, k5_per_step: int = 0) -> None:
     admission inside the window, so every tick is one decode replay).
     Device busy share = the kernels' summed device time over the
     window's wall time (one stream: no overlap). Where the trace shows
-    the kernels inside the replayed graph, K4 must appear once a layer a
-    step, and K5's ``k5_per_step`` times."""
+    the kernels inside the replayed graph, every replay must appear, at
+    least half of them recorded whole; each whole one must hold K4 once
+    a layer and K5 ``k5_per_step`` times, and no replay more."""
     window = 16
     with torch.inference_mode():
         free_engine()
@@ -1144,26 +1278,29 @@ def profile_decode(model, cfg, phase: str, k5_per_step: int = 0) -> None:
             eng.step()
         torch.cuda.synchronize()
         replays = eng._decode.replays
-
-        def run():
-            for _ in range(window):
-                eng.step()
-
-        stats = profiled(run, window)
+        stats = profiled(eng.step, window)
         replays = eng._decode.replays - replays
     check(eng.metrics.prefill_calls == 1, "admission inside the window")
-    check(replays == window and eng.decode_compile_count == 1,
-          f"{replays} decode replays in a window of {window} ticks, "
-          f"{eng.decode_compile_count} captures")
+    check(replays == (window + 1) * stats["windows"]
+          and eng.decode_compile_count == 1,
+          f"{replays} decode replays in {stats['windows']} windows of "
+          f"{window} ticks and a lead tick, {eng.decode_compile_count} "
+          "captures")
     seen = stats["kernel_launches_per_step"] > 0
     if seen:
-        layers = cfg.num_hidden_layers
-        check(stats["k4_kernel_launches_per_step"] == layers
-              and stats["k5_kernel_launches_per_step"] == k5_per_step,
-              f"{phase}: the trace counts K4 "
-              f"{stats['k4_kernel_launches_per_step']} and K5 "
-              f"{stats['k5_kernel_launches_per_step']} a replay, want "
-              f"{layers} and {k5_per_step}")
+        layers, rep = cfg.num_hidden_layers, stats["trace"]
+        check(rep["replays"] == window and 2 * rep["whole"] >= window,
+              f"{phase}: the trace shows {rep['replays']} replays, "
+              f"{rep['whole']} of them whole")
+        check(rep["k4_per_whole_replay"] == [layers]
+              and rep["k5_per_whole_replay"] == [k5_per_step]
+              and rep["k4_per_partial_replay_max"] <= layers
+              and rep["k5_per_partial_replay_max"] <= k5_per_step,
+              f"{phase}: the trace counts K4 {rep['k4_per_whole_replay']} "
+              f"and K5 {rep['k5_per_whole_replay']} a whole replay "
+              f"(at most {rep['k4_per_partial_replay_max']} and "
+              f"{rep['k5_per_partial_replay_max']} in one that lost "
+              f"records), want {layers} and {k5_per_step}")
     emit(phase, window_decode_steps=window, decode_replays=replays,
          trace_shows_graph_kernels=seen, **stats)
     del eng
@@ -1481,16 +1618,291 @@ def phase_train():
          warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
          peak_flops=trainer.peak_flops(), launches=launches,
          launches_per_step=per_step, **res)
-    return trainer, launches
+    return trainer, launches, res["tokens_per_second"]
 
 
 def phase_train_profile(trainer, phase: str = "train_profile") -> None:
-    def run():
-        for _ in range(PROFILE_STEPS):
-            trainer.step()
-
     emit(phase, window_train_steps=PROFILE_STEPS,
-         **profiled(run, PROFILE_STEPS))
+         **profiled(trainer.step, PROFILE_STEPS))
+
+
+# ---- 11a. training from a dataset on disk: eval, checkpoint, resume ---------
+class ByteTokenizer:
+    """UTF-8 bytes shifted past the eos id: ids 2..257, below every
+    preset's vocab; eos 1."""
+
+    eos_token_id = 1
+
+    def __call__(self, text, add_special_tokens=False):
+        return {"input_ids": [b + 2 for b in text.encode()]}
+
+
+def write_docs(path: str, docs: int, seed: int) -> str:
+    """``docs`` seeded documents of DOC_BYTES bytes of lowercase words, one
+    JSON object a line."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(docs):
+            letters = rng.integers(97, 123, DOC_BYTES, dtype=np.uint8)
+            letters[rng.random(DOC_BYTES) < 0.15] = 32  # spaces
+            f.write(json.dumps({"text": letters.tobytes().decode()}) + "\n")
+    return path
+
+
+def data_train_cfg(root: str, checkpoint_dir, **kw):
+    """The headline row fed from the files under ``root``, evaluated
+    every 2 steps on 2 held-out batches, checkpointed every 2 steps."""
+    cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
+    return dataclasses.replace(
+        cfg, synthetic_data=False,
+        dataset_name=os.path.join(root, "train.jsonl"),
+        eval_dataset_name=os.path.join(root, "val.jsonl"),
+        eval_frequency=2, eval_steps=2, checkpoint_dir=checkpoint_dir,
+        save_frequency=2, keep_n_checkpoints=1, async_checkpointing=True,
+        total_train_steps=DATA_STEPS, log_frequency=1, **kw)
+
+
+def launch_log(trainer) -> dict:
+    """Wrap the trainer's train and eval step functions to record the
+    kernel launches of each call (counted by the wrappers on the host,
+    at launch)."""
+    log = {"train": [], "eval": []}
+
+    def wrap(fn, key):
+        def counted(*args):
+            before = dict(_build.launch_counts)
+            out = fn(*args)
+            log[key].append({k: v - before.get(k, 0)
+                             for k, v in _build.launch_counts.items()
+                             if v - before.get(k, 0)})
+            return out
+        return counted
+
+    trainer.step_fn = wrap(trainer.step_fn, "train")
+    trainer._eval_fn = wrap(trainer._eval_fn, "eval")
+    return log
+
+
+def readings(trainer, steps) -> dict:
+    by_step = {r["step"]: r for r in trainer.history}
+    return {"loss": [by_step[s]["loss"] for s in steps],
+            "lr": [by_step[s]["lr"] for s in steps],
+            "val_loss": [by_step[s]["val_loss"] for s in steps
+                         if "val_loss" in by_step[s]]}
+
+
+def preprocess(path: str) -> dict:
+    """Read and tokenize ``path`` as ``Trainer`` does (one process): the
+    seconds, the tokens kept and the host bytes of the token array."""
+    t0 = time.perf_counter()
+    tokens = chunks_to_array(DatasetProcessor(
+        ByteTokenizer(), TRAIN_SEQ).process(path))
+    seconds = time.perf_counter() - t0
+    row = {"file_bytes": os.path.getsize(path), "tokens": tokens.size,
+           "array_bytes": tokens.nbytes, "seconds": seconds,
+           "tokens_per_s": tokens.size / seconds}
+    os.remove(path)
+    return row
+
+
+def phase_data_train(synthetic_tokens_per_s: float) -> dict:
+    import shutil
+
+    root = os.path.join(_build.BUILD_DIR.parent, "data_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    emit("data_train_disk", free_gb=free_gb, checkpoint_gb_expected=7.2)
+    write_docs(os.path.join(root, "train.jsonl"), DATA_DOCS, seed=11)
+    write_docs(os.path.join(root, "val.jsonl"), EVAL_DOCS, seed=12)
+    prep = preprocess(write_docs(os.path.join(root, "prep.jsonl"),
+                                 PREP_DOCS, seed=13))
+    layers = model_config(MODEL).num_hidden_layers
+    want_train = {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers,
+                  tf.K3_NAME: layers}
+    want_eval = {tf.K1_NAME: layers}
+    steps = list(range(1, DATA_STEPS + 1))
+
+    # run A twice: straight 4-step runs (the first checkpointed, async)
+    straight, saves = [], None
+    for i in range(2):
+        ckpt = os.path.join(root, "ckpt_a") if i == 0 else None
+        _build.reset_launch_counts()
+        t = Trainer(data_train_cfg(root, ckpt), tokenizer=ByteTokenizer())
+        log = launch_log(t)
+        t.train()
+        check(all(d == want_train for d in log["train"]),
+              f"run A launches per train step {log['train']}, want "
+              f"{want_train}")
+        check(len(log["eval"]) == 2 * 2
+              and all(d == want_eval for d in log["eval"]),
+              f"run A launches per eval batch {log['eval']}, want "
+              f"{want_eval}")
+        straight.append(readings(t, steps))
+        if i == 0:
+            mgr = t.checkpoint_manager
+            check(mgr.all_steps() == [DATA_STEPS],
+                  f"run A kept steps {mgr.all_steps()}")
+            ckpt_bytes = mgr.step_bytes(DATA_STEPS)
+            saves = [dict(x) for x in mgr.saves]
+            tok_s = {r["step"]: r.get("tokens_per_second")
+                     for r in t.history}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val = t.evaluate()  # the cached set: the step-4 reading again
+            eval_s = (time.perf_counter() - t0) / t.cfg.eval_steps
+            check(val == straight[0]["val_loss"][-1],
+                  f"the eval set moved: {val} vs "
+                  f"{straight[0]['val_loss'][-1]}")
+        t.close()
+        del t
+        free_engine()
+        shutil.rmtree(os.path.join(root, "ckpt_a"), ignore_errors=True)
+    a1, a2 = straight
+    check(a1["lr"] == a2["lr"], f"learning rates differ: {a1['lr']} "
+          f"{a2['lr']}")
+    spread = max(abs(x - y) for key in ("loss", "val_loss")
+                 for x, y in zip(a1[key], a2[key]))
+
+    # run B: 2 steps and the step-2 checkpoint; run C resumes from it
+    ckpt_b = os.path.join(root, "ckpt_b")
+    t = Trainer(data_train_cfg(root, ckpt_b), tokenizer=ByteTokenizer())
+    t.train(num_steps=2)
+    check(t.checkpoint_manager.all_steps() == [2],
+          f"run B kept {t.checkpoint_manager.all_steps()}")
+    t.close()
+    del t
+    free_engine()
+    _build.reset_launch_counts()
+    t = Trainer(data_train_cfg(root, ckpt_b, resume="must"),
+                tokenizer=ByteTokenizer())
+    restore_s = t.checkpoint_manager.last_restore["seconds"]
+    check(t.global_step == 2 and t.loader.position == 2
+          and int(t.opt_state["count"]) == 2,
+          f"run C restored step {t.global_step}, loader position "
+          f"{t.loader.position}, count {int(t.opt_state['count'])}")
+    log = launch_log(t)
+    t.train()
+    check(int(t.opt_state["count"]) == DATA_STEPS,
+          f"AdamW count {int(t.opt_state['count'])}")
+    c = readings(t, steps[2:])
+    check(all(d == want_train for d in log["train"])
+          and all(d == want_eval for d in log["eval"])
+          and len(log["eval"]) == 2,
+          f"run C launches {log}")
+    t.close()
+    del t
+    free_engine()
+    shutil.rmtree(root, ignore_errors=True)
+    check(c["lr"] == a1["lr"][2:], f"resumed learning rates {c['lr']} vs "
+          f"{a1['lr'][2:]}")
+    resumed_diff = max(abs(x - y) for x, y in
+                       zip(c["loss"] + c["val_loss"],
+                           a1["loss"][2:] + a1["val_loss"][1:]))
+    check(resumed_diff <= spread,
+          f"resumed run differs by {resumed_diff} > {spread}, the spread "
+          "of two straight runs")
+    row = {"model": MODEL, "sequence_length": TRAIN_SEQ,
+           "train_docs": DATA_DOCS, "eval_docs": EVAL_DOCS,
+           "doc_bytes": DOC_BYTES, "straight": a1, "straight_again": a2,
+           "straight_bit_equal": spread == 0.0, "limit": spread,
+           "resumed": c, "resumed_max_abs_diff": resumed_diff,
+           "launches_per_train_step": want_train,
+           "launches_per_eval_batch": want_eval,
+           "checkpoint_bytes": ckpt_bytes, "saves": saves,
+           "restore_s": restore_s, "eval_s_per_batch": eval_s,
+           "preprocess": prep,
+           "tokens_per_second_by_step": tok_s,
+           "synthetic_tokens_per_second": synthetic_tokens_per_s,
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("data_train", **row)
+    return row
+
+
+# ---- 11b. Hugging Face safetensors both ways --------------------------------
+def phase_hf_roundtrip() -> None:
+    import shutil
+
+    root = os.path.join(_build.BUILD_DIR.parent, "hf_roundtrip")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = model_config(MODEL, dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    params = init_params(cfg, gen, "cuda")
+    rounded = {k: ({kk: vv.to(torch.bfloat16).float()
+                    for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(torch.bfloat16).float())
+               for k, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = hf_interop.save_hf_params(root, params, cfg, dtype="bfloat16",
+                                      max_shard_bytes=HF_SHARD_BYTES)
+    write_s = time.perf_counter() - t0
+    files = sorted(f for f in os.listdir(root) if f.endswith(".safetensors"))
+    nbytes = sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    check(index.endswith("index.json") and len(files) >= 2,
+          f"export wrote {files}")
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(hf_interop.hf_config_dict(cfg), f)
+    del params
+    t0 = time.perf_counter()
+    loaded = hf_interop.load_hf_params(root, cfg, device="cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    flat_l, flat_r = flatten_params(loaded), flatten_params(rounded)
+    check(sorted(flat_l) == sorted(flat_r), "loaded keys differ")
+    unequal = [k for k in flat_l if not torch.equal(flat_l[k], flat_r[k])]
+    check(not unequal, f"loaded tensors differ from the rounded source: "
+          f"{unequal}")
+
+    # the first loss of a Trainer that loads the export, and of one
+    # handed the rounded parameters directly, on one fixed batch
+    bench = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
+    batch = next(iter(SyntheticDataLoader(cfg.vocab_size, TRAIN_SEQ, 1, 1,
+                                          seed=5)))
+    losses = []
+    for source in ("loaded", "handed"):
+        if source == "loaded":
+            t = Trainer(dataclasses.replace(
+                bench, model_name_or_path=root, load_pretrained_weights=True))
+        else:
+            t = Trainer(bench)
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(t.params),
+                                    tree_leaves(rounded)):
+                    dst.copy_(src)
+        losses.append(float(t.step(batch)["loss"]))
+        del t
+        free_engine()
+    check(losses[0] == losses[1], f"first losses {losses}")
+
+    # greedy serving from the loaded and from the rounded parameters
+    scfg = model_config(MODEL, dtype=torch.bfloat16)
+    prompts = traffic(scfg.vocab_size, seed=23)[:8]
+    tokens = []
+    with torch.inference_mode():
+        for tree in (loaded, rounded):
+            model = LlamaForCausalLM.from_params(tree, scfg)
+            free_engine()
+            eng = serving_engine(model, scfg)
+            ids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            eng.run()
+            results = [eng.result(i) for i in ids]
+            check(all(r.outcome == "ok" for r in results),
+                  f"outcomes {[r.outcome for r in results]}")
+            check(eng.decode_compile_count == 1,
+                  f"decode captured {eng.decode_compile_count} times")
+            tokens.append([r.tokens for r in results])
+            del eng, model
+            free_engine()
+    check(tokens[0] == tokens[1], "the loaded engine's greedy tokens differ")
+    shutil.rmtree(root, ignore_errors=True)
+    emit("hf_roundtrip", model=MODEL, dtype="bfloat16", shards=len(files),
+         bytes=nbytes, write_s=write_s, read_s=read_s,
+         write_gb_per_s=nbytes / write_s / 1e9,
+         read_gb_per_s=nbytes / read_s / 1e9, tensors=len(flat_l),
+         first_losses=losses, requests=len(prompts),
+         greedy_tokens_equal=True, nvidia_smi=card_name_and_power_limit())
 
 
 # ---- 12. the grouped-MLP kernels against their plain versions -----------------
@@ -2013,9 +2425,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train_parity", phase_train_parity)
     torch.cuda.empty_cache()
-    trainer, train_launches = timed("train", phase_train)
+    trainer, train_launches, train_tok_s = timed("train", phase_train)
     timed("train_profile", phase_train_profile, trainer)
     del trainer
+    torch.cuda.empty_cache()
+    timed("data_train", phase_data_train, train_tok_s)
+    torch.cuda.empty_cache()
+    timed("hf_roundtrip", phase_hf_roundtrip)
     torch.cuda.empty_cache()
     gmlp = timed("kernel_grouped_mlp", phase_kernel_grouped_mlp)
     torch.cuda.empty_cache()

@@ -1,8 +1,8 @@
 """scaletorch_tpu_torch: the PyTorch / CUDA port of scaletorch_tpu.
 
 The JAX package ``scaletorch_tpu`` stays the reference; this package
-grows beside it, slice by slice, and never imports it (or JAX). The
-first slice is the paged serving engine:
+grows beside it, slice by slice, and never imports it (or JAX). Its
+parts:
 
   * ``models``    — the Llama-family decoder (Llama, Qwen3) in the
     reference parameter layout, with its KV-cached forward;
@@ -11,7 +11,10 @@ first slice is the paged serving engine:
     versions;
   * ``inference`` — the KV caches, the engine steps and
     ``InferenceEngine``;
-  * ``telemetry``, ``utils`` — latency histograms, logging, devices.
+  * ``data``, ``trainer`` — the corpus loader, the train and eval steps,
+    AdamW and the ``Trainer`` (eval, checkpoint and resume);
+  * ``telemetry``, ``utils`` — latency histograms, logging, devices,
+    checkpoints, Hugging Face safetensors both ways.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

@@ -52,7 +52,7 @@ def benchmark_config(cfg, warmup: int = 3, steps: int = 10,
     if on_card:
         torch.cuda.synchronize(trainer.device)
     elapsed = time.perf_counter() - t0
-    tok_s, mfu = trainer.throughput(steps, elapsed)
+    tok_s, mfu = trainer.metrics.throughput(steps, elapsed)
     return {
         "tokens_per_second": tok_s,
         "mfu": mfu,

@@ -2,10 +2,12 @@
 scaletorch_tpu/config.py that the single-device training slice reads.
 
 The dataclasses keep the reference's names, field names and defaults:
-``ModelArguments`` (its architecture fields, ``config.py:98-150``, the
-MoE fields included, plus ``model_type``), ``LrSchedulerArguments``, ``OptimizerArguments`` and
-``TrainingArguments`` (``config.py:343-412``, whole), and the data and
-logging fields the slice reads. They compose into
+``DataArguments`` (the local-file fields), ``ModelArguments`` (its
+architecture fields, the MoE fields included, ``model_type``,
+``model_name_or_path`` and ``load_pretrained_weights``),
+``LrSchedulerArguments``, ``OptimizerArguments``, ``TrainingArguments``
+and ``CheckpointArguments`` (whole, with their validation), and the
+logging fields the port reads. They compose into
 ``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
 fields (the machine with the card has no ``transformers``, so no
 ``HfArgumentParser``).
@@ -21,21 +23,58 @@ from typing import List, Optional
 
 @dataclass
 class DataArguments:
+    dataset_name: Optional[str] = field(
+        default=None,
+        metadata={"help": "Local .json/.jsonl file of documents (nothing is "
+                          "fetched from a hub)."})
+    dataset_text_key: str = field(
+        default="text", metadata={"help": "Column holding raw text."})
+    tokenizer_name_or_path: Optional[str] = field(
+        default=None,
+        metadata={"help": "Tokenizer (built with transformers); defaults to "
+                          "the model path. Trainer(tokenizer=...) takes a "
+                          "tokenizer object instead."})
     sequence_length: int = field(
         default=1024, metadata={"help": "Training sequence length."})
+    tokenize_strategy: str = field(
+        default="concat_chunk",
+        metadata={"help": "Registered tokenize strategy (default "
+                          "concat+chunk)."})
+    num_proc: int = field(default=4,
+                          metadata={"help": "Tokenization shards."})
     synthetic_data: bool = field(
         default=False,
-        metadata={"help": "Use a synthetic token stream (benchmarks). The "
-                          "port has no real-data loader yet: the Trainer "
-                          "refuses to run without this flag."})
+        metadata={"help": "Use a synthetic token stream (benchmarks)."})
     synthetic_vocab_size: Optional[int] = field(
         default=None,
         metadata={"help": "Cap the synthetic stream's sampled token ids "
                           "below the model vocab (default: model vocab)."})
+    data_read_retries: int = field(
+        default=2,
+        metadata={"help": "Retries (exponential backoff) around each "
+                          "step-batch read before the region is skipped "
+                          "and logged."})
+    data_retry_base_delay: float = field(
+        default=0.05,
+        metadata={"help": "First batch-read retry delay in seconds; "
+                          "doubles per attempt."})
+    data_max_skipped_batches: int = field(
+        default=16,
+        metadata={"help": "Abort when more than this many step batches "
+                          "stay unreadable after retries. 0 = unlimited."})
 
 
 @dataclass
 class ModelArguments:
+    model_name_or_path: Optional[str] = field(
+        default=None,
+        metadata={"help": "Local HF checkpoint directory: its config.json "
+                          "gives the architecture."})
+    load_pretrained_weights: bool = field(
+        default=False,
+        metadata={"help": "Load the HF safetensors weights from "
+                          "model_name_or_path (otherwise random init with "
+                          "its architecture)."})
     model_type: str = field(
         default="llama", metadata={"help": "llama | qwen3 | qwen3_moe"})
     hidden_size: int = 2048
@@ -112,8 +151,8 @@ class TrainingArguments:
     gradient_accumulation_steps: int = 1
     eval_frequency: int = field(
         default=0,
-        metadata={"help": "Run validation every N optimizer steps (0 = off; "
-                          "the port has no eval step yet)."})
+        metadata={"help": "Run validation every N optimizer steps (0 = "
+                          "off)."})
     eval_steps: int = field(
         default=8, metadata={"help": "Validation batches per evaluation."})
     eval_dataset_name: Optional[str] = None
@@ -143,9 +182,56 @@ class TrainingArguments:
 
 
 @dataclass
+class CheckpointArguments:
+    checkpoint_dir: Optional[str] = None
+    save_frequency: int = 0
+    resume_from_checkpoint: bool = False
+    resume: str = field(
+        default="off",
+        metadata={"help": "off | auto | must: 'auto' resumes from the "
+                          "latest checkpoint in checkpoint_dir when one "
+                          "exists and starts at step 0 otherwise; "
+                          "'must' fails when none restores; "
+                          "resume_from_checkpoint=true means 'auto'."})
+    async_checkpointing: bool = True
+    keep_n_checkpoints: int = 3
+    checkpoint_retries: int = field(
+        default=3,
+        metadata={"help": "Retries (exponential backoff + jitter) around "
+                          "each checkpoint save/restore attempt."})
+    checkpoint_retry_base_delay: float = field(
+        default=0.5,
+        metadata={"help": "First retry delay in seconds; doubles per "
+                          "attempt."})
+    checkpoint_verify: bool = field(
+        default=False,
+        metadata={"help": "After each save, read back the saved tree's "
+                          "names, shapes and dtypes and retire a step that "
+                          "differs (waits for an async save)."})
+
+    def __post_init__(self) -> None:
+        if self.resume not in ("off", "auto", "must"):
+            raise ValueError(
+                f"resume must be 'off', 'auto' or 'must', got "
+                f"{self.resume!r}")
+        if self.resume == "must" and not self.checkpoint_dir:
+            raise ValueError("--resume must requires --checkpoint_dir")
+        if self.checkpoint_retries < 0:
+            raise ValueError(f"checkpoint_retries must be >= 0, got "
+                             f"{self.checkpoint_retries}")
+
+
+@dataclass
 class LoggingArguments:
     log_frequency: int = 1
     log_file: Optional[str] = None
+    performance_log_dir: Optional[str] = field(
+        default=None,
+        metadata={"help": "Write the per-step metrics history as JSON here "
+                          "at the end of training."})
+    verbose: bool = field(
+        default=False,
+        metadata={"help": "Log the system and card diagnostics at start."})
 
 
 @dataclass
@@ -155,11 +241,21 @@ class ScaleTorchTPUArguments(
     LrSchedulerArguments,
     OptimizerArguments,
     TrainingArguments,
+    CheckpointArguments,
     LoggingArguments,
 ):
     """The training arguments the port reads, composed."""
 
     def __post_init__(self) -> None:
+        CheckpointArguments.__post_init__(self)
+        for name in ("data_read_retries", "data_max_skipped_batches"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}")
+        # resume_from_checkpoint predates the tri-state knob: an alias
+        # for 'auto' that never weakens an explicit 'must'
+        if self.resume_from_checkpoint and self.resume == "off":
+            self.resume = "auto"
         expected = self.micro_batch_size * self.gradient_accumulation_steps
         if self.global_batch_size is None:
             self.global_batch_size = expected

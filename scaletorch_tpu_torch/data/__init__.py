@@ -1,1 +1,2 @@
-"""Data loading of the PyTorch port: the synthetic token stream."""
+"""Data loading of the PyTorch port: the tokenization of a local corpus,
+the micro-batch loader over it, and the synthetic token stream."""

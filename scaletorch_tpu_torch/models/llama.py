@@ -57,6 +57,30 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 
+_MISSING = object()
+
+
+def hf_field(hf_config) -> Callable[..., Any]:
+    """``get(name[, default])`` over a parsed HF ``config.json`` dict or a
+    config object; without a default a missing field raises. A
+    ``rope_theta`` kept under ``rope_parameters`` is found there."""
+
+    def get(name: str, default: Any = _MISSING) -> Any:
+        if isinstance(hf_config, dict):
+            src = hf_config
+            if name == "rope_theta" and name not in src:
+                src = src.get("rope_parameters") or {}
+            if name in src:
+                return src[name]
+        elif hasattr(hf_config, name):
+            return getattr(hf_config, name)
+        if default is _MISSING:
+            raise KeyError(f"HF config has no {name!r}")
+        return default
+
+    return get
+
+
 @dataclass(frozen=True)
 class LlamaConfig:
     vocab_size: int = 32000
@@ -85,6 +109,29 @@ class LlamaConfig:
     @property
     def kv_size(self) -> int:
         return self.num_key_value_heads * self.actual_head_dim
+
+    @classmethod
+    def from_hf(cls, hf_config, **overrides) -> "LlamaConfig":
+        """Build from a HF ``config.json``: the parsed dict (the card's
+        machine has no ``transformers``) or a config object. Training
+        knobs (dtypes, ...) come in ``overrides``."""
+        get = hf_field(hf_config)
+        kw = dict(
+            vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            intermediate_size=get("intermediate_size"),
+            num_hidden_layers=get("num_hidden_layers"),
+            num_attention_heads=get("num_attention_heads"),
+            num_key_value_heads=get("num_key_value_heads",
+                                    get("num_attention_heads")),
+            head_dim=get("head_dim", None),
+            max_position_embeddings=get("max_position_embeddings"),
+            rope_theta=get("rope_theta", 10000.0),
+            rms_norm_eps=get("rms_norm_eps", 1e-6),
+            tie_word_embeddings=get("tie_word_embeddings", False),
+        )
+        kw.update(overrides)
+        return cls(**kw)
 
     def num_params(self) -> int:
         h, i, l, v = (self.hidden_size, self.intermediate_size,

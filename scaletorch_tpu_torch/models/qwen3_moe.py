@@ -108,6 +108,22 @@ class Qwen3MoEConfig(Qwen3Config):
                 f"{self.mlp_only_layers} / decoder_sparse_step="
                 f"{self.decoder_sparse_step}; use the dense Qwen3 family")
 
+    @classmethod
+    def from_hf(cls, hf_config, **overrides) -> "Qwen3MoEConfig":
+        """Build from a HF Qwen3-MoE ``config.json`` (the parsed dict or a
+        config object); training knobs come in ``overrides``."""
+        get = _llama.hf_field(hf_config)
+        kw = dict(
+            num_experts=get("num_experts", 8),
+            num_experts_per_tok=get("num_experts_per_tok", 2),
+            moe_intermediate_size=get("moe_intermediate_size", 768),
+            norm_topk_prob=get("norm_topk_prob", True),
+            mlp_only_layers=tuple(get("mlp_only_layers", None) or ()),
+            decoder_sparse_step=get("decoder_sparse_step", 1) or 1,
+        )
+        kw.update(overrides)
+        return super().from_hf(hf_config, **kw)
+
     # ---- the dense/sparse layout ------------------------------------------------
     def layer_is_sparse(self, layer_idx: int) -> bool:
         return (layer_idx not in self.mlp_only_layers

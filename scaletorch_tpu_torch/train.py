@@ -8,7 +8,30 @@
         --synthetic_data true --total_train_steps 20
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path on the
-CPU instead.
+CPU instead. Every config field is a flag (``scaletorch_tpu_torch/
+config.py``). A run on a local corpus with a held-out set, evaluated every
+100 steps and checkpointed every 500, that resumes from its newest
+checkpoint when restarted (``--resume must`` fails instead of starting
+from step 0):
+
+    python -m scaletorch_tpu_torch.train --model_type qwen3 \
+        --model_name_or_path /data/Qwen3-0.6B \
+        --load_pretrained_weights true \
+        --dataset_name /data/train.jsonl --eval_dataset_name /data/val.jsonl \
+        --eval_frequency 100 --eval_steps 8 \
+        --checkpoint_dir /data/ckpt --save_frequency 500 \
+        --keep_n_checkpoints 3 --resume auto \
+        --sequence_length 4096 --gradient_checkpointing true \
+        --total_train_steps 10000 --performance_log_dir /data/logs
+
+``--model_name_or_path`` is a local HF checkpoint directory: its
+``config.json`` gives the architecture and, with
+``--load_pretrained_weights``, its safetensors the weights;
+``--export_hf_dir DIR`` writes the trained weights there as a bf16 HF
+checkpoint (safetensors and ``config.json``). The tokenizer
+is the one ``--tokenizer_name_or_path`` (default: the model directory)
+holds, built with ``transformers``; a Python caller can hand
+``Trainer(cfg, tokenizer=...)`` any tokenizer object instead.
 """
 
 from __future__ import annotations
@@ -23,14 +46,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     from scaletorch_tpu_torch.utils.logger import get_logger
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    # options of this entry point, not of the config
+    extra = {"--device": None, "--export_hf_dir": None}
+    for flag in extra:
+        if flag in argv:
+            i = argv.index(flag)
+            extra[flag] = argv[i + 1]
+            del argv[i:i + 2]
     cfg = parse_args(argv)
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=extra["--device"])
     last = trainer.train()
+    if extra["--export_hf_dir"]:
+        trainer.export_hf(extra["--export_hf_dir"])
+    trainer.close()
     get_logger().info(f"done: {last}")
     return 0
 

@@ -1,2 +1,2 @@
-"""Training of the PyTorch port: the single-device train step, AdamW,
-the LR schedules and the ``Trainer``."""
+"""Training of the PyTorch port: the single-device train and eval steps,
+AdamW, the LR schedules, the metrics logger and the ``Trainer``."""

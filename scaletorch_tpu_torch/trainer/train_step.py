@@ -23,6 +23,9 @@ opt_state, metrics)``. Per step:
 Parameters and optimizer state are updated in place and returned.
 ``metrics`` holds 0-d device tensors: reading them is the caller's
 synchronisation point.
+
+``make_eval_step`` returns the validation loss of the same loss function
+under ``torch.no_grad()``, without gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -151,6 +154,27 @@ def make_train_step(
         return params, opt_state, metrics
 
     return step
+
+
+def make_eval_step(cfg, *, attention_backend: str = "sdpa") -> Callable:
+    """``eval_step(params, batch) -> loss``: the train step's loss (the
+    MoE aux loss included) averaged over the batch's accumulation axis,
+    under ``torch.no_grad()`` and without gradient checkpointing, on the
+    train step's attention backend. A 0-d fp32 device tensor."""
+    loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
+                           gradient_checkpointing=False)
+
+    @torch.no_grad()
+    def eval_step(params, batch) -> Tensor:
+        accum = batch["input_ids"].shape[0]
+        total = torch.zeros((), dtype=torch.float32,
+                            device=batch["input_ids"].device)
+        for a in range(accum):
+            loss, _ = loss_fn(params, {k: v[a] for k, v in batch.items()})
+            total = total + loss.float()
+        return total / accum
+
+    return eval_step
 
 
 def _like(tree, leaves: List[Tensor]):

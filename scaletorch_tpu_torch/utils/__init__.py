@@ -1,4 +1,5 @@
-"""Utilities of the PyTorch port: logging and device resolution."""
+"""Utilities of the PyTorch port: logging, device resolution, checkpoints,
+Hugging Face safetensors interop, system monitoring."""
 
 from scaletorch_tpu_torch.utils.device import (  # noqa: F401
     card_name_and_power_limit,

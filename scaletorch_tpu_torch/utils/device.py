@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -31,6 +31,28 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def device_memory_stats(device: DeviceLike = None) -> Dict[str, float]:
+    """Live memory statistics of a device in bytes, under the reference's
+    keys: ``bytes_in_use``, ``peak_bytes_in_use`` and ``bytes_limit``
+    (the card's total), plus ``bytes_reserved`` and ``bytes_free`` (free
+    on the card, from ``mem_get_info``) from the caching allocator. All
+    zero for the CPU or without a card."""
+    dev = torch.device("cuda" if device is None else device)
+    out = {"bytes_in_use": 0.0, "peak_bytes_in_use": 0.0, "bytes_limit": 0.0}
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return out
+    stats = torch.cuda.memory_stats(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    out.update(
+        bytes_in_use=float(stats.get("allocated_bytes.all.current", 0)),
+        peak_bytes_in_use=float(stats.get("allocated_bytes.all.peak", 0)),
+        bytes_limit=float(total),
+        bytes_reserved=float(stats.get("reserved_bytes.all.current", 0)),
+        bytes_free=float(free),
+    )
+    return out
 
 
 def card_name_and_power_limit() -> Optional[str]:

@@ -8,6 +8,14 @@ from typing import Any, Optional
 from scaletorch_tpu_torch.utils.device import get_theoretical_flops
 
 
+def to_readable_format(num: float, precision: int = 2) -> str:
+    """1234567 -> '1.23M'."""
+    for div, suffix in ((1e12, "T"), (1e9, "B"), (1e6, "M"), (1e3, "K")):
+        if abs(num) >= div:
+            return f"{num / div:.{precision}f}{suffix}"
+    return f"{num:.{precision}f}"
+
+
 def get_num_params(params: Any) -> int:
     """Total scalar count of a (nested dict) parameter tree."""
     if isinstance(params, dict):

@@ -114,3 +114,75 @@ def test_build_resources_reads_each_source_log(monkeypatch, tmp_path):
     assert list(out) == ["flash_fwd"]
     assert sorted(r["registers"] for r in out["flash_fwd"].values()) == [
         168, 255]
+
+
+class FakeEvent:
+    def __init__(self, name, corr, on_card, ns=0, annotation=False, at=50):
+        self._name, self._corr, self._card = name, corr, on_card
+        self._ns, self._annotation, self._at = ns, annotation, at
+
+    def name(self):
+        return self._name
+
+    def correlation_id(self):
+        return self._corr
+
+    def device_type(self):
+        return (torch.autograd.DeviceType.CUDA if self._card
+                else torch.autograd.DeviceType.CPU)
+
+    def duration_ns(self):
+        return self._ns
+
+    def start_ns(self):
+        return self._at
+
+    def end_ns(self):
+        return self._at + self._ns
+
+    def is_user_annotation(self):
+        return self._annotation
+
+
+def test_chip_smoke_counts_lost_kernel_records(monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    def trace(replay_kernels, launched):
+        # the window's span covers host times 0..100; each replay: K4
+        # then other kernels, 1 µs each; each launch outside a graph: one
+        # 2 µs kernel. Before the span: a lead launch that lost its
+        # record, and one whose id an operator in the span also has.
+        span = chip_smoke.WINDOW_SPAN
+        events = [FakeEvent(span, 0, False, 100, at=0),
+                  FakeEvent(span, 1, True, 10 ** 9, True, at=0),
+                  FakeEvent("aten::mm", 6, False),
+                  FakeEvent("cudaLaunchKernel", 5, False, at=-10),
+                  FakeEvent("cudaLaunchKernel", 6, False, at=-10),
+                  FakeEvent("lead", 6, True, 5000)]
+        for corr, n in enumerate(replay_kernels, start=10):
+            events.append(FakeEvent("cudaGraphLaunch", corr, False))
+            events += [FakeEvent("paged_decode" if i == 0 else f"k{i}",
+                                 corr, True, 1000) for i in range(n)]
+        for corr, recorded in enumerate(launched, start=100):
+            events.append(FakeEvent("cudaLaunchKernel", corr, False))
+            if recorded:
+                events.append(FakeEvent("gemm", corr, True, 2000))
+        return chip_smoke.trace_records(events)
+
+    whole = trace([3, 3, 3], [True, True])
+    assert whole["window"] == {
+        "us": 13.0, "kernels": 11, "k4_us": 3.0, "k4": 3, "k5": 0,
+        "by_name": {"paged_decode": (3, 3000), "k1": (3, 3000),
+                    "k2": (3, 3000), "gemm": (2, 4000)}}
+    assert (whole["launches_lost"], whole["replay_kernels_lost"],
+            whole["whole"], whole["k4_per_whole_replay"]) == (0, 0, 3, [1])
+    # a replay that lost two records counts as the mean whole one
+    lossy = trace([3, 1, 3], [True, True])
+    assert lossy["replay_kernels_lost"] == 2 and lossy["whole"] == 2
+    for key in ("us", "kernels", "k4_us", "k4", "k5"):
+        assert lossy["window"][key] == whole["window"][key]
+    assert lossy["k4_per_partial_replay_max"] == 1
+    assert trace([3, 3], [True, False, False])["launches_lost"] == 2
+    empty = trace([], [])
+    assert empty["window"]["us"] == 0 and empty["whole"] == 0

@@ -1,6 +1,8 @@
 """PyTorch port, independence: no file of ``scaletorch_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, directly or through a
-relative import; and the package imports without either loaded."""
+relative import; and the package imports without either loaded. No file
+imports ``safetensors``, ``transformers`` or ``datasets`` at module level,
+and every module imports with the three blocked."""
 
 import ast
 import subprocess
@@ -62,4 +64,61 @@ def test_package_imports_without_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+# The card's machine has none of these: the port may import them only
+# inside a function that needs them (a tokenizer given by name).
+ABSENT_ON_THE_CARD = ("safetensors", "transformers", "datasets")
+
+
+def module_level_imports(path: Path):
+    """Top-level names imported outside any function body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name.split(".")[0]
+            elif (isinstance(child, ast.ImportFrom) and child.level == 0
+                  and child.module):
+                yield child.module.split(".")[0]
+            yield from walk(child)
+
+    return set(walk(tree))
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_imports_absent_on_the_card(path):
+    bad = module_level_imports(path) & set(ABSENT_ON_THE_CARD)
+    assert not bad, f"{path.name} imports {sorted(bad)} at module level"
+
+
+def test_every_module_imports_with_those_packages_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "scaletorch_tpu_torch").rglob("*.py"))
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {ABSENT_ON_THE_CARD!r}:\n"
+        "    sys.modules[name] = None  # any import of it fails\n"
+        f"for m in {modules!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "from scaletorch_tpu_torch.data.dataset import DatasetProcessor\n"
+        "try:\n"
+        "    DatasetProcessor('some/tokenizer', 8)\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('a tokenizer by name needs transformers')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

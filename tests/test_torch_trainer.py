@@ -98,7 +98,8 @@ def test_device_batch_is_one_upload():
 
 
 PORT_CLASSES = ("DataArguments", "ModelArguments", "LrSchedulerArguments",
-                "OptimizerArguments", "TrainingArguments", "LoggingArguments")
+                "OptimizerArguments", "TrainingArguments",
+                "CheckpointArguments", "LoggingArguments")
 
 
 @pytest.mark.parametrize("name", PORT_CLASSES)
@@ -109,7 +110,7 @@ def test_config_fields_keep_the_reference_names_and_defaults(name):
     for key, f in ours.items():
         assert f.default == theirs[key].default, key
     if name in ("LrSchedulerArguments", "OptimizerArguments",
-                "TrainingArguments"):
+                "TrainingArguments", "CheckpointArguments"):
         assert list(ours) == list(theirs)  # ported whole, in order
 
 
@@ -144,10 +145,16 @@ def test_config_validation():
         tiny_cfg(dtype="float16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(tiny_cfg(param_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="eval"):
-        Trainer(tiny_cfg(eval_frequency=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="real-data loader"):
-        Trainer(tiny_cfg(synthetic_data=False), device="cpu")
+    # eval and a run without synthetic_data are ported: with no
+    # dataset_name the loader is the synthetic stream, as the reference's
+    trainer = Trainer(tiny_cfg(eval_frequency=1, synthetic_data=False),
+                      device="cpu")
+    assert isinstance(trainer.loader, SyntheticDataLoader)
+    assert np.isfinite(trainer.evaluate())
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        tiny_cfg(resume="must")
+    with pytest.raises(ValueError, match="resume"):
+        tiny_cfg(resume="sometimes")
     with pytest.raises(NotImplementedError, match="in place"):
         Trainer(tiny_cfg(donate_params=False), device="cpu")
 
