@@ -147,6 +147,26 @@ is non-zero; no phase catches an exception):
                 graphed engines from the loaded and from the rounded
                 parameters serve 8 greedy requests with equal tokens.
                 Prints write and read GB/s.
+ 11c. train_table — every distinct row of the reference's single-chip
+                table (``benchmark.SINGLE_CHIP_ROWS``: 0.6B at seq 2048
+                bs 2, at seq 8192 and 16384 with GC, at seq 16384 with
+                bf16 masters and ``save_attn``, at seq 2048 bs 4 with 2
+                accumulated microbatches; 1.7B at seq 2048 and at seq
+                8192 with GC, bf16 masters; 4B at seq 2048 with GC, bf16
+                masters and Adafactor) at full width and depth through
+                ``benchmark_config``: 2 warm-up and 3 timed steps, finite
+                losses, no skipped update, parameters and optimizer state
+                in the row's master dtype, and K1 / K2 / K3 launches per
+                step of 2L / L / L under GC ``nothing_saveable`` (and the
+                dots policies), L / L / L without GC and under
+                ``save_attn``, each times the accumulation. Prints each
+                row's tokens/s, MFU, step seconds and peak memory.
+ 11d. remat_parity — one set of seeded weights at the headline row (bf16
+                compute), a forward and backward under each of the four
+                remat policies, twice: loss and every gradient equal to
+                ``nothing_saveable``'s bit for bit, K1 56 times (28 under
+                ``save_attn``), K2 and K3 28; prints each policy's
+                seconds and peak memory above the weights.
      The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
      (full width, random weights from a seeded generator, the grouped-MLP
      kernels switched on through the config or the environment):
@@ -188,6 +208,10 @@ is non-zero; no phase catches an exception):
                 active parameters, peak memory, the routing statistics and
                 the rows routed per layer.
  17. moe_train_profile — torch.profiler over 2 steady steps of it.
+ 17b. moe_train_save_attn — the moe_train row under ``save_attn``: 1
+                warm-up and 3 timed steps, K1 4 a step (8 under
+                ``nothing_saveable``), K2 / K3 / K6 / K7 and the grads
+                pass 4, K5 8.
  18. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line (K1-K7,
@@ -209,7 +233,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from scaletorch_tpu_torch.benchmark import benchmark_config, make_bench_args
+from scaletorch_tpu_torch.benchmark import (
+    HEADLINE,
+    SINGLE_CHIP_ROWS,
+    bench_row_args,
+    benchmark_config,
+    make_bench_args,
+)
 from scaletorch_tpu_torch.inference import (
     InferenceEngine,
     SamplingParams,
@@ -224,6 +254,7 @@ from scaletorch_tpu_torch.models import (
     model_config,
 )
 from scaletorch_tpu_torch.models import qwen3_moe
+from scaletorch_tpu_torch.models.llama import REMAT_POLICIES
 from scaletorch_tpu_torch.ops import _build
 from scaletorch_tpu_torch.ops import flash as tf
 from scaletorch_tpu_torch.ops import grouped_mlp as gm
@@ -246,7 +277,7 @@ from scaletorch_tpu_torch.data.dataset import (
 from scaletorch_tpu_torch.models.convert import flatten_params
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
 from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
-from scaletorch_tpu_torch.trainer.trainer import Trainer
+from scaletorch_tpu_torch.trainer.trainer import Trainer, build_model_config
 from scaletorch_tpu_torch.utils import hf_interop
 from scaletorch_tpu_torch.utils.device import card_name_and_power_limit
 
@@ -278,6 +309,8 @@ PARITY_TOLERANCE = 1e-3
 # the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
 TRAIN_SEQ = 8192
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 2, 5, 2
+# train_table: each row of the single-chip table, 2 warm-up + 3 timed
+TABLE_WARMUP, TABLE_STEPS = 2, 3
 # data_train: documents of DOC_BYTES bytes (a byte a token): 32 sequences
 # of 8193 tokens to train on, 4 held out; runs of DATA_STEPS steps
 DATA_DOCS, EVAL_DOCS, DOC_BYTES, DATA_STEPS = 64, 8, 4096, 4
@@ -1136,6 +1169,10 @@ def phase_serve(model32) -> int:
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx")
 PROFILE_WINDOWS = 3
+# calls traced after the window and left out: the trace can drop the
+# records of the last kernels it sees (on an H100, part of the last decode
+# replay and the two kernels launched after it)
+TRAIL_STEPS = 4
 WINDOW_SPAN = "chip_smoke.window"
 
 
@@ -1143,7 +1180,9 @@ def profiled(step, steps: int) -> dict:
     """torch.profiler over ``steps`` calls of ``step()`` (the window,
     ending in a synchronise), after one call that is traced and left out
     (the trace drops the records of the first kernels it sees: ~10
-    kernels late in this script): wall and device ms per step, the
+    kernels late in this script) and before TRAIL_STEPS calls that are
+    traced and left out (it can drop those of the last ones): wall and
+    device ms per step, the
     device's busy share (the kernels' summed device time over the
     window's wall time; one stream, so no overlap), kernel launches per
     step (inside a replayed graph too), K4's and K5's among them, and
@@ -1168,6 +1207,9 @@ def profiled(step, steps: int) -> dict:
                     step()
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
+            for _ in range(TRAIL_STEPS):
+                step()
+            torch.cuda.synchronize()
         trace = trace_records(prof.profiler.kineto_results.events())
         lost.append(trace["launches_lost"])
     check(not lost[-1], f"each of {len(lost)} traces lost the records of "
@@ -1200,7 +1242,9 @@ def trace_records(events) -> dict:
     fullest, lost records. ``window`` sums device µs, kernels, K4's µs
     and K4 and K5 launches over the window (each replay that lost
     records counted as the mean of the whole ones) and, by kernel name,
-    the records and ns (as recorded)."""
+    the records and ns (as recorded). ``trail_launches_lost`` counts the
+    launches after the span that have no record: the trace's tail, which
+    is left out."""
     cuda = torch.autograd.DeviceType.CUDA
     host = [e for e in events if e.device_type() != cuda]
     span = [e for e in host if e.name() == WINDOW_SPAN]
@@ -1210,6 +1254,8 @@ def trace_records(events) -> dict:
              and e.name().startswith("cu")]
     made = {e.correlation_id() for e in calls}
     launches = {e.correlation_id() for e in calls if e.name() in LAUNCH_APIS}
+    trail = {e.correlation_id() for e in host if e.start_ns() > hi
+             and e.name() in LAUNCH_APIS}
     replays = {e.correlation_id(): [] for e in calls
                if e.name() == "cudaGraphLaunch"}
     outside, recorded, by_name = [], set(), {}
@@ -1240,6 +1286,9 @@ def trace_records(events) -> dict:
     window["by_name"] = by_name
     return {"launches": len(launches),
             "launches_lost": len(launches - recorded),
+            "trail_launches_lost": len(trail - {
+                e.correlation_id() for e in events
+                if e.device_type() == cuda}),
             "replays": len(replays), "whole": len(whole),
             "kernels_per_replay": full,
             "replay_kernels_lost": sum(full - r["kernels"] for r in partial),
@@ -1273,7 +1322,7 @@ def profile_decode(model, cfg, phase: str, k5_per_step: int = 0) -> None:
         free_engine()
         eng = serving_engine(model, cfg)
         for p in traffic(cfg.vocab_size)[:SLOTS]:
-            eng.submit(p, max_new_tokens=64)
+            eng.submit(p, max_new_tokens=96)
         for _ in range(4):  # admission and warm decode ticks
             eng.step()
         torch.cuda.synchronize()
@@ -1281,11 +1330,11 @@ def profile_decode(model, cfg, phase: str, k5_per_step: int = 0) -> None:
         stats = profiled(eng.step, window)
         replays = eng._decode.replays - replays
     check(eng.metrics.prefill_calls == 1, "admission inside the window")
-    check(replays == (window + 1) * stats["windows"]
+    check(replays == (window + 1 + TRAIL_STEPS) * stats["windows"]
           and eng.decode_compile_count == 1,
           f"{replays} decode replays in {stats['windows']} windows of "
-          f"{window} ticks and a lead tick, {eng.decode_compile_count} "
-          "captures")
+          f"{window} ticks, a lead tick and {TRAIL_STEPS} trailing ones, "
+          f"{eng.decode_compile_count} captures")
     seen = stats["kernel_launches_per_step"] > 0
     if seen:
         layers, rep = cfg.num_hidden_layers, stats["trace"]
@@ -1905,6 +1954,141 @@ def phase_hf_roundtrip() -> None:
          greedy_tokens_equal=True, nvidia_smi=card_name_and_power_limit())
 
 
+# ---- 11c. the rest of the reference's single-chip table --------------------
+def table_rows() -> list:
+    """The distinct rows of ``SINGLE_CHIP_ROWS`` in table order (the sweep
+    row is the seq-16384 GC row again and runs once)."""
+    seen = {}
+    for label, (model, shape) in SINGLE_CHIP_ROWS.items():
+        seen.setdefault(json.dumps([model, shape], sort_keys=True), label)
+    return list(seen.values())
+
+
+def flash_launches_per_step(cfg, layers: int) -> dict:
+    """K1 / K2 / K3 a step: K1 twice a layer under whole-layer recompute
+    (``nothing_saveable``), once without GC or under ``save_attn`` (and
+    the dots policies recompute it too); each times the accumulation."""
+    accum = cfg.gradient_accumulation_steps
+    k1 = 2 if (cfg.gradient_checkpointing
+               and cfg.remat_policy != "save_attn") else 1
+    return {tf.K1_NAME: k1 * layers * accum, tf.K2_NAME: layers * accum,
+            tf.K3_NAME: layers * accum}
+
+
+def phase_train_table(rows=None) -> dict:
+    """Each row of the table through ``benchmark_config`` at full width and
+    depth: 2 warm-up and 3 timed steps."""
+    out = {}
+    for label in rows or table_rows():
+        cfg = bench_row_args(label)
+        t0 = time.monotonic()
+        res = benchmark_config(cfg, warmup=TABLE_WARMUP, steps=TABLE_STEPS,
+                               before_window=_build.reset_launch_counts)
+        launches = dict(_build.launch_counts)
+        trainer = res.pop("trainer")
+        check(trainer.attention_backend == "flash",
+              f"{label}: attention backend {trainer.attention_backend}")
+        losses = res["warmup_losses"] + res["losses"]
+        check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+        check(not any(res["update_skipped"]),
+              f"{label}: update_skipped {res['update_skipped']}")
+        master = {"float32": torch.float32,
+                  "bfloat16": torch.bfloat16}[cfg.param_dtype]
+        # no name may keep a row's tensors alive into the next row
+        check(all(t.dtype == master for t in tree_leaves(
+            {"params": trainer.params, **trainer.opt_state})
+            if t.is_floating_point()),
+            f"{label}: parameters or state not in {master}")
+        layers = trainer.model_cfg.num_hidden_layers
+        names = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)
+        per_step = {n: launches.get(n, 0) / TABLE_STEPS for n in names}
+        want = flash_launches_per_step(cfg, layers)
+        check(per_step == want,
+              f"{label}: launches per step {per_step}, want {want}")
+        summary = {k: res[k] for k in ("tokens_per_second", "mfu",
+                                       "step_time_s", "memory_gb")}
+        emit("train_table", row=label, model=SINGLE_CHIP_ROWS[label][0],
+             layers=layers, sequence_length=cfg.sequence_length,
+             micro_batch_size=cfg.micro_batch_size,
+             gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+             gradient_checkpointing=cfg.gradient_checkpointing,
+             remat_policy=cfg.remat_policy, param_dtype=cfg.param_dtype,
+             optimizer=cfg.optimizer_name, dtype=cfg.dtype,
+             warmup_steps=TABLE_WARMUP, timed_steps=TABLE_STEPS,
+             peak_flops=trainer.peak_flops(), launches_per_step=per_step,
+             row_s=time.monotonic() - t0, **res)
+        out[label] = {**summary, "launches_per_step": per_step}
+        trainer.close()
+        del trainer, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat_parity() -> dict:
+    """One set of seeded weights at the headline row (0.6B, seq 8192,
+    bf16 compute), a forward and backward under each policy, twice: loss
+    and every gradient bit for bit equal to ``nothing_saveable``'s (K2
+    and K3 are deterministic, and a policy only keeps what the recompute
+    would compute again); the launches, the seconds of both runs and the
+    peak memory above the weights (and the base gradients) of each."""
+    cfg = bench_row_args(HEADLINE)
+    mcfg = build_model_config(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = init_params(mcfg, gen, "cuda", requires_grad=True)
+    s = cfg.sequence_length
+    tokens = torch.randint(0, mcfg.vocab_size, (1, s + 1), generator=gen,
+                           device="cuda")
+    mb = {"input_ids": tokens[:, :-1], "target_ids": tokens[:, 1:],
+          "position_ids": torch.arange(s, device="cuda")}
+    leaves = tree_leaves(params)
+    layers = mcfg.num_hidden_layers
+    base = None
+    rows = {}
+    for policy in REMAT_POLICIES:
+        loss_fn = make_loss_fn(mcfg, attention_backend="flash",
+                               gradient_checkpointing=True,
+                               remat_policy=policy)
+        want = flash_launches_per_step(
+            dataclasses.replace(cfg, remat_policy=policy), layers)
+        seconds = []
+        for _ in range(2):  # the first run also grows the allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            _build.reset_launch_counts()
+            t0 = time.monotonic()
+            loss, _ = loss_fn(params, mb)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            seconds.append(time.monotonic() - t0)
+            launches = dict(_build.launch_counts)
+            peak = torch.cuda.max_memory_allocated() - before
+            loss = loss.detach()
+            if base is None:
+                base = (loss, grads)
+            differ = [i for i, (g, b) in enumerate(zip(grads, base[1]))
+                      if not torch.equal(g, b)]
+            check(launches == want,
+                  f"{policy}: launches {launches}, want {want}")
+            check(torch.equal(loss, base[0]) and not differ,
+                  f"{policy}: the loss or gradients {differ} differ from "
+                  "nothing_saveable's")
+            del grads
+        rows[policy] = {"loss": float(loss), "launches": launches,
+                        "seconds": seconds,
+                        "peak_gb_above_weights": peak / 1e9,
+                        "bit_equal_to_nothing_saveable": True}
+        del loss
+    emit("remat_parity", row=HEADLINE, layers=layers, dtype=cfg.dtype,
+         param_dtype=cfg.param_dtype, policies=rows)
+    del params, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---- 12. the grouped-MLP kernels against their plain versions -----------------
 def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
     """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES. Counts come from
@@ -2396,6 +2580,45 @@ def phase_moe_train():
     return trainer, launches
 
 
+def phase_moe_train_save_attn() -> dict:
+    """The moe_train row under ``save_attn``: K1 once a layer a step (4,
+    not 8), K2 / K3 / K6 / K7 and the grads pass once a layer, K5 twice
+    (the grouped MLP is recomputed; it is not a dot)."""
+    cfg = make_bench_args(MOE_MODEL, seq=MOE_TRAIN_SEQ, gc=True,
+                          remat_policy="save_attn",
+                          extra={"num_hidden_layers": MOE_TRAIN_LAYERS})
+    before = os.environ.get(qwen3_moe.GROUPED_MLP_ENV)
+    os.environ[qwen3_moe.GROUPED_MLP_ENV] = "1"
+    try:
+        res = benchmark_config(cfg, warmup=1, steps=TABLE_STEPS,
+                               before_window=_build.reset_launch_counts)
+    finally:
+        if before is None:
+            del os.environ[qwen3_moe.GROUPED_MLP_ENV]
+        else:
+            os.environ[qwen3_moe.GROUPED_MLP_ENV] = before
+    launches = dict(_build.launch_counts)
+    trainer = res.pop("trainer")
+    losses = res["warmup_losses"] + res["losses"]
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(not any(res["update_skipped"]),
+          f"update_skipped {res['update_skipped']}")
+    layers = trainer.model_cfg.num_hidden_layers
+    names = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME, gm.K5_NAME, gm.K6_NAME,
+             gm.K7_NAME, gm.GRADS_NAME)
+    per_step = {n: launches.get(n, 0) / TABLE_STEPS for n in names}
+    want = dict(zip(names, (layers, layers, layers, 2 * layers, layers,
+                            layers, layers)))
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    emit("moe_train_save_attn", model=MOE_MODEL, layers=layers,
+         sequence_length=cfg.sequence_length, remat_policy=cfg.remat_policy,
+         timed_steps=TABLE_STEPS, launches_per_step=per_step, **res)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2433,6 +2656,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("hf_roundtrip", phase_hf_roundtrip)
     torch.cuda.empty_cache()
+    timed("train_table", phase_train_table)
+    timed("remat_parity", phase_remat_parity)
     gmlp = timed("kernel_grouped_mlp", phase_kernel_grouped_mlp)
     torch.cuda.empty_cache()
     timed("moe_decode_parity", phase_moe_decode_parity)
@@ -2444,6 +2669,10 @@ def main() -> int:
     moe_trainer, moe_launches = timed("moe_train", phase_moe_train)
     timed("moe_train_profile", phase_train_profile, moe_trainer,
           "moe_train_profile")
+    del moe_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("moe_train_save_attn", phase_moe_train_save_attn)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     emit("kernels", kernels=[
         {"id": kid, "function": fn, "at": at,

@@ -12,7 +12,8 @@ parts:
   * ``inference`` — the KV caches, the engine steps and
     ``InferenceEngine``;
   * ``data``, ``trainer`` — the corpus loader, the train and eval steps,
-    AdamW and the ``Trainer`` (eval, checkpoint and resume);
+    the optimizers and the ``Trainer`` (fp32 or bf16 masters, the four
+    remat policies, eval, checkpoint and resume);
   * ``telemetry``, ``utils`` — latency histograms, logging, devices,
     checkpoints, Hugging Face safetensors both ways.
 

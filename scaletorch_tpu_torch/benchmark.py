@@ -6,17 +6,51 @@ numbers through ``benchmark_config``.
 
 ``make_bench_args`` builds the config of one row of the reference's
 benchmark table for a named preset; the port runs on one card, so the
-parallel sizes are not among its arguments.
+parallel sizes are not among its arguments. ``SINGLE_CHIP_ROWS`` is the
+port's copy of the reference's single-chip table (model and run shape
+only), and ``bench_row_args`` builds a row's config.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from scaletorch_tpu_torch.utils.device import DeviceLike
+
+HEADLINE = "qwen3-0.6b_seq8192_bs1_gc"
+
+# label -> (preset, make_bench_args keywords): the reference's single-chip
+# rows. bf16 masters keep the optimizer state in bf16 too; the 4B row
+# trains with Adafactor. The sweep row is the seq-16384 GC row again.
+SINGLE_CHIP_ROWS: Dict[str, Tuple[str, Dict[str, Any]]] = {
+    "qwen3-0.6b_seq2048_bs2": ("qwen3-0.6b", dict(seq=2048, micro_bs=2)),
+    HEADLINE: ("qwen3-0.6b", dict(seq=8192, gc=True)),
+    "qwen3-0.6b_seq16384_bs1_gc": ("qwen3-0.6b", dict(seq=16384, gc=True)),
+    "qwen3-0.6b_seq16384_bf16_save_attn": (
+        "qwen3-0.6b", dict(seq=16384, gc=True, remat_policy="save_attn",
+                           extra={"param_dtype": "bfloat16"})),
+    "qwen3-1.7b_seq2048_bs1": (
+        "qwen3-1.7b", dict(seq=2048, extra={"param_dtype": "bfloat16"})),
+    "qwen3-1.7b_seq8192_bs1_gc": (
+        "qwen3-1.7b", dict(seq=8192, gc=True,
+                           extra={"param_dtype": "bfloat16"})),
+    "qwen3-4b_seq2048_bs1_gc": (
+        "qwen3-4b", dict(seq=2048, gc=True,
+                         extra={"param_dtype": "bfloat16",
+                                "optimizer_name": "adafactor"})),
+    "qwen3-0.6b_seq16384_sweep": ("qwen3-0.6b", dict(seq=16384, gc=True)),
+    "qwen3-0.6b_seq2048_bs4_ga2": (
+        "qwen3-0.6b", dict(seq=2048, micro_bs=4, grad_accum=2)),
+}
+
+
+def bench_row_args(label: str):
+    """The config of the table row ``label``."""
+    model, shape = SINGLE_CHIP_ROWS[label]
+    return make_bench_args(model, **shape)
 
 
 def benchmark_config(cfg, warmup: int = 3, steps: int = 10,

@@ -134,8 +134,7 @@ class LrSchedulerArguments:
 class OptimizerArguments:
     optimizer_name: str = field(
         default="adamw",
-        metadata={"help": "adamw (adam | sgd | lamb | adafactor are not "
-                          "ported yet)"})
+        metadata={"help": "adamw | adam | sgd | lamb | adafactor"})
     learning_rate: float = 3e-4
     weight_decay: float = 0.01
     adam_beta1: float = 0.9
@@ -166,15 +165,15 @@ class TrainingArguments:
                        metadata={"help": "bfloat16|float32"})
     param_dtype: str = field(
         default="float32",
-        metadata={"help": "Master-weight dtype; the port keeps fp32 "
-                          "masters (bfloat16 is not ported yet)."})
+        metadata={"help": "Master-weight dtype (float32|bfloat16); the "
+                          "optimizer state takes it too."})
     gradient_checkpointing: bool = field(
         default=False, metadata={"help": "Recompute each decoder layer in "
                                          "the backward."})
     remat_policy: str = field(
         default="nothing_saveable",
-        metadata={"help": "GC policy: nothing_saveable (the others are not "
-                          "ported yet)."})
+        metadata={"help": "GC policy: nothing_saveable | dots_saveable | "
+                          "dots_with_no_batch_dims_saveable | save_attn."})
     donate_params: bool = field(
         default=True,
         metadata={"help": "The port always updates parameters and "
@@ -263,9 +262,10 @@ class ScaleTorchTPUArguments(
             raise ValueError(
                 f"global_batch_size {self.global_batch_size} != micro_bs * "
                 f"grad_accum = {expected} (one device)")
-        if self.dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"dtype must be bfloat16 or float32, got "
-                             f"{self.dtype!r}")
+        for name in ("dtype", "param_dtype"):
+            if getattr(self, name) not in ("bfloat16", "float32"):
+                raise ValueError(f"{name} must be bfloat16 or float32, got "
+                                 f"{getattr(self, name)!r}")
 
 
 def _parser_type(annotation: str):

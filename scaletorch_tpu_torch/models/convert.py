@@ -10,12 +10,14 @@ cast to its parameter's dtype: the router stays fp32, the experts take
 the compute dtype); ``params_from_numpy`` builds the training
 parameter dict (fp32 leaves with ``requires_grad``) and
 ``params_to_numpy`` turns it back. Torch tensors in the same layout
-(``llama.init_params``) load the same way.
+(``llama.init_params``) load the same way. ``opt_state_from_jax`` carries
+an optax optimizer state (as numpy arrays) into the port's state dict of
+the same optimizer, so both sides can start from one mid-run state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -94,3 +96,66 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
                   else value.detach().to("cpu", torch.float32,
                                          copy=True).numpy())
             for key, value in params.items()}
+
+
+def _torch_dtype(leaf: Any) -> torch.dtype:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype
+    name = np.asarray(leaf).dtype.name
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float64": torch.float64}.get(name, torch.float32)
+
+
+def _state_tree(tree: Any, dev: torch.device) -> Any:
+    """A state tree (nested dicts of arrays) as tensors of the same
+    dtypes on ``dev``, bit for bit."""
+    if isinstance(tree, dict):
+        return {k: _state_tree(v, dev) for k, v in tree.items()}
+    return _as_tensor(tree).to(device=dev, dtype=_torch_dtype(tree)).clone()
+
+
+def _components(state: Any) -> List[Any]:
+    """The named states of an optax chain (a tuple of named tuples, or
+    one named tuple), in chain order."""
+    if hasattr(state, "_fields"):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [c for part in state for c in _components(part)]
+    return []
+
+
+def opt_state_from_jax(state: Any, device: DeviceLike = None
+                       ) -> Dict[str, Any]:
+    """The port's optimizer state of an optax state whose leaves are numpy
+    arrays (``jax.tree.map(np.asarray, state)``), dtypes kept bit for
+    bit, on ``device`` (None = the CUDA card):
+
+      * ``ScaleByAdamState`` (adam, adamw, and lamb's chain) ->
+        ``{"count", "mu", "nu"}``;
+      * ``TraceState`` with the schedule's ``ScaleByScheduleState`` (sgd)
+        -> ``{"count", "trace"}``;
+      * the reference's ``ShardedFactoredState`` (keepdims layout) ->
+        ``{"count", "v_row", "v_col", "v"}``.
+
+    The counts become int64 CPU tensors. Another state raises."""
+    dev = resolve_device(device)
+    parts = _components(state)
+    by_field = {f: part for part in parts for f in part._fields}
+
+    def count(part) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(part.count)), dtype=torch.int64)
+
+    if "mu" in by_field and "nu" in by_field:
+        adam = by_field["mu"]
+        return {"count": count(adam), "mu": _state_tree(adam.mu, dev),
+                "nu": _state_tree(adam.nu, dev)}
+    if "trace" in by_field and "count" in by_field:
+        return {"count": count(by_field["count"]),
+                "trace": _state_tree(by_field["trace"].trace, dev)}
+    if "v_row" in by_field:
+        fac = by_field["v_row"]
+        return {"count": count(fac),
+                **{k: _state_tree(getattr(fac, k), dev)
+                   for k in ("v_row", "v_col", "v")}}
+    names = [type(p).__name__ for p in parts]
+    raise ValueError(f"no port optimizer keeps the state {names}")

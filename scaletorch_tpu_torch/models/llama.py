@@ -20,16 +20,21 @@ page_size, D]``) is updated IN PLACE, the counterpart of the JAX
 package's buffer donation.
 
 The training forward (``forward``, ``decoder_stack``, ``attention_block``)
-is a set of functions over the parameter dict of ``init_params``: fp32
-master leaves with ``requires_grad``, cast to ``cfg.dtype`` at each use as
-the reference's ``w.astype(cdt)``, so the gradients land on the fp32
-leaves. Attention goes through the backend registry (``sdpa``, ``flash``).
-Gradient checkpointing recomputes each whole layer in the backward
-(``torch.utils.checkpoint``), the ``nothing_saveable`` policy.
+is a set of functions over the parameter dict of ``init_params``: master
+leaves in ``param_dtype`` (fp32, or bf16) with ``requires_grad``, cast to
+``cfg.dtype`` at each use as the reference's ``w.astype(cdt)``, so the
+gradients land on the master leaves (with bf16 masters the casts are
+no-ops). Attention goes through the backend registry (``sdpa``,
+``flash``). Gradient checkpointing runs each layer under
+``torch.utils.checkpoint`` with the reference's four policies
+(``resolve_remat_policy``): ``nothing_saveable`` recomputes the whole
+layer, the others save the outputs of chosen ops
+(``create_selective_checkpoint_contexts``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -269,22 +274,92 @@ def final_hidden(params: Params, x: Tensor, cfg: LlamaConfig) -> Tensor:
 REMAT_POLICIES = ("nothing_saveable", "dots_saveable",
                   "dots_with_no_batch_dims_saveable", "save_attn")
 
+_aten = torch.ops.aten
+# a matrix product without batch dims, as JAX's dot_general lowers one:
+# [B, S, H] x [H, N] folds to mm
+_NO_BATCH_DOTS = (_aten.mm.default, _aten.addmm.default)
+_DOTS = _NO_BATCH_DOTS + (_aten.bmm.default, _aten.baddbmm.default)
 
-def resolve_remat_policy(name: str) -> str:
-    """Check a config-level gradient-checkpointing policy name.
 
-    ``nothing_saveable`` (recompute the whole layer) is
-    ``torch.utils.checkpoint`` around each layer. The reference's other
-    three policies save chosen residuals; the port refuses them rather
-    than run another policy in their place (ROADMAP Queue 1)."""
+@torch.library.custom_op("scaletorch_tpu_torch::attn_out", mutates_args=())
+def attn_out(x: Tensor) -> Tensor:
+    """A copy of the attention output, named for the ``save_attn`` policy
+    (the reference's ``checkpoint_name(attn, "attn_out")``). Used only
+    under that policy, for a backend whose own op is not saved."""
+    return x.clone()
+
+
+@attn_out.register_fake
+def _attn_out_fake(x: Tensor) -> Tensor:
+    return torch.empty_like(x)
+
+
+attn_out.register_autograd(lambda ctx, grad: grad)
+
+
+def _saved_ops(name: str) -> Tuple[Any, ...]:
+    """The ops whose outputs a policy keeps for the backward."""
+    if name == "dots_saveable":
+        return _DOTS
+    if name == "dots_with_no_batch_dims_saveable":
+        return _NO_BATCH_DOTS
+    from scaletorch_tpu_torch.ops.flash import FLASH_FORWARD_OP
+
+    return (FLASH_FORWARD_OP, torch.ops.scaletorch_tpu_torch.attn_out.default)
+
+
+def resolve_remat_policy(name: str) -> Optional[Callable]:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a config-level
+    gradient-checkpointing policy (reference ``resolve_remat_policy``):
+
+      * ``nothing_saveable``: None, the whole layer is recomputed;
+      * ``dots_saveable``: every matrix product's output is saved (``mm``,
+        ``addmm``, ``bmm``, ``baddbmm``);
+      * ``dots_with_no_batch_dims_saveable``: only ``mm`` and ``addmm``;
+      * ``save_attn``: K1's ``(out, lse)`` (the ``flash_forward`` op),
+        or the ``attn_out`` copy of another backend's output.
+
+    A kernel of the port is never a dot, as a Pallas kernel is not one in
+    JAX. An unknown name raises."""
     if name not in REMAT_POLICIES:
         raise ValueError(
             f"unknown remat_policy {name!r}; have {sorted(REMAT_POLICIES)}")
-    if name != "nothing_saveable":
-        raise NotImplementedError(
-            f"remat_policy {name!r} is not ported yet (ROADMAP Queue 1); "
-            "the port recomputes whole layers ('nothing_saveable')")
-    return name
+    if name == "nothing_saveable":
+        return None
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    saved = _saved_ops(name)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_attn_fn(attn_fn: Callable, remat_policy: str) -> Callable:
+    """``attn_fn`` with its output passed through ``attn_out`` under
+    ``save_attn``, unless the backend saves its own residuals (``flash``:
+    K1's op)."""
+    if (remat_policy != "save_attn"
+            or getattr(attn_fn, "saves_attn_residuals", False)):
+        return attn_fn
+
+    def named(q, k, v, **kw):
+        return attn_out(attn_fn(q, k, v, **kw))
+
+    return named
+
+
+def checkpointed(fn: Callable, *args: Any, context_fn: Optional[Callable]):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), with
+    a selective policy's ``context_fn`` when there is one."""
+    if context_fn is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def decoder_stack(
@@ -302,16 +377,18 @@ def decoder_stack(
 
     The stacked leaves are unbound once, so each leaf's gradient is one
     stack of the per-layer gradients. With ``gradient_checkpointing`` each
-    layer runs under ``checkpoint(..., use_reentrant=False)``: only its
-    input is kept, and the backward recomputes the whole layer."""
+    layer runs under ``checkpoint(..., use_reentrant=False)`` with the
+    policy's ``context_fn``: its input and what the policy saves are
+    kept, and the backward recomputes the rest of the layer."""
     if gradient_checkpointing:
-        resolve_remat_policy(remat_policy)
+        context_fn = resolve_remat_policy(remat_policy)
+        attn_fn = remat_attn_fn(attn_fn, remat_policy)
     names = list(layers)
     for weights in zip(*(layers[n].unbind(0) for n in names)):
         layer = dict(zip(names, weights))
         if gradient_checkpointing:
-            x = checkpoint(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,
-                           use_reentrant=False)
+            x = checkpointed(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,
+                             context_fn=context_fn)
         else:
             x = _decoder_layer(x, layer, cos, sin, cfg, attn_fn)
     return x

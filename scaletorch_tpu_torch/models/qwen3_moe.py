@@ -38,7 +38,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from scaletorch_tpu_torch.models import llama as _llama
 from scaletorch_tpu_torch.models.layers import get_cos_sin, rms_norm
@@ -342,14 +341,18 @@ def moe_decoder_stack(x: Tensor, layers: Dict[str, Tensor], cos: Tensor,
     """Attention + MoE over every layer of a stack -> (hidden, aux loss
     summed over the layers, stats averaged over them). With
     ``gradient_checkpointing`` each layer runs under
-    ``torch.utils.checkpoint``: the backward recomputes it whole."""
+    ``torch.utils.checkpoint`` with the policy's ``context_fn``
+    (``llama.resolve_remat_policy``): the einsum path's expert ``bmm``s
+    are dots, the grouped-MLP kernels K5-K7 are not."""
     if gradient_checkpointing:
-        _llama.resolve_remat_policy(remat_policy)
+        context_fn = _llama.resolve_remat_policy(remat_policy)
+        attn_fn = _llama.remat_attn_fn(attn_fn, remat_policy)
     auxes, drops, cvs = [], [], []
     for layer in _per_layer(layers):
         if gradient_checkpointing:
-            x, aux, drop, cv = checkpoint(_moe_layer, x, layer, cos, sin, cfg,
-                                          attn_fn, use_reentrant=False)
+            x, aux, drop, cv = _llama.checkpointed(
+                _moe_layer, x, layer, cos, sin, cfg, attn_fn,
+                context_fn=context_fn)
         else:
             x, aux, drop, cv = _moe_layer(x, layer, cos, sin, cfg, attn_fn)
         auxes.append(aux)

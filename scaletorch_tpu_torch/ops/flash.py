@@ -21,9 +21,11 @@ materialising the scores one chunk of query rows at a time.
 
 K/V stay unexpanded ``[B, Hkv, S, D]``: query head h reads KV head
 ``h // n_rep``. ``flash_attention`` is the differentiable op
-(``_FlashAttention``); ``flash_forward_with_lse`` and
-``flash_block_backward`` are the raw, non-differentiable entries that ring
-attention composes.
+(``_FlashAttention``); its forward calls K1 through the dispatcher op
+``scaletorch_tpu_torch::flash_forward`` (``FLASH_FORWARD_OP``), whose
+outputs a selective-checkpoint policy can save.
+``flash_forward_with_lse`` and ``flash_block_backward`` are the raw,
+non-differentiable entries that ring attention composes.
 """
 
 from __future__ import annotations
@@ -239,14 +241,19 @@ def _dims(q: Tensor, k: Tensor):
     return b, hq, k.shape[1], sq, k.shape[2], d
 
 
-def flash_forward(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
-                  scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
-    """K1: (out [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32).
+@torch.library.custom_op("scaletorch_tpu_torch::flash_forward",
+                         mutates_args=(), device_types="cpu")
+def _flash_forward_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                      scale: float) -> Tuple[Tensor, Tensor]:
+    """K1 as a dispatcher op (so a selective-checkpoint policy can save its
+    outputs, the counterpart of the reference's ``attn_out`` and
+    ``attn_lse`` names). On the CPU: the plain version."""
+    return flash_forward_ref(q, k, v, causal=causal, scale=scale)
 
-    On a CUDA tensor this launches the hand-written kernel (or raises);
-    on a CPU tensor it computes the plain version."""
-    if q.device.type == "cpu":
-        return flash_forward_ref(q, k, v, causal=causal, scale=scale)
+
+@_flash_forward_op.register_kernel("cuda")
+def _flash_forward_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                        scale: float) -> Tuple[Tensor, Tensor]:
     _check_qkv(q, k, v)
     q, k, v = _ready(q), _ready(k), _ready(v)
     lib, fn = _entry(FWD_LIBRARY, "st_flash_fwd", 5)
@@ -255,9 +262,30 @@ def flash_forward(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(lib, fn, K1_NAME,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), *_dims(q, k), _scale(q, scale), int(causal),
+             lse.data_ptr(), *_dims(q, k), scale, int(causal),
              _DTYPE_CODES[q.dtype], stream))
     return out, lse
+
+
+@_flash_forward_op.register_fake
+def _flash_forward_fake(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                        scale: float) -> Tuple[Tensor, Tensor]:
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+FLASH_FORWARD_OP = torch.ops.scaletorch_tpu_torch.flash_forward.default
+
+
+def flash_forward(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                  scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
+    """K1: (out [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32), through
+    the dispatcher op ``scaletorch_tpu_torch::flash_forward``.
+
+    On a CUDA tensor this launches the hand-written kernel (or raises);
+    on a CPU tensor it computes the plain version; another device has no
+    kernel and raises."""
+    return FLASH_FORWARD_OP(q, k, v, bool(causal), _scale(q, scale))
 
 
 def flash_dq(q: Tensor, k: Tensor, v: Tensor, dout: Tensor, lse: Tensor,
@@ -314,8 +342,10 @@ def attention_delta(out: Tensor, dout: Tensor) -> Tensor:
 # the differentiable op
 # ---------------------------------------------------------------------------
 class _FlashAttention(torch.autograd.Function):
-    """Forward: K1, saving (q, k, v, out, lse). Backward: delta in plain
-    torch, then K2 and K3."""
+    """Forward: K1 (the dispatcher op), saving (q, k, v, out, lse).
+    Backward: delta in plain torch, then K2 and K3. Under the
+    ``save_attn`` remat policy the recomputed forward takes K1's saved
+    (out, lse) instead of launching it again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

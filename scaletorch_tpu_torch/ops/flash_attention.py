@@ -27,4 +27,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
+# K1's own op holds (out, lse): the save_attn policy saves it, no copy
+flash_attention.saves_attn_residuals = True
 register_attention_backend("flash", flash_attention)

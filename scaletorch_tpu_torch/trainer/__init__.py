@@ -1,2 +1,3 @@
 """Training of the PyTorch port: the single-device train and eval steps,
-AdamW, the LR schedules, the metrics logger and the ``Trainer``."""
+the optimizers (AdamW, Adam, SGD, LAMB, Adafactor), the LR schedules,
+the metrics logger and the ``Trainer``."""

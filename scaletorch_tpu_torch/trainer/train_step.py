@@ -16,9 +16,11 @@ opt_state, metrics)``. Per step:
      accumulation axis (one microbatch: no accumulation buffer at all);
   3. the gradients promoted to fp32, their global norm, and the clip to
      ``max_grad_norm`` (the metrics report the norm before the clip);
-  4. the gradients cast back to each parameter's dtype, and
-     ``guarded_update``: a non-finite loss or norm leaves the parameters
-     and moments as they were and reports ``update_skipped = 1``.
+  4. the gradients cast back to each parameter's dtype (bf16 masters get
+     bf16 gradients, as the reference's), and ``guarded_update`` with any
+     of the port's optimizers (``trainer/optimizer.py``): a non-finite
+     loss or norm leaves the parameters and the float optimizer state as
+     they were and reports ``update_skipped = 1``.
 
 Parameters and optimizer state are updated in place and returned.
 ``metrics`` holds 0-d device tensors: reading them is the caller's
@@ -40,7 +42,7 @@ from scaletorch_tpu_torch.parallel.tensor_parallel import (
     fused_vocab_parallel_cross_entropy,
 )
 from scaletorch_tpu_torch.trainer.optimizer import (
-    AdamW,
+    Optimizer,
     guarded_update,
     tree_leaves,
 )
@@ -104,16 +106,17 @@ def make_loss_fn(cfg, *, attention_backend: str,
 
 def make_train_step(
     cfg,
-    optimizer: AdamW,
+    optimizer: Optimizer,
     *,
     attention_backend: str = "sdpa",
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
     max_grad_norm: float = 0.0,
 ) -> Callable:
-    """Build ``step(params, opt_state, batch)``. ``batch`` leaves live on
-    the parameters' device: ``input_ids``/``target_ids`` [accum, micro_bs,
-    seq], ``position_ids`` [accum, seq]."""
+    """Build ``step(params, opt_state, batch)`` for ``optimizer`` (AdamW,
+    Adam, SGD, LAMB or Adafactor) and the remat policy. ``batch`` leaves
+    live on the parameters' device: ``input_ids``/``target_ids`` [accum,
+    micro_bs, seq], ``position_ids`` [accum, seq]."""
     loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
                            gradient_checkpointing=gradient_checkpointing,
                            remat_policy=remat_policy)

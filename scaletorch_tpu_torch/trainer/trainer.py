@@ -3,9 +3,11 @@ of scaletorch_tpu/trainer/trainer.Trainer).
 
 ``Trainer(cfg, device=None, tokenizer=None)`` builds the model config
 (Llama, Qwen3 or Qwen3-MoE; from ``model_name_or_path``'s
-``config.json`` when set), the fp32 master parameters (seeded, or read
-from the HF safetensors at ``model_name_or_path`` with
-``load_pretrained_weights``), AdamW with its schedule, the loader (a
+``config.json`` when set), the master parameters in ``param_dtype``
+(fp32 or bf16; seeded, or read from the HF safetensors at
+``model_name_or_path`` with ``load_pretrained_weights``), the optimizer
+``optimizer_name`` names (adamw, adam, sgd, lamb or adafactor, its state
+in the parameters' dtype) with its schedule, the loader (a
 local ``.json``/``.jsonl`` corpus tokenized by ``tokenizer`` or the one
 ``tokenizer_name_or_path`` names, or the synthetic stream), the train
 step and, with ``eval_frequency``, the eval step over a fixed held-out
@@ -70,11 +72,8 @@ def build_model_config(cfg: ScaleTorchTPUArguments):
     """``model_type`` dispatch over the config's architecture fields, or
     over ``model_name_or_path``'s ``config.json`` when set (the training
     knobs still come from ``cfg``)."""
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"param_dtype {cfg.param_dtype!r}: the port keeps fp32 master "
-            "weights (bf16 masters are ROADMAP Queue 1)")
-    overrides = dict(dtype=_DTYPE[cfg.dtype], param_dtype=torch.float32)
+    overrides = dict(dtype=_DTYPE[cfg.dtype],
+                     param_dtype=_DTYPE[cfg.param_dtype])
     if cfg.model_name_or_path:
         from scaletorch_tpu_torch.utils.hf_interop import read_hf_config
 

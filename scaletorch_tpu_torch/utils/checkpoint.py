@@ -1,5 +1,6 @@
 """Training checkpoints: save and resume of the parameters, the optimizer
-state (AdamW's ``count`` included), the step and a JSON ``extra``
+state of any of the port's optimizers (its ``count`` included; bf16
+leaves stay bf16), the step and a JSON ``extra``
 (counterpart of scaletorch_tpu/utils/checkpoint.py at one process).
 
 Each step is a directory ``<directory>/<step>`` written by
@@ -10,7 +11,7 @@ when complete, so a partial write is never the latest step.
 
 ``save`` first copies the state into host buffers (pinned when it lives
 on the card; allocated once and reused) and waits for that copy once,
-so the training step that follows may update the parameters and moments
+so the training step that follows may update the parameters and state
 in place; with ``async_save`` a writer thread then writes the snapshot
 while training goes on. Every write runs under ``retry_with_backoff``;
 a save that still fails is logged and training goes on without it. A

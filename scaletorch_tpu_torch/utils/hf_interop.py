@@ -269,8 +269,9 @@ def load_hf_params(path: str, cfg, *, device: DeviceLike = None,
 def save_hf_params(path: str, params: Params, cfg, *,
                    dtype: str = "float32",
                    max_shard_bytes: int = 5 * 1024 ** 3) -> str:
-    """Write the parameter tree as a HF-layout safetensors checkpoint in
-    fp32 or bf16 (round to nearest even). Above ``max_shard_bytes`` in
+    """Write the parameter tree (fp32 or bf16 masters) as a HF-layout
+    safetensors checkpoint in fp32 or bf16 (round to nearest even; a bf16
+    leaf is written bit for bit). Above ``max_shard_bytes`` in
     all, the sharded layout: ``model-0000x-of-0000N.safetensors`` filled
     greedily in HF order, plus ``model.safetensors.index.json``. Returns
     the file's path, or the index's when sharded."""
@@ -317,8 +318,10 @@ def save_hf_params(path: str, params: Params, cfg, *,
         shape = shape[::-1] if transpose else shape
 
         def produce():
+            # one cast, from the leaf's own dtype: bf16 masters export to
+            # bf16 unchanged, fp32 ones round to nearest even
             v = leaf.detach()[idx] if idx else leaf.detach()
-            v = v.to("cpu", torch.float32)
+            v = v.to("cpu")
             return (v.T if transpose else v).to(out_dtype)
 
         return name, shape, out_dtype, produce

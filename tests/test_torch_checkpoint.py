@@ -4,9 +4,10 @@ the JAX package's (orbax): the same saves leave the same steps under
 earlier step and is retired. Inside the port: a round trip is bit-exact
 (parameters, AdamW's moments and ``count``, the step and ``extra``), a
 truncated or corrupt latest step falls back and retires itself, an
-injected ``OSError`` is retried, and an asynchronous save keeps the
+injected ``OSError`` is retried, an asynchronous save keeps the
 values it was handed while the parameters are updated in place after it
-returns. Every comparison is exact (tolerance 0).
+returns, and a run resumed with each optimizer (fp32 and bf16 masters)
+equals a straight one. Every comparison is exact (tolerance 0).
 """
 
 import json
@@ -229,3 +230,55 @@ def test_verify_retires_a_step_that_differs(tmp_path):
     mgr._verify_mismatch = lambda step, p, o: "differs"
     assert not mgr.save(2, params, opt_state)
     assert mgr.all_steps() == [1]
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("optimizer", ["adamw", "adam", "sgd", "lamb",
+                                       "adafactor"])
+def test_resumed_run_equals_a_straight_one(tmp_path, optimizer, param_dtype):
+    """Every optimizer's state (AdamW's and LAMB's moments, SGD's trace,
+    Adafactor's keepdims statistics), in fp32 and with bf16 masters:
+    ``Trainer`` A takes 2 steps, saves, takes 2 more; B resumes from the
+    save (``resume="must"``) and takes the same 2: parameters, state and
+    losses equal A's bit for bit. The model's widths (128) put
+    Adafactor's factored branch on its embedding and MLP leaves."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.trainer.trainer import Trainer
+
+    def cfg(**kw):
+        return ScaleTorchTPUArguments(
+            model_type="qwen3", hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, head_dim=32, vocab_size=256,
+            max_position_embeddings=64, tie_word_embeddings=True,
+            sequence_length=16, micro_batch_size=2, total_train_steps=4,
+            warmup_steps=1, dtype="float32", param_dtype=param_dtype,
+            optimizer_name=optimizer, synthetic_data=True,
+            checkpoint_dir=str(tmp_path), log_frequency=1, **kw)
+
+    a = Trainer(cfg(), device="cpu")
+    batches = iter(a.loader)
+    head = [next(batches) for _ in range(2)]
+    tail = [next(batches) for _ in range(2)]
+    for batch in head:
+        a.step(batch)
+    assert a.save_checkpoint()
+    a.checkpoint_manager.wait()
+    tail_a = [float(a.step(batch)["loss"]) for batch in tail]
+    b = Trainer(cfg(resume="must"), device="cpu")
+    assert b.global_step == 2
+    tail_b = [float(b.step(batch)["loss"]) for batch in tail]
+    assert tail_a == tail_b
+    want = tree_leaves(a.params) + tree_leaves(a.opt_state)
+    got = tree_leaves(b.params) + tree_leaves(b.opt_state)
+    assert len(got) == len(want)
+    dtype = torch.bfloat16 if param_dtype == "bfloat16" else torch.float32
+    assert all(t.dtype == dtype for t in tree_leaves(b.params))
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+    if optimizer == "adafactor":
+        assert tuple(b.opt_state["v_row"]["embed_tokens"].shape) == (1, 128)
+        assert tuple(b.opt_state["v_col"]["embed_tokens"].shape) == (256, 1)
+    assert int(b.opt_state["count"]) == 4
+    a.close()
+    b.close()

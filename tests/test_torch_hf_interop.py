@@ -304,3 +304,41 @@ def test_engine_from_a_reference_checkpoint_serves_its_tokens(tmp_path):
                 jcfg))[0, -1]
             top = np.sort(logits)[-2:]
             assert top[1] - top[0] < MARGIN, (j.request_id, k)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_bf16_masters_load_and_export_bit_for_bit(tmp_path, name):
+    """bf16 master weights: a reference bf16 checkpoint loads into bf16
+    leaves bit for bit (the reference's bf16 load, carried across); the
+    port's bf16 export of them reads back bit for bit, through the port
+    and through ``safetensors``; an fp32 export of bf16 masters widens
+    exactly, and loading it into bf16 masters gives the same bits."""
+    jcfg, tcfg, params = family(name)
+    jhf.save_hf_params(str(tmp_path / "ref"), params, jcfg,
+                       dtype="bfloat16")
+    bcfg = dataclasses.replace(tcfg, param_dtype=torch.bfloat16)
+    ours = thf.load_hf_params(str(tmp_path / "ref"), bcfg, device="cpu")
+    theirs = jhf.load_hf_params(
+        str(tmp_path / "ref"),
+        dataclasses.replace(jcfg, param_dtype=jnp.bfloat16))
+    flat, ref = flatten_params(ours), flatten_params(theirs)
+    assert sorted(flat) == sorted(ref)
+    for key, leaf in flat.items():
+        assert leaf.dtype == torch.bfloat16, key
+        want = torch.from_numpy(np.asarray(ref[key], np.float32))
+        assert torch.equal(leaf.float(), want), key
+    for dtype in ("bfloat16", "float32"):
+        out = tmp_path / dtype
+        thf.save_hf_params(str(out), ours, bcfg, dtype=dtype)
+        again = flatten_params(thf.load_hf_params(str(out), bcfg,
+                                                  device="cpu"))
+        for key, leaf in flat.items():
+            assert again[key].dtype == torch.bfloat16
+            assert torch.equal(again[key].view(torch.int16),
+                               leaf.view(torch.int16)), (dtype, key)
+        files = sorted(p for p in os.listdir(out)
+                       if p.endswith(".safetensors"))
+        tensors = safetensors.torch.load_file(str(out / files[0]))
+        want_dtype = (torch.bfloat16 if dtype == "bfloat16"
+                      else torch.float32)
+        assert all(t.dtype == want_dtype for t in tensors.values())

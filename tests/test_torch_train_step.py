@@ -166,17 +166,26 @@ def test_a_nonfinite_batch_skips_the_update():
     assert int(pair.ts["count"]) == 2
 
 
-def test_unported_remat_policies_are_refused():
+def test_remat_policies_run_and_unknown_names_are_refused():
+    """Each of the reference's policies runs (the port no longer refuses
+    the selective ones) and gives ``nothing_saveable``'s loss and
+    gradients bit for bit; an unknown name raises."""
     tcfg = tllama.LlamaConfig(**ARCH, dtype=torch.float32)
     params = params_from_numpy(
         jax.tree.map(np.asarray, jllama.init_params(
             jax.random.PRNGKey(0),
             jllama.LlamaConfig(**ARCH, dtype=jnp.float32))), "cpu")
-    ids = torch.zeros(1, 4, dtype=torch.int32)
-    for policy in ("dots_saveable", "dots_with_no_batch_dims_saveable",
-                   "save_attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tllama.forward(params, ids, tcfg, gradient_checkpointing=True,
-                           remat_policy=policy)
+    ids = torch.from_numpy(batch(0, 1)["input_ids"][0])
+    leaves = jax.tree.leaves(params)
+    results = {}
+    for policy in tllama.REMAT_POLICIES:
+        loss = tllama.forward(params, ids, tcfg, attention_backend="flash",
+                              gradient_checkpointing=True,
+                              remat_policy=policy).float().square().mean()
+        results[policy] = (loss, torch.autograd.grad(loss, leaves))
+    base_loss, base = results["nothing_saveable"]
+    for policy, (loss, grads) in results.items():
+        assert torch.equal(loss, base_loss), policy
+        assert all(torch.equal(g, b) for g, b in zip(grads, base)), policy
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.resolve_remat_policy("everything")

@@ -143,8 +143,8 @@ def test_config_validation():
         tiny_cfg(global_batch_size=3)
     with pytest.raises(ValueError, match="dtype"):
         tiny_cfg(dtype="float16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tiny_cfg(param_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError, match="param_dtype"):
+        tiny_cfg(param_dtype="float16")
     # eval and a run without synthetic_data are ported: with no
     # dataset_name the loader is the synthetic stream, as the reference's
     trainer = Trainer(tiny_cfg(eval_frequency=1, synthetic_data=False),
@@ -238,3 +238,45 @@ def test_num_params_and_carry_over_round_trip():
     with torch.no_grad():
         params["norm"].add_(1.0)  # the numpy copy is a snapshot
     assert not np.array_equal(params["norm"].detach().numpy(), back["norm"])
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adam", "sgd", "lamb",
+                                       "adafactor"])
+def test_trainer_keeps_bf16_masters_and_state(optimizer):
+    """``param_dtype="bfloat16"``: the parameters and every float state
+    leaf are bf16 (the reference's optax states take the parameters'
+    dtype), and the trainer takes finite steps with each optimizer."""
+    trainer = Trainer(tiny_cfg(param_dtype="bfloat16",
+                               optimizer_name=optimizer,
+                               gradient_checkpointing=True,
+                               remat_policy="save_attn"), device="cpu")
+    assert trainer.model_cfg.param_dtype == torch.bfloat16
+    assert all(p.dtype == torch.bfloat16 and p.requires_grad
+               for p in jax.tree.leaves(trainer.params))
+    state = {k: v for k, v in trainer.opt_state.items() if k != "count"}
+    assert state and all(t.dtype == torch.bfloat16
+                         for t in jax.tree.leaves(state))
+    record = trainer.train(num_steps=2)
+    assert np.isfinite(record["loss"]) and record["update_skipped"] == 0.0
+    assert int(trainer.opt_state["count"]) == 2
+
+
+def test_single_chip_rows_are_the_reference_table():
+    """The port's copy of ``bench.py``'s ``SINGLE_CHIP_ROWS`` (model and
+    run shape; the published NPU numbers are left out), and each row's
+    config equal to the reference's ``make_bench_args`` of that row."""
+    import bench
+
+    theirs = {label: (model, shape)
+              for label, (model, shape, *_) in bench.SINGLE_CHIP_ROWS.items()}
+    assert tbench.SINGLE_CHIP_ROWS == theirs
+    assert tbench.HEADLINE == bench.HEADLINE
+    for label, (model, shape) in theirs.items():
+        ours = tbench.bench_row_args(label)
+        ref = jbench.make_bench_args(model, **shape)
+        for f in dataclasses.fields(ours):
+            assert getattr(ours, f.name) == getattr(ref, f.name), (label,
+                                                                   f.name)
+    four_b = tbench.bench_row_args("qwen3-4b_seq2048_bs1_gc")
+    assert (four_b.optimizer_name, four_b.param_dtype) == ("adafactor",
+                                                          "bfloat16")
