@@ -74,6 +74,9 @@ is non-zero; no phase catches an exception):
                 built after the first is freed) gives the greedy
                 agreement (printed, not asserted: bf16 can diverge late
                 in a sequence).
+ 6b. profiler_cost — the serve traffic twice before the process's first
+                torch.profiler session and twice after one (64 small
+                kernels traced): decode tokens/s and TPOT p50 of each.
   7. profile  — torch.profiler over 16 steady decode ticks (16 replays)
                 of the same engine: wall and device time per step, the
                 device's busy share, K4's device time, kernel launches
@@ -98,6 +101,25 @@ is non-zero; no phase catches an exception):
                 a deadline and a quarantine forced inside the graph
                 (NaN logits on a poison token), every static buffer in
                 place.
+ 7c. runtime_serve — the engine's runtime at the same width, graphed:
+                the serve traffic without and with a SpanTracer and a
+                TelemetryExporter, in turns (without, with, with,
+                without: equal tokens, one decode span a decode step, K4
+                28 a replay; TPOT p50 and decode tokens/s of each, and
+                the host µs of one span); a NaN poison (ServingFaultInjector) quarantines
+                exactly one request and the other 15 keep the clean run's
+                tokens; a submit storm into a bounded queue sheds
+                oldest-first and a deadline storm times the rest out; a
+                stalled decode step fires make_serving_watchdog (a
+                recording exit with 44, a crash report with the engine's
+                counters, span tail and the main thread in the stall); a
+                real SIGTERM mid-run makes run() drain (8 ok, 8
+                aborted); a donor engine's prefix pages imported into a
+                fresh engine give prefix hits and the donor's greedy
+                tokens. In every engine: one capture of each step,
+                launches = warm-ups + per capture x replays, every static
+                buffer where it was, one terminal outcome per request,
+                page conservation.
   8. geometry_serve — the presets' other head geometries through K4: a
                 paged engine at dense-tiny (head_dim 32), fp32, whose
                 greedy tokens must equal the dense engine's, K4 launched
@@ -170,6 +192,45 @@ is non-zero; no phase catches an exception):
      The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
      (full width, random weights from a seeded generator, the grouped-MLP
      kernels switched on through the config or the environment):
+ 11e. runtime_preempt — the headline row fed from a seeded .jsonl
+                (free disk printed first; checkpoints under
+                build/runtime/, each drill's directory deleted after it):
+                two straight 6-step runs (the first checkpointed every 2
+                steps, asynchronous, keep 1); the same run with a real
+                SIGTERM after step 3 (ft_sigterm_at_step) returns
+                preempted with the emergency checkpoint of step 3 on
+                disk, and prints sigterm_to_readable_s and its parts (the
+                drain of the step-2 save in flight, the snapshot, the
+                write) against a 30 s grace period; a resume="must" run's
+                losses and learning rates of steps 4-6 equal the straight
+                run's within the spread of the two straight runs; the
+                drill again with no save in flight; then
+                ``python -m scaletorch_tpu_torch.train`` with the drill,
+                cut to 2 layers, exits 0 and logs that its checkpoint is
+                on disk. K1/K2/K3 56/28/28 in every step.
+ 11f. runtime_rollback — one run: a corrupt read at stream position 3
+                (skipped, counted), one failed save (retried), a NaN
+                after step 5 under divergence_policy="rollback": one
+                rollback, every parameter and optimizer state tensor in
+                its storage, 6 steps logged with finite losses, the
+                loader past the bad batch; the restore's seconds.
+ 11g. runtime_telemetry — 8 steps with telemetry_dir: one step_boundary /
+                data_fetch / step_dispatch span a step in the Chrome
+                trace, one train_step JSONL record a step, a manual
+                (profile_steps) and a slow-step (ft_slow_step_at_step)
+                torch.profiler window with K1/K2/K3 56/28/28 records and
+                none lost, a SIGUSR1 snapshot; then tokens/s of 2 + 5
+                steps without and with telemetry, in turns (without,
+                with, with, without).
+ 11h. runtime_watchdog — the trainer's HangWatchdog (1 s) on an injected
+                3 s hang, then on a 3 s stall of the card
+                (torch.cuda._sleep) while the main thread waits in
+                torch.cuda.synchronize() and in .item(): each fires (a
+                recording exit with 43) while the main thread is still
+                blocked, within the timeout and a poll, and writes a
+                crash report with the main thread's stack in the wait,
+                the config fingerprint, the monitor records and the span
+                tail.
  12. kernel_grouped_mlp — K5 (forward), K6 (dx) and K7 (dW) against their
                 plain versions in fp32 and bf16 at three shapes: train (E
                 128, G 1, C 320, H 2048, I 768, counts from a real routing
@@ -225,7 +286,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
+import signal
 import statistics
+import subprocess
 import sys
 import time
 
@@ -241,9 +305,12 @@ from scaletorch_tpu_torch.benchmark import (
     make_bench_args,
 )
 from scaletorch_tpu_torch.inference import (
+    SERVING_STALL_EXIT_CODE,
     InferenceEngine,
     SamplingParams,
+    ServingFaultInjector,
     StaticStep,
+    make_serving_watchdog,
     teacher_forced_decode,
     teacher_forced_decode_paged,
 )
@@ -255,6 +322,7 @@ from scaletorch_tpu_torch.models import (
 )
 from scaletorch_tpu_torch.models import qwen3_moe
 from scaletorch_tpu_torch.models.llama import REMAT_POLICIES
+from scaletorch_tpu_torch.models.presets import preset
 from scaletorch_tpu_torch.ops import _build
 from scaletorch_tpu_torch.ops import flash as tf
 from scaletorch_tpu_torch.ops import grouped_mlp as gm
@@ -275,6 +343,17 @@ from scaletorch_tpu_torch.data.dataset import (
     chunks_to_array,
 )
 from scaletorch_tpu_torch.models.convert import flatten_params
+from scaletorch_tpu_torch.resilience import PreemptionHandler
+from scaletorch_tpu_torch.resilience_distributed import (
+    WATCHDOG_EXIT_CODE,
+    HangWatchdog,
+)
+from scaletorch_tpu_torch.telemetry import (
+    SpanTracer,
+    TelemetryExporter,
+    load_trace,
+    read_jsonl,
+)
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
 from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
 from scaletorch_tpu_torch.trainer.trainer import Trainer, build_model_config
@@ -1071,11 +1150,12 @@ def check_one_capture(eng: InferenceEngine, what: str) -> dict:
             "prefill_launches_per_replay": dict(pre.captured_launches)}
 
 
-def serve(model, cfg, prompts, paged_kernel):
-    """The serve cell's traffic through a new engine: 64 new tokens a
-    request. Returns the engine, the results in submission order, the
-    pools' pointers before the run and the run's numbers."""
-    eng = serving_engine(model, cfg, paged_kernel=paged_kernel)
+def serve(model, cfg, prompts, paged_kernel, **kw):
+    """The serve cell's traffic through a new engine (``kw``: more engine
+    arguments): 64 new tokens a request. Returns the engine, the results
+    in submission order, the pools' pointers before the run and the run's
+    numbers."""
+    eng = serving_engine(model, cfg, paged_kernel=paged_kernel, **kw)
     ptrs = (eng.cache.k.data_ptr(), eng.cache.v.data_ptr())
     ids = [eng.submit(p, max_new_tokens=64) for p in prompts]
     decode_tokens, decode_s = 0, 0.0
@@ -1299,6 +1379,42 @@ def trace_records(events) -> dict:
             "k5_per_partial_replay_max": max((r["k5"] for r in partial),
                                              default=0),
             "window": window}
+
+
+def phase_profiler_cost(model32) -> dict:
+    """What a torch.profiler session leaves behind in the process: the
+    serve traffic's decode tokens/s and TPOT p50 before the process's
+    first profiler session and after one that traced 64 small kernels
+    (the anomaly profiler's windows open such sessions in a live run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model_config(MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
+                                         cfg)
+    prompts = traffic(cfg.vocab_size)
+
+    def reading() -> dict:
+        free_engine()
+        with torch.inference_mode():
+            eng, _, _, stats = serve(model, cfg, prompts, None)
+        del eng
+        return {k: stats[k] for k in ("decode_tokens_per_s", "tpot_p50_s")}
+
+    before = [reading(), reading()]
+    x = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(64):
+            x.add_(1)
+        torch.cuda.synchronize()
+    after = [reading(), reading()]
+    free_engine()
+    row = {"before_profiler": before, "after_profiler": after,
+           "decode_tokens_per_s_change": statistics.median(
+               r["decode_tokens_per_s"] for r in after) / statistics.median(
+               r["decode_tokens_per_s"] for r in before) - 1,
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("profiler_cost", **row)
+    return row
 
 
 def phase_profile(model32) -> None:
@@ -2619,6 +2735,713 @@ def phase_moe_train_save_attn() -> dict:
     return per_step
 
 
+# ---- 11e. the runtime on one card -------------------------------------------
+RUNTIME_STEPS = 6            # the preemption and rollback runs
+SIGTERM_AT, NAN_AT, BAD_READ_AT = 3, 5, 3
+GRACE_S = 30.0               # a common preemption grace period
+HANG_TIMEOUT_S, HANG_S, WATCHDOG_POLL_S = 1.0, 3.0, 0.1
+STALL_FACTOR = 3             # the device stall lasts ~3x the watchdog timeout
+TELEMETRY_STEPS, PROFILE_WINDOW = 8, "3:4"
+SLOW_AT, SLOW_S = 6, 3.0
+OVERHEAD_WARMUP, OVERHEAD_STEPS = 2, 5
+CLI_LAYERS = 2               # the command-line drill's depth cut
+POISON_AT, POISON_SLOT = 80, 3   # a decode step of the second wave
+STORM_AT, STORM_COUNT, DEADLINE_AT = 5, 12, 20
+STORM_CAPACITY = SLOTS  # the first wave queues whole, the storm overflows
+# kernel names of K1-K3 (bf16) in a torch.profiler trace
+FLASH_TRACE_NAMES = {tf.K1_NAME: "flash_fwd_mma", tf.K2_NAME: "flash_dq_mma",
+                     tf.K3_NAME: "flash_dkv_mma"}
+
+
+def runtime_root(name: str) -> str:
+    """An empty directory build/runtime/<name>."""
+    root = os.path.join(_build.BUILD_DIR.parent, "runtime", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    return root
+
+
+def runtime_cfg(root: str, checkpoint_dir=None, **kw):
+    """The headline row fed from ``root``/train.jsonl, a record every
+    step, asynchronous checkpoints keeping the newest."""
+    cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
+    return dataclasses.replace(
+        cfg, synthetic_data=False,
+        dataset_name=os.path.join(root, "train.jsonl"),
+        checkpoint_dir=checkpoint_dir, keep_n_checkpoints=1,
+        async_checkpointing=True, total_train_steps=RUNTIME_STEPS,
+        log_frequency=1, checkpoint_retry_base_delay=0.05,
+        data_retry_base_delay=0.01,
+        crash_report_dir=os.path.join(root, "crash"), **kw)
+
+
+def train_launches_per_step() -> dict:
+    layers = model_config(MODEL).num_hidden_layers
+    return {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers, tf.K3_NAME: layers}
+
+
+def storages(trainer) -> list:
+    return [t.data_ptr() for t in
+            tree_leaves(trainer.params) + tree_leaves(trainer.opt_state)]
+
+
+def close_trainer(trainer) -> None:
+    trainer.close()
+    del trainer
+    free_engine()
+
+
+def check_train_launches(log: dict, what: str, steps: int) -> None:
+    want = train_launches_per_step()
+    check(len(log["train"]) == steps and all(d == want for d in log["train"]),
+          f"{what}: launches per train step {log['train']}, want {steps} "
+          f"x {want}")
+
+
+def sigterm_run(root: str, ckpt: str, save_frequency: int) -> dict:
+    """A run with the SIGTERM drill after step SIGTERM_AT: train() must
+    return preempted with the emergency checkpoint at that step on disk.
+    The seconds from the signal to train()'s return (the checkpoint is
+    written and readable then) and their parts."""
+    t = Trainer(runtime_cfg(root, ckpt, save_frequency=save_frequency,
+                            ft_sigterm_at_step=SIGTERM_AT,
+                            handle_preemption=True),
+                tokenizer=ByteTokenizer())
+    sent = []
+
+    def deliver(signum):  # the real signal, timed
+        sent.append(time.perf_counter())
+        os.kill(os.getpid(), signum)
+
+    t.resilience.injector.deliver_signal = deliver
+    log = launch_log(t)
+    before = signal.getsignal(signal.SIGTERM)
+    t.train()
+    returned = time.perf_counter()
+    mgr = t.checkpoint_manager
+    check(t.preempted and t.emergency_checkpoint_saved
+          and t.global_step == SIGTERM_AT
+          and mgr.latest_step() == SIGTERM_AT,
+          f"SIGTERM drill: preempted {t.preempted}, saved "
+          f"{t.emergency_checkpoint_saved}, step {t.global_step}, latest "
+          f"{mgr.latest_step()}")
+    check(signal.getsignal(signal.SIGTERM) is before,
+          "the preemption handler outlived train()")
+    check_train_launches(log, "SIGTERM drill", SIGTERM_AT)
+    row = {"save_frequency": save_frequency,
+           "sigterm_to_readable_s": returned - sent[0],
+           "within_grace": returned - sent[0] <= GRACE_S,
+           **t.emergency_timing,
+           "checkpoint_bytes": mgr.step_bytes(SIGTERM_AT)}
+    close_trainer(t)
+    return row
+
+
+def cli_sigterm(root: str) -> dict:
+    """``python -m scaletorch_tpu_torch.train`` with the SIGTERM drill, the
+    0.6B width cut to CLI_LAYERS layers: exit code 0, the logged line, the
+    step on disk."""
+    ckpt = os.path.join(root, "cli")
+    args = [sys.executable, "-m", "scaletorch_tpu_torch.train"]
+    for key, value in preset(MODEL).items():
+        if key != "num_hidden_layers":
+            args += [f"--{key}", str(value)]
+    args += ["--num_hidden_layers", str(CLI_LAYERS),
+             "--sequence_length", str(TRAIN_SEQ),
+             "--gradient_checkpointing", "true", "--synthetic_data", "true",
+             "--total_train_steps", "4", "--log_frequency", "1",
+             "--checkpoint_dir", ckpt, "--ft_sigterm_at_step", "2"]
+    t0 = time.monotonic()
+    proc = subprocess.run(args, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    out = proc.stdout + proc.stderr
+    line = next((s for s in out.splitlines()
+                 if "emergency checkpoint saved" in s), None)
+    check(proc.returncode == 0 and line is not None
+          and os.listdir(ckpt) == ["2"],
+          f"CLI SIGTERM drill: exit {proc.returncode}, line {line!r}, "
+          f"checkpoints {os.listdir(ckpt) if os.path.isdir(ckpt) else None}"
+          f"; output tail {out[-2000:]!r}")
+    return {"exit_code": proc.returncode, "logged": line.split("] ", 1)[-1],
+            "layers": CLI_LAYERS, "seconds": time.monotonic() - t0}
+
+
+def phase_runtime_preempt() -> dict:
+    """SIGTERM against a straight run: the emergency checkpoint, its
+    seconds, a bit-for-bit resume, and the command line's exit code."""
+    root = runtime_root("preempt")
+    emit("runtime_disk", free_gb=shutil.disk_usage(root).free / 1e9,
+         checkpoint_gb_expected=7.2)
+    write_docs(os.path.join(root, "train.jsonl"), DATA_DOCS, seed=11)
+    steps = list(range(1, RUNTIME_STEPS + 1))
+    ckpt = os.path.join(root, "ckpt")
+
+    # two straight runs, the first checkpointed every 2 steps
+    straight = []
+    for save_frequency in (2, 0):
+        t = Trainer(runtime_cfg(root, ckpt if save_frequency else None,
+                                save_frequency=save_frequency),
+                    tokenizer=ByteTokenizer())
+        log = launch_log(t)
+        t.train()
+        check_train_launches(log, "straight run", RUNTIME_STEPS)
+        straight.append(readings(t, steps))
+        close_trainer(t)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    a1, a2 = straight
+    check(a1["lr"] == a2["lr"], f"learning rates differ: {a1['lr']} "
+          f"{a2['lr']}")
+    spread = max(abs(x - y) for x, y in zip(a1["loss"], a2["loss"]))
+
+    in_flight = sigterm_run(root, ckpt, save_frequency=2)
+    t = Trainer(runtime_cfg(root, ckpt, save_frequency=2, resume="must"),
+                tokenizer=ByteTokenizer())
+    restore_s = t.checkpoint_manager.last_restore["seconds"]
+    check(t.global_step == SIGTERM_AT and t.loader.position == SIGTERM_AT,
+          f"resumed at step {t.global_step}, loader {t.loader.position}")
+    log = launch_log(t)
+    t.train()
+    check_train_launches(log, "resumed run", RUNTIME_STEPS - SIGTERM_AT)
+    resumed = readings(t, steps[SIGTERM_AT:])
+    close_trainer(t)
+    shutil.rmtree(ckpt)
+    check(resumed["lr"] == a1["lr"][SIGTERM_AT:],
+          f"resumed learning rates {resumed['lr']}")
+    diff = max(abs(x - y) for x, y in zip(resumed["loss"],
+                                          a1["loss"][SIGTERM_AT:]))
+    check(diff <= spread, f"resumed run differs by {diff} > {spread}, the "
+          "spread of two straight runs")
+    idle = sigterm_run(root, ckpt, save_frequency=0)
+    shutil.rmtree(ckpt)
+    cli = cli_sigterm(root)
+    shutil.rmtree(root)
+    row = {"model": MODEL, "sequence_length": TRAIN_SEQ,
+           "steps": RUNTIME_STEPS, "sigterm_after_step": SIGTERM_AT,
+           "grace_s": GRACE_S, "with_save_in_flight": in_flight,
+           "without_save_in_flight": idle, "restore_s": restore_s,
+           "straight": a1, "straight_again": a2, "limit": spread,
+           "resumed": resumed, "resumed_max_abs_diff": diff,
+           "resumed_bit_equal": diff == 0.0, "cli": cli,
+           "launches_per_train_step": train_launches_per_step(),
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("runtime_preempt", **row)
+    return row
+
+
+def phase_runtime_rollback() -> dict:
+    """A NaN after step NAN_AT under the rollback policy, a corrupt read
+    at stream position BAD_READ_AT and one failed save, in one run."""
+    root = runtime_root("rollback")
+    write_docs(os.path.join(root, "train.jsonl"), DATA_DOCS, seed=11)
+    t = Trainer(runtime_cfg(root, os.path.join(root, "ckpt"),
+                            save_frequency=2, ft_nan_at_step=NAN_AT,
+                            divergence_policy="rollback",
+                            ft_bad_batch_at_step=BAD_READ_AT,
+                            ft_fail_saves=1),
+                tokenizer=ByteTokenizer())
+    before = storages(t)
+    log = launch_log(t)
+    t0 = time.perf_counter()
+    t.train()
+    seconds = time.perf_counter() - t0
+    counters = t.resilience.counters()
+    losses = [r["loss"] for r in t.history]
+    mgr = t.checkpoint_manager
+    check(t.global_step == RUNTIME_STEPS
+          and [r["step"] for r in t.history] == list(
+              range(1, RUNTIME_STEPS + 1)),
+          f"rollback run ended at {t.global_step}, records "
+          f"{[r['step'] for r in t.history]}")
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    check(counters["rollbacks"] == 1 and counters["nonfinite_losses"] == 1,
+          f"counters {counters}")
+    check(storages(t) == before,
+          "a parameter or optimizer state tensor moved in the rollback")
+    check(t.loader.skipped_positions == [BAD_READ_AT],
+          f"skipped {t.loader.skipped_positions}")
+    # 7 step batches read (step NAN_AT twice) + the one skipped region
+    check(t.loader.position == RUNTIME_STEPS + 2 and t._loader_skew == 2,
+          f"loader at {t.loader.position}, skew {t._loader_skew}")
+    check(t.resilience.injector.fail_saves == 0
+          and mgr.latest_step() == RUNTIME_STEPS,
+          f"failed saves left {t.resilience.injector.fail_saves}, latest "
+          f"{mgr.latest_step()}")
+    check_train_launches(log, "rollback run", RUNTIME_STEPS + 1)
+    row = {"model": MODEL, "nan_after_step": NAN_AT,
+           "bad_read_at": BAD_READ_AT, "counters": counters,
+           "losses": losses, "restore_s": mgr.last_restore["seconds"],
+           "restored_step": mgr.last_restore["step"],
+           "skipped_positions": t.loader.skipped_positions,
+           "loader_position": t.loader.position,
+           "saves": [dict(x) for x in mgr.saves], "train_s": seconds,
+           "storages_kept": True,
+           "nvidia_smi": card_name_and_power_limit()}
+    close_trainer(t)
+    shutil.rmtree(root)
+    emit("runtime_rollback", **row)
+    return row
+
+
+def tokens_per_second(cfg) -> dict:
+    """train() over OVERHEAD_WARMUP, then OVERHEAD_STEPS timed steps."""
+    t = Trainer(cfg)
+    t.train(num_steps=OVERHEAD_WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train(num_steps=OVERHEAD_STEPS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / OVERHEAD_STEPS
+    tok_s = t.loader.tokens_per_step / step_s
+    close_trainer(t)
+    return {"tokens_per_second": tok_s, "step_s": step_s}
+
+
+def window_launches(capture: dict) -> dict:
+    by = capture.get("by_name", {})
+    return {k: sum(n for name, n in by.items() if sub in name)
+            for k, sub in FLASH_TRACE_NAMES.items()}
+
+
+def phase_runtime_telemetry() -> dict:
+    """Training with telemetry on: the trace's phases, the JSONL records,
+    a manual and a slow-step profiler window (K1/K2/K3 counted in the
+    trace, no record lost), a SIGUSR1 snapshot; then tokens/s without
+    and with telemetry."""
+    root = runtime_root("telemetry")
+    tel = os.path.join(root, "tel")
+    base = dataclasses.replace(make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True),
+                               log_frequency=1)
+    t = Trainer(dataclasses.replace(
+        base, total_train_steps=TELEMETRY_STEPS, telemetry_dir=tel,
+        profile_steps=PROFILE_WINDOW, profile_on_slow_step=2.0,
+        profile_window_steps=1, profile_max_captures=1,
+        ft_slow_step_at_step=SLOW_AT, ft_slow_step_seconds=SLOW_S))
+    log = launch_log(t)
+    inner, calls = t.step_fn, []
+
+    def poke(*args):  # a real SIGUSR1 during step 2
+        calls.append(1)
+        if len(calls) == 2:
+            os.kill(os.getpid(), signal.SIGUSR1)
+        return inner(*args)
+
+    t.step_fn = poke
+    t.train()
+    check_train_launches(log, "telemetry run", TELEMETRY_STEPS)
+    captures = list(t.telemetry.profiler.captures)
+    close_trainer(t)
+    trace = load_trace(os.path.join(tel, "trace_proc0.trace.json"))
+    for phase in ("step_boundary", "data_fetch", "step_dispatch"):
+        seen = [e["args"]["step"] for e in trace if e["name"] == phase]
+        check(seen == list(range(TELEMETRY_STEPS)),
+              f"trace phase {phase} at steps {seen}")
+    records = [r for r in read_jsonl(os.path.join(tel, "events_proc0.jsonl"))
+               if r["kind"] == "train_step"]
+    check([r["step"] for r in records] == list(
+        range(1, TELEMETRY_STEPS + 1)),
+          f"JSONL train_step records {[r['step'] for r in records]}")
+    start, stop = (int(x) for x in PROFILE_WINDOW.split(":"))
+    check([(c["trigger"], c["start_step"], c["stop_step"])
+           for c in captures] == [("manual", start, stop),
+                                  ("slow_step", SLOW_AT + 1, SLOW_AT + 2)],
+          f"profiler windows {captures}")
+    want = train_launches_per_step()
+    for c in captures:
+        got = window_launches(c)
+        check(c["launches_lost"] == 0 and got == want,
+              f"{c['trigger']} window: K1/K2/K3 records {got}, want {want}; "
+              f"{c['launches_lost']} of {c['launches']} launches lost")
+    with open(os.path.join(tel, "live_snapshot_1.json")) as f:
+        snap = json.load(f)
+    check(snap["step"] == 1 and snap["span_tail"]
+          and [r["step"] for r in snap["monitor_records"]] == [1],
+          f"SIGUSR1 snapshot at step {snap['step']}, "
+          f"{len(snap['span_tail'])} spans, records "
+          f"{[r['step'] for r in snap['monitor_records']]}")
+    # without and with telemetry, in turns
+    runs = {"without": [], "with": []}
+    for i, name in enumerate(("without", "with", "with", "without")):
+        cfg = base if name == "without" else dataclasses.replace(
+            base, telemetry_dir=os.path.join(root, f"tel_overhead{i}"))
+        runs[name].append(tokens_per_second(cfg))
+    off = {k: [r[k] for r in runs["without"]] for k in runs["without"][0]}
+    on = {k: [r[k] for r in runs["with"]] for k in runs["with"][0]}
+    shutil.rmtree(root)
+    row = {"model": MODEL, "steps": TELEMETRY_STEPS,
+           "windows": [{k: c[k] for k in ("trigger", "start_step",
+                                          "stop_step", "kernels",
+                                          "device_us", "launches",
+                                          "launches_lost", "start_s",
+                                          "stop_s")}
+                       | {"flash_launches": window_launches(c)}
+                       for c in captures],
+           "trace_events": len(trace), "jsonl_records": len(records),
+           "snapshot_spans": len(snap["span_tail"]),
+           "without_telemetry": off, "with_telemetry": on,
+           "overhead_per_step_ms": 1e3 * (statistics.median(on["step_s"])
+                                          - statistics.median(off["step_s"])),
+           "overhead_share": statistics.median(on["step_s"])
+           / statistics.median(off["step_s"]) - 1,
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("runtime_telemetry", **row)
+    return row
+
+
+def calibrated_sleep_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles that spin the card about ``seconds``."""
+    cycles = 100_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return int(cycles * seconds / (start.elapsed_time(end) / 1e3))
+
+
+def phase_runtime_watchdog() -> dict:
+    """The trainer's hang watchdog on an injected hang, then on a stall
+    of the card while the main thread waits in torch.cuda.synchronize()
+    and in .item(): each must fire (a recording exit with 43) while the
+    main thread is still blocked, within the timeout and a poll, and
+    write a crash report holding the thread stacks, the config
+    fingerprint, the monitor records and the span tail."""
+    root = runtime_root("watchdog")
+    crash = os.path.join(root, "crash")
+    cfg = dataclasses.replace(
+        make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True), log_frequency=1,
+        total_train_steps=3, ft_hang_at_step=2, ft_hang_seconds=HANG_S,
+        crash_report_dir=crash, telemetry_dir=os.path.join(root, "tel"))
+    t = Trainer(cfg)
+    exits, infos, hang = [], [], []
+    t._watchdog_exit = lambda code: exits.append((code, time.monotonic()))
+    report = t._watchdog_crash_report
+
+    def recording_report(info):
+        infos.append(info)
+        return report(info)
+
+    t._watchdog_crash_report = recording_report
+    maybe_hang = t.resilience.injector.maybe_hang
+
+    def timed_hang(step):
+        t0 = time.monotonic()
+        maybe_hang(step)
+        if step == cfg.ft_hang_at_step:
+            hang.extend((t0, time.monotonic()))
+
+    t.resilience.injector.maybe_hang = timed_hang
+    t.train(num_steps=1)  # warm, before the watchdog is armed
+    os.environ["SCALETORCH_TPU_FT_HANG_TIMEOUT"] = str(HANG_TIMEOUT_S)
+    try:
+        t.train(num_steps=2)
+    finally:
+        del os.environ["SCALETORCH_TPU_FT_HANG_TIMEOUT"]
+
+    def read_report(what: str, inside: str) -> dict:
+        names = os.listdir(crash)
+        check(len(names) == 1, f"{what}: crash reports {names}")
+        path = os.path.join(crash, names[0])
+        with open(path) as f:
+            rep = json.load(f)
+        os.remove(path)
+        main = rep["thread_stacks"].get("MainThread", "")
+        check(inside in main and rep["config_fingerprint"]
+              and rep["monitor_records"] and rep["span_timeline_tail"],
+              f"{what}: crash report lacks the main thread in {inside!r}, "
+              f"the fingerprint, the monitor records or the span tail: "
+              f"{main[-600:]!r}")
+        return {"main_thread_tail": main.strip().splitlines()[-1],
+                "monitor_records": len(rep["monitor_records"]),
+                "spans": len(rep["span_timeline_tail"])}
+
+    limit = HANG_TIMEOUT_S + max(0.05, min(HANG_TIMEOUT_S / 4, 5.0)) + 0.5
+    check(len(exits) == 1 and exits[0][0] == WATCHDOG_EXIT_CODE
+          and hang[0] < exits[0][1] < hang[1]
+          and infos[0]["stalled_seconds"] <= limit,
+          f"injected hang: exits {exits}, hang {hang}, stalled "
+          f"{infos and infos[0]['stalled_seconds']}")
+    rows = {"injected_hang": {
+        "stalled_s_at_fire": infos[0]["stalled_seconds"],
+        "fired_after_hang_began_s": exits[0][1] - hang[0],
+        **read_report("injected hang", "maybe_hang")}}
+    cycles = calibrated_sleep_cycles(STALL_FACTOR * HANG_TIMEOUT_S)
+    probe = torch.zeros(1, device="cuda")
+    for name, wait, inside in (
+            ("synchronize", torch.cuda.synchronize, "synchronize"),
+            ("item", lambda: probe.add(1).item(), ".item()")):
+        exits.clear()
+        infos.clear()
+        wd = HangWatchdog(HANG_TIMEOUT_S, poll_interval=WATCHDOG_POLL_S,
+                          crash_report=recording_report,
+                          exit_fn=t._watchdog_exit)
+        with wd:
+            wd.beat(step=t.global_step, phase=f"device_stall_{name}")
+            t0 = time.monotonic()
+            torch.cuda._sleep(cycles)
+            wait()
+            t1 = time.monotonic()
+        fired = exits[0][1] if exits else None
+        check(len(exits) == 1 and exits[0][0] == WATCHDOG_EXIT_CODE
+              and fired < t1
+              and fired - t0 <= HANG_TIMEOUT_S + WATCHDOG_POLL_S + 0.5,
+              f"device stall in {name}: exits {exits} (stall began "
+              f"{t0:.3f}, the wait returned {t1:.3f}): the watchdog must "
+              "fire while the main thread is blocked")
+        rows[f"device_stall_{name}"] = {
+            "stall_s": t1 - t0, "fired_after_s": fired - t0,
+            "fired_before_wait_returned_s": t1 - fired,
+            **read_report(f"device stall in {name}", inside)}
+    close_trainer(t)
+    shutil.rmtree(root)
+    row = {"timeout_s": HANG_TIMEOUT_S, "poll_s": WATCHDOG_POLL_S,
+           "exit_code": WATCHDOG_EXIT_CODE, **rows,
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("runtime_watchdog", **row)
+    return row
+
+
+def host_us_per_span(n: int = 20000) -> float:
+    """Host µs of one span opened and closed on a memory-only tracer."""
+    tracer = SpanTracer(None, role="serve")
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tracer.span("decode", active=SLOTS):
+            pass
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def serve_drill(what: str, model, cfg, prompts, new_tokens: int = 64,
+                around=None, **kw):
+    """A new graphed engine (launch counts reset first) runs ``prompts``
+    through ``run()``, inside the context ``around(eng)`` when given:
+    then one capture of each step, every static buffer where it was, one
+    terminal outcome per request and page conservation."""
+    free_engine()
+    _build.reset_launch_counts()
+    eng = serving_engine(model, cfg, **kw)
+    ptrs = static_pointers(eng)
+    ids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    if around is None:
+        results = eng.run()
+    else:
+        with around(eng):
+            results = eng.run()
+    finish_drill(eng, ptrs, what)
+    return eng, [results[i] for i in ids]
+
+
+def finish_drill(eng, ptrs: dict, what: str) -> dict:
+    graphs = check_one_capture(eng, what)
+    check(static_pointers(eng) == ptrs, f"{what}: a static buffer moved")
+    m = eng.metrics
+    check(m.requests_submitted == sum(m.outcomes.values())
+          == len(eng._results) and eng.pending == 0,
+          f"{what}: {m.requests_submitted} submitted, outcomes "
+          f"{m.outcomes}")
+    eng.allocator.check_conservation()
+    return graphs
+
+
+def phase_runtime_serve(model32) -> dict:
+    """The engine's runtime at Qwen3-0.6B width, bf16, 8 slots, graphed:
+    telemetry on the serve traffic, a NaN poison, submit and deadline
+    storms, the serving watchdog, a SIGTERM drain and the warm prefix
+    import; one capture of each step and no static buffer moved in
+    every engine."""
+    cfg = model_config(MODEL, dtype=torch.bfloat16)
+    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
+                                         cfg)
+    prompts = traffic(cfg.vocab_size)
+    root = runtime_root("serve")
+    layers = cfg.num_hidden_layers
+    row = {}
+    with torch.inference_mode():
+        # the serve traffic without and with tracer + exporter, in turns
+        runs = {"without": [], "with": []}
+        for i, name in enumerate(("without", "with", "with", "without")):
+            kw = {}
+            if name == "with":
+                kw = dict(tracer=SpanTracer(
+                    os.path.join(root, f"serve{i}.trace.json"),
+                    role="serve"),
+                    exporter=TelemetryExporter(
+                        os.path.join(root, f"serve{i}.jsonl")))
+            free_engine()
+            _build.reset_launch_counts()
+            eng, results, _, stats = serve(model, cfg, prompts, None, **kw)
+            graphs = check_one_capture(eng, f"serve {name} telemetry")
+            check(graphs["decode_launches_per_replay"].get("paged_decode")
+                  == layers, f"K4 launches a replay {graphs}")
+            runs[name].append(([r.tokens for r in results], stats))
+            if name == "with":
+                eng.tracer.close()
+                eng.exporter.close()
+                trace = load_trace(os.path.join(root, f"serve{i}.trace.json"))
+                decode_spans = sum(e["name"] == "decode" for e in trace)
+                check(decode_spans == stats["decode_steps"],
+                      f"{decode_spans} decode spans for "
+                      f"{stats['decode_steps']} decode steps")
+                records = read_jsonl(os.path.join(root, f"serve{i}.jsonl"))
+            del eng
+        clean = runs["without"][0][0]
+        check(all(tokens == clean for name in runs
+                  for tokens, _ in runs[name]),
+              "telemetry changed the greedy tokens")
+        keys = ("tpot_p50_s", "decode_tokens_per_s", "tokens_per_s")
+        row["telemetry"] = {
+            name: {k: [stats[k] for _, stats in runs[name]] for k in keys}
+            for name in runs}
+        for k in keys:
+            row["telemetry"][f"{k}_median_change"] = (
+                statistics.median(row["telemetry"]["with"][k])
+                / statistics.median(row["telemetry"]["without"][k]) - 1)
+        row["telemetry"].update(spans=len(trace), jsonl_records=len(records),
+                                host_us_per_span=host_us_per_span())
+        runs.clear()
+
+        # a NaN poison in slot POISON_SLOT before decode step POISON_AT
+        eng, results = serve_drill(
+            "poison", model, cfg, prompts,
+            injector=ServingFaultInjector(nan_logits_at_step=POISON_AT,
+                                          nan_logits_slot=POISON_SLOT))
+        bad = [i for i, r in enumerate(results) if r.outcome == "quarantined"]
+        check(len(bad) == 1, f"poison: quarantined requests {bad}")
+        others = [i for i in range(len(results)) if i not in bad]
+        check(all(results[i].outcome == "ok" and results[i].tokens == clean[i]
+                  for i in others),
+              "poison: another request lost its clean run's tokens")
+        row["poison"] = {"quarantined_request": bad[0],
+                         "tokens_before": len(results[bad[0]].tokens),
+                         "others_token_equal": len(others)}
+        del eng
+
+        # a submit storm into a bounded queue, then a deadline storm
+        eng, results = serve_drill(
+            "storms", model, cfg, prompts[:SLOTS],
+            queue_capacity=STORM_CAPACITY,
+            injector=ServingFaultInjector(
+                submit_storm_at_step=STORM_AT,
+                submit_storm_count=STORM_COUNT,
+                deadline_storm_at_step=DEADLINE_AT))
+        outcomes = {k: v for k, v in eng.metrics.outcomes.items() if v}
+        want = {"shed": STORM_COUNT - STORM_CAPACITY,
+                "timeout": SLOTS + STORM_CAPACITY}
+        check(outcomes == want and eng.metrics.requests_submitted
+              == SLOTS + STORM_COUNT,
+              f"storms: outcomes {outcomes}, want {want}")
+        row["storms"] = {"outcomes": outcomes,
+                         "submitted": eng.metrics.requests_submitted}
+        del eng
+
+        # the serving watchdog on a stalled decode step
+        exits = []
+        tracer = SpanTracer(None, role="serve")
+
+        def watched(eng):
+            return make_serving_watchdog(
+                eng, HANG_TIMEOUT_S, crash_report_dir=root,
+                exit_fn=exits.append)
+
+        eng, results = serve_drill(
+            "serving watchdog", model, cfg, prompts[:SLOTS], new_tokens=16,
+            around=watched, tracer=tracer,
+            injector=ServingFaultInjector(slow_decode_at_step=5,
+                                          slow_decode_seconds=HANG_S))
+        reports = [f for f in os.listdir(root)
+                   if f.startswith("crash_report")]
+        check(exits == [SERVING_STALL_EXIT_CODE] and len(reports) == 1,
+              f"serving watchdog: exits {exits}, reports {reports}")
+        with open(os.path.join(root, reports[0])) as f:
+            rep = json.load(f)
+        check(rep["serving"] and rep["counters"]["requests_submitted"]
+              == SLOTS and rep["span_timeline_tail"]
+              and "sleep" in rep["thread_stacks"].get("MainThread", ""),
+              "serving watchdog: the report lacks the counters, the span "
+              "tail or the main thread in the stall")
+        row["serving_watchdog"] = {"exit_code": exits[0],
+                                   "spans": len(rep["span_timeline_tail"]),
+                                   "outcomes": sorted({r.outcome
+                                                       for r in results})}
+        del eng
+
+        # a real SIGTERM once 4 tokens a slot are out: run() drains
+        handler = PreemptionHandler().install()
+        emitted = []
+
+        def on_tokens(slot, rid, toks):
+            emitted.extend(toks)
+            if len(emitted) == 4 * SLOTS:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        try:
+            eng, results = serve_drill(
+                "preemption", model, cfg, prompts, new_tokens=16,
+                preemption=handler, on_tokens=on_tokens)
+        finally:
+            handler.uninstall()
+        outcomes = {k: v for k, v in eng.metrics.outcomes.items() if v}
+        check(handler.requested and eng.draining
+              and outcomes == {"ok": SLOTS, "aborted": len(prompts) - SLOTS},
+              f"preemption: outcomes {outcomes}, draining {eng.draining}")
+        row["preemption"] = {"outcomes": outcomes}
+        del eng
+
+        # warm prefix import: A serves the shared-prefix half twice, B
+        # imports A's pages and serves it once
+        shared = prompts[::2]
+        free_engine()
+        _build.reset_launch_counts()
+        a = serving_engine(model, cfg)
+        a_ptrs = static_pointers(a)
+        first = [a.submit(p, max_new_tokens=64) for p in shared]
+        a.run()
+        ids = [a.submit(p, max_new_tokens=64) for p in shared]
+        a_res = a.run()
+        finish_drill(a, a_ptrs, "warm donor")
+        a_tokens = [a_res[i].tokens for i in ids]
+        t0 = time.perf_counter()
+        pmap = a.export_prefix_map()
+        pages = [p for c in pmap["chains"] for p in c["pages"]]
+        _meta, contents = a.export_prefix_pages(pages)
+        export_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        b = serving_engine(model, cfg)
+        b_ptrs = static_pointers(b)
+        t0 = time.perf_counter()
+        imported = b.import_prefix_pages(
+            [(c["tokens"], c["pages"]) for c in pmap["chains"]], contents,
+            dtype=pmap["dtype"], page_shape=pmap["page_shape"],
+            page_size=pmap["page_size"])
+        import_s = time.perf_counter() - t0
+        b.allocator.check_conservation()
+        ids = [b.submit(p, max_new_tokens=64) for p in shared]
+        b_res = b.run()
+        finish_drill(b, b_ptrs, "warm recipient")
+        b_tokens = [b_res[i].tokens for i in ids]
+        check(b.metrics.prefix_hits == len(shared)
+              and imported["pages"] == len(set(pages)),
+              f"warm import: {b.metrics.prefix_hits} prefix hits, "
+              f"{imported['pages']} of {len(set(pages))} pages")
+        check(b_tokens == a_tokens, "warm import: the recipient's greedy "
+              "tokens differ from the donor's")
+        row["warm_import"] = {
+            "chains": len(pmap["chains"]), "pages": imported["pages"],
+            "bytes": sum(len(k) + len(v) for k, v in contents.values()),
+            "export_s": export_s, "import_s": import_s,
+            "prefix_hits": b.metrics.prefix_hits,
+            "prefill_tokens_saved": b.metrics.prefill_tokens_saved,
+            "donor_first_pass_agreement": agreement(
+                [a_res[i].tokens for i in first], a_tokens)}
+        del a, b
+        free_engine()
+    shutil.rmtree(root)
+    row["nvidia_smi"] = card_name_and_power_limit()
+    emit("runtime_serve", model=MODEL, dtype="bfloat16", slots=SLOTS,
+         requests=len(prompts), **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2640,8 +3463,10 @@ def main() -> int:
     flash = timed("kernel_flash", phase_kernel_flash)
     model32 = timed("decode_parity", phase_decode_parity)
     launches = timed("serve", phase_serve, model32)
+    timed("profiler_cost", phase_profiler_cost, model32)
     timed("profile", phase_profile, model32)
     timed("decode_graph", phase_decode_graph, model32)
+    timed("runtime_serve", phase_runtime_serve, model32)
     del model32
     torch.cuda.empty_cache()
     timed("geometry_serve", phase_geometry_serve)
@@ -2658,6 +3483,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("train_table", phase_train_table)
     timed("remat_parity", phase_remat_parity)
+    torch.cuda.empty_cache()
+    timed("runtime_preempt", phase_runtime_preempt)
+    timed("runtime_rollback", phase_runtime_rollback)
+    timed("runtime_telemetry", phase_runtime_telemetry)
+    timed("runtime_watchdog", phase_runtime_watchdog)
+    torch.cuda.empty_cache()
     gmlp = timed("kernel_grouped_mlp", phase_kernel_grouped_mlp)
     torch.cuda.empty_cache()
     timed("moe_decode_parity", phase_moe_decode_parity)

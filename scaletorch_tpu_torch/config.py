@@ -5,9 +5,10 @@ The dataclasses keep the reference's names, field names and defaults:
 ``DataArguments`` (the local-file fields), ``ModelArguments`` (its
 architecture fields, the MoE fields included, ``model_type``,
 ``model_name_or_path`` and ``load_pretrained_weights``),
-``LrSchedulerArguments``, ``OptimizerArguments``, ``TrainingArguments``
-and ``CheckpointArguments`` (whole, with their validation), and the
-logging fields the port reads. They compose into
+``LrSchedulerArguments``, ``OptimizerArguments``, ``TrainingArguments``,
+``CheckpointArguments``, ``ResilienceArguments`` and
+``TelemetryArguments`` (whole, with their validation), and the logging
+fields the port reads. They compose into
 ``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
 fields (the machine with the card has no ``transformers``, so no
 ``HfArgumentParser``).
@@ -221,6 +222,542 @@ class CheckpointArguments:
 
 
 @dataclass
+class ResilienceArguments:
+    """Fault-tolerance knobs (``resilience.py``): divergence sentinel
+    policy, preemption handling, and fault-injection hooks. The
+    multi-process fields keep their names and defaults; a value that asks
+    for more than one process raises ``NotImplementedError`` (ROADMAP
+    Queue 1 item 6)."""
+
+    nonfinite_guard: bool = field(
+        default=True,
+        metadata={"help": "Reject optimizer updates with non-finite loss/"
+                          "grad-norm inside the train step (params "
+                          "and optimizer state keep their previous values "
+                          "for that step)."},
+    )
+    divergence_policy: str = field(
+        default="skip",
+        metadata={"help": "skip | rollback | abort — what the host-side "
+                          "sentinel does on an anomalous (non-finite or "
+                          "spiking) loss. 'rollback' restores the last "
+                          "good checkpoint and fast-forwards the data "
+                          "stream past the bad region."},
+    )
+    loss_spike_factor: float = field(
+        default=0.0,
+        metadata={"help": "Treat loss > factor * EMA(loss) as an anomaly "
+                          "(0 = only non-finite losses are anomalous)."},
+    )
+    loss_ema_beta: float = field(
+        default=0.98, metadata={"help": "EMA decay for the loss baseline."}
+    )
+    max_consecutive_anomalies: int = field(
+        default=3,
+        metadata={"help": "Abort after this many consecutive anomalous "
+                          "steps under any policy (0 = never)."},
+    )
+    max_rollbacks: int = field(
+        default=3,
+        metadata={"help": "Abort after this many sentinel-triggered "
+                          "rollbacks (0 = unlimited)."},
+    )
+    sentinel_frequency: int = field(
+        default=-1,
+        metadata={"help": "Sample the loss on the host every N steps for "
+                          "the sentinel (forces a device sync on sampled "
+                          "steps). -1 (default) follows log_frequency — "
+                          "those steps already pay the sync for logging, "
+                          "so the sentinel adds none; 0 disables the host "
+                          "sentinel (the in-step nonfinite_guard still "
+                          "applies); 1 samples every step for the "
+                          "tightest detection latency."},
+    )
+    handle_preemption: bool = field(
+        default=True,
+        metadata={"help": "Install SIGTERM/SIGINT handlers during train() "
+                          "that request an emergency checkpoint at the "
+                          "next step boundary and exit cleanly. On "
+                          "multi-process runs the stop flag is "
+                          "all-gathered (--ft_coordinate) so any one "
+                          "host's preemption triggers a collective "
+                          "emergency save on every host."},
+    )
+    ft_coordinate: bool = field(
+        default=True,
+        metadata={"help": "Coordinate resilience control decisions "
+                          "across hosts on multi-process runs: host 0 "
+                          "forms each decision (sentinel action, stop "
+                          "request, checkpoint retry/fallback) from the "
+                          "all-gathered per-host observations and "
+                          "broadcasts it, so every host acts in "
+                          "lockstep. Costs one small object gather + "
+                          "broadcast per optimizer step. Env override: "
+                          "SCALETORCH_TPU_FT_COORDINATE."},
+    )
+    ft_hang_timeout: float = field(
+        default=0.0,
+        metadata={"help": "Hang-watchdog timeout in seconds (0 = off): "
+                          "if no train-loop progress (data fetch, step "
+                          "dispatch, checkpoint) lands within this "
+                          "window, dump all thread stacks + the monitor "
+                          "ring buffer to a crash report and exit with "
+                          "code 43 so the launcher restarts the job "
+                          "instead of hanging on a dead collective. Env "
+                          "override: SCALETORCH_TPU_FT_HANG_TIMEOUT."},
+    )
+    crash_report_dir: str = field(
+        default="results",
+        metadata={"help": "Directory for crash_report_step<N>.json "
+                          "post-mortems written on sentinel aborts, "
+                          "rollback-budget exhaustion and watchdog "
+                          "fires."},
+    )
+    # Elastic continuation (resilience_distributed.ElasticCoordinator):
+    # survive host loss by remeshing onto the survivors, not restarting
+    elastic: bool = field(
+        default=False,
+        metadata={"help": "Elastic training fleet: when a host dies or "
+                          "hangs past elastic_deadline_seconds, the "
+                          "survivors agree a new membership epoch, "
+                          "shrink the dp axis, restore from the latest "
+                          "checkpoint onto the smaller mesh and continue "
+                          "to total_train_steps; relaunched hosts rejoin "
+                          "at the next checkpoint boundary. Requires "
+                          "--resume auto|must and a checkpoint_dir, and "
+                          "a geometry whose dp divides by the host count "
+                          "(tp/pp/cp/ep must not span hosts)."},
+    )
+    elastic_min_hosts: int = field(
+        default=1,
+        metadata={"help": "Refuse to continue (abort to the fleet-restart "
+                          "fallback, exit 43) when a shrink would leave "
+                          "fewer than this many hosts."},
+    )
+    elastic_heartbeat_seconds: float = field(
+        default=2.0,
+        metadata={"help": "Cadence of each host's liveness heartbeat file "
+                          "in the membership store (operator-visible "
+                          "only; detection itself is the bounded "
+                          "deadline on every epoch-bus collective)."},
+    )
+    elastic_deadline_seconds: float = field(
+        default=10.0,
+        metadata={"help": "Bounded deadline on elastic epoch-bus "
+                          "collectives and suspect rounds: a peer that "
+                          "misses it is declared lost and the fleet "
+                          "remeshes without it."},
+    )
+    # Fault injection (testing/drills; env vars SCALETORCH_TPU_FT_* override)
+    ft_nan_at_step: int = field(
+        default=0,
+        metadata={"help": "Inject a NaN loss after optimizer step k "
+                          "(0 = off; fires once)."},
+    )
+    ft_fail_saves: int = field(
+        default=0,
+        metadata={"help": "Fail the first n checkpoint save attempts with "
+                          "a retriable I/O error (0 = off)."},
+    )
+    ft_sigterm_at_step: int = field(
+        default=0,
+        metadata={"help": "Deliver SIGTERM to this process after optimizer "
+                          "step k (0 = off; fires once)."},
+    )
+    ft_sigterm_host: int = field(
+        default=-1,
+        metadata={"help": "Restrict ft_sigterm_at_step to one process "
+                          "index (-1 = every host) — the multi-host "
+                          "drill where exactly one worker is preempted "
+                          "and the fleet must still stop together. Env "
+                          "override: SCALETORCH_TPU_FT_SIGTERM_HOST."},
+    )
+    ft_hang_at_step: int = field(
+        default=0,
+        metadata={"help": "Stall the step boundary once after optimizer "
+                          "step k (0 = off), simulating a dead "
+                          "collective for the hang watchdog. Env "
+                          "override: SCALETORCH_TPU_FT_HANG_STEP."},
+    )
+    ft_hang_seconds: float = field(
+        default=120.0,
+        metadata={"help": "Duration of the injected ft_hang_at_step "
+                          "stall."},
+    )
+    ft_bad_batch_at_step: int = field(
+        default=0,
+        metadata={"help": "Make every read of data-stream position k "
+                          "raise a retriable I/O error (0 = off) — "
+                          "corrupt-shard injection for the loader's "
+                          "retry + skip-and-log path. Env override: "
+                          "SCALETORCH_TPU_FT_BAD_BATCH_STEP."},
+    )
+    ft_slow_step_at_step: int = field(
+        default=0,
+        metadata={"help": "Telemetry drill: stall optimizer step k at "
+                          "its boundary for ft_slow_step_seconds "
+                          "(0 = off; fires once) so the slow-step "
+                          "detector arms an anomaly-triggered profiler "
+                          "window (telemetry/profiling.py). Env "
+                          "override: SCALETORCH_TPU_FT_SLOW_STEP_STEP."},
+    )
+    ft_slow_step_seconds: float = field(
+        default=0.5,
+        metadata={"help": "Duration of the injected ft_slow_step_at_step "
+                          "stall. Env override: "
+                          "SCALETORCH_TPU_FT_SLOW_STEP_SECONDS."},
+    )
+    ft_kill_host_at_step: int = field(
+        default=0,
+        metadata={"help": "Elastic drill: hard-kill the ft_kill_host-"
+                          "selected host after optimizer step k (0 = "
+                          "off; fires once) — survivors must remesh and "
+                          "continue. Env override: "
+                          "SCALETORCH_TPU_FT_KILL_HOST_STEP."},
+    )
+    ft_kill_host: int = field(
+        default=-1,
+        metadata={"help": "Process index the ft_kill_host_at_step / "
+                          "ft_host_hang_elastic drills target (-1 = "
+                          "every host — only meaningful in simulated-"
+                          "host tests). Env override: "
+                          "SCALETORCH_TPU_FT_KILL_HOST."},
+    )
+    ft_host_hang_elastic: int = field(
+        default=0,
+        metadata={"help": "Elastic drill: stall the ft_kill_host-selected "
+                          "host past the elastic epoch-bus deadline once "
+                          "after optimizer step k (0 = off) — the fleet "
+                          "must evict it and it must park-and-rejoin. "
+                          "Env override: "
+                          "SCALETORCH_TPU_FT_HOST_HANG_ELASTIC."},
+    )
+    ft_host_hang_seconds: float = field(
+        default=30.0,
+        metadata={"help": "Duration of the injected ft_host_hang_elastic "
+                          "stall (size it past elastic_deadline_seconds)."},
+    )
+    # Serving fault injection (inference.resilience.ServingFaultInjector;
+    # steps are 1-based DECODE steps of the engine's lifetime)
+    ft_serve_nan_at_step: int = field(
+        default=0,
+        metadata={"help": "Serving drill: NaN-poison one slot's KV cache "
+                          "before decode step k (0 = off; fires once) so "
+                          "its logits go non-finite — drives the "
+                          "quarantine path. Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_NAN_STEP."},
+    )
+    ft_serve_nan_slot: int = field(
+        default=0,
+        metadata={"help": "Slot index the ft_serve_nan_at_step drill "
+                          "poisons (falls back to the first active slot). "
+                          "Env override: SCALETORCH_TPU_FT_SERVE_NAN_SLOT."},
+    )
+    ft_serve_slow_at_step: int = field(
+        default=0,
+        metadata={"help": "Serving drill: stall the engine once before "
+                          "decode step k (0 = off) for "
+                          "ft_serve_slow_seconds — the wedged-dispatch "
+                          "drill for the serving stall watchdog (exit "
+                          "code 44). Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_SLOW_STEP."},
+    )
+    ft_serve_slow_seconds: float = field(
+        default=30.0,
+        metadata={"help": "Duration of the injected ft_serve_slow_at_step "
+                          "stall. Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_SLOW_SECONDS."},
+    )
+    ft_serve_submit_storm_at_step: int = field(
+        default=0,
+        metadata={"help": "Serving drill: inject a burst of "
+                          "ft_serve_submit_storm_count requests at decode "
+                          "step k (0 = off) — drives bounded admission "
+                          "and oldest-first shedding. Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_SUBMIT_STORM_STEP."},
+    )
+    ft_serve_submit_storm_count: int = field(
+        default=8,
+        metadata={"help": "Number of requests the submit-storm drill "
+                          "injects. Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_SUBMIT_STORM_COUNT."},
+    )
+    ft_serve_deadline_storm_at_step: int = field(
+        default=0,
+        metadata={"help": "Serving drill: force every in-flight request's "
+                          "deadline into the past at decode step k "
+                          "(0 = off) — drives the timeout paths at "
+                          "admission and mid-decode. Env override: "
+                          "SCALETORCH_TPU_FT_SERVE_DEADLINE_STORM_STEP."},
+    )
+    # Gateway fault injection (serving/gateway.py; the counting unit is
+    # 1-based HTTP requests, not decode steps)
+    ft_gw_tenant_storm_at: int = field(
+        default=0,
+        metadata={"help": "Gateway drill: when the k-th generate request "
+                          "arrives (0 = off; fires once), one synthetic "
+                          "'storm' tenant floods the admission queue with "
+                          "ft_gw_tenant_storm_count requests — drives "
+                          "weighted-fair queueing and shed-before-latency "
+                          "backpressure (429 + Retry-After). Env override: "
+                          "SCALETORCH_TPU_FT_GW_TENANT_STORM_AT."},
+    )
+    ft_gw_tenant_storm_count: int = field(
+        default=8,
+        metadata={"help": "Number of requests the gateway tenant-storm "
+                          "drill injects. Env override: "
+                          "SCALETORCH_TPU_FT_GW_TENANT_STORM_COUNT."},
+    )
+    ft_gw_replica_down_at: int = field(
+        default=0,
+        metadata={"help": "Gateway drill: when the k-th request is "
+                          "dispatched to a replica (0 = off; fires once), "
+                          "the router marks that replica dead mid-stream "
+                          "— its in-flight requests end 'aborted', queued "
+                          "requests re-route to the survivors. Env "
+                          "override: "
+                          "SCALETORCH_TPU_FT_GW_REPLICA_DOWN_AT."},
+    )
+
+    def __post_init__(self) -> None:
+        if self.divergence_policy not in ("skip", "rollback", "abort"):
+            raise ValueError(
+                "divergence_policy must be 'skip', 'rollback' or 'abort', "
+                f"got {self.divergence_policy!r}"
+            )
+        if self.loss_spike_factor != 0 and self.loss_spike_factor <= 1.0:
+            # a factor in (0, 1] flags virtually every healthy step
+            # (loss ~= EMA) as a spike and aborts within a few steps
+            raise ValueError(
+                "loss_spike_factor must be 0 (off) or > 1 (spike when "
+                f"loss > factor * EMA), got {self.loss_spike_factor}"
+            )
+        if not 0.0 <= self.loss_ema_beta < 1.0:
+            raise ValueError(
+                f"loss_ema_beta must be in [0, 1), got {self.loss_ema_beta}"
+            )
+        if self.sentinel_frequency < -1:
+            raise ValueError(
+                "sentinel_frequency must be -1 (follow log_frequency), 0 "
+                f"(off) or a positive period, got {self.sentinel_frequency}"
+            )
+        for name in ("max_consecutive_anomalies",
+                     "max_rollbacks", "ft_nan_at_step", "ft_fail_saves",
+                     "ft_sigterm_at_step", "ft_hang_at_step",
+                     "ft_bad_batch_at_step", "ft_slow_step_at_step",
+                     "ft_kill_host_at_step", "ft_host_hang_elastic",
+                     "ft_serve_nan_at_step",
+                     "ft_serve_nan_slot", "ft_serve_slow_at_step",
+                     "ft_serve_submit_storm_at_step",
+                     "ft_serve_deadline_storm_at_step",
+                     "ft_gw_tenant_storm_at", "ft_gw_replica_down_at"):
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}")
+        if self.ft_hang_timeout < 0:
+            raise ValueError(
+                f"ft_hang_timeout must be >= 0 (0 disables the "
+                f"watchdog), got {self.ft_hang_timeout}"
+            )
+        if self.ft_hang_seconds <= 0:
+            raise ValueError(
+                f"ft_hang_seconds must be > 0, got {self.ft_hang_seconds}"
+            )
+        if self.ft_sigterm_host < -1:
+            raise ValueError(
+                f"ft_sigterm_host must be -1 (any host) or a process "
+                f"index, got {self.ft_sigterm_host}"
+            )
+        if self.ft_kill_host < -1:
+            raise ValueError(
+                f"ft_kill_host must be -1 (any host) or a process "
+                f"index, got {self.ft_kill_host}"
+            )
+        if self.ft_host_hang_seconds <= 0:
+            raise ValueError(
+                f"ft_host_hang_seconds must be > 0, "
+                f"got {self.ft_host_hang_seconds}"
+            )
+        if self.elastic_min_hosts < 1:
+            raise ValueError(
+                f"elastic_min_hosts must be >= 1, "
+                f"got {self.elastic_min_hosts}"
+            )
+        if self.elastic_heartbeat_seconds <= 0:
+            raise ValueError(
+                f"elastic_heartbeat_seconds must be > 0, "
+                f"got {self.elastic_heartbeat_seconds}"
+            )
+        if self.elastic_deadline_seconds <= 0:
+            raise ValueError(
+                f"elastic_deadline_seconds must be > 0, "
+                f"got {self.elastic_deadline_seconds}"
+            )
+        if self.ft_slow_step_seconds <= 0:
+            raise ValueError(
+                f"ft_slow_step_seconds must be > 0, "
+                f"got {self.ft_slow_step_seconds}"
+            )
+        if self.ft_serve_slow_seconds <= 0:
+            raise ValueError(
+                f"ft_serve_slow_seconds must be > 0, "
+                f"got {self.ft_serve_slow_seconds}"
+            )
+        if self.ft_serve_submit_storm_count < 1:
+            raise ValueError(
+                f"ft_serve_submit_storm_count must be >= 1, "
+                f"got {self.ft_serve_submit_storm_count}"
+            )
+        if self.ft_gw_tenant_storm_count < 1:
+            raise ValueError(
+                f"ft_gw_tenant_storm_count must be >= 1, "
+                f"got {self.ft_gw_tenant_storm_count}"
+            )
+        # the port runs one process: the coordinated and elastic paths
+        # wait for ROADMAP Queue 1 item 6
+        asks = [name for name, on in (
+            ("elastic", self.elastic),
+            ("ft_sigterm_host", self.ft_sigterm_host > 0),
+            ("ft_kill_host", self.ft_kill_host > 0),
+            ("ft_host_hang_elastic", self.ft_host_hang_elastic > 0),
+        ) if on]
+        if asks:
+            raise NotImplementedError(
+                f"{', '.join(asks)}: the port runs one process; the "
+                "multi-process resilience paths are ROADMAP Queue 1 "
+                "item 6")
+
+
+@dataclass
+class TelemetryArguments:
+    """Observability knobs (``telemetry/``): span tracing,
+    anomaly-triggered profiling, straggler detection, JSONL export.
+    Everything except straggler detection is enabled by setting
+    ``telemetry_dir`` (env override SCALETORCH_TPU_TELEMETRY_DIR,
+    present-wins — an explicitly empty value cancels it); stragglers
+    ride the existing multi-host decision gather and need no
+    directory."""
+
+    telemetry_dir: Optional[str] = field(
+        default=None,
+        metadata={"help": "Enable telemetry and write its artifacts here: "
+                          "trace_proc<N>.trace.json (Chrome trace events, "
+                          "Perfetto-loadable host-side spans), "
+                          "events_proc<N>.jsonl (schema-versioned metrics "
+                          "stream), profiles/ (torch.profiler captures), "
+                          "live_snapshot_<n>.json (SIGUSR1 dumps). Unset "
+                          "= telemetry off (instrumentation costs one "
+                          "branch per site). Env override: "
+                          "SCALETORCH_TPU_TELEMETRY_DIR."},
+    )
+    trace_max_events: int = field(
+        default=200_000,
+        metadata={"help": "Cap on span events written to the trace file "
+                          "(week-long runs stay disk-bounded; the drop "
+                          "count is reported, and the in-memory tail for "
+                          "crash reports keeps the NEWEST events "
+                          "regardless)."},
+    )
+    span_tail_size: int = field(
+        default=256,
+        metadata={"help": "Span events retained in memory for crash "
+                          "reports and SIGUSR1 live snapshots."},
+    )
+    profile_on_slow_step: float = field(
+        default=0.0,
+        metadata={"help": "Arm a bounded torch.profiler window when a "
+                          "step's wall time exceeds this factor x its "
+                          "EMA (0 = off; must be > 1 otherwise). "
+                          "Requires telemetry_dir."},
+    )
+    profile_window_steps: int = field(
+        default=3,
+        metadata={"help": "Steps each anomaly-triggered profiler window "
+                          "captures."},
+    )
+    profile_max_captures: int = field(
+        default=1,
+        metadata={"help": "Maximum anomaly-triggered profiler windows per "
+                          "run (a persistently slow run must not fill "
+                          "the disk with profiles)."},
+    )
+    profile_steps: str = field(
+        default="",
+        metadata={"help": "Manual profiler window 'start:stop' (steps; "
+                          "[start, stop), 1-based): capture these steps "
+                          "regardless of the slow-step detector. Env "
+                          "override: SCALETORCH_TPU_PROFILE_STEPS."},
+    )
+    straggler_factor: float = field(
+        default=2.0,
+        metadata={"help": "Flag a host as a straggler when its step wall "
+                          "time stays above this factor x the fleet "
+                          "median (0 = off; must be > 1 otherwise). "
+                          "Multi-host only; observations ride the "
+                          "existing per-step coordination gather — zero "
+                          "new collectives."},
+    )
+    straggler_patience: int = field(
+        default=3,
+        metadata={"help": "Consecutive over-threshold observations before "
+                          "a host is flagged (raises the straggler_flags "
+                          "counter and logs the host index)."},
+    )
+
+    def __post_init__(self) -> None:
+        if self.profile_on_slow_step != 0 and self.profile_on_slow_step <= 1.0:
+            raise ValueError(
+                "profile_on_slow_step must be 0 (off) or > 1 (spike when "
+                f"step_time > factor * EMA), got {self.profile_on_slow_step}"
+            )
+        if self.profile_window_steps < 1:
+            raise ValueError(
+                f"profile_window_steps must be >= 1, "
+                f"got {self.profile_window_steps}"
+            )
+        if self.profile_max_captures < 0:
+            raise ValueError(
+                f"profile_max_captures must be >= 0, "
+                f"got {self.profile_max_captures}"
+            )
+        if self.profile_steps:
+            from scaletorch_tpu_torch.telemetry.profiling import (
+                parse_profile_steps,
+            )
+
+            parse_profile_steps(self.profile_steps)  # raises on bad spec
+        if self.profile_on_slow_step or self.profile_steps:
+            # profiling captures land under the telemetry dir — without
+            # one the knob would be a silent no-op and the operator would
+            # wait forever for a window that never arms
+            from scaletorch_tpu_torch.telemetry import (
+                telemetry_dir_from_config,
+            )
+
+            if telemetry_dir_from_config(self) is None:
+                raise ValueError(
+                    "profile_on_slow_step / profile_steps need a telemetry "
+                    "directory to write captures into: set --telemetry_dir "
+                    "(or SCALETORCH_TPU_TELEMETRY_DIR)"
+                )
+        if self.straggler_factor != 0 and self.straggler_factor <= 1.0:
+            raise ValueError(
+                "straggler_factor must be 0 (off) or > 1 (flag when "
+                f"step_time > factor * median), got {self.straggler_factor}"
+            )
+        if self.straggler_patience < 1:
+            raise ValueError(
+                f"straggler_patience must be >= 1, "
+                f"got {self.straggler_patience}"
+            )
+        if self.trace_max_events < 1 or self.span_tail_size < 1:
+            raise ValueError(
+                "trace_max_events and span_tail_size must be >= 1, got "
+                f"{self.trace_max_events} / {self.span_tail_size}"
+            )
+
+
+@dataclass
 class LoggingArguments:
     log_frequency: int = 1
     log_file: Optional[str] = None
@@ -241,12 +778,16 @@ class ScaleTorchTPUArguments(
     OptimizerArguments,
     TrainingArguments,
     CheckpointArguments,
+    ResilienceArguments,
+    TelemetryArguments,
     LoggingArguments,
 ):
     """The training arguments the port reads, composed."""
 
     def __post_init__(self) -> None:
         CheckpointArguments.__post_init__(self)
+        ResilienceArguments.__post_init__(self)
+        TelemetryArguments.__post_init__(self)
         for name in ("data_read_retries", "data_max_skipped_batches"):
             if getattr(self, name) < 0:
                 raise ValueError(

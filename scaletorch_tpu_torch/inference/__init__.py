@@ -8,7 +8,8 @@
   * ``sampling``   — greedy / temperature / top-k / top-p;
   * ``engine``     — ``InferenceEngine``: continuous batching over a
     fixed-slot batch;
-  * ``resilience`` — the terminal-outcome taxonomy.
+  * ``resilience`` — the terminal-outcome taxonomy, the serving fault
+    injector and the serving stall watchdog.
 """
 
 from scaletorch_tpu_torch.inference.kv_cache import (  # noqa: F401
@@ -40,8 +41,11 @@ from scaletorch_tpu_torch.inference.decode import (  # noqa: F401
     teacher_forced_decode_paged,
 )
 from scaletorch_tpu_torch.inference.resilience import (  # noqa: F401
+    SERVING_STALL_EXIT_CODE,
     TERMINAL_OUTCOMES,
     EngineDraining,
+    ServingFaultInjector,
+    make_serving_watchdog,
 )
 from scaletorch_tpu_torch.inference.engine import (  # noqa: F401
     EngineMetrics,

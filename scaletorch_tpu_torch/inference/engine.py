@@ -30,9 +30,20 @@ Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
     admission, per-request TTLs, quarantine of a slot whose logits go
     non-finite, ``drain()``.
 
-Not in this slice (they come with later ones): mesh/TP sharding, the
-monitor/tracer/exporter telemetry hooks, fault injection, the
-preemption handler, the serving watchdog, and warm prefix export/import.
+  * the runtime hooks: a ``SystemMonitor`` sampled and a
+    ``TelemetryExporter`` fed every ``monitor_every`` decode steps,
+    ``tick``/``admission``/``prefill``/``decode`` spans and request async
+    events on a ``SpanTracer``, a ``ServingFaultInjector`` (NaN logits,
+    a slow decode, submit and deadline storms), a ``PreemptionHandler``
+    that makes ``run()`` drain, and a serving watchdog
+    (``make_serving_watchdog``) beaten each tick;
+  * the warm prefix exchange: ``export_prefix_map`` /
+    ``export_prefix_pages`` on a donor, ``import_prefix_pages`` on a
+    fresh engine. Every write these make into the KV pool (a poisoned
+    slot, imported pages) goes into the same storage in place, so the
+    captured steps keep their buffers and are never captured again.
+
+Not in this slice: mesh/TP sharding (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,8 +78,10 @@ from scaletorch_tpu_torch.inference.kv_cache import (
 from scaletorch_tpu_torch.inference.resilience import (
     TERMINAL_OUTCOMES,
     EngineDraining,
+    ServingFaultInjector,
 )
 from scaletorch_tpu_torch.inference.sampling import SamplingParams
+from scaletorch_tpu_torch.telemetry.spans import NOOP_SPAN
 from scaletorch_tpu_torch.telemetry.histogram import LogHistogram
 from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
 from scaletorch_tpu_torch.utils.logger import get_logger
@@ -82,7 +95,9 @@ class Request:
     ``max_new_tokens`` always bounds it; the engine's ``max_seq`` caps
     prompt + generation regardless. ``deadline`` (absolute monotonic
     time, or None) retires the request with ``timeout`` wherever it is.
-    ``admit_time`` is stamped when the request enters a slot."""
+    ``trace_id`` (None = untraced) keys the request's lifecycle events on
+    the tracer's async track. ``admit_time`` is stamped when the request
+    enters a slot."""
 
     request_id: int
     prompt: List[int]
@@ -91,6 +106,7 @@ class Request:
     seed: int = 0
     submit_time: float = field(default_factory=time.monotonic)
     deadline: Optional[float] = None
+    trace_id: Optional[str] = None
     admit_time: Optional[float] = None
 
 
@@ -111,6 +127,7 @@ class RequestResult:
     queue_wait_s: Optional[float] = None
     prefill_s: Optional[float] = None
     prefix_hit: bool = False
+    trace_id: Optional[str] = None
 
 
 @dataclass
@@ -134,6 +151,8 @@ class EngineMetrics:
     prefix_hits: int = 0
     prefill_tokens_saved: int = 0
     prefix_pages: int = 0
+    # radix pages this engine installed from a peer (import_prefix_pages)
+    warm_pages_total: int = 0
     ttft_sum_s: float = 0.0
     ttft_count: int = 0
     outcomes: Dict[str, int] = field(
@@ -189,6 +208,7 @@ class EngineMetrics:
             ),
             "prefill_tokens_saved": self.prefill_tokens_saved,
             "prefix_pages": self.prefix_pages,
+            "warm_pages_total": self.warm_pages_total,
         }
         for outcome, count in self.outcomes.items():
             snap[f"requests_{outcome}"] = count
@@ -214,6 +234,11 @@ class _Slot:
     @property
     def active(self) -> bool:
         return self.request is not None
+
+
+def _page_bytes(page: torch.Tensor) -> bytes:
+    """One page's bytes as laid out in the pool (any dtype, bf16 too)."""
+    return page.contiguous().view(torch.uint8).numpy().tobytes()
 
 
 def _to_host(out: Tuple[torch.Tensor, ...]) -> np.ndarray:
@@ -257,6 +282,20 @@ class InferenceEngine:
         it as a ``rejected`` terminal result.
     forward_fn : override of the cached forward, with the signature
         ``(model, tokens, cfg, cache, **kw)``.
+    monitor, monitor_every : a ``SystemMonitor`` sampled with the metrics
+        snapshot every ``monitor_every`` decode steps.
+    tracer : a ``SpanTracer``: ``tick``/``admission``/``prefill``/
+        ``decode`` spans per tick (the decode span covers the replay and
+        its one token copy back) and request async events.
+    exporter : a ``TelemetryExporter`` fed an ``engine_metrics`` record
+        every ``monitor_every`` decode steps when the counters moved, and
+        at the end of ``run()``/``drain()``.
+    injector : a ``ServingFaultInjector`` (NaN logits, slow decode,
+        submit and deadline storms).
+    preemption : a ``PreemptionHandler``; once it is requested, ``run()``
+        drains the engine.
+    watchdog : a ``HangWatchdog`` beaten at the top of each ``step()``
+        (``make_serving_watchdog`` attaches one).
     on_tokens : ``(slot, request_id, token_ids)`` callback fed each
         newly sampled token on the host; a raising hook is disarmed.
     paged_kernel : the decode attention route of the paged layout:
@@ -287,6 +326,13 @@ class InferenceEngine:
         default_ttl_s: float = 0.0,
         strict_submit: bool = True,
         forward_fn: Optional[Callable] = None,
+        monitor: Any = None,
+        monitor_every: int = 16,
+        tracer: Any = None,
+        exporter: Any = None,
+        injector: Optional[ServingFaultInjector] = None,
+        preemption: Any = None,
+        watchdog: Any = None,
         on_tokens: Optional[Callable[[int, int, List[int]], None]] = None,
         paged_kernel: Optional[bool] = None,
         device: DeviceLike = None,
@@ -328,6 +374,13 @@ class InferenceEngine:
         self.queue_capacity = queue_capacity
         self.default_ttl_s = default_ttl_s
         self.strict_submit = strict_submit
+        self.monitor = monitor
+        self.monitor_every = monitor_every
+        self.tracer = tracer
+        self.exporter = exporter
+        self.injector = injector
+        self.preemption = preemption
+        self.watchdog = watchdog
         self.on_tokens = on_tokens
 
         self.cache_layout = cache_layout
@@ -427,6 +480,9 @@ class InferenceEngine:
         self.metrics = EngineMetrics(num_slots=max_slots)
         if self._paged:
             self._update_page_gauges()
+        # progress fingerprint of the last JSONL export: an idle engine
+        # appends no duplicate records
+        self._exported_key = self._export_key()
 
     def _resolve_model(self, params, cfg) -> torch.nn.Module:
         if not isinstance(params, torch.nn.Module):
@@ -461,6 +517,37 @@ class InferenceEngine:
                 self._tables_dev.copy_(self._tables_host, non_blocking=True)
             self._tables_dirty = False
 
+    def _span(self, name: str, **args):
+        """A telemetry span when a tracer is attached, the shared no-op
+        otherwise (spans time the host, never force a sync)."""
+        if self.tracer is None:
+            return NOOP_SPAN
+        return self.tracer.span(name, **args)
+
+    def _req_event(self, ph: str, req: Request, name: str, **args) -> None:
+        """A request-scoped async event (``ph`` in 'b'/'e'/'n') on the
+        request's trace_id track; one branch when untraced. The lifecycle
+        vocabulary is request / req.queued / req.admitted / req.prefill /
+        req.decode / req.finalize."""
+        if self.tracer is None or req.trace_id is None:
+            return
+        self.tracer.async_event(ph, name, req.trace_id, **args)
+
+    def _export_key(self):
+        """Progress fingerprint for the JSONL export (counters only: the
+        snapshot's rates move on every call)."""
+        return (self.metrics.decode_steps, self.metrics.requests_submitted,
+                tuple(sorted(self.metrics.outcomes.items())))
+
+    def _export_snapshot(self) -> None:
+        """Append a metrics record to the JSONL stream iff the counters
+        moved since the last export."""
+        key = self._export_key()
+        if key == self._exported_key:
+            return
+        self._exported_key = key
+        self.exporter.emit("engine_metrics", self.metrics.snapshot())
+
     # ---- compile accounting (the one-capture contract) --------------------
     @property
     def decode_compile_count(self) -> int:
@@ -491,12 +578,14 @@ class InferenceEngine:
         eos_id: Optional[int] = None,
         seed: int = 0,
         ttl_s: Optional[float] = None,
+        trace_id: Optional[str] = None,
     ) -> int:
         """Queue a request; returns its id. Admission happens inside
         ``step()`` when a slot (and, paged, the pages) frees up.
 
         ``ttl_s`` sets this request's deadline (None = engine
-        ``default_ttl_s``; <= 0 = none). Invalid submissions raise
+        ``default_ttl_s``; <= 0 = none). ``trace_id`` keys the request's
+        lifecycle events on the tracer. Invalid submissions raise
         (``strict_submit``) or end as ``rejected``; a draining engine
         raises ``EngineDraining`` / rejects. A full queue sheds its
         OLDEST request."""
@@ -525,11 +614,14 @@ class InferenceEngine:
         if err is not None and self.strict_submit:
             raise EngineDraining(err) if self._draining else ValueError(err)
         req = Request(request_id=next(self._ids), prompt=list(prompt),
-                      max_new_tokens=max_new_tokens, eos_id=eos_id, seed=seed)
+                      max_new_tokens=max_new_tokens, eos_id=eos_id, seed=seed,
+                      trace_id=trace_id)
         ttl = self.default_ttl_s if ttl_s is None else ttl_s
         if ttl and ttl > 0:
             req.deadline = req.submit_time + ttl
         self.metrics.requests_submitted += 1
+        self._req_event("b", req, "request", request_id=req.request_id)
+        self._req_event("b", req, "req.queued")
         if err is not None:
             self._finalize(req, "rejected", tokens=[], detail=err,
                            now=time.monotonic())
@@ -576,10 +668,16 @@ class InferenceEngine:
             queue_wait_s=queue_wait,
             prefill_s=prefill_s,
             prefix_hit=prefix_hit,
+            trace_id=req.trace_id,
         )
         if req.admit_time is not None and outcome in ("ok", "timeout"):
             # only SERVED requests feed the e2e histogram
             self.metrics.hist["e2e"].observe(latency)
+        self._req_event("e", req, "req.decode" if req.admit_time is not None
+                        else "req.queued")
+        self._req_event("n", req, "req.finalize", outcome=outcome,
+                        finish_reason=reason or outcome)
+        self._req_event("e", req, "request", outcome=outcome)
         self._finished_tick.append(self._results[req.request_id])
         self.metrics.record_outcome(outcome)
         if outcome != "ok":
@@ -654,7 +752,190 @@ class InferenceEngine:
         with torch.inference_mode():
             self._fill_slots(self.cache, mask, 0.0)
 
+    def _poison_slot(self, slot_idx: int) -> None:
+        """Fault injection: NaN-fill one slot's cache lines so its next
+        decode step gives non-finite logits, through the quarantine's
+        in-place fill. Paged, only the slot's MUTABLE pages: frozen prefix
+        pages may be shared, and poisoning them would fault neighbours
+        (with a page-aligned prompt the poison shows from the second
+        decode on)."""
+        active = [i for i, s in enumerate(self._slots) if s.active]
+        if not active:
+            logger.warning(
+                "fault injection: no active slot to poison; skipping")
+            return
+        if slot_idx not in active:
+            slot_idx = active[0]
+        if self._paged:
+            mask = np.zeros(self.num_pages, bool)
+            mask[self._slot_pages[slot_idx][
+                self._slot_frozen[slot_idx]:]] = True
+        else:
+            mask = np.zeros(self.max_slots, bool)
+            mask[slot_idx] = True
+        with torch.inference_mode():
+            self._fill_slots(self.cache, mask, float("nan"))
+
+    # ---- warm prefix exchange ----------------------------------------------
+    # A fresh engine warms its radix tree from a live peer. The donor side
+    # (export_prefix_map / export_prefix_pages) only reads: each page it
+    # ships is retained across the copy to the host and released after,
+    # so the donor's conservation never moves. The recipient
+    # (import_prefix_pages) allocates pool pages, copies the bytes into
+    # the pool in place (index_copy_ along the page axis: same storage,
+    # no recapture), registers the chains, and drops its allocation
+    # references in a ``finally`` so an interrupted import leaves the
+    # allocator conserved.
+
+    def _page_shape(self) -> List[int]:
+        """One page's shape in the pool: [L, Hkv, page_size, D]."""
+        return ([int(self.cache.k.shape[0])]
+                + [int(d) for d in self.cache.k.shape[2:]])
+
+    def export_prefix_map(self) -> Dict[str, Any]:
+        """The radix tree for a warming peer: root-to-leaf token chains
+        with their page ids, and each registered page's refcount."""
+        if not self._paged or self.radix is None:
+            return {"page_size": self.page_size if self._paged else None,
+                    "chains": [], "pages": {}}
+        return {
+            "page_size": self.page_size,
+            "dtype": str(self.cache.k.dtype),
+            "page_shape": self._page_shape(),
+            "chains": [
+                {"tokens": [int(t) for t in tokens],
+                 "pages": [int(p) for p in pages]}
+                for tokens, pages in self.radix.chains()],
+            "pages": {
+                int(p): {"refcount": self.allocator.refcount(p),
+                         "frozen": True}
+                for p in self.radix.registered_pages()},
+            "capacity": self.allocator.capacity,
+            "free": self.allocator.free_count,
+        }
+
+    def export_prefix_pages(
+        self, pages: Sequence[int]
+    ) -> Tuple[Dict[str, Any], Dict[int, Tuple[bytes, bytes]]]:
+        """The requested FROZEN pages' K/V bytes, copied to the host:
+        ``(meta, {page: (k_bytes, v_bytes)})``. Pages no longer registered
+        are left out."""
+        meta: Dict[str, Any] = {
+            "dtype": str(self.cache.k.dtype) if self._paged else None,
+            "page_shape": self._page_shape() if self._paged else [],
+            "page_size": self.page_size if self._paged else None,
+        }
+        contents: Dict[int, Tuple[bytes, bytes]] = {}
+        if not self._paged or self.radix is None:
+            return meta, contents
+        frozen = set(self.radix.registered_pages())
+        valid = [int(p) for p in pages if int(p) in frozen]
+        if not valid:
+            return meta, contents
+        for p in valid:
+            self.allocator.retain(p)
+        try:
+            idx = torch.tensor(valid, dtype=torch.long, device=self.device)
+            with torch.inference_mode():
+                k_host = self.cache.k.index_select(1, idx).cpu()
+                v_host = self.cache.v.index_select(1, idx).cpu()
+        finally:
+            for p in valid:
+                self.allocator.release(p)
+        for i, p in enumerate(valid):
+            contents[p] = (_page_bytes(k_host[:, i]),
+                           _page_bytes(v_host[:, i]))
+        return meta, contents
+
+    def import_prefix_pages(
+        self,
+        chains: Sequence[Tuple[Sequence[int], Sequence[int]]],
+        contents: Dict[int, Tuple[bytes, bytes]],
+        *,
+        dtype: Optional[str],
+        page_shape: Sequence[int],
+        page_size: Optional[int],
+    ) -> Dict[str, Any]:
+        """Install a donor's pages into this engine's pool and radix tree.
+        ``chains`` holds donor ``(tokens, donor_pages)`` paths; a chain
+        whose page bytes are missing keeps its valid PREFIX. Returns
+        ``{"pages": new radix pages, "chains": [registered tokens]}``."""
+        result: Dict[str, Any] = {"pages": 0, "chains": []}
+        if not self._paged or self.radix is None:
+            return result
+        expected = tuple(self._page_shape())
+        if (page_size != self.page_size
+                or str(dtype) != str(self.cache.k.dtype)
+                or tuple(int(d) for d in page_shape) != expected):
+            logger.warning(
+                "warm import skipped: peer pool is incompatible "
+                "(page_size=%s dtype=%s shape=%s vs local %s/%s/%s)",
+                page_size, dtype, tuple(page_shape), self.page_size,
+                self.cache.k.dtype, expected)
+            return result
+        page_nbytes = int(np.prod(expected)) * self.cache.k.element_size()
+        imported: Dict[int, int] = {}       # donor page -> local page
+        newly_allocated: List[int] = []
+        planned: List[Tuple[List[int], List[int]]] = []
+        try:
+            for tokens, donor_pages in chains:
+                local: List[int] = []
+                for dp in donor_pages:
+                    dp = int(dp)
+                    lp = imported.get(dp)
+                    if lp is None:
+                        data = contents.get(dp)
+                        if (data is None or len(data[0]) != page_nbytes
+                                or len(data[1]) != page_nbytes):
+                            break  # bytes never arrived: keep the prefix
+                        got = self.allocator.alloc(1)
+                        if got is None:
+                            break  # pool pressure: warm what fits
+                        lp = got[0]
+                        imported[dp] = lp
+                        newly_allocated.append(lp)
+                    local.append(lp)
+                if local:
+                    planned.append((
+                        [int(t) for t in
+                         tokens[:len(local) * self.page_size]], local))
+            if imported:
+                self._write_imported_pages(imported, contents)
+                created = 0
+                for tokens, local in planned:
+                    created += self.radix.insert(tokens, local)
+                self.metrics.warm_pages_total += created
+                result["pages"] = created
+                result["chains"] = [tokens for tokens, _ in planned]
+        finally:
+            # registered pages fall to the tree's single reference; pages
+            # the tree already held (and all, after an interrupted import)
+            # free at once
+            for lp in newly_allocated:
+                self.allocator.release(lp)
+            self._update_page_gauges()
+        return result
+
+    def _write_imported_pages(
+        self, imported: Dict[int, int],
+        contents: Dict[int, Tuple[bytes, bytes]],
+    ) -> None:
+        """Copy every imported page's bytes into the pool in place: one
+        ``index_copy_`` per buffer along the page axis."""
+        shape = self._page_shape()
+        dtype = self.cache.k.dtype
+        idx = torch.tensor(list(imported.values()), dtype=torch.long,
+                           device=self.device)
+        with torch.inference_mode():
+            for which, buf in enumerate(self.cache):
+                src = torch.stack(
+                    [torch.frombuffer(bytearray(contents[dp][which]),
+                                      dtype=torch.uint8)
+                     .view(dtype).view(shape) for dp in imported], dim=1)
+                buf.index_copy_(1, idx, src.to(self.device))
+
     def _admit(self) -> None:
+
         """Move queued requests into free slots and prefill them — ONE
         batched prefill call however many were admitted."""
         if self._paged:
@@ -675,6 +956,8 @@ class InferenceEngine:
         req.admit_time = time.monotonic()
         self.metrics.hist["queue_wait"].observe(
             req.admit_time - req.submit_time)
+        self._req_event("e", req, "req.queued")
+        self._req_event("n", req, "req.admitted", slot=i)
         self._seeds[i] = req.seed
         self.metrics.requests_admitted += 1
 
@@ -696,8 +979,11 @@ class InferenceEngine:
             write_mask[i] = True
             admitted.append(i)
         t0 = time.monotonic()
-        out = self._prefill(tokens=tokens, lengths=lengths,
-                            write_mask=write_mask, seeds=self._seeds)
+        for i in admitted:
+            self._req_event("b", self._slots[i].request, "req.prefill")
+        with self._span("prefill", admitted=len(admitted)):
+            out = self._prefill(tokens=tokens, lengths=lengths,
+                                write_mask=write_mask, seeds=self._seeds)
         self._after_prefill(admitted, out, t0)
 
     def _after_prefill(self, admitted: List[int],
@@ -709,8 +995,12 @@ class InferenceEngine:
         self.metrics.prefill_calls += 1
         now = time.monotonic()
         for i in admitted:
-            self._slots[i].prefill_s = now - t0
+            slot = self._slots[i]
+            slot.prefill_s = now - t0
             self.metrics.hist["prefill"].observe(now - t0)
+            # close the prefill event before a quarantine can retire it
+            self._req_event("e", slot.request, "req.prefill")
+            self._req_event("b", slot.request, "req.decode")
         poisoned = [i for i in admitted if not host[1, i]]
         if poisoned:
             # poison prompts skip radix registration: their pages hold
@@ -803,9 +1093,14 @@ class InferenceEngine:
         if not admitted:
             return
         t0 = time.monotonic()
-        self._upload_tables()
-        out = self._prefill(tokens=tokens, tail_lens=tail_lens, starts=starts,
-                            write_mask=write_mask, seeds=self._seeds)
+        for i in admitted:
+            self._req_event("b", self._slots[i].request, "req.prefill",
+                            prefix_hit=self._slots[i].prefix_hit)
+        with self._span("prefill", admitted=len(admitted)):
+            self._upload_tables()
+            out = self._prefill(tokens=tokens, tail_lens=tail_lens,
+                                starts=starts, write_mask=write_mask,
+                                seeds=self._seeds)
         self._after_prefill(admitted, out, t0)
 
     def _emit(self, i: int, token: int, now: float) -> None:
@@ -844,35 +1139,70 @@ class InferenceEngine:
     def step(self) -> List[RequestResult]:
         """One engine tick: deadline sweep, admission (prefill), then one
         decode step for the active slots. Returns every result that
-        reached its terminal outcome since the previous ``step()``."""
-        self._expire(time.monotonic())
-        self._admit()
-        active_idx = [i for i, s in enumerate(self._slots) if s.active]
-        if active_idx:
-            tokens = np.zeros(self.max_slots, np.int32)
-            positions = np.zeros(self.max_slots, np.int32)
-            active = np.zeros(self.max_slots, bool)
-            for i in active_idx:
-                slot = self._slots[i]
-                # feed the last emitted token at its absolute position
-                tokens[i] = slot.tokens[-1]
-                positions[i] = slot.position + slot.generated - 1
-                active[i] = True
-            if self._paged:
-                self._upload_tables()
-            out = self._decode(tokens=tokens, positions=positions,
-                               active=active, seeds=self._seeds)
-            self.metrics.decode_steps += 1
-            host = _to_host(out)
-            now = time.monotonic()
-            poisoned = [i for i in active_idx if not host[1, i]]
-            if poisoned:
-                self._quarantine(poisoned, now, where="decode")
-            for i in active_idx:
-                if host[1, i]:
-                    self._emit(i, int(host[0, i]), now)
+        reached its terminal outcome since the previous ``step()``. The
+        watchdog is beaten and the injector's storms fire first; its
+        poison and stall fire before the decode."""
+        tick = self.metrics.decode_steps + 1  # the decode step this tick runs
+        if self.watchdog is not None:
+            self.watchdog.beat(step=self.metrics.decode_steps,
+                               phase="serve-step")
+        inj = self.injector
+        if inj is not None:
+            storm = inj.take_submit_storm(tick) if not self._draining else 0
+            for _ in range(storm):
+                self.submit([1], max_new_tokens=1)
+            if inj.take_deadline_storm(tick):
+                past = time.monotonic() - 1.0
+                for req in self._queue:
+                    req.deadline = past
+                for s in self._slots:
+                    if s.active:
+                        s.request.deadline = past
+        with self._span("tick", tick=tick):
+            with self._span("admission"):
+                self._expire(time.monotonic())
+                self._admit()
+            active_idx = [i for i, s in enumerate(self._slots) if s.active]
+            if active_idx:
+                if inj is not None:
+                    poison = inj.take_nan_logits(tick)
+                    if poison is not None:
+                        self._poison_slot(poison)
+                    stall = inj.take_slow_decode(tick)
+                    if stall > 0:
+                        time.sleep(stall)
+                tokens = np.zeros(self.max_slots, np.int32)
+                positions = np.zeros(self.max_slots, np.int32)
+                active = np.zeros(self.max_slots, bool)
+                for i in active_idx:
+                    slot = self._slots[i]
+                    # feed the last emitted token at its absolute position
+                    tokens[i] = slot.tokens[-1]
+                    positions[i] = slot.position + slot.generated - 1
+                    active[i] = True
+                # the span covers the replay and its one copy back
+                with self._span("decode", active=len(active_idx)):
+                    if self._paged:
+                        self._upload_tables()
+                    out = self._decode(tokens=tokens, positions=positions,
+                                       active=active, seeds=self._seeds)
+                    host = _to_host(out)
+                self.metrics.decode_steps += 1
+                now = time.monotonic()
+                poisoned = [i for i in active_idx if not host[1, i]]
+                if poisoned:
+                    self._quarantine(poisoned, now, where="decode")
+                for i in active_idx:
+                    if host[1, i]:
+                        self._emit(i, int(host[0, i]), now)
         self.metrics.active_slots = sum(s.active for s in self._slots)
         self.metrics.queue_depth = len(self._queue)
+        if ((self.monitor is not None or self.exporter is not None)
+                and self.metrics.decode_steps % self.monitor_every == 0):
+            if self.monitor is not None:
+                self.monitor.sample(counters=self.metrics.snapshot())
+            if self.exporter is not None:
+                self._export_snapshot()
         finished, self._finished_tick = self._finished_tick, []
         return finished
 
@@ -925,9 +1255,17 @@ class InferenceEngine:
     def run(self, max_steps: int = 100_000) -> Dict[int, RequestResult]:
         """Drive ``step()`` until queue and slots drain; returns all
         results by request id. On ``max_steps`` exhaustion the unfinished
-        requests end as ``aborted`` with their partial tokens."""
+        requests end as ``aborted`` with their partial tokens. A pending
+        preemption request switches to ``drain()``: admissions stop, the
+        admitted requests finish, and the engine returns cleanly."""
         steps = 0
         while self.pending and steps < max_steps:
+            if self.preemption is not None and self.preemption.requested:
+                logger.warning(
+                    "preemption requested (signal %s): draining the engine",
+                    self.preemption.signum)
+                self.drain(max_steps=max_steps - steps)
+                return dict(self._results)
             self.step()
             steps += 1
         if self.pending:
@@ -935,6 +1273,9 @@ class InferenceEngine:
                 "engine did not drain within %d steps: aborting %d "
                 "in-flight requests", max_steps, self.pending)
             self._abort_pending(f"run(max_steps={max_steps}) exhausted")
+        if self.exporter is not None:
+            # the terminal counters reach the stream between cadence points
+            self._export_snapshot()
         return dict(self._results)
 
     def drain(self, *, max_steps: int = 100_000,
@@ -955,6 +1296,8 @@ class InferenceEngine:
             steps += 1
         if self.pending:
             self._abort_pending(f"drain(max_steps={max_steps}) exhausted")
+        if self.exporter is not None:
+            self._export_snapshot()
         return dict(self._results)
 
     def result(self, request_id: int) -> Optional[RequestResult]:

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from scaletorch_tpu_torch.env import get_env
 from scaletorch_tpu_torch.models import llama as _llama
 from scaletorch_tpu_torch.models.layers import get_cos_sin, rms_norm
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
@@ -62,8 +62,7 @@ GROUPED_MLP_ENV = "SCALETORCH_TPU_GROUPED_MLP_KERNEL"
 
 def _grouped_mlp_env_default() -> bool:
     """The kernel toggle as the reference reads it: default off."""
-    return os.environ.get(GROUPED_MLP_ENV, "0").lower() in (
-        "1", "true", "yes", "on")
+    return get_env(GROUPED_MLP_ENV)
 
 
 @dataclass(frozen=True)

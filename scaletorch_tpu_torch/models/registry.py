@@ -3,8 +3,9 @@
 ``register_attention_backend`` / ``get_attention_backend`` and the same
 resolution order for ``"auto"``: context parallel forces ``ring``, the
 ``FLASH_ATTEN`` toggle (default on) selects ``flash`` unless
-``SCALETORCH_TPU_DISABLE_PALLAS`` is set, otherwise ``sdpa``. The port
-reads those two variables itself, with the reference's defaults.
+``SCALETORCH_TPU_DISABLE_PALLAS`` is set, otherwise ``sdpa``; the
+variables are read through the env registry (``scaletorch_tpu_torch/
+env.py``), with the reference's defaults.
 
 A backend is ``fn(q, k, v, *, causal, scale=None) -> out`` with q/k/v
 ``[batch, heads, seq, head_dim]``; KV heads may be fewer than query heads
@@ -13,22 +14,15 @@ A backend is ``fn(q, k, v, *, causal, scale=None) -> out`` with q/k/v
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Dict, Optional
+
+from scaletorch_tpu_torch.env import get_env
 
 _BACKENDS: Dict[str, Callable] = {}
 
-# name -> default, as the reference's env registry declares them
-_TOGGLES = {
-    "FLASH_ATTEN": "1",
-    "CONTEXT_PARALLEL": "0",
-    "SCALETORCH_TPU_DISABLE_PALLAS": "0",
-}
-
 
 def _toggle(name: str) -> bool:
-    return os.environ.get(name, _TOGGLES[name]).lower() in (
-        "1", "true", "yes", "on")
+    return get_env(name)
 
 
 def register_attention_backend(name: str, fn: Optional[Callable] = None):

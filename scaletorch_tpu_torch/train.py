@@ -32,16 +32,31 @@ checkpoint (safetensors and ``config.json``). The tokenizer
 is the one ``--tokenizer_name_or_path`` (default: the model directory)
 holds, built with ``transformers``; a Python caller can hand
 ``Trainer(cfg, tokenizer=...)`` any tokenizer object instead.
+
+The exit code is the reference's contract: 0 when the run finished or
+was preempted (SIGTERM or SIGINT asks for an emergency checkpoint at the
+next step boundary; the log says whether it is on disk, and a restart
+with ``--resume auto`` continues from it), 42 when the divergence
+sentinel aborted (a crash report is under ``--crash_report_dir``), 43
+when the hang watchdog fired (``--ft_hang_timeout``; it exits from its
+own thread), 130 on a KeyboardInterrupt. ``--telemetry_dir D`` writes a
+Chrome trace, the JSONL event stream and profiler windows under D, and
+``kill -USR1 <pid>`` dumps a live snapshot there.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import List, Optional
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     from scaletorch_tpu_torch.config import parse_args
+    from scaletorch_tpu_torch.resilience import TrainingDivergedError
+    from scaletorch_tpu_torch.resilience_distributed import (
+        DIVERGED_EXIT_CODE,
+    )
     from scaletorch_tpu_torch.trainer.trainer import Trainer
     from scaletorch_tpu_torch.utils.logger import get_logger
 
@@ -54,12 +69,45 @@ def main(argv: Optional[List[str]] = None) -> int:
             extra[flag] = argv[i + 1]
             del argv[i:i + 2]
     cfg = parse_args(argv)
+    # with --resume auto|must the Trainer restores the newest checkpoint
     trainer = Trainer(cfg, device=extra["--device"])
-    last = trainer.train()
-    if extra["--export_hf_dir"]:
-        trainer.export_hf(extra["--export_hf_dir"])
-    trainer.close()
-    get_logger().info(f"done: {last}")
+    log = get_logger()
+    if trainer.telemetry.enabled:
+        log.info(f"telemetry enabled -> {trainer.telemetry.directory} "
+                 "(Chrome trace + JSONL event stream; kill -USR1 "
+                 f"{os.getpid()} dumps a live snapshot)")
+    try:
+        last = trainer.train()
+        if trainer.preempted:
+            # a clean exit either way, with the truth about what survived
+            if trainer.emergency_checkpoint_saved:
+                log.warning(
+                    f"preempted at step {trainer.global_step}; emergency "
+                    "checkpoint saved — restart with --resume auto to "
+                    "continue")
+            else:
+                log.error(
+                    f"preempted at step {trainer.global_step} and NO "
+                    "emergency checkpoint could be written — a restart "
+                    "resumes from the last periodic save (or step 0)")
+            return 0
+        if (cfg.checkpoint_dir and cfg.save_frequency
+                and trainer.checkpoint_manager.latest_step()
+                != trainer.global_step):
+            trainer.save_checkpoint()
+        if extra["--export_hf_dir"]:
+            trainer.export_hf(extra["--export_hf_dir"])
+    except TrainingDivergedError as exc:
+        # the trainer wrote its crash report; the code tells a launcher
+        # "diverged, needs a human" from "preempted, just restart"
+        log.error(f"training aborted: {exc}")
+        return DIVERGED_EXIT_CODE
+    except KeyboardInterrupt:
+        log.warning("interrupted; exiting")
+        return 130
+    finally:
+        trainer.close()
+    log.info(f"done: {last}")
     return 0
 
 

@@ -1,5 +1,7 @@
 """Per-step training metrics: tokens/s, MFU, memory, a console line and a
-history (counterpart of scaletorch_tpu/trainer/metrics.py).
+history (counterpart of scaletorch_tpu/trainer/metrics.py), and each
+logged record on the telemetry exporter's JSONL stream when one is
+attached.
 
 On a step that does not log nothing is read back from the card, so the
 host keeps queueing work; rates are taken over the window since the
@@ -23,7 +25,8 @@ from scaletorch_tpu_torch.utils.misc import get_mfu, to_readable_format
 from scaletorch_tpu_torch.utils.monitor import SystemMonitor
 
 # training-health counters that ride into the monitor's ring buffer
-COUNTER_KEYS = ("update_skipped",)
+COUNTER_KEYS = ("anomalies", "nonfinite_losses", "loss_spikes", "rollbacks",
+                "update_skipped", "straggler_flags")
 
 
 @dataclass
@@ -37,6 +40,9 @@ class MetricsLogger:
     log_frequency: int = 1
     peak_flops: Optional[float] = None
     device: DeviceLike = None
+    # optional telemetry.TelemetryExporter: every logged record also lands
+    # on the JSONL event stream (kind 'train_step')
+    exporter: Optional[object] = None
     history: list = field(default_factory=list)
     _window_start_time: Optional[float] = None
     _window_start_step: Optional[int] = None
@@ -93,6 +99,8 @@ class MetricsLogger:
                       if k not in ("time", "step", "device_mem_gb",
                                    "device_peak_mem_gb"))
         self.history.append(record)
+        if self.exporter is not None:
+            self.exporter.emit("train_step", record)
         parts = [f"step {step:>6}", f"loss {record['loss']:.4f}",
                  f"lr {record['lr']:.2e}", f"gnorm {record['grad_norm']:.3f}"]
         if "tokens_per_second" in record:

@@ -32,11 +32,11 @@ under ``torch.no_grad()``, without gradient checkpointing.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from scaletorch_tpu_torch.env import get_env
 from scaletorch_tpu_torch.models import llama, qwen3_moe
 from scaletorch_tpu_torch.parallel.tensor_parallel import (
     fused_vocab_parallel_cross_entropy,
@@ -52,9 +52,9 @@ Batch = Dict[str, Tensor]  # input_ids/target_ids [accum, micro_bs, seq]
 
 
 def ce_chunk_size() -> int:
-    """``SCALETORCH_TPU_CE_CHUNK`` (default 1024), as the reference reads
-    it."""
-    return int(os.environ.get("SCALETORCH_TPU_CE_CHUNK") or 1024)
+    """``SCALETORCH_TPU_CE_CHUNK`` (default 1024), read through the env
+    registry as the reference reads it."""
+    return get_env("SCALETORCH_TPU_CE_CHUNK")
 
 
 def global_grad_norm(grads: List[Tensor]) -> Tensor:

@@ -21,8 +21,17 @@ every ``save_frequency`` steps, and the metrics history as JSON in
 ``performance_log_dir`` at the end; ``export_hf(path)`` writes the
 parameters as a HF checkpoint. ``device=None`` means the CUDA card
 and raises without one; the CPU runs only when asked for by name.
-Telemetry, the resilience policies and the elastic paths are still to
-port (ROADMAP Queue 1).
+
+The runtime around the loop follows the reference's: a
+``ResilienceManager`` (divergence sentinel with skip, rollback or abort;
+fault injection from the ``ft_*`` fields and ``SCALETORCH_TPU_FT_*``),
+``PreemptionHandler`` installed for ``train()`` (SIGTERM or SIGINT asks
+for an emergency checkpoint at the next step boundary and a clean
+return with ``preempted`` set), a ``HangWatchdog`` when
+``ft_hang_timeout`` > 0, a crash report on every abort path, and the
+``Telemetry`` facade (spans, the JSONL stream, profiler windows, SIGUSR1
+live snapshots) when ``telemetry_dir`` is set. The multi-process
+decisions and the elastic paths wait for ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -45,6 +55,17 @@ from scaletorch_tpu_torch.data.dataloader import (
 from scaletorch_tpu_torch.models import llama, qwen3_moe
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
 from scaletorch_tpu_torch.models.registry import resolve_attention_backend
+from scaletorch_tpu_torch.resilience import (
+    ResilienceManager,
+    TrainingDivergedError,
+)
+from scaletorch_tpu_torch.resilience_distributed import (
+    CoordinatedResilience,
+    HangWatchdog,
+    hang_timeout_from_config,
+    write_crash_report,
+)
+from scaletorch_tpu_torch.telemetry import NOOP_SPAN, Telemetry
 from scaletorch_tpu_torch.trainer.metrics import MetricsLogger
 from scaletorch_tpu_torch.trainer.optimizer import (
     create_optimizer,
@@ -138,11 +159,13 @@ def build_model_config(cfg: ScaleTorchTPUArguments):
 
 
 def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
-                     tokenizer: Any = None):
+                     tokenizer: Any = None, fault_injector: Any = None):
     """The synthetic stream (``synthetic_data``, or no ``dataset_name``),
     else ``MicroBatchDataLoader`` over the local file ``dataset_name``
     tokenized by ``tokenizer`` (an object), or by the tokenizer that
-    ``tokenizer_name_or_path`` (default: ``model_name_or_path``) names."""
+    ``tokenizer_name_or_path`` (default: ``model_name_or_path``) names;
+    ``fault_injector`` drills its step-batch reads
+    (``ft_bad_batch_at_step``)."""
     if cfg.synthetic_data or not cfg.dataset_name:
         return SyntheticDataLoader(
             vocab_size=min(model_cfg.vocab_size,
@@ -175,6 +198,7 @@ def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
         read_retries=cfg.data_read_retries,
         retry_base_delay=cfg.data_retry_base_delay,
         max_skipped_batches=cfg.data_max_skipped_batches,
+        fault_injector=fault_injector,
     )
 
 
@@ -218,7 +242,15 @@ class Trainer:
         self.optimizer, self.schedule = create_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.params)
         self.tokenizer = tokenizer
-        self.loader = build_dataloader(cfg, self.model_cfg, tokenizer)
+        # host-side resilience, built before the loader so its corrupt-read
+        # drill binds the same injector; the device-side half is the
+        # train step's guarded_update
+        self.resilience = ResilienceManager.from_config(cfg)
+        self.coordinator = CoordinatedResilience.from_config(
+            cfg, self.resilience)
+        self._watchdog: Optional[HangWatchdog] = None
+        self.loader = build_dataloader(cfg, self.model_cfg, tokenizer,
+                                       fault_injector=self.resilience.injector)
         self.step_fn = make_train_step(
             self.model_cfg, self.optimizer,
             attention_backend=self.attention_backend,
@@ -242,8 +274,30 @@ class Trainer:
             peak_flops=self.peak_flops(),
             device=self.device,
         )
+        # spans, the JSONL stream, profiler windows and SIGUSR1 snapshots:
+        # every component None (one branch a site) without telemetry_dir
+        self.telemetry = Telemetry.from_config(cfg)
+        self._tracer = self.telemetry.tracer
+        self.metrics.exporter = self.telemetry.exporter
+        self._last_data_fetch_s = 0.0
+        if self.telemetry.snapshotter is not None:
+            # armed now, not in train(): SIGUSR1's default disposition
+            # would end the run during set-up; close() uninstalls it
+            self.telemetry.snapshotter.install(self._live_snapshot)
         self.global_step = 0
         self.tokens_seen = 0
+        self.preempted = False
+        self.emergency_checkpoint_saved = False
+        # seconds of the last emergency checkpoint: the drain of a save in
+        # flight, the save's blocking snapshot, the wait for its write
+        self.emergency_timing: Dict[str, float] = {}
+        # the loader's position minus global_step: a rollback moves
+        # global_step back while the stream moves past the bad region, and
+        # every later checkpoint must keep that skew; the position the
+        # newest checkpoint stores tells the emergency save whether the
+        # checkpoint at this step is stale
+        self._loader_skew = 0
+        self._saved_loader_position: Optional[int] = None
         self._train_iter = None
         self._ckpt_mgr = None
         self._eval_fn = None
@@ -274,11 +328,16 @@ class Trainer:
              ) -> Dict[str, Any]:
         """Run ONE optimizer step on ``batch`` (default: the loader's next
         batch) and return its metrics (0-d device tensors)."""
+        self._last_data_fetch_s = 0.0
         if batch is None:
             if self._train_iter is None:
                 self._train_iter = iter(self.loader)
+            self._beat("data_fetch")
+            t_fetch = time.perf_counter()
             batch = next(self._train_iter)
+            self._last_data_fetch_s = time.perf_counter() - t_fetch
         dev_batch = device_batch(batch, self.device)
+        self._beat("step_dispatch")
         self.params, self.opt_state, m = self.step_fn(
             self.params, self.opt_state, dev_batch)
         self.global_step += 1
@@ -347,34 +406,45 @@ class Trainer:
                 async_save=self.cfg.async_checkpointing,
                 retries=self.cfg.checkpoint_retries,
                 retry_base_delay=self.cfg.checkpoint_retry_base_delay,
+                fault_injector=self.resilience.injector,
                 verify=self.cfg.checkpoint_verify,
             )
         return self._ckpt_mgr
 
     def _stream_position(self) -> int:
-        """Step batches the loader has handed out (it counts skipped
-        regions too); the step count for a loader without a position."""
+        """The stream position covered so far: the loader's own (it counts
+        skipped regions too), else ``global_step`` plus the skew a
+        rollback left. Keeps the skew in step with the loader's."""
         position = getattr(self.loader, "position", None)
-        return self.global_step if position is None else position
+        if position is None:
+            return self.global_step + self._loader_skew
+        self._loader_skew = position - self.global_step
+        return position
 
     def save_checkpoint(self) -> bool:
         """Save the parameters, the optimizer state and the counters
         (``tokens_seen``, the loader's ``loader_position`` and its
         ``samples_per_step``) at ``global_step``."""
-        return self.checkpoint_manager.save(
-            step=self.global_step, params=self.params,
-            opt_state=self.opt_state,
-            extra={"tokens_seen": self.tokens_seen,
-                   "loader_position": self._stream_position(),
-                   "samples_per_step": getattr(
-                       self.loader, "samples_per_step", None)})
+        self._beat("checkpoint")
+        position = self._stream_position()
+        with self._span("checkpoint_save", step=self.global_step):
+            saved = self.checkpoint_manager.save(
+                step=self.global_step, params=self.params,
+                opt_state=self.opt_state,
+                extra={"tokens_seen": self.tokens_seen,
+                       "loader_position": position,
+                       "samples_per_step": getattr(
+                           self.loader, "samples_per_step", None)})
+        if saved:
+            self._saved_loader_position = position
+        return saved
 
     def load_checkpoint(self, required: bool = False) -> bool:
         """Restore the newest readable checkpoint in place; returns
         whether one was restored. ``required`` (``--resume must``) raises
         when none restores. The loader is fast-forwarded to the saved
-        ``loader_position`` (translated if the step size changed) and
-        the live iterator dropped."""
+        ``loader_position`` (translated if the step size changed; ahead
+        of the step after a rollback) and the live iterator dropped."""
         restored = self.checkpoint_manager.load_latest(
             params=self.params, opt_state=self.opt_state)
         if restored is None:
@@ -396,11 +466,148 @@ class Trainer:
             position = remap_loader_position(
                 position, old_samples_per_step=int(saved_spp),
                 new_samples_per_step=int(cur_spp))
+        self._loader_skew = position - self.global_step
+        self._saved_loader_position = position
         if hasattr(self.loader, "set_state"):
             self.loader.set_state(position)
         self._train_iter = None
         self.logger.info(f"resumed from step {self.global_step}")
         return True
+
+    def _rollback_to_last_good(self, anomaly_step: int) -> bool:
+        """The sentinel's rollback: drain any save in flight (it would
+        otherwise land after the restore as a stale newest checkpoint),
+        restore the newest checkpoint in place (every parameter and state
+        tensor keeps its storage) and fast-forward the stream PAST the
+        anomalous batch, keeping the skew for later checkpoints. False
+        (the caller skips instead) without a restorable checkpoint."""
+        if not self.cfg.checkpoint_dir:
+            return False
+        self.checkpoint_manager.wait()
+        if self.checkpoint_manager.latest_step() is None:
+            return False
+        self.logger.warning(
+            f"divergence at step {anomaly_step}: rolling back to the last "
+            "good checkpoint and fast-forwarding the data stream")
+        # the anomalous batch's true position, before the restore
+        # overwrites the skew from the checkpoint
+        bad_position = self._stream_position()
+        if not self.load_checkpoint():
+            return False
+        self._loader_skew = bad_position - self.global_step
+        if hasattr(self.loader, "set_state"):
+            self.loader.set_state(bad_position)
+            self._train_iter = None
+        return True
+
+    def _emergency_checkpoint(self) -> bool:
+        """Preemption: persist the state at this step boundary and return
+        whether this step's state is on disk (also kept as
+        ``emergency_checkpoint_saved``). It drains a save in flight first,
+        then saves and waits for the write; ``emergency_timing`` keeps
+        the seconds of each part."""
+        sig = (self.resilience.preemption.signum
+               if self.resilience.preemption is not None else None)
+        self.emergency_timing = {}
+        if not self.cfg.checkpoint_dir:
+            self.logger.warning(
+                f"preemption requested (signal {sig}) but no "
+                "checkpoint_dir is configured: exiting without a "
+                "checkpoint")
+            self.emergency_checkpoint_saved = False
+            return False
+        self.coordinator.verify_agreement(
+            "emergency_checkpoint_step", self.global_step)
+        self._beat("emergency_checkpoint")
+        mgr = self.checkpoint_manager
+        t0 = time.perf_counter()
+        mgr.wait()
+        drained = time.perf_counter()
+        self.emergency_timing["drain_s"] = drained - t0
+        if mgr.latest_step() == self.global_step:
+            if self._saved_loader_position == self._stream_position():
+                # the cadence already saved this very state
+                self.logger.warning(
+                    f"preemption requested (signal {sig}): step "
+                    f"{self.global_step} is already checkpointed; exiting")
+                self.emergency_checkpoint_saved = True
+                return True
+            # same step, stale loader position (a rollback moved the
+            # stream after it was saved): replace it
+            try:
+                mgr.delete(self.global_step)
+            except OSError as exc:
+                self.logger.error(
+                    f"could not replace stale checkpoint at step "
+                    f"{self.global_step}: {exc!r}")
+        self.logger.warning(
+            f"preemption requested (signal {sig}): writing emergency "
+            f"checkpoint at step {self.global_step}")
+        saved = self.save_checkpoint()
+        saved_at = time.perf_counter()
+        saved = mgr.wait() and saved
+        self.emergency_timing.update(
+            blocking_s=saved_at - drained,
+            write_s=time.perf_counter() - saved_at,
+            total_s=time.perf_counter() - t0)
+        # the directory is the ground truth of "is my step on disk"
+        saved = saved and mgr.latest_step() == self.global_step
+        self.emergency_checkpoint_saved = saved
+        return saved
+
+    # -- liveness, spans and post-mortems -------------------------------------
+    def _beat(self, phase: str) -> None:
+        """Feed the hang watchdog and the tracer's phase track: liveness
+        and tracing share one phase vocabulary (step_boundary /
+        data_fetch / step_dispatch / checkpoint / emergency_checkpoint).
+        One branch each when neither is armed."""
+        if self._watchdog is not None:
+            self._watchdog.beat(self.global_step, phase)
+        if self._tracer is not None:
+            self._tracer.phase(phase, step=self.global_step)
+
+    def _span(self, name: str, **args):
+        """A telemetry span when a tracer is attached, the shared no-op
+        otherwise."""
+        if self._tracer is None:
+            return NOOP_SPAN
+        return self._tracer.span(name, **args)
+
+    def _write_crash_report(self, reason: str, thread_stacks=None) -> str:
+        return write_crash_report(
+            reason,
+            self.global_step,
+            directory=self.cfg.crash_report_dir,
+            config=self.cfg,
+            monitor_records=self.metrics.ring_buffer(),
+            last_metrics=self.metrics.history[-5:],
+            counters=self.resilience.counters(),
+            thread_stacks=thread_stacks,
+            span_tail=self.telemetry.span_tail(),
+        )
+
+    def _live_snapshot(self) -> Dict[str, Any]:
+        """The SIGUSR1 payload: what a crash report carries, from a live
+        run. Host-side state only (the handler may run right after a
+        blocking CUDA wait and must not touch a tensor)."""
+        return {
+            "step": self.global_step,
+            "tokens_seen": self.tokens_seen,
+            "span_tail": self.telemetry.span_tail(),
+            "monitor_records": self.metrics.ring_buffer(64),
+            "last_metrics": self.metrics.history[-5:],
+            "counters": {**self.resilience.counters(),
+                         **self.coordinator.straggler_counters()},
+        }
+
+    def _watchdog_crash_report(self, info: dict) -> str:
+        """The HangWatchdog's callback: the post-mortem before the exit."""
+        return self._write_crash_report(
+            info["reason"], thread_stacks=info.get("thread_stacks"))
+
+    # a hook of its own so tests can record the exit; os._exit, since a
+    # SystemExit raised on the watchdog's thread would not end a wedged run
+    _watchdog_exit = staticmethod(os._exit)
 
     def export_hf(self, path: str, dtype: str = "bfloat16",
                   max_shard_bytes: int = 5 * 1024 ** 3) -> str:
@@ -424,34 +631,98 @@ class Trainer:
         """Run ``num_steps`` more steps (default: up to
         ``total_train_steps``, so a resumed run ends where an
         uninterrupted one would) and return the last logged record (with
-        ``val_loss`` on an eval step)."""
+        ``val_loss`` on an eval step).
+
+        At each step boundary a preemption request (SIGTERM or SIGINT
+        under ``handle_preemption``) writes an emergency checkpoint and
+        returns with ``preempted`` set; after each step the divergence
+        sentinel applies its policy (skip, rollback to the last good
+        checkpoint, abort with a crash report and
+        ``TrainingDivergedError``)."""
         cfg = self.cfg
         target = (max(cfg.total_train_steps, self.global_step)
                   if num_steps is None else self.global_step + num_steps)
         last: Dict[str, Any] = {}
+        self.preempted = False
+        if cfg.handle_preemption:
+            self.resilience.install_preemption_handler()
+        hang_timeout = hang_timeout_from_config(cfg)
+        if hang_timeout > 0 and self._watchdog is None:
+            self._watchdog = HangWatchdog(
+                hang_timeout, crash_report=self._watchdog_crash_report,
+                exit_fn=self._watchdog_exit).start()
+        if self.telemetry.snapshotter is not None:
+            self.telemetry.snapshotter.install(self._live_snapshot)
+        profiler = self.telemetry.profiler
         self.metrics.start_window(self.global_step)
-        while self.global_step < target:
-            m = self.step()
-            step = self.global_step
-            record = self.metrics.log_step(
-                step, loss=m["loss"],
-                # the update just applied used the count before it advanced
-                lr=float(self.schedule(step - 1)),
-                grad_norm=m["grad_norm"],
-                extras={k: v for k, v in m.items()
-                        if k not in ("loss", "grad_norm")})
-            last = record or last
-            if cfg.eval_frequency and step % cfg.eval_frequency == 0:
-                val = self.evaluate()
-                if val is not None:
-                    self.logger.info(f"step {step:>6} | val_loss {val:.4f}")
-                    if record:
-                        record["val_loss"] = val
-                    else:
-                        last = {**last, "val_loss": val}
-            if (cfg.save_frequency and cfg.checkpoint_dir
-                    and step % cfg.save_frequency == 0):
-                self.save_checkpoint()
+        try:
+            while self.global_step < target:
+                self._beat("step_boundary")
+                t_boundary = time.perf_counter()
+                # the telemetry drill stalls the step about to run, so the
+                # slow-step detector fires on exactly that step
+                self.resilience.injector.maybe_slow_step(self.global_step + 1)
+                if profiler is not None:
+                    profiler.before_step(self.global_step + 1)
+                if self.coordinator.should_stop():
+                    self._emergency_checkpoint()
+                    self.preempted = True
+                    break
+                m = self.step()
+                step_time = time.perf_counter() - t_boundary
+                step = self.global_step
+                m, action = self.coordinator.after_step(
+                    step, m,
+                    rollback=lambda: self._rollback_to_last_good(step),
+                    position=self._stream_position(),
+                    telemetry={"step_time": step_time,
+                               "data_fetch_time": self._last_data_fetch_s})
+                if profiler is not None:
+                    profiler.after_step(step, step_time)
+                if action == "rollback":
+                    # global_step is back at the restored checkpoint: the
+                    # anomalous step's record would be logged against the
+                    # wrong step
+                    continue
+                record = self.metrics.log_step(
+                    step, loss=m["loss"],
+                    # the update just applied used the count before it
+                    # advanced
+                    lr=float(self.schedule(step - 1)),
+                    grad_norm=m["grad_norm"],
+                    extras={**{k: v for k, v in m.items()
+                               if k not in ("loss", "grad_norm")},
+                            **self.coordinator.counters(),
+                            **self.coordinator.straggler_counters()})
+                last = record or last
+                if cfg.eval_frequency and step % cfg.eval_frequency == 0:
+                    val = self.evaluate()
+                    if val is not None:
+                        self.logger.info(
+                            f"step {step:>6} | val_loss {val:.4f}")
+                        if record:
+                            record["val_loss"] = val
+                        else:
+                            last = {**last, "val_loss": val}
+                if (cfg.save_frequency and cfg.checkpoint_dir
+                        and step % cfg.save_frequency == 0):
+                    self.save_checkpoint()
+        except TrainingDivergedError as exc:
+            # every abort path leaves a post-mortem on disk
+            self._write_crash_report(str(exc))
+            raise
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+            self.resilience.uninstall_preemption_handler()
+            if profiler is not None:
+                profiler.close()
+            # the SIGUSR1 handler stays armed until close(); train() may
+            # be called again, so the tracer stays open
+            if self._tracer is not None:
+                self._tracer.end_phase()
+            self.telemetry.flush()
         if self._ckpt_mgr is not None:
             self._ckpt_mgr.wait()  # the last async save is on disk
         if cfg.performance_log_dir:
@@ -462,7 +733,9 @@ class Trainer:
         return last
 
     def close(self) -> None:
-        """Finish any asynchronous save and release its buffers."""
+        """Finish any asynchronous save, release its buffers, and close
+        the telemetry (the trace file becomes valid JSON here)."""
         if self._ckpt_mgr is not None:
             self._ckpt_mgr.close()
             self._ckpt_mgr = None
+        self.telemetry.close()

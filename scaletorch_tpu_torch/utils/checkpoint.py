@@ -24,8 +24,10 @@ tensors, in place: it reads into host buffers first, so a step that
 fails to read leaves the live state untouched, falls back to the step
 before and retires the unreadable ones.
 
+``fault_injector`` (the trainer passes its ``FaultInjector``) makes the
+first ``ft_fail_saves`` write attempts fail, which drills the retries.
 The coordinated multi-process paths and restoring onto another mesh
-are still to port (ROADMAP Queue 1 items 6 and 7).
+wait for ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
