@@ -74,9 +74,6 @@ is non-zero; no phase catches an exception):
                 built after the first is freed) gives the greedy
                 agreement (printed, not asserted: bf16 can diverge late
                 in a sequence).
- 6b. profiler_cost — the serve traffic twice before the process's first
-                torch.profiler session and twice after one (64 small
-                kernels traced): decode tokens/s and TPOT p50 of each.
   7. profile  — torch.profiler over 16 steady decode ticks (16 replays)
                 of the same engine: wall and device time per step, the
                 device's busy share, K4's device time, kernel launches
@@ -103,10 +100,11 @@ is non-zero; no phase catches an exception):
                 place.
  7c. runtime_serve — the engine's runtime at the same width, graphed:
                 the serve traffic without and with a SpanTracer and a
-                TelemetryExporter, in turns (without, with, with,
-                without: equal tokens, one decode span a decode step, K4
-                28 a replay; TPOT p50 and decode tokens/s of each, and
-                the host µs of one span); a NaN poison (ServingFaultInjector) quarantines
+                TelemetryExporter, in 3 blocks of (without, with, with,
+                without): equal tokens, one decode span a decode step, K4
+                28 a replay; TPOT p50 and decode tokens/s of each, the
+                medians' change beside each side's range, and the host
+                µs of one span); a NaN poison (ServingFaultInjector) quarantines
                 exactly one request and the other 15 keep the clean run's
                 tokens; a submit storm into a bounded queue sheds
                 oldest-first and a deadline storm times the rest out; a
@@ -220,8 +218,9 @@ is non-zero; no phase catches an exception):
                 (profile_steps) and a slow-step (ft_slow_step_at_step)
                 torch.profiler window with K1/K2/K3 56/28/28 records and
                 none lost, a SIGUSR1 snapshot; then tokens/s of 2 + 5
-                steps without and with telemetry, in turns (without,
-                with, with, without).
+                steps without and with telemetry, in 3 blocks of
+                (without, with, with, without): the medians' change
+                beside each side's range.
  11h. runtime_watchdog — the trainer's HangWatchdog (1 s) on an injected
                 3 s hang, then on a 3 s stall of the card
                 (torch.cuda._sleep) while the main thread waits in
@@ -1379,42 +1378,6 @@ def trace_records(events) -> dict:
             "k5_per_partial_replay_max": max((r["k5"] for r in partial),
                                              default=0),
             "window": window}
-
-
-def phase_profiler_cost(model32) -> dict:
-    """What a torch.profiler session leaves behind in the process: the
-    serve traffic's decode tokens/s and TPOT p50 before the process's
-    first profiler session and after one that traced 64 small kernels
-    (the anomaly profiler's windows open such sessions in a live run)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cfg = model_config(MODEL, dtype=torch.bfloat16)
-    model = LlamaForCausalLM.from_params(dict(model32.named_parameters()),
-                                         cfg)
-    prompts = traffic(cfg.vocab_size)
-
-    def reading() -> dict:
-        free_engine()
-        with torch.inference_mode():
-            eng, _, _, stats = serve(model, cfg, prompts, None)
-        del eng
-        return {k: stats[k] for k in ("decode_tokens_per_s", "tpot_p50_s")}
-
-    before = [reading(), reading()]
-    x = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        for _ in range(64):
-            x.add_(1)
-        torch.cuda.synchronize()
-    after = [reading(), reading()]
-    free_engine()
-    row = {"before_profiler": before, "after_profiler": after,
-           "decode_tokens_per_s_change": statistics.median(
-               r["decode_tokens_per_s"] for r in after) / statistics.median(
-               r["decode_tokens_per_s"] for r in before) - 1,
-           "nvidia_smi": card_name_and_power_limit()}
-    emit("profiler_cost", **row)
-    return row
 
 
 def phase_profile(model32) -> None:
@@ -2744,6 +2707,9 @@ STALL_FACTOR = 3             # the device stall lasts ~3x the watchdog timeout
 TELEMETRY_STEPS, PROFILE_WINDOW = 8, "3:4"
 SLOW_AT, SLOW_S = 6, 3.0
 OVERHEAD_WARMUP, OVERHEAD_STEPS = 2, 5
+# telemetry overhead: runs without and with, in blocks of (without, with,
+# with, without), so that a drift over the phase falls on both sides
+OVERHEAD_BLOCKS = 3
 CLI_LAYERS = 2               # the command-line drill's depth cut
 POISON_AT, POISON_SLOT = 80, 3   # a decode step of the second wave
 STORM_AT, STORM_COUNT, DEADLINE_AT = 5, 12, 20
@@ -2996,6 +2962,24 @@ def tokens_per_second(cfg) -> dict:
     return {"tokens_per_second": tok_s, "step_s": step_s}
 
 
+def alternated() -> list:
+    """The order of the overhead runs: OVERHEAD_BLOCKS blocks of
+    (without, with, with, without)."""
+    return ["without", "with", "with", "without"] * OVERHEAD_BLOCKS
+
+
+def overhead(off: list, on: list) -> dict:
+    """One metric's runs without and with telemetry: the medians' change
+    and each side's range, both relative to the median without; the
+    change is ``separated`` from the run-to-run spread only when the two
+    sides' ranges do not overlap."""
+    base = statistics.median(off)
+    return {"median_change": statistics.median(on) / base - 1,
+            "range_without": (max(off) - min(off)) / base,
+            "range_with": (max(on) - min(on)) / base,
+            "separated": max(off) < min(on) or max(on) < min(off)}
+
+
 def window_launches(capture: dict) -> dict:
     by = capture.get("by_name", {})
     return {k: sum(n for name, n in by.items() if sub in name)
@@ -3060,7 +3044,7 @@ def phase_runtime_telemetry() -> dict:
           f"{[r['step'] for r in snap['monitor_records']]}")
     # without and with telemetry, in turns
     runs = {"without": [], "with": []}
-    for i, name in enumerate(("without", "with", "with", "without")):
+    for i, name in enumerate(alternated()):
         cfg = base if name == "without" else dataclasses.replace(
             base, telemetry_dir=os.path.join(root, f"tel_overhead{i}"))
         runs[name].append(tokens_per_second(cfg))
@@ -3080,8 +3064,7 @@ def phase_runtime_telemetry() -> dict:
            "without_telemetry": off, "with_telemetry": on,
            "overhead_per_step_ms": 1e3 * (statistics.median(on["step_s"])
                                           - statistics.median(off["step_s"])),
-           "overhead_share": statistics.median(on["step_s"])
-           / statistics.median(off["step_s"]) - 1,
+           "step_s_overhead": overhead(off["step_s"], on["step_s"]),
            "nvidia_smi": card_name_and_power_limit()}
     emit("runtime_telemetry", **row)
     return row
@@ -3259,7 +3242,7 @@ def phase_runtime_serve(model32) -> dict:
     with torch.inference_mode():
         # the serve traffic without and with tracer + exporter, in turns
         runs = {"without": [], "with": []}
-        for i, name in enumerate(("without", "with", "with", "without")):
+        for i, name in enumerate(alternated()):
             kw = {}
             if name == "with":
                 kw = dict(tracer=SpanTracer(
@@ -3293,9 +3276,8 @@ def phase_runtime_serve(model32) -> dict:
             name: {k: [stats[k] for _, stats in runs[name]] for k in keys}
             for name in runs}
         for k in keys:
-            row["telemetry"][f"{k}_median_change"] = (
-                statistics.median(row["telemetry"]["with"][k])
-                / statistics.median(row["telemetry"]["without"][k]) - 1)
+            row["telemetry"][f"{k}_overhead"] = overhead(
+                row["telemetry"]["without"][k], row["telemetry"]["with"][k])
         row["telemetry"].update(spans=len(trace), jsonl_records=len(records),
                                 host_us_per_span=host_us_per_span())
         runs.clear()
@@ -3463,7 +3445,6 @@ def main() -> int:
     flash = timed("kernel_flash", phase_kernel_flash)
     model32 = timed("decode_parity", phase_decode_parity)
     launches = timed("serve", phase_serve, model32)
-    timed("profiler_cost", phase_profiler_cost, model32)
     timed("profile", phase_profile, model32)
     timed("decode_graph", phase_decode_graph, model32)
     timed("runtime_serve", phase_runtime_serve, model32)

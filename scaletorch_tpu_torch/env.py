@@ -4,7 +4,9 @@ package reads, with its default and parser, so no module reaches for
 ``os.environ`` ad hoc.
 
 The names are the reference's ``SCALETORCH_TPU_*`` names, with the same
-defaults: they are the users' interface, shared by both packages.
+defaults: they are the users' interface, shared by both packages. Only
+the names some module of the port reads are registered here, so
+``env_snapshot`` reports no setting that the port ignores.
 ``env_override`` is the present-wins contract of the fault-injection and
 telemetry knobs: a variable that is SET (an explicit 0 or empty value
 included) overrides the config field, so a restarted job can arm or
@@ -56,25 +58,15 @@ def env_override(name: str, fallback: Any) -> Any:
 # ---- core toggles -----------------------------------------------------------
 register_env("FLASH_ATTEN", "1", _as_bool)        # the flash kernels K1-K3
 register_env("CONTEXT_PARALLEL", "0", _as_bool)   # ring attention
-register_env("SEQUENCE_PARALLEL", "0", _as_bool)
-register_env("VERBOSE", "0", _as_bool)
-register_env("DTYPE", "bfloat16", str)            # compute dtype
-register_env("SCALETORCH_TPU_DEVICE_FLOPS", "", str)  # peak-FLOPS override
-register_env("SCALETORCH_TPU_MATMUL_PRECISION", "", str)
 # the plain attention path instead of the flash kernels (name kept from
 # the reference, where the kernels are Pallas kernels)
 register_env("SCALETORCH_TPU_DISABLE_PALLAS", "0", _as_bool)
-register_env("SCALETORCH_TPU_FORCE_PALLAS", "0", _as_bool)
-register_env("SCALETORCH_TPU_CP_LAYOUT", "contiguous", str)
 # sequence chunk of the fused LM head + cross-entropy (bounds the live
 # fp32 [B, C, V] logits)
 register_env("SCALETORCH_TPU_CE_CHUNK", "1024", int)
 # the grouped-MLP kernels K5-K7 for the MoE experts (default off, as in
 # the reference)
 register_env("SCALETORCH_TPU_GROUPED_MLP_KERNEL", "0", _as_bool)
-register_env("SCALETORCH_TPU_FLASH_BLOCK_Q", "512", int)
-register_env("SCALETORCH_TPU_FLASH_BLOCK_KV", "512", int)
-register_env("SCALETORCH_TPU_PAGED_KERNEL", "1", _as_bool)
 
 # ---- training fault injection (resilience.FaultInjector) --------------------
 register_env("SCALETORCH_TPU_FT_NAN_STEP", "0", int)

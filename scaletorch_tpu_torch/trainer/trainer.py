@@ -291,10 +291,11 @@ class Trainer:
         # seconds of the last emergency checkpoint: the drain of a save in
         # flight, the save's blocking snapshot, the wait for its write
         self.emergency_timing: Dict[str, float] = {}
-        # the loader's position minus global_step: a rollback moves
-        # global_step back while the stream moves past the bad region, and
-        # every later checkpoint must keep that skew; the position the
-        # newest checkpoint stores tells the emergency save whether the
+        # the stream position minus global_step, for a loader that does
+        # not count its own position: a rollback moves global_step back
+        # while the stream moves past the bad region, and every later
+        # checkpoint must keep that skew; the position the newest
+        # checkpoint stores tells the emergency save whether the
         # checkpoint at this step is stale
         self._loader_skew = 0
         self._saved_loader_position: Optional[int] = None
@@ -413,12 +414,11 @@ class Trainer:
 
     def _stream_position(self) -> int:
         """The stream position covered so far: the loader's own (it counts
-        skipped regions too), else ``global_step`` plus the skew a
-        rollback left. Keeps the skew in step with the loader's."""
+        skipped regions too), else ``global_step`` plus the skew that a
+        restore or a rollback set."""
         position = getattr(self.loader, "position", None)
         if position is None:
             return self.global_step + self._loader_skew
-        self._loader_skew = position - self.global_step
         return position
 
     def save_checkpoint(self) -> bool:

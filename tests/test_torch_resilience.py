@@ -17,7 +17,8 @@ decisions.
   the config fingerprint, and calls a recording ``exit_fn`` with 43 (each
   wait bounded, at most 2 s); ``config_fingerprint`` and the crash report
   layout match the reference's.
-* The env registry and the resilience / telemetry config fields, their
+* The env registry holds only names the port reads, each with the
+  reference's value; the resilience / telemetry config fields, their
   defaults and their validation match the reference's; a value that asks
   for more than one process is refused.
 """
@@ -241,7 +242,27 @@ def test_config_readers_match_the_reference(monkeypatch, env):
         jdist.hang_timeout_from_config(j)
     assert tdist.coordinate_from_config(t) == \
         jdist.coordinate_from_config(j)
-    assert tenv.env_snapshot() == jenv.env_snapshot()
+    # the port registers a subset of the reference's names (those it
+    # reads); on each of them the two registries give the same value
+    port, ref = tenv.env_snapshot(), jenv.env_snapshot()
+    assert set(port) <= set(ref)
+    assert port == {name: ref[name] for name in port}
+
+
+def test_every_registered_env_name_is_read_by_the_port():
+    # a registered name no module reads is a setting that env_snapshot
+    # reports and the port ignores
+    package = os.path.dirname(tenv.__file__)
+    sources = ""
+    for folder, _, files in os.walk(package):
+        for name in files:
+            path = os.path.join(folder, name)
+            if name.endswith(".py") and path != tenv.__file__:
+                with open(path) as f:
+                    sources += f.read()
+    unread = [name for name in tenv.env_snapshot()
+              if f'"{name}"' not in sources]
+    assert unread == []
 
 
 def field_defaults(cls):

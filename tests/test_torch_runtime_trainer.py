@@ -192,7 +192,9 @@ def test_bad_batch_and_failed_saves_are_survived(corpus, tmp_path):
                 device="cpu", tokenizer=ByteTokenizer())
     t.train()
     assert t.global_step == 4 and t.loader.skipped_positions == [2]
-    assert t.loader.position == 5 and t._loader_skew == 1
+    # the stream is one region ahead of the step, and the step-4
+    # checkpoint keeps it so
+    assert t.loader.position == 5 and t._saved_loader_position == 5
     assert t.checkpoint_manager.all_steps() == [2, 4]
     assert t.resilience.injector.fail_saves == 0  # consumed, then retried
     t.close()
@@ -235,13 +237,13 @@ def test_injected_hang_fires_the_trainers_watchdog(corpus, tmp_path,
                                                    monkeypatch):
     exits = []
     t = Trainer(port_cfg(corpus, tmp_path, ft_hang_at_step=2,
-                         ft_hang_seconds=1.0, total_train_steps=3),
+                         ft_hang_seconds=2.0, total_train_steps=3),
                 device="cpu", tokenizer=ByteTokenizer())
     t._watchdog_exit = exits.append
-    # warm before the watchdog is armed: a loaded machine can stretch the
-    # first step past a short timeout
+    # warm before the watchdog is armed, and a timeout of 1 s: a loaded
+    # machine has stretched a step of this model past 0.5 s
     t.train(num_steps=1)
-    monkeypatch.setenv("SCALETORCH_TPU_FT_HANG_TIMEOUT", "0.5")
+    monkeypatch.setenv("SCALETORCH_TPU_FT_HANG_TIMEOUT", "1.0")
     t.train()
     assert exits == [tdist.WATCHDOG_EXIT_CODE] and t.global_step == 3
     assert os.listdir(tmp_path / "crash") == ["crash_report_step2.json"]
