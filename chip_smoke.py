@@ -5,7 +5,8 @@ Run from the root of a checkout, with one visible card:
 
     python3 chip_smoke.py
 
-It takes no arguments. One phase alone, e.g. the grouped-MLP kernels in
+It takes no arguments (``--parallel-worker DIR`` is the rank side of
+the ``parallel`` phase, started by it). One phase alone, e.g. the grouped-MLP kernels in
 bf16 (copied into a checkout of another commit and run there, this times
 that commit's kernels by the same yardstick):
 
@@ -57,6 +58,15 @@ is non-zero; no phase catches an exception):
                 also at qwen3-14b's heads (Hq 40, Hkv 8, D 128) and
                 dense-tiny's (Hq 8, Hkv 4, D 32), S 2048, against their
                 plain versions under the same limits.
+ 4b. kernel_ring_blocks — K1 and K2/K3 at the full (non-causal) blocks
+                the cp ring runs on the headline row over cp 4 (Hq 16, Hkv
+                8, D 128): the contiguous layout's 2048 x 2048
+                off-diagonal block and the zigzag layout's 2048 x 1024 and
+                1024 x 2048 blocks, fp32 and bf16, against their plain
+                versions under kernel_flash's limits, beside the
+                one-tile-skipped control that must fail them; each
+                kernel's time, its plain version's, its bound and the
+                SDPA time on the same block.
   5. decode_parity — Qwen3-0.6B at full width, fp32, random weights from
                 a seeded generator: teacher-forced paged decode of
                 2 x 64 tokens through the kernel and through the gather
@@ -272,7 +282,24 @@ is non-zero; no phase catches an exception):
                 warm-up and 3 timed steps, K1 4 a step (8 under
                 ``nothing_saveable``), K2 / K3 / K6 / K7 and the grads
                 pass 4, K5 8.
- 18. kernels  — every Pallas kernel of the JAX package, ported or not.
+ 18. parallel — ``torch.distributed.run`` of this script (``--parallel-
+                worker``) with one rank a visible card, NCCL, under a
+                wall-clock limit; a failed rank fails the phase. One card:
+                the distributed ``Trainer`` (an NCCL group of one) at the
+                headline row, full width and depth, 2 + 3 steps equal to
+                the single-device ``Trainer``'s bit for bit (losses, grad
+                norms, final parameters), K1/K2/K3 56/28/28 a step. Four
+                cards: the headline row under tp4 with SP, cp4 ring
+                zigzag, cp4 Ulysses, dp2 x tp2 and dp2 x cp2 ring
+                contiguous: each layout's fp32 loss and gradients against
+                the one-card step on the same weights and global batch
+                (TRAIN_PARITY), then its bf16 ``Trainer`` 2 + 10 steps:
+                tokens/s and MFU a card, peak memory a card, K1/K2/K3
+                launches a step on every rank as the reference's schedule
+                reckons them; then qwen3-8b at seq 4096 under tp4 + SP
+                (2 + 10 steps, finite losses, no skipped update). The line
+                names the world and the layouts run and not run.
+ 19. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line (K1-K7,
 and the grads pass that K6 and K7 share), the nvidia-smi line, and last:
@@ -765,16 +792,18 @@ def flash_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
     return rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
 
 
-def flash_work(kernel: str, q, k):
-    """(flops, bytes) of one causal call: 2 flops per multiply-add of its
-    products over the visible (query, key) pairs; each input read once,
-    each output written once."""
+def flash_work(kernel: str, q, k, causal: bool = True):
+    """(flops, bytes) of one call: 2 flops per multiply-add of its
+    products over the visible (query, key) pairs (causal: Sq == Skv, the
+    lower triangle; full: every pair); each input read once, each output
+    written once."""
     b, hq, s, d = q.shape
+    skv = k.shape[2]
     elem = q.element_size()
     q_bytes = b * hq * s * d * elem
-    kv_bytes = b * k.shape[1] * s * d * elem
+    kv_bytes = b * k.shape[1] * skv * d * elem
     row_bytes = 4 * b * hq * s  # one fp32 per query row: lse or delta
-    pairs = b * hq * s * (s + 1) // 2
+    pairs = (b * hq * s * (s + 1) // 2 if causal else b * hq * s * skv)
     return {
         # O, LSE from Q, K, V: Q K^T and P V
         "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
@@ -785,11 +814,12 @@ def flash_work(kernel: str, q, k):
     }[kernel]
 
 
-def flash_timing(kid: str, q, k, kernel_ms: float) -> dict:
-    """One causal call's time beside its bound (the larger of its bytes
-    over HBM bandwidth and its flops over the dtype's peak), what bounds
-    it, the share of the bound the kernel reaches and its TFLOP/s."""
-    flops, nbytes = flash_work(kid, q, k)
+def flash_timing(kid: str, q, k, kernel_ms: float,
+                 causal: bool = True) -> dict:
+    """One call's time beside its bound (the larger of its bytes over HBM
+    bandwidth and its flops over the dtype's peak), what bounds it, the
+    share of the bound the kernel reaches and its TFLOP/s."""
+    flops, nbytes = flash_work(kid, q, k, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
     bound_ms = 1e3 * max(t_bytes, t_ops)
@@ -820,11 +850,11 @@ def tile_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((per_tile(a.float() - b.float()) / per_tile(b)).sqrt().max())
 
 
-def flash_plain(q, k, v, dout, lse, delta):
+def flash_plain(q, k, v, dout, lse, delta, causal: bool = True):
     """(out, lse, dQ, dK, dV) of the plain versions."""
-    out, out_lse = tf.flash_forward_ref(q, k, v, causal=True)
-    dq = tf.flash_dq_ref(q, k, v, dout, lse, delta, causal=True)
-    dk, dv = tf.flash_dkv_ref(q, k, v, dout, lse, delta, causal=True)
+    out, out_lse = tf.flash_forward_ref(q, k, v, causal=causal)
+    dq = tf.flash_dq_ref(q, k, v, dout, lse, delta, causal=causal)
+    dk, dv = tf.flash_dkv_ref(q, k, v, dout, lse, delta, causal=causal)
     return out, out_lse, dq, dk, dv
 
 
@@ -1063,6 +1093,99 @@ def flash_moe_shape(flush, reps: int) -> dict:
               "plain_ms": time_ms(plain, flush, reps), "library_ms": lib_ms}
         for kid, (kernel, plain, lib_ms) in calls.items()}
     return row
+
+
+# ---- 4b. K1-K3 at the blocks of the cp ring -----------------------------------
+# (name, Sq, Skv) of the ring's full (non-causal) blocks at the headline's
+# S 8192 over cp 4: the contiguous layout's off-diagonal block, and the
+# zigzag layout's older (the shard against a low stripe) and newer (the
+# high stripe against a shard) blocks
+RING_CP = 4
+RING_BLOCKS = (("contiguous_offdiag", TRAIN_SEQ // RING_CP,
+                TRAIN_SEQ // RING_CP),
+               ("zigzag_older", TRAIN_SEQ // RING_CP,
+                TRAIN_SEQ // (2 * RING_CP)),
+               ("zigzag_newer", TRAIN_SEQ // (2 * RING_CP),
+                TRAIN_SEQ // RING_CP))
+
+
+def ring_block(name: str, sq: int, skv: int, dtype: torch.dtype, flush,
+               reps: int = 5) -> dict:
+    """K1 and K2/K3 on one full block of Qwen3-0.6B's heads against their
+    plain versions under FLASH_TOLERANCE, beside the one-tile-skipped
+    control that must fail them; each kernel's time, its plain
+    version's, its bound and the SDPA yardstick on the same block."""
+    tol = FLASH_TOLERANCE[dtype]
+    cfg = model_config(MODEL)
+    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.actual_head_dim)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4325 + sq + 3 * skv)
+
+    def rnd(heads, seq):
+        return torch.randn(1, heads, seq, d, generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v, dout = rnd(hq, sq), rnd(hkv, skv), rnd(hkv, skv), rnd(hq, sq)
+    scale = 1.0 / d ** 0.5
+    out, lse = tf.flash_forward(q, k, v, causal=False)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=False)
+    delta = tf.attention_delta(ref_out, dout)
+    bwd_args = (q, k, v, dout, ref_lse, delta)
+    ref = flash_plain(*bwd_args, causal=False)
+    got = (out, lse, tf.flash_dq(*bwd_args, causal=False),
+           *tf.flash_dkv(*bwd_args, causal=False))
+    torch.cuda.synchronize()
+    for t in got:
+        check(bool(torch.isfinite(t).all()), f"{name} {dtype}: non-finite")
+    errs = flash_errors(got, ref)
+    c_errs = flash_errors(
+        skip_one_tile(got, q, k, v, dout, ref[1], delta, scale), ref)
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, enable_gqa=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_in, dout, retain_graph=True), flush, reps)
+    times = {
+        "K1": (lambda: tf.flash_forward(q, k, v, causal=False),
+               lambda: tf.flash_forward_ref(q, k, v, causal=False),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, enable_gqa=True), flush, reps)),
+        "K2": (lambda: tf.flash_dq(*bwd_args, causal=False),
+               lambda: tf.flash_dq_ref(*bwd_args, causal=False), lib_bwd_ms),
+        "K3": (lambda: tf.flash_dkv(*bwd_args, causal=False),
+               lambda: tf.flash_dkv_ref(*bwd_args, causal=False),
+               lib_bwd_ms),
+    }
+    kernels = {kid: {**flash_timing(kid, q, k, time_ms(fn, flush, reps),
+                                    causal=False),
+                     "plain_ms": time_ms(plain, flush, reps),
+                     "library_ms": lib_ms}
+               for kid, (fn, plain, lib_ms) in times.items()}
+    return {"block": name, "dtype": str(dtype).replace("torch.", ""),
+            "q": list(q.shape), "kv": list(k.shape), "causal": False,
+            **errs, "over_limit": flash_violations(errs, tol),
+            "control_skip_one_tile": {
+                **c_errs, "over_limit": flash_violations(c_errs, tol)},
+            "kernels": kernels}
+
+
+def phase_kernel_ring_blocks() -> dict:
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, sq, skv in RING_BLOCKS:
+            row = ring_block(name, sq, skv, dtype, flush)
+            rows[(name, row["dtype"])] = row
+            emit("kernel_ring_blocks", **row)
+            check(not row["over_limit"],
+                  f"{name} {dtype}: kernels vs plain: {row['over_limit']}")
+            seen = {v.split()[0]
+                    for v in row["control_skip_one_tile"]["over_limit"]}
+            want = {"out_tile_rel", "dq_tile_rel", "dk_tile_rel",
+                    "dv_tile_rel"}
+            check(want <= seen, f"{name} {dtype}: a skipped tile passes the "
+                                f"checks of {sorted(want - seen)}")
+    return rows
 
 
 # ---- 5. full-width decode parity, kernel vs gather path ----------------------
@@ -3424,6 +3547,324 @@ def phase_runtime_serve(model32) -> dict:
     return row
 
 
+# ---- 19. training over the device mesh, one rank a card ------------------------
+PARALLEL_DIR = os.path.join("build", "parallel")
+PARALLEL_TIMEOUT_S = 420  # the torch.distributed.run of every layout
+PARALLEL_WARMUP, PARALLEL_STEPS = 2, 3
+# the timed window of each four-card layout: three steps spread by
+# 30-45% between two calls, so the layouts are compared over ten
+LAYOUT_STEPS = 10
+# (name, parallel sizes and options) of the four-card layouts, headline row
+PARALLEL_LAYOUTS = (
+    ("tp4_sp", dict(tensor_parallel_size=4, sequence_parallel=True)),
+    ("cp4_ring_zigzag", dict(context_parallel_size=4,
+                             attention_backend="ring", cp_layout="zigzag")),
+    ("cp4_ulysses", dict(context_parallel_size=4,
+                         attention_backend="ulysses")),
+    ("dp2_tp2", dict(data_parallel_size=2, tensor_parallel_size=2)),
+    ("dp2_cp2_ring_contiguous", dict(data_parallel_size=2,
+                                     context_parallel_size=2,
+                                     attention_backend="ring",
+                                     cp_layout="contiguous")),
+)
+BIG_MODEL, BIG_SEQ = "qwen3-8b", 4096  # tp4 + SP: too big for one card
+
+
+def layout_launches(opts: dict, cp_rank: int, layers: int) -> dict:
+    """K1/K2/K3 launches a GC step on a rank with cp coordinate
+    ``cp_rank``, from the reference's schedule: one block a layer for
+    flash and ulysses; the contiguous ring's rank r computes r + 1 blocks,
+    the zigzag ring's every rank 3 + (cp - 1) half blocks; GC runs the
+    forward twice."""
+    cp = opts.get("context_parallel_size", 1)
+    blocks = 1
+    if opts.get("attention_backend") == "ring":
+        blocks = (3 + cp - 1 if opts["cp_layout"] == "zigzag"
+                  else cp_rank + 1)
+    return {tf.K1_NAME: 2 * layers * blocks, tf.K2_NAME: layers * blocks,
+            tf.K3_NAME: layers * blocks}
+
+
+def parallel_cfg(opts: dict, model: str = MODEL, seq: int = TRAIN_SEQ):
+    """The bench row of ``model`` (GC, one row a dp rank) under the layout
+    ``opts``, its process group from the launcher's environment."""
+    return make_bench_args(model, seq=seq, gc=True,
+                           extra={**opts, "distributed_launcher": "env"})
+
+
+def shard_diff(mm, cfg, params, grads, ref_grads) -> dict:
+    """The whole model's |g - ref| / |ref| and |g| / |ref| - 1 from this
+    rank's shards (tp-sharded leaves summed over tp, replicated ones
+    counted once), and the worst leaf's relative difference here."""
+    from scaletorch_tpu_torch.parallel.spmd import per_leaf
+    from scaletorch_tpu_torch.parallel.tensor_parallel import (
+        llama_param_specs,
+    )
+
+    sums = torch.zeros(2, 3, dtype=torch.float64, device="cuda")
+    worst = 0.0
+    for g, r, dim in zip(grads, ref_grads,
+                         per_leaf(params, llama_param_specs(cfg))):
+        g, r = g.double(), r.double()
+        row = torch.stack([(g - r).square().sum(), r.square().sum(),
+                           g.square().sum()])
+        sums[int(dim is not None and mm.tp > 1)] += row
+        worst = max(worst, float(row[0].sqrt() / row[1].sqrt()))
+    if mm.tp > 1:
+        torch.distributed.all_reduce(sums[1], group=mm.group("tp"))
+    d2, r2, g2 = (float(x) for x in sums.sum(0))
+    return {"grad_rel_l2_diff": (d2 / r2) ** 0.5,
+            "grad_norm_rel_diff": abs((g2 / r2) ** 0.5 - 1.0),
+            "worst_leaf_rel_diff": worst}
+
+
+def parallel_worker(out_dir: str) -> int:
+    """One rank of ``phase_parallel`` (started by torch.distributed.run):
+    the world-1 check on one card, the four-card layouts on four."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ["WORLD_SIZE"])
+    result = (parallel_world1() if world == 1 else parallel_layouts(world))
+    if stdist.process_index() == 0:
+        with open(os.path.join(out_dir, "result.json"), "w") as f:
+            json.dump(result, f)
+    stdist.shutdown_distributed()
+    return 0
+
+
+def trainer_steps(trainer, steps: int) -> list:
+    """``steps`` steps' (loss, grad_norm, update_skipped) as floats."""
+    out = []
+    for _ in range(steps):
+        m = trainer.step()
+        out.append([float(m["loss"]), float(m["grad_norm"]),
+                    float(m["update_skipped"])])
+    return out
+
+
+def parallel_world1() -> dict:
+    """The distributed Trainer (an NCCL group of one) against the
+    single-device Trainer on the same seeded weights and batches: 2 + 3
+    steps equal bit for bit, losses, norms and final parameters."""
+    steps = PARALLEL_WARMUP + PARALLEL_STEPS
+    single = Trainer(dataclasses.replace(
+        parallel_cfg({}), distributed_launcher="none"))
+    check(not torch.distributed.is_initialized(), "the single run joined a "
+          "process group")
+    ref = trainer_steps(single, steps)
+    ref_params = [t.detach().clone() for t in tree_leaves(single.params)]
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(parallel_cfg({}))
+    check(torch.distributed.is_initialized()
+          and torch.distributed.get_backend() == "nccl"
+          and trainer.world == 1, "the distributed Trainer has no NCCL group")
+    got = trainer_steps(trainer, PARALLEL_WARMUP)
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got += trainer_steps(trainer, PARALLEL_STEPS)
+    elapsed = time.perf_counter() - t0
+    launches = {n: _build.launch_counts.get(n, 0) / PARALLEL_STEPS
+                for n in (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
+    layers = trainer.model_cfg.num_hidden_layers
+    want = layout_launches({}, 0, layers)
+    check(launches == want, f"world 1: launches a step {launches}, want "
+                            f"{want}")
+    check(got == ref, f"world 1: steps {got} != single-device {ref}")
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip(tree_leaves(trainer.params), ref_params))
+    check(same, "world 1: parameters differ from the single-device run")
+    tok_s, mfu = trainer.metrics.throughput(PARALLEL_STEPS, elapsed)
+    return {"world": 1, "layouts_run": ["world1_vs_single_device"],
+            "layouts_not_run": [n for n, _ in PARALLEL_LAYOUTS]
+            + [f"{BIG_MODEL}_tp4_sp"],
+            "steps": got, "bitwise_equal": True, "launches_per_step": launches,
+            "tokens_per_s": tok_s, "mfu_per_card": mfu,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def parallel_layouts(world: int) -> dict:
+    """Four ranks: each layout's fp32 loss and gradients against the
+    one-card step on the same weights and global batch (under
+    TRAIN_PARITY), then its bf16 Trainer 2 + 10 steps (tokens/s, MFU and
+    peak memory per card, K1/K2/K3 launches a step asserted against the
+    reference's schedule); then qwen3-8b under tp4 + SP."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.models.convert import local_shard_fn
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_grad_fn,
+    )
+
+    check(world == 4, f"the layouts need 4 cards, found {world}")
+    stdist.init_distributed("env")
+    dev = torch.device("cuda", stdist.local_rank())
+    cfg32 = model_config(MODEL, dtype=torch.float32)
+    layers = cfg32.num_hidden_layers
+
+    def weights(local_slice=None):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return init_params(cfg32, gen, dev, requires_grad=True,
+                           local_slice=local_slice)
+
+    def global_batch(rows: int):
+        loader = SyntheticDataLoader(
+            vocab_size=cfg32.vocab_size, sequence_length=TRAIN_SEQ,
+            micro_batch_size=rows, gradient_accumulation_steps=1, seed=11)
+        return next(iter(loader))
+
+    refs = {}
+    for rows in (1, 2):  # the global batch of dp 1 and of dp 2
+        params = weights()
+        loss_fn = make_loss_fn(cfg32, attention_backend="flash",
+                               gradient_checkpointing=True)
+        mb = {k: v[0] for k, v in device_batch(global_batch(rows),
+                                               dev).items()}
+        loss, _ = loss_fn(params, mb)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        names = list(flatten_params(params))
+        # on the host: held through every layout, they would count in
+        # each layout's peak memory on the card
+        refs[rows] = (float(loss.detach()),
+                      {n: g.cpu() for n, g in zip(names, grads)})
+        del params, loss, grads
+    out = {"world": world, "layouts_run": [], "layouts_not_run": [],
+           "layouts": {}}
+    for name, opts in PARALLEL_LAYOUTS:
+        t0 = time.monotonic()
+        mm = MeshManager(dp=opts.get("data_parallel_size", 1),
+                         cp=opts.get("context_parallel_size", 1),
+                         tp=opts.get("tensor_parallel_size", 1),
+                         device_type="cuda")
+        backend = opts.get("attention_backend", "flash")
+        layout = opts.get("cp_layout", "zigzag")
+        sp = opts.get("sequence_parallel", False)
+        slicer = local_shard_fn(cfg32, mm, mm.rank)
+        params = weights(slicer if mm.tp > 1 else None)
+        grads_fn = make_spmd_grad_fn(
+            mm, cfg32, attention_backend=backend, gradient_checkpointing=True,
+            sequence_parallel=sp, cp_layout=layout)
+        lb = local_batch(global_batch(mm.dp), mm,
+                         zigzag=backend == "ring" and layout == "zigzag")
+        loss, grads = grads_fn(params, device_batch(lb, dev))
+        ref_loss, ref_grads = refs[mm.dp]
+        parity = shard_diff(mm, cfg32, params, grads,
+                            [slicer(n, ref_grads[n]).to(dev) for n in names])
+        parity.update(loss=float(loss), loss_one_card=ref_loss,
+                      loss_abs_diff=abs(float(loss) - ref_loss))
+        del params, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = benchmark_config(parallel_cfg(opts), warmup=PARALLEL_WARMUP,
+                               steps=LAYOUT_STEPS,
+                               before_window=_build.reset_launch_counts)
+        trainer = res.pop("trainer")
+        launches = {n: _build.launch_counts.get(n, 0) / LAYOUT_STEPS
+                    for n in (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
+        want = layout_launches(opts, trainer.mm.axis_rank("cp"), layers)
+        losses = res["warmup_losses"] + res["losses"]
+        mine = {"rank": trainer.mm.rank, "launches": launches, "want": want,
+                "peak_memory_gb": res["memory_gb"], "parity": parity,
+                "finite": bool(np.isfinite(losses).all()),
+                "skipped": sum(res["update_skipped"])}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = stdist.all_gather_object(mine)
+        row = {"options": opts, "parity": ranks[0]["parity"],
+               "parity_per_rank": [r["parity"] for r in ranks],
+               "tokens_per_s": res["tokens_per_second"],
+               "tokens_per_s_per_card": res["tokens_per_second"] / world,
+               "mfu_per_card": res["mfu"], "step_s": res["step_time_s"],
+               "losses": losses,
+               "peak_memory_gb_per_card": [r["peak_memory_gb"]
+                                           for r in ranks],
+               "launches_per_step": [r["launches"] for r in ranks],
+               "expected_launches": [r["want"] for r in ranks],
+               "seconds": time.monotonic() - t0}
+        out["layouts"][name] = row
+        out["layouts_run"].append(name)
+        emit("parallel_layout", name=name, **row)
+        for r in ranks:
+            p = r["parity"]
+            check(p["loss_abs_diff"] <= TRAIN_PARITY["loss_abs"],
+                  f"{name} rank {r['rank']}: |dloss| {p['loss_abs_diff']}")
+            check(p["grad_rel_l2_diff"] <= TRAIN_PARITY["grad_rel"]
+                  and p["grad_norm_rel_diff"] <= TRAIN_PARITY["grad_rel"],
+                  f"{name} rank {r['rank']}: gradients {p}")
+            check(r["launches"] == r["want"],
+                  f"{name} rank {r['rank']}: launches {r['launches']}, "
+                  f"want {r['want']}")
+            check(r["finite"] and not r["skipped"],
+                  f"{name} rank {r['rank']}: losses {losses}")
+    del refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    big = dict(tensor_parallel_size=4, sequence_parallel=True)
+    res = benchmark_config(parallel_cfg(big, model=BIG_MODEL, seq=BIG_SEQ),
+                           warmup=PARALLEL_WARMUP, steps=LAYOUT_STEPS)
+    trainer = res.pop("trainer")
+    losses = res["warmup_losses"] + res["losses"]
+    ranks = stdist.all_gather_object(res["memory_gb"])
+    row = {"options": big, "sequence_length": BIG_SEQ,
+           "num_params": trainer.num_params,
+           "tokens_per_s": res["tokens_per_second"],
+           "tokens_per_s_per_card": res["tokens_per_second"] / world,
+           "mfu_per_card": res["mfu"], "step_s": res["step_time_s"],
+           "losses": losses, "update_skipped": res["update_skipped"],
+           "peak_memory_gb_per_card": ranks,
+           "seconds": time.monotonic() - t0}
+    del trainer
+    out["layouts"][f"{BIG_MODEL}_tp4_sp"] = row
+    out["layouts_run"].append(f"{BIG_MODEL}_tp4_sp")
+    emit("parallel_layout", name=f"{BIG_MODEL}_tp4_sp", **row)
+    check(all(np.isfinite(losses)), f"{BIG_MODEL}: losses {losses}")
+    check(not any(res["update_skipped"]),
+          f"{BIG_MODEL}: update_skipped {res['update_skipped']}")
+    return out
+
+
+def phase_parallel() -> dict:
+    """``torch.distributed.run`` of ``parallel_worker`` with one rank a
+    visible card, under a wall-clock limit; any failed rank fails it."""
+    world = torch.cuda.device_count()
+    check(world in (1, 4), f"parallel: runs on 1 or 4 cards, found {world}")
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    os.makedirs(PARALLEL_DIR)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", os.path.abspath(__file__),
+           "--parallel-worker", os.path.abspath(PARALLEL_DIR)]
+    t0 = time.monotonic()
+    # the ranks' output goes to stderr: stdout ends with the contract lines
+    proc = subprocess.Popen(cmd, stdout=sys.stderr, stderr=sys.stderr,
+                            start_new_session=True)
+    try:
+        rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:  # every process the launcher started
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    check(rc is not None, f"parallel: no end within {PARALLEL_TIMEOUT_S} s")
+    check(rc == 0, f"parallel: torch.distributed.run exited {rc}")
+    with open(os.path.join(PARALLEL_DIR, "result.json")) as f:
+        result = json.load(f)
+    emit("parallel", seconds=time.monotonic() - t0, **{
+        k: v for k, v in result.items() if k != "layouts"})
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -3443,6 +3884,7 @@ def main() -> int:
     timed("build", phase_build)
     kernel = timed("kernel_paged_decode", phase_kernel)
     flash = timed("kernel_flash", phase_kernel_flash)
+    timed("kernel_ring_blocks", phase_kernel_ring_blocks)
     model32 = timed("decode_parity", phase_decode_parity)
     launches = timed("serve", phase_serve, model32)
     timed("profile", phase_profile, model32)
@@ -3485,6 +3927,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("moe_train_save_attn", phase_moe_train_save_attn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("parallel", phase_parallel)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     emit("kernels", kernels=[
         {"id": kid, "function": fn, "at": at,
@@ -3540,4 +3985,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase_parallel
+        sys.exit(parallel_worker(sys.argv[2]))
     sys.exit(main())

@@ -14,6 +14,9 @@ parts:
   * ``data``, ``trainer`` — the corpus loader, the train and eval steps,
     the optimizers and the ``Trainer`` (fp32 or bf16 masters, the four
     remat policies, eval, checkpoint and resume);
+  * ``dist``, ``parallel`` — the launcher bootstrap, the device mesh, and
+    tensor, sequence and context parallelism with the train step over
+    the mesh (``torchrun ... -m scaletorch_tpu_torch.train``);
   * ``telemetry``, ``utils`` — latency histograms, logging, devices,
     checkpoints, Hugging Face safetensors both ways.
 

@@ -59,8 +59,9 @@ def benchmark_config(cfg, warmup: int = 3, steps: int = 10,
                      ) -> Dict[str, Any]:
     """One timed run: {tokens_per_second, mfu, loss, step_time_s,
     memory_gb, num_params, num_chips, device} as the reference reports
-    them, plus each step's ``warmup_losses``, ``losses``, ``grad_norms``
-    and ``update_skipped`` (and, for a MoE model, each step's
+    them (tokens/s of the whole run; MFU per card; this rank's card's
+    memory), plus each step's ``warmup_losses``, ``losses``,
+    ``grad_norms`` and ``update_skipped`` (and, for a MoE model, each step's
     ``moe_dropped_fraction`` and ``moe_load_cv``), and the ``trainer``
     itself for a caller that goes on with it (drop it before serialising
     the result). For a MoE model the MFU counts the active parameters.
@@ -95,7 +96,7 @@ def benchmark_config(cfg, warmup: int = 3, steps: int = 10,
         "memory_gb": (torch.cuda.max_memory_allocated(trainer.device) / 1e9
                       if on_card else None),
         "num_params": trainer.num_params,
-        "num_chips": 1,
+        "num_chips": trainer.world,
         "device": (torch.cuda.get_device_name(trainer.device) if on_card
                    else "cpu"),
         "warmup_losses": warmup_losses,

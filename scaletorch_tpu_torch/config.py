@@ -1,14 +1,18 @@
 """Training configuration of the port: the subset of
-scaletorch_tpu/config.py that the single-device training slice reads.
+scaletorch_tpu/config.py that the training slices read.
 
 The dataclasses keep the reference's names, field names and defaults:
 ``DataArguments`` (the local-file fields), ``ModelArguments`` (its
 architecture fields, the MoE fields included, ``model_type``,
 ``model_name_or_path`` and ``load_pretrained_weights``),
-``LrSchedulerArguments``, ``OptimizerArguments``, ``TrainingArguments``,
-``CheckpointArguments``, ``ResilienceArguments`` and
-``TelemetryArguments`` (whole, with their validation), and the logging
-fields the port reads. They compose into
+``ParallelArguments`` and ``DistributedArguments`` (whole, with their
+validation, ``validate_world_size`` and ``mesh_kwargs``; the values that
+ask for a path of ROADMAP Queue 1 item 6b, pipeline or expert
+parallelism, the int8 gradient all-reduce and MoE over more than one
+process, raise ``NotImplementedError``), ``LrSchedulerArguments``,
+``OptimizerArguments``, ``TrainingArguments``, ``CheckpointArguments``,
+``ResilienceArguments`` and ``TelemetryArguments`` (whole, with their
+validation), and the logging fields the port reads. They compose into
 ``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
 fields (the machine with the card has no ``transformers``, so no
 ``HfArgumentParser``).
@@ -91,9 +95,11 @@ class ModelArguments:
     tie_word_embeddings: bool = False
     attention_backend: str = field(
         default="auto",
-        metadata={"help": "auto | flash | sdpa: auto resolves like the "
-                          "reference (FLASH_ATTEN -> flash, else sdpa); "
-                          "flash runs the CUDA kernels K1-K3."})
+        metadata={"help": "auto | flash | sdpa | ring | ulysses: auto "
+                          "resolves like the reference (under cp, "
+                          "cp_select's choice; else FLASH_ATTEN -> flash, "
+                          "else sdpa); flash, ring and ulysses run the CUDA "
+                          "kernels K1-K3."})
     # MoE knobs (qwen3_moe)
     num_experts: int = 8
     num_experts_per_tok: int = 2
@@ -115,6 +121,140 @@ class ModelArguments:
         default=None,
         metadata={"help": "A qwen3_moe layer is sparse only when (idx+1) is "
                           "divisible by this (default 1: every layer)."})
+
+
+@dataclass
+class ParallelArguments:
+    data_parallel_size: int = field(default=1, metadata={"help": "DP degree."})
+    tensor_parallel_size: int = field(default=1,
+                                      metadata={"help": "TP degree."})
+    pipeline_parallel_size: int = field(
+        default=1, metadata={"help": "PP degree (> 1: item 6b)."})
+    context_parallel_size: int = field(default=1,
+                                       metadata={"help": "CP degree."})
+    cp_layout: str = field(
+        default="zigzag",
+        metadata={"help": "contiguous | zigzag: the CP sequence-shard "
+                          "layout. zigzag stripes the sequence so every "
+                          "ring rank does equal causal work "
+                          "(parallel/zigzag.py)."})
+    expert_parallel_size: int = field(
+        default=1, metadata={"help": "EP degree (> 1: item 6b)."})
+    pp_engine: str = field(
+        default="afab",
+        metadata={"help": "Pipeline schedule: afab | interleaved | "
+                          "memory_chunked ('1f1b' is an alias of "
+                          "memory_chunked)."})
+    pp_virtual_stages: int = field(
+        default=1,
+        metadata={"help": "Virtual stages per pp rank for "
+                          "pp_engine='interleaved' (>= 2, or 0 = auto); 1 "
+                          "otherwise."})
+    sequence_parallel: bool = field(
+        default=False,
+        metadata={"help": "Megatron-style SP over the tp axis."})
+    num_microbatches: Optional[int] = field(
+        default=None,
+        metadata={"help": "PP microbatches; defaults to "
+                          "gradient_accumulation_steps."})
+    grad_allreduce_dtype: str = field(
+        default="fp32",
+        metadata={"help": "fp32 | bf16 | int8: wire format of the gradient "
+                          "mean over grad_allreduce_axis (int8: item 6b)."})
+    grad_allreduce_axis: str = field(
+        default="dp",
+        metadata={"help": "Mesh axis the bf16 gradient mean runs over "
+                          "('dp' or 'cp'); the other data axis reduces in "
+                          "fp32 first."})
+    grad_allreduce_block_size: int = field(
+        default=256,
+        metadata={"help": "Elements per absmax-scale block for "
+                          "grad_allreduce_dtype='int8'."})
+
+    def __post_init__(self) -> None:
+        for name in ("data_parallel_size", "tensor_parallel_size",
+                     "pipeline_parallel_size", "context_parallel_size",
+                     "expert_parallel_size"):
+            if getattr(self, name) < 1:
+                raise ValueError(
+                    f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.pp_engine not in ("afab", "memory_chunked", "1f1b",
+                                  "interleaved"):
+            raise ValueError(
+                "pp_engine must be 'afab', 'interleaved', 'memory_chunked' "
+                f"or the reference-compat alias '1f1b', got "
+                f"{self.pp_engine!r}")
+        if self.pp_engine == "interleaved":
+            if self.pp_virtual_stages < 2 and self.pp_virtual_stages != 0:
+                raise ValueError(
+                    "pp_engine='interleaved' needs pp_virtual_stages >= 2, "
+                    f"or 0 for auto; got {self.pp_virtual_stages}")
+        elif self.pp_virtual_stages != 1:
+            raise ValueError(
+                f"pp_virtual_stages={self.pp_virtual_stages} requires "
+                f"pp_engine='interleaved' (got {self.pp_engine!r})")
+        if self.pp_engine == "1f1b":
+            # the reference's alias: the chunked schedule bounds memory
+            # like 1F1B (pp > 1 raises below, so it never warns here)
+            self.pp_engine = "memory_chunked"
+        if self.cp_layout not in ("contiguous", "zigzag"):
+            raise ValueError(
+                "cp_layout must be 'contiguous' or 'zigzag', got "
+                f"{self.cp_layout!r}")
+        if self.sequence_parallel and self.tensor_parallel_size == 1:
+            raise ValueError(
+                "sequence_parallel requires tensor_parallel_size > 1")
+        if self.grad_allreduce_dtype not in ("fp32", "bf16", "int8"):
+            raise ValueError(
+                "grad_allreduce_dtype must be 'fp32', 'bf16' or 'int8', "
+                f"got {self.grad_allreduce_dtype!r}")
+        if self.grad_allreduce_axis not in ("dp", "cp"):
+            raise ValueError(
+                "grad_allreduce_axis must be 'dp' or 'cp' (a gradient-mean "
+                f"data axis), got {self.grad_allreduce_axis!r}")
+        if self.grad_allreduce_block_size < 8:
+            raise ValueError(
+                "grad_allreduce_block_size must be >= 8, got "
+                f"{self.grad_allreduce_block_size}")
+        # the paths of ROADMAP Queue 1 item 6b
+        asks = [name for name, on in (
+            ("pipeline_parallel_size > 1", self.pipeline_parallel_size > 1),
+            ("expert_parallel_size > 1", self.expert_parallel_size > 1),
+            ("grad_allreduce_dtype='int8'",
+             self.grad_allreduce_dtype == "int8"),
+        ) if on]
+        if asks:
+            raise NotImplementedError(
+                f"{', '.join(asks)}: pipeline and expert parallelism and "
+                "the int8 gradient all-reduce are ROADMAP Queue 1 item 6b")
+
+
+@dataclass
+class DistributedArguments:
+    """Multi-process bootstrap knobs (``dist.init_distributed``). 'auto'
+    detects torchrun, SLURM and MPI launchers and stays single-process
+    when none is present."""
+
+    distributed_launcher: str = field(
+        default="auto",
+        metadata={"help": "auto | env | slurm | mpi | none: how to find "
+                          "the coordinator."})
+    coordinator_address: Optional[str] = field(
+        default=None,
+        metadata={"help": "host:port of process 0 (env launcher); defaults "
+                          "to JAX_COORDINATOR_ADDRESS or "
+                          "MASTER_ADDR:MASTER_PORT."})
+    num_processes: Optional[int] = field(
+        default=None, metadata={"help": "Total process count (env launcher)."})
+    process_id: Optional[int] = field(
+        default=None, metadata={"help": "This process's rank (env launcher)."})
+
+    def __post_init__(self) -> None:
+        if self.distributed_launcher not in ("auto", "env", "slurm", "mpi",
+                                             "none"):
+            raise ValueError(
+                "distributed_launcher must be auto|env|slurm|mpi|none, got "
+                f"{self.distributed_launcher!r}")
 
 
 @dataclass
@@ -158,8 +298,9 @@ class TrainingArguments:
     eval_dataset_name: Optional[str] = None
     global_batch_size: Optional[int] = field(
         default=None,
-        metadata={"help": "If set, must equal micro_batch_size * "
-                          "grad_accum (one device)."})
+        metadata={"help": "If set, must equal data_parallel_size * "
+                          "expert_parallel_size * micro_batch_size * "
+                          "grad_accum."})
     total_train_steps: int = 100
     seed: int = 42
     dtype: str = field(default="bfloat16",
@@ -227,7 +368,7 @@ class ResilienceArguments:
     policy, preemption handling, and fault-injection hooks. The
     multi-process fields keep their names and defaults; a value that asks
     for more than one process raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 6)."""
+    Queue 1 item 6c)."""
 
     nonfinite_guard: bool = field(
         default=True,
@@ -613,8 +754,8 @@ class ResilienceArguments:
                 f"ft_gw_tenant_storm_count must be >= 1, "
                 f"got {self.ft_gw_tenant_storm_count}"
             )
-        # the port runs one process: the coordinated and elastic paths
-        # wait for ROADMAP Queue 1 item 6
+        # the coordinated and elastic multi-process paths wait for
+        # ROADMAP Queue 1 item 6c
         asks = [name for name, on in (
             ("elastic", self.elastic),
             ("ft_sigterm_host", self.ft_sigterm_host > 0),
@@ -623,9 +764,8 @@ class ResilienceArguments:
         ) if on]
         if asks:
             raise NotImplementedError(
-                f"{', '.join(asks)}: the port runs one process; the "
-                "multi-process resilience paths are ROADMAP Queue 1 "
-                "item 6")
+                f"{', '.join(asks)}: the multi-process resilience paths "
+                "are ROADMAP Queue 1 item 6c")
 
 
 @dataclass
@@ -774,6 +914,8 @@ class LoggingArguments:
 class ScaleTorchTPUArguments(
     DataArguments,
     ModelArguments,
+    ParallelArguments,
+    DistributedArguments,
     LrSchedulerArguments,
     OptimizerArguments,
     TrainingArguments,
@@ -785,6 +927,8 @@ class ScaleTorchTPUArguments(
     """The training arguments the port reads, composed."""
 
     def __post_init__(self) -> None:
+        ParallelArguments.__post_init__(self)
+        DistributedArguments.__post_init__(self)
         CheckpointArguments.__post_init__(self)
         ResilienceArguments.__post_init__(self)
         TelemetryArguments.__post_init__(self)
@@ -796,17 +940,73 @@ class ScaleTorchTPUArguments(
         # for 'auto' that never weakens an explicit 'must'
         if self.resume_from_checkpoint and self.resume == "off":
             self.resume = "auto"
-        expected = self.micro_batch_size * self.gradient_accumulation_steps
+        if self.sequence_length % self.context_parallel_size:
+            raise ValueError(
+                f"sequence_length {self.sequence_length} not divisible by "
+                f"context_parallel_size {self.context_parallel_size}")
+        if (self.context_parallel_size > 1 and self.cp_layout == "zigzag"
+                # ulysses owns whole heads: the zigzag layout never applies
+                # to it; 'auto' may resolve to ulysses, so the Trainer
+                # checks it once the backend is settled
+                and self.attention_backend not in ("ulysses", "auto")
+                and self.sequence_length % (2 * self.context_parallel_size)):
+            raise ValueError(
+                f"cp_layout='zigzag' needs sequence_length "
+                f"{self.sequence_length} divisible by 2*cp "
+                f"({2 * self.context_parallel_size}); use cp_layout="
+                f"'contiguous' for odd stripe splits")
+        if self.sequence_parallel:
+            seq_local = self.sequence_length // self.context_parallel_size
+            if seq_local % self.tensor_parallel_size:
+                raise ValueError(
+                    f"sequence_parallel needs per-cp-rank sequence "
+                    f"{seq_local} divisible by tensor_parallel_size "
+                    f"{self.tensor_parallel_size}")
+        if self.model_type == "qwen3_moe" and self.world_size > 1:
+            raise NotImplementedError(
+                "qwen3_moe over more than one process is ROADMAP Queue 1 "
+                "item 6b")
+        # ep shards the batch too, so the data-parallel width is dp * ep
+        expected = (self.data_parallel_size * self.expert_parallel_size
+                    * self.micro_batch_size
+                    * self.gradient_accumulation_steps)
         if self.global_batch_size is None:
             self.global_batch_size = expected
         elif self.global_batch_size != expected:
             raise ValueError(
-                f"global_batch_size {self.global_batch_size} != micro_bs * "
-                f"grad_accum = {expected} (one device)")
+                f"global_batch_size {self.global_batch_size} != dp * ep * "
+                f"micro_bs * grad_accum = {expected}")
+        if self.num_microbatches is None:
+            self.num_microbatches = self.gradient_accumulation_steps
+        elif self.num_microbatches != self.gradient_accumulation_steps:
+            raise ValueError(
+                f"num_microbatches ({self.num_microbatches}) must equal "
+                f"gradient_accumulation_steps "
+                f"({self.gradient_accumulation_steps})")
         for name in ("dtype", "param_dtype"):
             if getattr(self, name) not in ("bfloat16", "float32"):
                 raise ValueError(f"{name} must be bfloat16 or float32, got "
                                  f"{getattr(self, name)!r}")
+
+    @property
+    def world_size(self) -> int:
+        return (self.data_parallel_size * self.pipeline_parallel_size
+                * self.context_parallel_size * self.expert_parallel_size
+                * self.tensor_parallel_size)
+
+    def validate_world_size(self, num_devices: int) -> None:
+        """The mesh's product must equal the process count."""
+        if self.world_size != num_devices:
+            raise ValueError(
+                f"parallel dims product {self.world_size} != available "
+                f"device count {num_devices}")
+
+    def mesh_kwargs(self) -> dict:
+        return dict(dp=self.data_parallel_size,
+                    pp=self.pipeline_parallel_size,
+                    cp=self.context_parallel_size,
+                    ep=self.expert_parallel_size,
+                    tp=self.tensor_parallel_size)
 
 
 def _parser_type(annotation: str):

@@ -2,8 +2,10 @@
 Qwen3-MoE.
 
 Importing the package registers the attention backends: ``sdpa``
-(``llama.py``) and ``flash`` (``ops/flash_attention.py``, the CUDA
-kernels K1-K3)."""
+(``llama.py``), ``flash`` (``ops/flash_attention.py``, the CUDA
+kernels K1-K3), and the context-parallel ``ring``, ``ring_contiguous``,
+``ring_zigzag`` (``ops/ring_attention.py``) and ``ulysses``
+(``ops/ulysses.py``), all on K1-K3."""
 
 from scaletorch_tpu_torch.models.convert import (  # noqa: F401
     load_numpy_params,
@@ -27,3 +29,5 @@ from scaletorch_tpu_torch.models.qwen3_moe import (  # noqa: F401
 )
 
 import scaletorch_tpu_torch.ops.flash_attention  # noqa: E402,F401
+import scaletorch_tpu_torch.ops.ring_attention  # noqa: E402,F401
+import scaletorch_tpu_torch.ops.ulysses  # noqa: E402,F401

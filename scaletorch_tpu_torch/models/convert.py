@@ -13,11 +13,17 @@ parameter dict (fp32 leaves with ``requires_grad``) and
 (``llama.init_params``) load the same way. ``opt_state_from_jax`` carries
 an optax optimizer state (as numpy arrays) into the port's state dict of
 the same optimizer, so both sides can start from one mid-run state.
+
+``shard_numpy_params`` turns a full tree into one rank's tensor-parallel
+shards (``parallel/tensor_parallel.llama_param_specs``: each leaf's
+split dim, or replicated), ``local_shard_fn`` does the same leaf by leaf
+as ``llama.init_params`` draws them, and ``gather_params`` is the
+inverse over every rank's shards.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -159,3 +165,89 @@ def opt_state_from_jax(state: Any, device: DeviceLike = None
                    for k in ("v_row", "v_col", "v")}}
     names = [type(p).__name__ for p in parts]
     raise ValueError(f"no port optimizer keeps the state {names}")
+
+
+# ---- tensor-parallel shards -----------------------------------------------------
+def _split_dims(cfg) -> Dict[str, Optional[int]]:
+    from scaletorch_tpu_torch.parallel.tensor_parallel import (
+        llama_param_specs,
+    )
+
+    return flatten_params(llama_param_specs(cfg))
+
+
+def _tp_slice(leaf: Any, dim: Optional[int], tp: int, tp_rank: int) -> Any:
+    if dim is None or tp == 1:
+        return leaf
+    size = leaf.shape[dim]
+    if size % tp:
+        raise ValueError(f"dim {dim} of size {size} does not split over "
+                         f"tp={tp}")
+    width = size // tp
+    index = [slice(None)] * leaf.ndim
+    index[dim] = slice(tp_rank * width, (tp_rank + 1) * width)
+    return leaf[tuple(index)]
+
+
+def shard_numpy_params(params: Dict[str, Any], cfg, mm, rank: int
+                       ) -> Dict[str, Any]:
+    """Global rank ``rank``'s shards of the full tree ``params`` (nested
+    numpy arrays or tensors in the reference layout) on the mesh ``mm``:
+    each tp-split leaf cut to its tp coordinate's slice, the others
+    whole. Slices are copies."""
+    dims = _split_dims(cfg)
+    tp_rank = mm.coords(rank).tp
+
+    def walk(tree, prefix=""):
+        out = {}
+        for key, value in tree.items():
+            name = f"{prefix}{key}"
+            if isinstance(value, dict):
+                out[key] = walk(value, f"{name}.")
+            else:
+                part = _tp_slice(value, dims[name], mm.tp, tp_rank)
+                out[key] = (part.clone() if isinstance(part, torch.Tensor)
+                            else np.array(part))
+        return out
+
+    return walk(params)
+
+
+def local_shard_fn(cfg, mm, rank: int) -> Callable[[str, torch.Tensor],
+                                                   torch.Tensor]:
+    """``fn(flat_name, leaf) -> shard`` for ``llama.init_params``'s
+    ``local_slice``: rank ``rank``'s slice as a tensor of its own (the
+    full leaf can be freed)."""
+    dims = _split_dims(cfg)
+    tp_rank = mm.coords(rank).tp
+
+    def fn(name: str, leaf: torch.Tensor) -> torch.Tensor:
+        part = _tp_slice(leaf, dims[name], mm.tp, tp_rank)
+        return part if part is leaf else part.contiguous().clone()
+
+    return fn
+
+
+def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm
+                  ) -> Dict[str, Any]:
+    """The full tree from every global rank's shards (``shards[r]``,
+    numpy arrays): tp-split leaves concatenated over the tp ranks of the
+    first (dp, cp) coordinate, replicated leaves taken from rank 0."""
+    dims = _split_dims(cfg)
+    tp_ranks = list(range(mm.tp))  # global ranks 0..tp-1: tp fastest
+
+    def walk(trees, prefix=""):
+        out = {}
+        for key, value in trees[0].items():
+            name = f"{prefix}{key}"
+            if isinstance(value, dict):
+                out[key] = walk([t[key] for t in trees], f"{name}.")
+            elif dims[name] is None or mm.tp == 1:
+                out[key] = np.asarray(value)
+            else:
+                out[key] = np.concatenate(
+                    [np.asarray(trees[r][key]) for r in tp_ranks],
+                    axis=dims[name])
+        return out
+
+    return walk(list(shards))

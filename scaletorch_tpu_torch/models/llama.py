@@ -25,7 +25,15 @@ leaves in ``param_dtype`` (fp32, or bf16) with ``requires_grad``, cast to
 ``cfg.dtype`` at each use as the reference's ``w.astype(cdt)``, so the
 gradients land on the master leaves (with bf16 masters the casts are
 no-ops). Attention goes through the backend registry (``sdpa``,
-``flash``). Gradient checkpointing runs each layer under
+``flash``, and under context parallelism ``ring``/``ulysses``), or is a
+callable. With ``tp_axis`` the leaves are this rank's tensor-parallel
+shards (``parallel/tensor_parallel.llama_param_specs``) and the block
+runs Megatron-style: the norm's output enters the rank-local region
+through ``copy_to_tensor_parallel_region`` (or, with
+``sequence_parallel``, the sequence all-gather), q/k/v/gate/up are
+column-parallel, o/down row-parallel; under SP the residual stream and
+the norms hold a 1/tp sequence slice. Without ``tp_axis`` the
+single-device code path is unchanged. Gradient checkpointing runs each layer under
 ``torch.utils.checkpoint`` with the reference's four policies
 (``resolve_remat_policy``): ``nothing_saveable`` recomputes the whole
 layer, the others save the outputs of chosen ops
@@ -180,14 +188,19 @@ def init_params(
     device: DeviceLike = None,
     *,
     requires_grad: bool = False,
+    local_slice: Optional[Callable[[str, Tensor], Tensor]] = None,
 ) -> Params:
     """Random parameters with the reference's distributions, as a nested
     dict of ``param_dtype`` tensors on ``device``: fan-in uniform
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for projections, ones for norms,
     normal(0, 0.02) for the embedding. ``generator`` must live on
     ``device`` (default: a fresh one seeded with 0). ``requires_grad``
-    makes the leaves the trainable masters of the training forward. The
-    draws are not JAX's threefry draws; parity tests carry JAX parameters
+    makes the leaves the trainable masters of the training forward.
+    ``local_slice(name, leaf)``, applied to each leaf as soon as it is
+    drawn, keeps this rank's part of it (``models.convert.
+    local_shard_fn``): every rank draws the same full leaves in the same
+    order, so the shards are those of one card's parameters. The draws
+    are not JAX's threefry draws; parity tests carry JAX parameters
     across with ``models.convert`` instead."""
     dev = resolve_device(device)
     if generator is None:
@@ -205,6 +218,8 @@ def init_params(
             bound = 1.0 / math.sqrt(shape[-2])  # fan_in: the [in] axis
             t = torch.empty(shape, dtype=pd, device=dev).uniform_(
                 -bound, bound, generator=generator)
+        if local_slice is not None:
+            t = local_slice(name, t)
         t.requires_grad_(requires_grad)
         if name.startswith("layers."):
             params["layers"][name[len("layers."):]] = t
@@ -214,6 +229,33 @@ def init_params(
 
 
 # ---- training forward ---------------------------------------------------------
+def tp_region_helpers(tp_axis: Optional[str], sequence_parallel: bool
+                      ) -> Tuple[Callable, Callable]:
+    """(enter_full_seq, row): how a block's normed activation enters the
+    rank-local region and how the row-parallel product leaves it; for
+    ``tp_axis`` None, the identity and a plain product."""
+    if tp_axis is None:
+        return (lambda h: h), (lambda h, w: h @ w)
+    from scaletorch_tpu_torch.parallel.sequence_parallel import (
+        all_gather_sequence,
+    )
+    from scaletorch_tpu_torch.parallel.tensor_parallel import (
+        copy_to_tensor_parallel_region,
+        row_parallel_linear,
+    )
+
+    def enter_full_seq(h):
+        if sequence_parallel:
+            return all_gather_sequence(h, tp_axis)
+        return copy_to_tensor_parallel_region(h, tp_axis)
+
+    def row(h, w):
+        return row_parallel_linear(h, w, axis=tp_axis,
+                                   sequence_parallel=sequence_parallel)
+
+    return enter_full_seq, row
+
+
 def attention_block(
     x: Tensor,
     layer: Dict[str, Tensor],
@@ -221,12 +263,16 @@ def attention_block(
     sin: Tensor,
     cfg: LlamaConfig,
     attn_fn: Callable,
+    helpers: Optional[Tuple[Callable, Callable]] = None,
 ) -> Tensor:
     """Pre-norm attention sub-block with residual. x: [B, S, H] in compute
-    dtype; ``layer`` holds one layer's fp32 weights."""
+    dtype; ``layer`` holds one layer's fp32 weights; ``helpers`` are
+    ``tp_region_helpers``' (default: one device)."""
     cdt = cfg.dtype
     dh = cfg.actual_head_dim
-    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    enter_full_seq, row = helpers or tp_region_helpers(None, False)
+    h = enter_full_seq(rms_norm(x, layer["input_layernorm"],
+                                cfg.rms_norm_eps))
     b, s, _ = h.shape
     q = (h @ layer["q_proj"].to(cdt)).view(b, s, -1, dh)
     k = (h @ layer["k_proj"].to(cdt)).view(b, s, -1, dh)
@@ -241,7 +287,7 @@ def attention_block(
     q, k = apply_rotary_pos_emb(q, k, cos, sin)
     attn = attn_fn(q, k, v, causal=True)
     attn = attn.transpose(1, 2).reshape(b, s, -1)
-    return x + attn @ layer["o_proj"].to(cdt)
+    return x + row(attn, layer["o_proj"].to(cdt))
 
 
 def _decoder_layer(
@@ -251,24 +297,61 @@ def _decoder_layer(
     sin: Tensor,
     cfg: LlamaConfig,
     attn_fn: Callable,
+    tp_axis: Optional[str] = None,
+    sequence_parallel: bool = False,
 ) -> Tensor:
-    """One pre-norm decoder block: attention, then the SwiGLU MLP."""
+    """One pre-norm decoder block: attention, then the SwiGLU MLP. With
+    ``tp_axis`` the weights are this rank's shards and, under
+    ``sequence_parallel``, x is this rank's sequence slice."""
     cdt = cfg.dtype
-    x = attention_block(x, layer, cos, sin, cfg, attn_fn)
+    helpers = tp_region_helpers(tp_axis, sequence_parallel)
+    enter_full_seq, row = helpers
+    x = attention_block(x, layer, cos, sin, cfg, attn_fn, helpers)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    h = enter_full_seq(h)
     gate = h @ layer["gate_proj"].to(cdt)
     up = h @ layer["up_proj"].to(cdt)
-    return x + swiglu(gate, up) @ layer["down_proj"].to(cdt)
+    return x + row(swiglu(gate, up), layer["down_proj"].to(cdt))
 
 
-def embed(params: Params, input_ids: Tensor, cfg: LlamaConfig) -> Tensor:
-    """Token embedding: [B, S] -> [B, S, H] in compute dtype."""
-    return params["embed_tokens"][input_ids.long()].to(cfg.dtype)
+def embed(params: Params, input_ids: Tensor, cfg: LlamaConfig, *,
+          tp_axis: Optional[str] = None,
+          sequence_parallel: bool = False) -> Tensor:
+    """Token embedding: [B, S] -> [B, S(/tp under SP), H] in compute
+    dtype; with ``tp_axis`` the table is this rank's vocab rows (the
+    vocab-parallel lookup, its partial sums completed by the all-reduce
+    or, under SP, by the sequence reduce-scatter)."""
+    if sequence_parallel and tp_axis is None:
+        raise ValueError("sequence_parallel requires tp_axis")
+    if tp_axis is None:
+        return params["embed_tokens"][input_ids.long()].to(cfg.dtype)
+    from scaletorch_tpu_torch.parallel.sequence_parallel import (
+        reduce_scatter_sequence,
+    )
+    from scaletorch_tpu_torch.parallel.tensor_parallel import (
+        vocab_parallel_embedding,
+    )
+
+    if sequence_parallel:
+        partial = vocab_parallel_embedding(
+            input_ids, params["embed_tokens"], axis=tp_axis, reduce="none")
+        return reduce_scatter_sequence(partial.to(cfg.dtype), tp_axis)
+    return vocab_parallel_embedding(
+        input_ids, params["embed_tokens"], axis=tp_axis).to(cfg.dtype)
 
 
-def final_hidden(params: Params, x: Tensor, cfg: LlamaConfig) -> Tensor:
-    """The final RMSNorm before the LM head."""
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+def final_hidden(params: Params, x: Tensor, cfg: LlamaConfig, *,
+                 tp_axis: Optional[str] = None,
+                 sequence_parallel: bool = False) -> Tensor:
+    """The final RMSNorm before the LM head. With ``tp_axis`` the result
+    enters the vocab-parallel head's region: the sequence all-gather
+    under SP, else ``copy_to_tensor_parallel_region`` (so the head's
+    per-shard gradients are summed)."""
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    if tp_axis is None:
+        return x
+    enter_full_seq, _ = tp_region_helpers(tp_axis, sequence_parallel)
+    return enter_full_seq(x)
 
 
 REMAT_POLICIES = ("nothing_saveable", "dots_saveable",
@@ -370,6 +453,8 @@ def decoder_stack(
     cfg: LlamaConfig,
     attn_fn: Callable,
     *,
+    tp_axis: Optional[str] = None,
+    sequence_parallel: bool = False,
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
 ) -> Tensor:
@@ -388,9 +473,11 @@ def decoder_stack(
         layer = dict(zip(names, weights))
         if gradient_checkpointing:
             x = checkpointed(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,
+                             tp_axis, sequence_parallel,
                              context_fn=context_fn)
         else:
-            x = _decoder_layer(x, layer, cos, sin, cfg, attn_fn)
+            x = _decoder_layer(x, layer, cos, sin, cfg, attn_fn,
+                               tp_axis, sequence_parallel)
     return x
 
 
@@ -400,24 +487,34 @@ def forward(
     cfg: LlamaConfig,
     *,
     positions: Optional[Tensor] = None,
-    attention_backend: str = "sdpa",
+    attention_backend: Any = "sdpa",
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
+    tp_axis: Optional[str] = None,
+    sequence_parallel: bool = False,
     return_hidden: bool = False,
 ) -> Tensor:
     """Full decoder forward: [B, S] tokens -> logits [B, S, V] in compute
     dtype, or the final hidden states [B, S, H] with ``return_hidden``
     (the caller applies ``lm_head_weight``, e.g. the fused chunked CE).
-    ``positions`` [S] overrides 0..S-1 for the RoPE tables."""
-    x = embed(params, input_ids, cfg)
+    ``positions`` [S] overrides 0..S-1 for the RoPE tables (a context-
+    parallel rank passes its shard's positions). ``attention_backend``
+    is a registered name or the backend itself. With ``tp_axis`` the
+    parameters are this rank's shards and the logits are vocab-sharded
+    [B, S, V/tp]."""
+    x = embed(params, input_ids, cfg, tp_axis=tp_axis,
+              sequence_parallel=sequence_parallel)
     cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
                            cfg.rope_theta, positions=positions,
                            device=input_ids.device)
-    attn_fn = get_attention_backend(attention_backend)
+    attn_fn = (attention_backend if callable(attention_backend)
+               else get_attention_backend(attention_backend))
     x = decoder_stack(x, params["layers"], cos, sin, cfg, attn_fn,
+                      tp_axis=tp_axis, sequence_parallel=sequence_parallel,
                       gradient_checkpointing=gradient_checkpointing,
                       remat_policy=remat_policy)
-    x = final_hidden(params, x, cfg)
+    x = final_hidden(params, x, cfg, tp_axis=tp_axis,
+                     sequence_parallel=sequence_parallel)
     if return_hidden:
         return x
     return x @ lm_head_weight(params, cfg)

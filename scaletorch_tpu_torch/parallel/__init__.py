@@ -1,5 +1,7 @@
-"""Parallelism of the PyTorch port. So far only the single-device
-(``axis=None``) forms: the vocab-parallel losses
-(``parallel/tensor_parallel.py``) and the MoE routing and token movement
-(``parallel/expert_parallel.py``); the mesh, tensor, pipeline, context
-and expert-parallel exchanges are later slices."""
+"""Parallelism of the PyTorch port: the 5-axis mesh (``mesh.py``), the
+tensor- and sequence-parallel regions, layers and vocab-parallel losses
+(``tensor_parallel.py``, ``sequence_parallel.py``), the zigzag layout
+and the context-parallel backend choice (``zigzag.py``,
+``cp_select.py``), the train step over the mesh (``spmd.py``), and the
+MoE routing and token movement on one device
+(``expert_parallel.py``; the EP exchange is ROADMAP Queue 1 item 6b)."""

@@ -19,7 +19,7 @@ Ties in the top-k go to the lower expert index, as ``jax.lax.top_k``
 breaks them (a stable descending sort; ``torch.topk`` promises no order).
 
 Only the single-device forms are ported: an expert-parallel ``axis``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 8, the EP exchange).
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 6b, the EP exchange).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def _single_device(axis: Optional[str]) -> None:
     if axis is not None:
         raise NotImplementedError(
             f"expert-parallel axis {axis!r}: the port runs MoE on one device "
-            "only; the EP exchange is ROADMAP Queue 1 item 8")
+            "only; the EP exchange is ROADMAP Queue 1 item 6b")
 
 
 def expert_capacity(num_tokens: int, num_experts: int, top_k: int,

@@ -1,32 +1,163 @@
-"""Vocab-parallel cross entropy, single-device form (counterpart of
-scaletorch_tpu/parallel/tensor_parallel.py:149-251 with ``axis=None``).
+"""Tensor parallelism: Megatron-style column, row and vocab-parallel ops
+and the vocab-parallel losses (counterpart of
+scaletorch_tpu/parallel/tensor_parallel.py).
 
-``fused_vocab_parallel_cross_entropy`` applies the LM head and the loss
-one sequence chunk at a time; each chunk runs under
+Every rank holds plain local shards (not DTensors) and the collectives
+are explicit ``torch.autograd.Function``s on the group of the mesh axis
+``axis`` names (of the current ``parallel.mesh.MeshManager``; None: one
+device), the reference's f/g region functions:
+
+  * ``copy_to_tensor_parallel_region``: identity forward, all-reduce
+    backward (a replicated activation entering rank-local compute);
+  * ``reduce_from_tensor_parallel_region``: all-reduce forward, identity
+    backward (partial sums leaving it);
+  * ``gather_from_tensor_parallel_region``: all-gather of the last dim
+    forward, this rank's slice backward.
+
+With them every activation gradient is whole on every rank, so a
+sharded weight's gradient is exactly its shard's and a replicated
+weight's gradient is whole where it met replicated data. A replicated
+weight that met sharded data (a norm over a sequence slice under SP, the
+per-head q/k norms over this rank's heads) has a partial gradient:
+``llama_grad_partial_over_tp`` names those leaves, and the train step
+sums them over tp (the reference's ``rep_axes`` psum).
+
+Weights are ``[in, out]``; ``llama_param_specs`` gives the dim of each
+leaf that splits over tp (None: replicated): q/k/v/gate/up split their
+output dim, o/down their input dim, the embedding its vocab rows, the
+untied head its vocab columns.
+
+The losses: ``fused_vocab_parallel_cross_entropy`` applies the LM head
+and the loss one sequence chunk at a time; each chunk runs under
 ``torch.utils.checkpoint`` so its logits are recomputed in the backward
-and the full ``[B, S, V]`` logits never exist (at chunk 1024 and vocab
-151936 one chunk's fp32 logits are 622 MB; the whole 8192-token
-sequence's would be 5 GB). Tensor-parallel shards (``axis`` set) are a
-later slice and raise.
+and the full ``[B, S, V/tp]`` logits never exist. With ``axis`` None
+(the losses' default) they are the single-device forms.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
+
+from scaletorch_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    all_reduce_,
+    axis_group,
+    group_size,
+)
+from scaletorch_tpu_torch.parallel.sequence_parallel import (
+    reduce_scatter_sequence,
+)
 
 Tensor = torch.Tensor
 
 
-def _single_device(axis: Optional[str]) -> None:
-    if axis is not None:
-        raise NotImplementedError(
-            f"axis={axis!r}: tensor-parallel losses are not ported yet; the "
-            "port trains on one device (axis=None)")
+def _rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
 
 
+# ---- f/g region functions ------------------------------------------------------
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_cat(x, group, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        world = group_size(ctx.group)
+        if world == 1:
+            return grad, None
+        width = grad.shape[-1] // world
+        r = _rank(ctx.group)
+        return grad[..., r * width:(r + 1) * width].contiguous(), None
+
+
+def copy_to_tensor_parallel_region(x: Tensor,
+                                   axis: Optional[str] = "tp") -> Tensor:
+    """Identity forward / all-reduce backward."""
+    return _CopyToRegion.apply(x, axis_group(axis))
+
+
+def reduce_from_tensor_parallel_region(x: Tensor,
+                                       axis: Optional[str] = "tp") -> Tensor:
+    """All-reduce forward / identity backward."""
+    return _ReduceFromRegion.apply(x, axis_group(axis))
+
+
+def gather_from_tensor_parallel_region(x: Tensor,
+                                       axis: Optional[str] = "tp") -> Tensor:
+    """All-gather of the last dim forward / this rank's slice backward."""
+    return _GatherFromRegion.apply(x, axis_group(axis))
+
+
+# ---- parallel layers -----------------------------------------------------------
+def column_parallel_linear(x: Tensor, w_local: Tensor, *,
+                           axis: Optional[str] = "tp",
+                           gather_output: bool = False) -> Tensor:
+    """y_local = x @ W[:, shard]: ``x`` replicated over tp, the output
+    sharded on its last dim (or gathered with ``gather_output``)."""
+    y = copy_to_tensor_parallel_region(x, axis) @ w_local
+    if gather_output:
+        y = gather_from_tensor_parallel_region(y, axis)
+    return y
+
+
+def row_parallel_linear(x_local: Tensor, w_local: Tensor, *,
+                        axis: Optional[str] = "tp",
+                        sequence_parallel: bool = False,
+                        seq_dim: int = 1) -> Tensor:
+    """y = sum over tp of x_local @ W[shard, :]; with
+    ``sequence_parallel`` the sum is a reduce-scatter along ``seq_dim``."""
+    partial = x_local @ w_local
+    if sequence_parallel:
+        return reduce_scatter_sequence(partial, axis, seq_dim)
+    return reduce_from_tensor_parallel_region(partial, axis)
+
+
+def vocab_parallel_embedding(ids: Tensor, table_local: Tensor, *,
+                             axis: Optional[str] = "tp",
+                             reduce: str = "sum") -> Tensor:
+    """Row-sharded embedding lookup: ids [B, S] (global), table_local
+    [V/tp, H]. Ids outside this rank's rows read zeros; ``reduce='none'``
+    returns the partial sums for the caller to complete (the SP path
+    completes them with a sequence reduce-scatter)."""
+    vocab_local = table_local.shape[0]
+    offset = _rank(axis_group(axis)) * vocab_local
+    ids = ids.long()
+    in_shard = (ids >= offset) & (ids < offset + vocab_local)
+    local_ids = torch.where(in_shard, ids - offset, 0)
+    emb = torch.where(in_shard[..., None], table_local[local_ids], 0)
+    if reduce == "none":
+        return emb
+    return reduce_from_tensor_parallel_region(emb, axis)
+
+
+# ---- losses --------------------------------------------------------------------
 def _vocab_parallel_token_stats(
     logits_local: Tensor,
     targets: Tensor,
@@ -34,15 +165,29 @@ def _vocab_parallel_token_stats(
     ignore_index: int,
 ) -> Tuple[Tensor, Tensor]:
     """(nll_sum, token_count), fp32: logsumexp with a gradient-free max
-    shift, and the gold logit."""
-    _single_device(axis)
+    shift and the gold logit, each over the local vocab shard and summed
+    over ``axis`` (None: one device)."""
+    group = axis_group(axis)
     logits32 = logits_local.float()
+    vocab_local = logits32.shape[-1]
+    offset = _rank(group) * vocab_local
     shift = logits32.amax(dim=-1).detach()
+    if group_size(group) > 1:
+        dist.all_reduce(shift, op=dist.ReduceOp.MAX, group=group)
     sumexp = torch.exp(logits32 - shift[..., None]).sum(dim=-1)
+    if axis is not None:
+        sumexp = reduce_from_tensor_parallel_region(sumexp, axis)
     logz = shift + torch.log(sumexp)
     mask = targets != ignore_index
     safe_t = torch.where(mask, targets, 0).long()
-    gold = torch.gather(logits32, -1, safe_t[..., None])[..., 0]
+    if axis is None:
+        gold = torch.gather(logits32, -1, safe_t[..., None])[..., 0]
+    else:
+        in_shard = (safe_t >= offset) & (safe_t < offset + vocab_local)
+        local_t = torch.where(in_shard, safe_t - offset, 0)
+        gold = torch.gather(logits32, -1, local_t[..., None])[..., 0]
+        gold = reduce_from_tensor_parallel_region(
+            torch.where(in_shard, gold, 0.0), axis)
     nll = (logz - gold) * mask
     return nll.sum(), mask.sum().float()
 
@@ -54,7 +199,8 @@ def vocab_parallel_cross_entropy(
     axis: Optional[str] = None,
     ignore_index: int = -100,
 ) -> Tensor:
-    """Token-mean cross entropy over [..., V] logits."""
+    """Token-mean cross entropy over vocab-sharded [..., V/tp] logits
+    without gathering them."""
     nll_sum, count = _vocab_parallel_token_stats(
         logits_local, targets, axis, ignore_index)
     return nll_sum / count.clamp_min(1.0)
@@ -71,10 +217,10 @@ def fused_vocab_parallel_cross_entropy(
 ) -> Tensor:
     """LM-head matmul + cross entropy fused over sequence chunks.
 
-    hidden: [B, S, H]; head_local: [H, V]; targets: [B, S]. The last chunk
-    may be shorter. Each chunk's logits are recomputed in the backward,
-    so only the [B, C, H] hidden chunk is kept per chunk."""
-    _single_device(axis)
+    hidden: [B, S, H] (replicated over tp; the caller's region function
+    sums its gradient); head_local: [H, V/tp]; targets: [B, S]. The last
+    chunk may be shorter. Each chunk's logits are recomputed in the
+    backward, so only the [B, C, H] hidden chunk is kept per chunk."""
     s = hidden.shape[1]
     chunk = min(chunk_size, s)
 
@@ -92,3 +238,58 @@ def fused_vocab_parallel_cross_entropy(
         nll_sum = n if nll_sum is None else nll_sum + n
         count = m if count is None else count + m
     return nll_sum / count.clamp_min(1.0)
+
+
+# ---- sharding rules ------------------------------------------------------------
+def validate_tp_divisibility(cfg, tp: int) -> None:
+    """Every dim that splits over tp must divide by it."""
+    checks = {
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "vocab_size": cfg.vocab_size,
+    }
+    for name, value in checks.items():
+        if value % tp != 0:
+            raise ValueError(f"{name}={value} not divisible by tp={tp}")
+
+
+def llama_param_specs(cfg) -> Dict[str, object]:
+    """The dim of each Llama/Qwen3 leaf that splits over tp (None:
+    replicated), in the parameter dict's nesting: the declarative form
+    of the reference's ``llama_param_specs`` (layers are stacked on
+    dim 0)."""
+    layers: Dict[str, Optional[int]] = {
+        "input_layernorm": None,
+        "q_proj": 2, "k_proj": 2, "v_proj": 2,
+        "o_proj": 1,
+        "post_attention_layernorm": None,
+        "gate_proj": 2, "up_proj": 2,
+        "down_proj": 1,
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = None
+        layers["k_norm"] = None
+    specs: Dict[str, object] = {"embed_tokens": 0, "layers": layers,
+                                "norm": None}
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = 1
+    return specs
+
+
+def llama_grad_partial_over_tp(cfg, sequence_parallel: bool
+                               ) -> Dict[str, object]:
+    """Per leaf (nesting of ``llama_param_specs``): whether its gradient
+    on one tp rank is a partial to be summed over tp. The q/k norms
+    always are (each rank's heads); the hidden-size norms are under SP
+    (each rank's sequence slice); sharded leaves never are."""
+
+    def partial(name: str, dim) -> bool:
+        if dim is not None:
+            return False
+        return name in ("q_norm", "k_norm") or sequence_parallel
+
+    specs = llama_param_specs(cfg)
+    return {k: ({n: partial(n, d) for n, d in v.items()}
+                if isinstance(v, dict) else partial(k, v))
+            for k, v in specs.items()}

@@ -9,7 +9,15 @@
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path on the
 CPU instead. Every config field is a flag (``scaletorch_tpu_torch/
-config.py``). A run on a local corpus with a held-out set, evaluated every
+config.py``). Over a device mesh, one process a card (NCCL; gloo with
+``--device cpu``), tp varying fastest:
+
+    torchrun --nproc-per-node 4 -m scaletorch_tpu_torch.train \
+        --model_type qwen3 ... --tensor_parallel_size 2 \
+        --sequence_parallel true --data_parallel_size 2
+
+``--context_parallel_size`` takes ``--attention_backend ring`` (with
+``--cp_layout zigzag`` or ``contiguous``), ``ulysses`` or ``auto``. A run on a local corpus with a held-out set, evaluated every
 100 steps and checkpointed every 500, that resumes from its newest
 checkpoint when restarted (``--resume must`` fails instead of starting
 from step 0):
@@ -53,12 +61,7 @@ from typing import List, Optional
 
 def main(argv: Optional[List[str]] = None) -> int:
     from scaletorch_tpu_torch.config import parse_args
-    from scaletorch_tpu_torch.resilience import TrainingDivergedError
-    from scaletorch_tpu_torch.resilience_distributed import (
-        DIVERGED_EXIT_CODE,
-    )
-    from scaletorch_tpu_torch.trainer.trainer import Trainer
-    from scaletorch_tpu_torch.utils.logger import get_logger
+    from scaletorch_tpu_torch.dist import shutdown_distributed
 
     argv = list(sys.argv[1:] if argv is None else argv)
     # options of this entry point, not of the config
@@ -69,6 +72,20 @@ def main(argv: Optional[List[str]] = None) -> int:
             extra[flag] = argv[i + 1]
             del argv[i:i + 2]
     cfg = parse_args(argv)
+    try:
+        return _run(cfg, extra)
+    finally:
+        shutdown_distributed()
+
+
+def _run(cfg, extra) -> int:
+    from scaletorch_tpu_torch.resilience import TrainingDivergedError
+    from scaletorch_tpu_torch.resilience_distributed import (
+        DIVERGED_EXIT_CODE,
+    )
+    from scaletorch_tpu_torch.trainer.trainer import Trainer
+    from scaletorch_tpu_torch.utils.logger import get_logger
+
     # with --resume auto|must the Trainer restores the newest checkpoint
     trainer = Trainer(cfg, device=extra["--device"])
     log = get_logger()

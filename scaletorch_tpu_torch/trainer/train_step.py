@@ -1,6 +1,7 @@
-"""The single-device training step (counterpart of the one-device path of
+"""The training step (counterpart of
 scaletorch_tpu/parallel/spmd.make_spmd_train_step, with
-scaletorch_tpu/trainer/train_step.guarded_update).
+scaletorch_tpu/trainer/train_step.guarded_update), on one device and,
+through ``MeshHooks``, over a device mesh.
 
 ``make_train_step`` returns ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)``. Per step:
@@ -22,6 +23,10 @@ opt_state, metrics)``. Per step:
      loss or norm leaves the parameters and the float optimizer state as
      they were and reports ``update_skipped = 1``.
 
+A mesh (``parallel/spmd.MeshReductions``) adds its reductions to steps
+2 and 3 through the ``MeshHooks`` it overrides; the base hooks do
+nothing, so one device runs the steps above as they are.
+
 Parameters and optimizer state are updated in place and returned.
 ``metrics`` holds 0-d device tensors: reading them is the caller's
 synchronisation point.
@@ -32,7 +37,8 @@ under ``torch.no_grad()``, without gradient checkpointing.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -65,24 +71,53 @@ def global_grad_norm(grads: List[Tensor]) -> Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: List[Tensor],
-                        max_norm: float) -> Tuple[List[Tensor], Tensor]:
-    """(clipped grads, pre-clip norm): scale by min(1, max_norm / norm)."""
-    norm = global_grad_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return [g * scale for g in grads], norm
+def clip_scale(norm: Tensor, max_norm: float) -> Tensor:
+    """min(1, max_norm / norm): the factor of the clip to ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+class MeshHooks:
+    """What a step over a device mesh adds to the one-device step. Each
+    hook here does nothing; ``parallel/spmd.MeshReductions`` overrides
+    them with the mesh's reductions."""
+
+    tp_axis: Optional[str] = None
+    sequence_parallel: bool = False
+
+    def scope(self):
+        """Context of the forward and backward (on a mesh, its axis names
+        resolve inside it)."""
+        return contextlib.nullcontext()
+
+    def reduce(self, params, loss: Tensor, grads: List[Tensor]
+               ) -> Tuple[Tensor, List[Tensor]]:
+        """(loss, fp32 gradients) of the whole step over the mesh."""
+        return loss, grads
+
+    def grad_norm(self, params, grads: List[Tensor]) -> Tensor:
+        return global_grad_norm(grads)
+
+    def loss_sum(self, total: Tensor) -> Tuple[Tensor, int]:
+        """(sum of ``total`` over the data ranks, their count)."""
+        return total, 1
 
 
 def make_loss_fn(cfg, *, attention_backend: str,
                  gradient_checkpointing: bool,
-                 remat_policy: str = "nothing_saveable") -> Callable:
+                 remat_policy: str = "nothing_saveable",
+                 tp_axis: Optional[str] = None,
+                 sequence_parallel: bool = False) -> Callable:
     """loss(params, microbatch) -> (fp32 scalar, routing stats): the
     hidden states of the decoder through the chunked fused head + cross
     entropy, plus the router aux loss for a Qwen3-MoE config, whose
-    routing statistics come beside it (empty for a dense model)."""
+    routing statistics come beside it (empty for a dense model). With
+    ``tp_axis`` the dense decoder runs its tensor-parallel path (SP with
+    ``sequence_parallel``) and the loss is the vocab-parallel one."""
     chunk = ce_chunk_size()
     is_moe = isinstance(cfg, qwen3_moe.Qwen3MoEConfig)
     model = qwen3_moe if is_moe else llama
+    tp_kw = ({"tp_axis": tp_axis, "sequence_parallel": sequence_parallel}
+             if tp_axis is not None else {})
 
     def loss_fn(params, mb: Dict[str, Tensor]
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -94,14 +129,58 @@ def make_loss_fn(cfg, *, attention_backend: str,
             remat_policy=remat_policy,
             return_hidden=True,
             **({"return_moe_stats": True} if is_moe else {}),
+            **tp_kw,
         )
         hidden, aux, stats = out if is_moe else (out, 0.0, {})
         head = model.lm_head_weight(params, cfg)
         loss = fused_vocab_parallel_cross_entropy(
-            hidden, head, mb["target_ids"], axis=None, chunk_size=chunk) + aux
+            hidden, head, mb["target_ids"], axis=tp_axis,
+            chunk_size=chunk) + aux
         return loss, stats
 
     return loss_fn
+
+
+def _micro(batch: Batch, a: int) -> Dict[str, Tensor]:
+    return {k: v[a] for k, v in batch.items()}
+
+
+def make_grad_fn(cfg, *, attention_backend: str = "sdpa",
+                 gradient_checkpointing: bool = False,
+                 remat_policy: str = "nothing_saveable",
+                 mesh: Optional[MeshHooks] = None) -> Callable:
+    """grads(params, batch) -> (loss, stats, fp32 gradients in
+    ``tree_leaves`` order), averaged over the batch's accumulation axis
+    and reduced over ``mesh``: steps 1 and 2 of the step."""
+    mesh = mesh or MeshHooks()
+    loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
+                           gradient_checkpointing=gradient_checkpointing,
+                           remat_policy=remat_policy, tp_axis=mesh.tp_axis,
+                           sequence_parallel=mesh.sequence_parallel)
+
+    def grads_fn(params, batch: Batch):
+        leaves = tree_leaves(params)
+        accum = batch["input_ids"].shape[0]
+        with mesh.scope():
+            loss, stats = loss_fn(params, _micro(batch, 0))
+            grads = list(torch.autograd.grad(loss, leaves))
+            if accum > 1:
+                grads = [g.float() for g in grads]
+                for a in range(1, accum):
+                    loss_a, stats_a = loss_fn(params, _micro(batch, a))
+                    for acc, g in zip(grads,
+                                      torch.autograd.grad(loss_a, leaves)):
+                        acc.add_(g.float())
+                    loss = loss + loss_a
+                    stats = {k: v + stats_a[k] for k, v in stats.items()}
+                grads = [g / accum for g in grads]
+                loss = loss / accum
+                stats = {k: v / accum for k, v in stats.items()}
+        loss, grads = mesh.reduce(params, loss.detach(),
+                                  [g.float() for g in grads])
+        return loss, stats, grads
+
+    return grads_fn
 
 
 def make_train_step(
@@ -112,40 +191,26 @@ def make_train_step(
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
     max_grad_norm: float = 0.0,
+    mesh: Optional[MeshHooks] = None,
 ) -> Callable:
     """Build ``step(params, opt_state, batch)`` for ``optimizer`` (AdamW,
     Adam, SGD, LAMB or Adafactor) and the remat policy. ``batch`` leaves
     live on the parameters' device: ``input_ids``/``target_ids`` [accum,
-    micro_bs, seq], ``position_ids`` [accum, seq]."""
-    loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
-                           gradient_checkpointing=gradient_checkpointing,
-                           remat_policy=remat_policy)
-
-    def micro(batch, a):
-        return {k: v[a] for k, v in batch.items()}
+    micro_bs, seq], ``position_ids`` [accum, seq]. ``mesh``: the mesh's
+    reductions (``parallel/spmd.make_spmd_train_step``); none on one
+    device."""
+    mesh = mesh or MeshHooks()
+    grads_fn = make_grad_fn(cfg, attention_backend=attention_backend,
+                            gradient_checkpointing=gradient_checkpointing,
+                            remat_policy=remat_policy, mesh=mesh)
 
     def step(params, opt_state, batch):
         leaves = tree_leaves(params)
-        accum = batch["input_ids"].shape[0]
-        loss, stats = loss_fn(params, micro(batch, 0))
-        grads = list(torch.autograd.grad(loss, leaves))
-        if accum > 1:
-            grads = [g.float() for g in grads]
-            for a in range(1, accum):
-                loss_a, stats_a = loss_fn(params, micro(batch, a))
-                for acc, g in zip(grads, torch.autograd.grad(loss_a, leaves)):
-                    acc.add_(g.float())
-                loss = loss + loss_a
-                stats = {k: v + stats_a[k] for k, v in stats.items()}
-            grads = [g / accum for g in grads]
-            loss = loss / accum
-            stats = {k: v / accum for k, v in stats.items()}
-        loss = loss.detach()
-        grads = [g.float() for g in grads]
+        loss, stats, grads = grads_fn(params, batch)
+        grad_norm = mesh.grad_norm(params, grads)
         if max_grad_norm and max_grad_norm > 0:
-            grads, grad_norm = clip_by_global_norm(grads, max_grad_norm)
-        else:
-            grad_norm = global_grad_norm(grads)
+            scale = clip_scale(grad_norm, max_grad_norm)
+            grads = [g * scale for g in grads]
         grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
         tree = _like(params, grads)
         ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
@@ -159,23 +224,30 @@ def make_train_step(
     return step
 
 
-def make_eval_step(cfg, *, attention_backend: str = "sdpa") -> Callable:
+def make_eval_step(cfg, *, attention_backend: str = "sdpa",
+                   mesh: Optional[MeshHooks] = None) -> Callable:
     """``eval_step(params, batch) -> loss``: the train step's loss (the
-    MoE aux loss included) averaged over the batch's accumulation axis,
-    under ``torch.no_grad()`` and without gradient checkpointing, on the
-    train step's attention backend. A 0-d fp32 device tensor."""
+    MoE aux loss included) averaged over the batch's accumulation axis
+    (and over the mesh's data ranks), under ``torch.no_grad()`` and
+    without gradient checkpointing, on the train step's attention
+    backend. A 0-d fp32 device tensor."""
+    mesh = mesh or MeshHooks()
     loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
-                           gradient_checkpointing=False)
+                           gradient_checkpointing=False,
+                           tp_axis=mesh.tp_axis,
+                           sequence_parallel=mesh.sequence_parallel)
 
     @torch.no_grad()
     def eval_step(params, batch) -> Tensor:
         accum = batch["input_ids"].shape[0]
         total = torch.zeros((), dtype=torch.float32,
                             device=batch["input_ids"].device)
-        for a in range(accum):
-            loss, _ = loss_fn(params, {k: v[a] for k, v in batch.items()})
-            total = total + loss.float()
-        return total / accum
+        with mesh.scope():
+            for a in range(accum):
+                loss, _ = loss_fn(params, _micro(batch, a))
+                total = total + loss.float()
+        total, ranks = mesh.loss_sum(total)
+        return total / (accum * ranks)
 
     return eval_step
 

@@ -1,5 +1,5 @@
-"""The single-device training loop (counterpart of the one-device subset
-of scaletorch_tpu/trainer/trainer.Trainer).
+"""The training loop (counterpart of scaletorch_tpu/trainer/trainer.Trainer)
+on one card or over a device mesh.
 
 ``Trainer(cfg, device=None, tokenizer=None)`` builds the model config
 (Llama, Qwen3 or Qwen3-MoE; from ``model_name_or_path``'s
@@ -22,6 +22,22 @@ every ``save_frequency`` steps, and the metrics history as JSON in
 parameters as a HF checkpoint. ``device=None`` means the CUDA card
 and raises without one; the CPU runs only when asked for by name.
 
+Over a mesh (``torchrun --nproc-per-node N -m scaletorch_tpu_torch.train
+--tensor_parallel_size ... --context_parallel_size ...
+--data_parallel_size ...``) the constructor follows the reference's
+order: ``dist.init_distributed`` (NCCL on ``cuda:LOCAL_RANK``, gloo for
+``device='cpu'``), ``validate_world_size``, the mesh
+(``parallel/mesh.setup_mesh_manager``), the cp backend (``auto`` through
+``parallel/cp_select.resolve_cp_backend``; cp needs ``ring`` or
+``ulysses``) and the zigzag sequence check. Every rank draws the same
+full parameters from the seed and keeps its tensor-parallel slice
+(``models/convert.local_shard_fn``), so the weights are one card's; each
+step feeds the rank its part of the global batch
+(``parallel/spmd.local_batch``) to ``parallel/spmd.make_spmd_train_step``
+(the single-device step at world 1). Logs and the metrics JSON come
+from rank 0 only. Checkpoints, HF export of tensor-parallel shards and
+Adafactor over tp wait for ROADMAP Queue 1 items 6c and 6b and raise.
+
 The runtime around the loop follows the reference's: a
 ``ResilienceManager`` (divergence sentinel with skip, rollback or abort;
 fault injection from the ``ft_*`` fields and ``SCALETORCH_TPU_FT_*``),
@@ -31,20 +47,23 @@ return with ``preempted`` set), a ``HangWatchdog`` when
 ``ft_hang_timeout`` > 0, a crash report on every abort path, and the
 ``Telemetry`` facade (spans, the JSONL stream, profiler windows, SIGUSR1
 live snapshots) when ``telemetry_dir`` is set. The multi-process
-decisions and the elastic paths wait for ROADMAP Queue 1 item 6.
+decisions and the elastic paths wait for ROADMAP Queue 1 item 6c.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
+import socket
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from scaletorch_tpu_torch import dist as stdist
 from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
 from scaletorch_tpu_torch.data.dataloader import (
     MicroBatchDataLoader,
@@ -54,7 +73,21 @@ from scaletorch_tpu_torch.data.dataloader import (
 )
 from scaletorch_tpu_torch.models import llama, qwen3_moe
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
+from scaletorch_tpu_torch.models.convert import (
+    local_shard_fn,
+    shard_numpy_params,
+)
 from scaletorch_tpu_torch.models.registry import resolve_attention_backend
+from scaletorch_tpu_torch.parallel.cp_select import resolve_cp_backend
+from scaletorch_tpu_torch.parallel.mesh import setup_mesh_manager
+from scaletorch_tpu_torch.parallel.spmd import (
+    local_batch,
+    make_spmd_eval_step,
+    make_spmd_train_step,
+)
+from scaletorch_tpu_torch.parallel.tensor_parallel import (
+    validate_tp_divisibility,
+)
 from scaletorch_tpu_torch.resilience import (
     ResilienceManager,
     TrainingDivergedError,
@@ -70,10 +103,6 @@ from scaletorch_tpu_torch.trainer.metrics import MetricsLogger
 from scaletorch_tpu_torch.trainer.optimizer import (
     create_optimizer,
     tree_leaves,
-)
-from scaletorch_tpu_torch.trainer.train_step import (
-    make_eval_step,
-    make_train_step,
 )
 from scaletorch_tpu_torch.utils.device import (
     DeviceLike,
@@ -165,7 +194,9 @@ def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
     tokenized by ``tokenizer`` (an object), or by the tokenizer that
     ``tokenizer_name_or_path`` (default: ``model_name_or_path``) names;
     ``fault_injector`` drills its step-batch reads
-    (``ft_bad_batch_at_step``)."""
+    (``ft_bad_batch_at_step``). The batches are global: ``dp * ep``
+    times ``micro_batch_size`` rows."""
+    dp = cfg.data_parallel_size * cfg.expert_parallel_size
     if cfg.synthetic_data or not cfg.dataset_name:
         return SyntheticDataLoader(
             vocab_size=min(model_cfg.vocab_size,
@@ -173,6 +204,7 @@ def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
             sequence_length=cfg.sequence_length,
             micro_batch_size=cfg.micro_batch_size,
             gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+            data_parallel_size=dp,
             seed=cfg.seed,
         )
     from scaletorch_tpu_torch.data.dataset import (
@@ -194,6 +226,7 @@ def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
         tokens,
         micro_batch_size=cfg.micro_batch_size,
         gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+        data_parallel_size=dp,
         seed=cfg.seed,
         read_retries=cfg.data_read_retries,
         retry_base_delay=cfg.data_retry_base_delay,
@@ -203,13 +236,25 @@ def build_dataloader(cfg: ScaleTorchTPUArguments, model_cfg,
 
 
 class Trainer:
-    """End-to-end single-device training loop."""
+    """End-to-end training loop, on one card or over a device mesh."""
 
     def __init__(self, cfg: ScaleTorchTPUArguments,
                  device: DeviceLike = None, tokenizer: Any = None) -> None:
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.logger = get_logger(log_file=cfg.log_file)
+        # the process group first: everything after may be collective
+        device = resolve_device(device)
+        stdist.init_distributed(
+            cfg.distributed_launcher,
+            coordinator_address=cfg.coordinator_address,
+            num_processes=cfg.num_processes, process_id=cfg.process_id,
+            device=device)
+        self.world = stdist.process_count()
+        if device.type == "cuda" and self.world > 1:
+            device = torch.device("cuda", stdist.local_rank())
+        self.device = device
+        if not stdist.is_main_process():
+            self.logger.setLevel(logging.ERROR)
         if cfg.verbose:
             from scaletorch_tpu_torch.utils.env_info import log_system_info
 
@@ -218,12 +263,22 @@ class Trainer:
             raise NotImplementedError(
                 "donate_params false: the port always updates parameters "
                 "and optimizer state in place")
+        cfg.validate_world_size(self.world)
+        self.mm = setup_mesh_manager(**cfg.mesh_kwargs(),
+                                     device_type=self.device.type)
         self.model_cfg = build_model_config(cfg)
-        self.attention_backend = resolve_attention_backend(
-            cfg.attention_backend)
+        self.attention_backend = self._resolve_attention_backend()
+        if cfg.tensor_parallel_size > 1:
+            validate_tp_divisibility(self.model_cfg, cfg.tensor_parallel_size)
+            if cfg.optimizer_name.lower() == "adafactor":
+                raise NotImplementedError(
+                    "adafactor over tensor-parallel shards (its factored "
+                    "statistics reduce across the split dims) is ROADMAP "
+                    "Queue 1 item 6b")
         torch.manual_seed(cfg.seed)
         self.is_moe = isinstance(self.model_cfg, qwen3_moe.Qwen3MoEConfig)
         model = qwen3_moe if self.is_moe else llama
+        tp_shard = self.mm.tp > 1
         if cfg.load_pretrained_weights:
             if not cfg.model_name_or_path:
                 raise ValueError(
@@ -232,13 +287,20 @@ class Trainer:
 
             self.params = load_hf_params(cfg.model_name_or_path,
                                          self.model_cfg, device=self.device)
+            if tp_shard:
+                self.params = shard_numpy_params(
+                    self.params, self.model_cfg, self.mm, self.mm.rank)
             for leaf in tree_leaves(self.params):
                 leaf.requires_grad_(True)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
-            self.params = model.init_params(self.model_cfg, gen, self.device,
-                                            requires_grad=True)
+            # tp shards are a dense model's (MoE over a mesh is item 6b)
+            shard = ({"local_slice": local_shard_fn(
+                self.model_cfg, self.mm, self.mm.rank)} if tp_shard else {})
+            self.params = model.init_params(
+                self.model_cfg, gen, self.device, requires_grad=True,
+                **shard)
         self.optimizer, self.schedule = create_optimizer(cfg)
         self.opt_state = self.optimizer.init(self.params)
         self.tokenizer = tokenizer
@@ -251,14 +313,20 @@ class Trainer:
         self._watchdog: Optional[HangWatchdog] = None
         self.loader = build_dataloader(cfg, self.model_cfg, tokenizer,
                                        fault_injector=self.resilience.injector)
-        self.step_fn = make_train_step(
-            self.model_cfg, self.optimizer,
+        self.step_fn = make_spmd_train_step(
+            self.mm, self.model_cfg, self.optimizer,
             attention_backend=self.attention_backend,
             gradient_checkpointing=cfg.gradient_checkpointing,
             remat_policy=cfg.remat_policy,
+            sequence_parallel=cfg.sequence_parallel,
             max_grad_norm=cfg.max_grad_norm,
+            cp_layout=cfg.cp_layout,
+            grad_allreduce_dtype=cfg.grad_allreduce_dtype,
+            grad_allreduce_axis=cfg.grad_allreduce_axis,
         )
-        self.num_params = get_num_params(self.params)
+        # the whole model's count, whatever this rank holds
+        self.num_params = (self.model_cfg.num_params() if tp_shard
+                           else get_num_params(self.params))
         # MoE MFU counts the parameters a token touches (the reference's
         # active-parameter MFU)
         self.mfu_params = (self.model_cfg.num_active_params() if self.is_moe
@@ -306,8 +374,11 @@ class Trainer:
         self._eval_batches: Optional[list] = None
         self._eval_iter = None
         if cfg.eval_frequency:
-            self._eval_fn = make_eval_step(
-                self.model_cfg, attention_backend=self.attention_backend)
+            self._eval_fn = make_spmd_eval_step(
+                self.mm, self.model_cfg,
+                attention_backend=self.attention_backend,
+                sequence_parallel=cfg.sequence_parallel,
+                cp_layout=cfg.cp_layout)
             self._eval_loader = self._build_eval_loader()
         self.logger.info(
             f"model {cfg.model_type}: "
@@ -337,7 +408,7 @@ class Trainer:
             t_fetch = time.perf_counter()
             batch = next(self._train_iter)
             self._last_data_fetch_s = time.perf_counter() - t_fetch
-        dev_batch = device_batch(batch, self.device)
+        dev_batch = self._device_batch(batch)
         self._beat("step_dispatch")
         self.params, self.opt_state, m = self.step_fn(
             self.params, self.opt_state, dev_batch)
@@ -346,11 +417,61 @@ class Trainer:
         return m
 
     def peak_flops(self) -> Optional[float]:
-        """The card's dense peak for MFU (raises for a card without an
-        entry); None on the CPU."""
+        """The dense peak of every card of the run together, for MFU per
+        card (raises for a card without an entry); None on the CPU."""
         if self.device.type != "cuda":
             return None
-        return get_theoretical_flops(torch.cuda.get_device_name(self.device))
+        return self.world * get_theoretical_flops(
+            torch.cuda.get_device_name(self.device))
+
+    def _resolve_attention_backend(self) -> str:
+        """The attention backend, as the reference's ``__init__`` settles
+        it: under cp, 'auto' asks ``resolve_cp_backend`` (the host of
+        every rank gives the ring's host hops) and an explicit backend
+        must be 'ring' or 'ulysses'; sets ``_zigzag_cp`` (the batch is
+        permuted for the zigzag ring)."""
+        cfg = self.cfg
+        cp = cfg.context_parallel_size
+        if cp > 1 and cfg.attention_backend == "auto":
+            choice = resolve_cp_backend(
+                "auto", self.mm, cp=cp,
+                num_q_heads=self.model_cfg.num_attention_heads,
+                num_kv_heads=self.model_cfg.num_key_value_heads,
+                seq_len=cfg.sequence_length,
+                hosts=stdist.all_gather_object(socket.gethostname()),
+                layout=cfg.cp_layout)
+            backend = choice.backend
+            self.logger.info(f"cp backend auto-selected: {choice.backend} "
+                             f"(layout {choice.layout}): {choice.reason}")
+        else:
+            backend = resolve_attention_backend(cfg.attention_backend,
+                                                context_parallel=cp > 1)
+        if cp > 1 and backend not in ("ring", "ulysses"):
+            # a full-sequence backend on cp shards would compute
+            # block-diagonal attention
+            raise ValueError(
+                f"context_parallel_size={cp} requires a CP-aware attention "
+                f"backend ('ring' or 'ulysses'), got {backend!r}")
+        self._zigzag_cp = (cp > 1 and cfg.cp_layout == "zigzag"
+                           and backend == "ring")
+        if self._zigzag_cp and cfg.sequence_length % (2 * cp):
+            raise ValueError(
+                f"cp_layout='zigzag' needs sequence_length "
+                f"{cfg.sequence_length} divisible by 2*cp ({2 * cp}); use "
+                "cp_layout='contiguous' for odd stripe splits")
+        if cp > 1 and cfg.cp_layout == "zigzag" and backend == "ulysses":
+            self.logger.info(
+                "cp_layout='zigzag' has no effect with the ulysses backend "
+                "(head ownership balances causal work); using the "
+                "contiguous sequence layout")
+        return backend
+
+    def _device_batch(self, batch: Dict[str, np.ndarray]
+                      ) -> Dict[str, torch.Tensor]:
+        """This rank's part of a global host batch, on the device."""
+        if self.world > 1:
+            batch = local_batch(batch, self.mm, zigzag=self._zigzag_cp)
+        return device_batch(batch, self.device)
 
     # -- evaluation -----------------------------------------------------------
     def _build_eval_loader(self):
@@ -388,7 +509,7 @@ class Trainer:
         total = 0.0
         for batch in self._eval_batches[:num_batches]:
             total += float(self._eval_fn(self.params,
-                                         device_batch(batch, self.device)))
+                                         self._device_batch(batch)))
         return total / max(num_batches, 1)
 
     # -- checkpoints ----------------------------------------------------------
@@ -401,6 +522,12 @@ class Trainer:
 
             if not self.cfg.checkpoint_dir:
                 raise ValueError("checkpoints need --checkpoint_dir")
+            if self.world > 1:
+                # the DCP writer would store every rank's shard under one
+                # key
+                raise NotImplementedError(
+                    "checkpoint save and resume over more than one process "
+                    "are ROADMAP Queue 1 item 6c")
             self._ckpt_mgr = CheckpointManager(
                 self.cfg.checkpoint_dir,
                 keep_n=self.cfg.keep_n_checkpoints,
@@ -619,6 +746,13 @@ class Trainer:
             save_hf_params,
         )
 
+        if self.mm.tp > 1:
+            raise NotImplementedError(
+                "export of tensor-parallel shards (a gather of every rank's "
+                "slices) is ROADMAP Queue 1 item 6c")
+        if not stdist.is_main_process():
+            return ""
+
         out = save_hf_params(path, self.params, self.model_cfg, dtype=dtype,
                              max_shard_bytes=max_shard_bytes)
         with open(os.path.join(path, "config.json"), "w") as f:
@@ -725,7 +859,7 @@ class Trainer:
             self.telemetry.flush()
         if self._ckpt_mgr is not None:
             self._ckpt_mgr.wait()  # the last async save is on disk
-        if cfg.performance_log_dir:
+        if cfg.performance_log_dir and stdist.is_main_process():
             path = self.metrics.save_json(os.path.join(
                 cfg.performance_log_dir,
                 f"performance_log_step{self.global_step}.json"))

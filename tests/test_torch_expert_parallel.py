@@ -170,7 +170,7 @@ def test_modes_and_axes():
     assert tep.resolve_moe_dispatch("einsum", 4) == "einsum"
     with pytest.raises(ValueError, match="dispatch mode"):
         tep.route_tokens(torch.zeros(4, E), K, 2, mode="sort")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
         tep.dispatch_tokens(torch.zeros(4, H), torch.zeros(4, E, 2),
                             axis="ep")
 

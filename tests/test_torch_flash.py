@@ -189,4 +189,4 @@ def test_flash_and_sdpa_backends_are_registered():
     sdpa = tregistry.get_attention_backend("sdpa")(q, k, v, causal=True)
     torch.testing.assert_close(flash, sdpa, atol=2e-5, rtol=0)
     with pytest.raises(KeyError, match="not registered"):
-        tregistry.get_attention_backend("ring")
+        tregistry.get_attention_backend("no_such_backend")

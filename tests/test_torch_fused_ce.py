@@ -98,8 +98,9 @@ def test_vocab_parallel_cross_entropy_matches(ignored):
 
 
 def test_tensor_parallel_axis_is_refused():
+    # a tp axis needs a mesh (the tp arms: tests/test_torch_tensor_parallel.py)
     hidden, head, targets = inputs(0, 0)
-    with pytest.raises(NotImplementedError, match="axis='tp'"):
+    with pytest.raises(RuntimeError, match="axis='tp' needs a mesh"):
         ttp.fused_vocab_parallel_cross_entropy(
             torch.from_numpy(hidden), torch.from_numpy(head),
             torch.from_numpy(targets), axis="tp")

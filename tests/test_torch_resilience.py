@@ -188,12 +188,14 @@ def test_hang_watchdog_fires_on_a_stalled_main_thread(tmp_path):
         rep = json.load(f)
     assert "MainThread" in rep["thread_stacks"]
     assert "fired.wait" in rep["thread_stacks"]["MainThread"]
-    # the identity fields the port's config has (it has no parallel
-    # sizes) read as the reference's
+    # the identity fields (the parallel sizes too) read as the reference's
     ours = rep["config_fingerprint"]
     theirs = jdist.config_fingerprint(jconfig.ScaleTorchTPUArguments(seed=3))
-    assert set(ours) == {"sha256", "model_type", "total_train_steps", "seed",
-                         "divergence_policy"}
+    assert set(ours) == set(theirs) == {
+        "sha256", "model_type", "total_train_steps", "seed",
+        "divergence_policy", "data_parallel_size", "tensor_parallel_size",
+        "pipeline_parallel_size", "context_parallel_size",
+        "expert_parallel_size"}
     assert all(ours[k] == theirs[k] for k in ours if k != "sha256")
     assert rep["monitor_records"] == [{"step": 1}]
     assert rep["span_timeline_tail"] == [{"name": "x"}]

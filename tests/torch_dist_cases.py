@@ -1,0 +1,313 @@
+"""The rank side of the port's gloo tests: ``python -m
+tests.torch_dist_cases CASE RANK WORLD DIR`` joins a gloo group at a
+FileStore under DIR, runs ``CASES[CASE](payload)`` on the pickled
+payload and pickles the result to ``DIR/out_RANK.pkl``. Started by
+``tests/torch_dist_harness.run_ranks``. It imports no JAX, and checks
+that none was imported before and after the case.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+
+assert "jax" not in sys.modules, "a rank process imported JAX"
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from scaletorch_tpu_torch import dist as stdist  # noqa: E402
+from scaletorch_tpu_torch.models import llama  # noqa: E402
+from scaletorch_tpu_torch.models.convert import (  # noqa: E402
+    flatten_params,
+    params_from_numpy,
+    params_to_numpy,
+    shard_numpy_params,
+)
+from scaletorch_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+
+INIT_TIMEOUT_S = 120.0
+
+
+def _mesh(payload) -> tmesh.MeshManager:
+    return tmesh.setup_mesh_manager(**payload["mesh"], device_type="cpu")
+
+
+def _t(a, grad=False) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a))
+    return t.requires_grad_(True) if grad else t
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).numpy().copy()
+
+
+# ---- dist -----------------------------------------------------------------------
+def case_dist(payload):
+    rank = stdist.process_index()
+    stdist.barrier()
+    gathered = stdist.all_gather_object({"rank": rank, "sq": rank * rank})
+    rooted = stdist.gather_object(f"r{rank}", dst=1)
+    objs = [f"mine-{rank}", rank] if rank == 0 else [None, None]
+    stdist.broadcast_object_list(objs, src=0)
+    refused = None
+    try:
+        stdist.broadcast_object_list([1, 2, 3] if rank else [1, 2], src=0)
+    except ValueError as exc:
+        refused = str(exc)
+    return {"index": rank, "count": stdist.process_count(),
+            "main": stdist.is_main_process(),
+            "distributed": stdist.is_distributed(), "gathered": gathered,
+            "rooted": rooted, "broadcast": objs, "refused": refused,
+            "backend": dist.get_backend()}
+
+
+# ---- mesh -----------------------------------------------------------------------
+def case_mesh(payload):
+    out = []
+    for shape in payload["shapes"]:
+        mm = tmesh.MeshManager(**shape, device_type="cpu")
+        groups = {axis: dist.get_process_group_ranks(mm.group(axis))
+                  for axis in tmesh.MESH_AXES}
+        groups["data"] = dist.get_process_group_ranks(
+            mm.group(tmesh.DATA_AXES))
+        out.append({"coords": mm.my_coords.as_tuple(), "groups": groups,
+                    "ring": mm.cp_ring_peers(),
+                    "mesh_shape": tuple(mm.mesh.shape)})
+    return out
+
+
+# ---- tensor parallel ----------------------------------------------------------------
+def case_tp_ops(payload):
+    from scaletorch_tpu_torch.parallel import tensor_parallel as ttp
+
+    mm = _mesh(payload)
+    r, tp = mm.axis_rank("tp"), mm.tp
+    out = {}
+    # region functions: y = f(x), loss = sum(y * w)
+    x = _t(payload["x"], grad=True)
+    y = ttp.copy_to_tensor_parallel_region(x) * (r + 1)
+    (g_copy,) = torch.autograd.grad(y.sum(), x)
+    x2 = _t(payload["x"] * (r + 1), grad=True)
+    red = ttp.reduce_from_tensor_parallel_region(x2)
+    (g_red,) = torch.autograd.grad((red * red).sum(), x2)
+    x3 = _t(payload["x"] + r, grad=True)
+    gat = ttp.gather_from_tensor_parallel_region(x3)
+    w = torch.arange(gat.numel(), dtype=gat.dtype).view_as(gat)
+    (g_gat,) = torch.autograd.grad((gat * w).sum(), x3)
+    out.update(copy_grad=_np(g_copy), reduce=_np(red), reduce_grad=_np(g_red),
+               gather=_np(gat), gather_grad=_np(g_gat))
+    # vocab-parallel embedding and cross entropy on this rank's shard
+    v = payload["table"].shape[0]
+    table = _t(payload["table"][r * v // tp:(r + 1) * v // tp], grad=True)
+    emb = ttp.vocab_parallel_embedding(_t(payload["ids"]), table)
+    (g_table,) = torch.autograd.grad((emb * _t(payload["emb_w"])).sum(),
+                                     table)
+    out.update(emb=_np(emb), table_grad=_np(g_table))
+    logits = payload["logits"]
+    vl = logits.shape[-1] // tp
+    for name, targets in payload["targets"].items():
+        lg = _t(logits[..., r * vl:(r + 1) * vl], grad=True)
+        loss = ttp.vocab_parallel_cross_entropy(lg, _t(targets), axis="tp")
+        (g,) = torch.autograd.grad(loss, lg)
+        out[f"ce_{name}"] = float(loss)
+        out[f"ce_grad_{name}"] = _np(g)
+    hidden = _t(payload["hidden"], grad=True)
+    head = _t(payload["head"][:, r * vl:(r + 1) * vl], grad=True)
+    h_in = ttp.copy_to_tensor_parallel_region(hidden)
+    loss = ttp.fused_vocab_parallel_cross_entropy(
+        h_in, head, _t(payload["targets"]["ign"]), axis="tp", chunk_size=5)
+    gh, gw = torch.autograd.grad(loss, (hidden, head))
+    out.update(fused=float(loss), fused_hidden_grad=_np(gh),
+               fused_head_grad=_np(gw))
+    # column / row linear, gathered
+    xa = _t(payload["xa"], grad=True)
+    wa = _t(payload["wa"][:, r * payload["wa"].shape[1] // tp:
+                          (r + 1) * payload["wa"].shape[1] // tp], grad=True)
+    col = ttp.column_parallel_linear(xa, wa, gather_output=True)
+    wb = payload["wb"]
+    wb_l = _t(wb[r * wb.shape[0] // tp:(r + 1) * wb.shape[0] // tp],
+              grad=True)
+    k = col.shape[-1] // tp
+    row = ttp.row_parallel_linear(col[..., r * k:(r + 1) * k], wb_l)
+    gx, gwa, gwb = torch.autograd.grad((row * row).sum(), (xa, wa, wb_l))
+    out.update(linear=_np(row), linear_x_grad=_np(gx), linear_wa_grad=_np(gwa),
+               linear_wb_grad=_np(gwb))
+    return out
+
+
+def _model_cfg(payload):
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    return llama.LlamaConfig(**payload["arch"],
+                             dtype=dt[payload.get("dtype", "float32")])
+
+
+def case_tp_model(payload):
+    """Loss and local gradients of the decoder + fused CE over the mesh
+    (tp, sp, cp backends), for every run in ``payload['runs']``."""
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_grad_fn,
+    )
+    from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
+
+    os.environ["SCALETORCH_TPU_CE_CHUNK"] = str(payload["ce_chunk"])
+    cfg = _model_cfg(payload)
+    results = []
+    for run in payload["runs"]:
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        params = params_from_numpy(
+            shard_numpy_params(payload["params"], cfg, mm, mm.rank), "cpu")
+        grads_fn = make_spmd_grad_fn(
+            mm, cfg, attention_backend=run["backend"],
+            gradient_checkpointing=run.get("gc", False),
+            remat_policy=run.get("remat_policy", "nothing_saveable"),
+            sequence_parallel=run.get("sp", False),
+            cp_layout=run.get("layout", "contiguous"))
+        batch = local_batch(payload["batch"], mm,
+                            zigzag=run.get("layout") == "zigzag"
+                            and run["backend"] == "ring")
+        loss, grads = grads_fn(params, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        names = list(flatten_params(params))
+        assert len(names) == len(tree_leaves(params))
+        results.append({"loss": float(loss),
+                        "grads": {n: _np(g) for n, g in zip(names, grads)}})
+    return results
+
+
+# ---- context parallel -----------------------------------------------------------
+def _cp_local(a, mm, layout):
+    """This rank's sequence shard of a full [B, H, S, D] array."""
+    from scaletorch_tpu_torch.parallel.zigzag import zigzag_order
+
+    if layout == "zigzag":
+        a = np.take(a, zigzag_order(a.shape[2], mm.cp), axis=2)
+    w = a.shape[2] // mm.cp
+    c = mm.axis_rank("cp")
+    return np.ascontiguousarray(a[:, :, c * w:(c + 1) * w])
+
+
+def case_cp_attention(payload):
+    from scaletorch_tpu_torch.ops.ring_attention import ring_attention
+    from scaletorch_tpu_torch.ops.ulysses import ulysses_attention
+
+    out = []
+    for run in payload["runs"]:
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        layout = run.get("layout", "contiguous")
+        q, k, v, do = (_t(_cp_local(payload[n], mm, layout), grad=n != "do")
+                       for n in ("q", "k", "v", "do"))
+        if run["backend"] == "ring":
+            o = ring_attention(q, k, v, "cp", True, None, layout)
+        else:
+            o = ulysses_attention(q, k, v, causal=True)
+        dq, dk, dv = torch.autograd.grad((o * do).sum(), (q, k, v))
+        out.append({n: _np(t) for n, t in
+                    (("o", o), ("dq", dq), ("dk", dk), ("dv", dv))})
+    return out
+
+
+# ---- the train step -------------------------------------------------------------
+def case_spmd_steps(payload):
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_eval_step,
+        make_spmd_train_step,
+    )
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+
+    os.environ["SCALETORCH_TPU_CE_CHUNK"] = str(payload["ce_chunk"])
+    cfg = _model_cfg(payload)
+    out = []
+    for run in payload["runs"]:
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        tcfg = ScaleTorchTPUArguments(**payload["train_cfg"])
+        opt, _ = create_optimizer(tcfg)
+        params = params_from_numpy(
+            shard_numpy_params(payload["params"], cfg, mm, mm.rank), "cpu")
+        state = opt.init(params)
+        step = make_spmd_train_step(
+            mm, cfg, opt, attention_backend=run["backend"],
+            gradient_checkpointing=run.get("gc", False),
+            sequence_parallel=run.get("sp", False),
+            max_grad_norm=tcfg.max_grad_norm,
+            cp_layout=run.get("layout", "contiguous"),
+            grad_allreduce_dtype=run.get("wire", "fp32"))
+        zigzag = run.get("layout") == "zigzag" and run["backend"] == "ring"
+        metrics = []
+        for b in run["batches"]:
+            lb = device_batch(local_batch(b, mm, zigzag=zigzag), "cpu")
+            params, state, m = step(params, state, lb)
+            metrics.append({k: float(v) for k, v in m.items()})
+        evaluate = make_spmd_eval_step(mm, cfg,
+                                       attention_backend=run["backend"],
+                                       sequence_parallel=run.get("sp", False),
+                                       cp_layout=run.get("layout",
+                                                         "contiguous"))
+        val = float(evaluate(params, device_batch(
+            local_batch(run["batches"][0], mm, zigzag=zigzag), "cpu")))
+        out.append({"metrics": metrics, "val": val,
+                    "params": params_to_numpy(params)})
+    return out
+
+
+# ---- the Trainer's guards over the mesh -------------------------------------------
+def case_trainer_guards(payload):
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.trainer.trainer import Trainer
+
+    def cfg(**kw):
+        return ScaleTorchTPUArguments(**{**payload["base"], **kw})
+
+    out = {}
+    for name, kw in payload["refused"].items():
+        try:
+            Trainer(cfg(**kw), device="cpu")
+            out[name] = None
+        except (ValueError, NotImplementedError) as exc:
+            out[name] = f"{type(exc).__name__}: {exc}"
+    trainer = Trainer(cfg(context_parallel_size=2), device="cpu")
+    out["auto"] = trainer.attention_backend
+    out["zigzag"] = trainer._zigzag_cp
+    out["world"] = trainer.world
+    out["rank_logs"] = trainer.logger.level
+    try:
+        trainer.save_checkpoint()
+        out["save"] = None
+    except NotImplementedError as exc:
+        out["save"] = str(exc)
+    out["loss"] = float(trainer.step()["loss"])
+    return out
+
+
+CASES = {name[len("case_"):]: fn for name, fn in globals().items()
+         if name.startswith("case_")}
+
+
+def main(argv) -> int:
+    case, rank, world, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    stdist.init_distributed(
+        "env", coordinator_address=f"file://{tmp}/store",
+        num_processes=world, process_id=rank, device="cpu",
+        timeout_s=INIT_TIMEOUT_S)
+    with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
+        payload = pickle.load(f)
+    try:
+        result = CASES[case](payload)
+        stdist.barrier()
+    finally:
+        stdist.shutdown_distributed()
+    assert "jax" not in sys.modules, "a rank process imported JAX"
+    with open(os.path.join(tmp, f"out_{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
