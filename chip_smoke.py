@@ -256,6 +256,15 @@ is non-zero; no phase catches an exception):
                 library's (cuBLAS bmm of the launch's own products for K6
                 and K7; the einsum path for K5 and the whole backward;
                 several calls, not one) and the bound of its own work.
+ 12b. kernel_ep_blocks — K5, the grads pass, K6 and K7 on the slabs the
+                ep exchange hands one rank at the train cell under ep 4:
+                [E/ep, ep·G, C, H] = [32, 4, 320, 2048], fill counts per
+                (expert, source rank) from a seeded routing of four ranks'
+                tokens (uneven across the ranks), fp32 and bf16, checked
+                and timed as phase 12 checks and times the train shape
+                (its limits, both controls, the backward twice for equal
+                bits; each launch's time, bound and the einsum path's
+                time on the same slabs).
  13. moe_decode_parity — 4 layers, fp32, dropless: teacher-forced paged
                 decode of 2 x 64 tokens through K4 + K5 and through the
                 gather path + einsum path; max |logit difference| <= 1e-3.
@@ -286,19 +295,32 @@ is non-zero; no phase catches an exception):
                 worker``) with one rank a visible card, NCCL, under a
                 wall-clock limit; a failed rank fails the phase. One card:
                 the distributed ``Trainer`` (an NCCL group of one) at the
-                headline row, full width and depth, 2 + 3 steps equal to
+                headline row, full width and depth, and at Qwen3-30B-A3B's
+                train row (4 layers, K5-K7 on), 2 + 3 steps each equal to
                 the single-device ``Trainer``'s bit for bit (losses, grad
-                norms, final parameters), K1/K2/K3 56/28/28 a step. Four
-                cards: the headline row under tp4 with SP, cp4 ring
-                zigzag, cp4 Ulysses, dp2 x tp2 and dp2 x cp2 ring
-                contiguous: each layout's fp32 loss and gradients against
-                the one-card step on the same weights and global batch
-                (TRAIN_PARITY), then its bf16 ``Trainer`` 2 + 10 steps:
-                tokens/s and MFU a card, peak memory a card, K1/K2/K3
-                launches a step on every rank as the reference's schedule
-                reckons them; then qwen3-8b at seq 4096 under tp4 + SP
-                (2 + 10 steps, finite losses, no skipped update). The line
-                names the world and the layouts run and not run.
+                norms, routing statistics, final parameters), K1/K2/K3
+                56/28/28 a step (and K1-K7 8/4/4/8/4/4, 4 grads passes, on
+                the MoE row). Four cards: the headline row under tp4 with
+                SP, cp4 ring zigzag, cp4 Ulysses, dp2 x tp2 and dp2 x cp2
+                ring contiguous: each layout's fp32 loss and gradients
+                against the one-card step on the same weights and global
+                batch (TRAIN_PARITY), then its bf16 ``Trainer`` 2 + 10
+                steps: tokens/s and MFU a card, peak memory a card,
+                K1/K2/K3 launches a step on every rank as the schedule
+                reckons them; qwen3-8b at seq 4096 under tp4 + SP (2 + 10
+                steps, finite losses, no skipped update); the headline row
+                with M = 4 microbatches under pp4 afab, pp2 x dp2
+                memory_chunked and pp2 x tp2 + SP interleaved (vpp 2);
+                Qwen3-30B-A3B's width cut to 2 layers under ep4 and pp2 x
+                ep2 (the routing statistics against one card's too, K5-K7
+                counted); dp4 with the fp32 and with the int8 gradient
+                wire (the int8 gradients' cosine >= 0.999 against the
+                fp32 wire's, leaf by leaf and whole, no skipped update,
+                the wire bytes each reckons); Qwen3-30B-A3B at full width
+                under ep4 (bf16 masters, Adafactor, seq 4096 a rank, GC,
+                MOE_FULL_LAYERS layers): finite losses, no skipped update,
+                routing statistics, K1-K7 launches. The line names the
+                world and the layouts run and not run.
  19. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line (K1-K7,
@@ -495,6 +517,10 @@ GMLP_SHAPES = {  # name: (groups, tokens per group, capacity factor, bwd)
     "prefill": (8, PREFILL_LEN, DROPLESS_CF, False),
     "decode": (8, 1, DROPLESS_CF, False),
 }
+# the exchanged slabs of the train cell under ep 4: rank 0's 32 experts
+# over (source rank, group), [E/ep, ep·G, C, H] = [32, 4, 320, 2048]
+EP_SLAB_RANKS = 4
+EP_SHAPE = "ep4_train"
 # kernels on vs the einsum path through the whole fp32 model (the
 # limits of the flash vs sdpa training parity)
 MOE_TRAIN_PARITY = {"loss_abs": 1e-4, "grad_rel": 1e-3}
@@ -2292,16 +2318,26 @@ def phase_remat_parity() -> dict:
 
 
 # ---- 12. the grouped-MLP kernels against their plain versions -----------------
+def gmlp_shape(shape: str) -> tuple:
+    """(groups, tokens per group, capacity factor, bwd, ep ranks)."""
+    if shape == EP_SHAPE:
+        return (*GMLP_SHAPES["train"], EP_SLAB_RANKS)
+    return (*GMLP_SHAPES[shape], 1)
+
+
 def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
-    """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES. Counts come from
-    routing seeded hidden states through a seeded router, as a layer
-    routes them; the train shape also gets one expert at 0 and one at C.
-    x and dO are random in every row, past the counts too, so the
-    kernels' masks are what keeps those rows out."""
+    """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES, or at EP_SHAPE.
+    Counts come from routing seeded hidden states through a seeded
+    router, as a layer routes them; the train shape also gets one expert
+    at 0 and one at C. EP_SHAPE routes four ranks' tokens and keeps rank
+    0's experts: the counts per (expert, source rank) that
+    ``exchange_slot_counts`` gives it, uneven across the ranks. x and dO
+    are random in every row, past the counts too, so the kernels' masks
+    are what keeps those rows out."""
     cfg = model_config(MOE_MODEL)
     e, k, h, i = (cfg.num_experts, cfg.num_experts_per_tok,
                   cfg.hidden_size, cfg.moe_intermediate_size)
-    groups, tokens, cf, _ = GMLP_SHAPES[shape]
+    groups, tokens, cf, _, ep = gmlp_shape(shape)
     cap = expert_capacity(tokens, e, k, cf)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -2310,16 +2346,19 @@ def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
         return (torch.randn(*s, generator=gen, device="cuda") * scale).to(
             dtype)
 
-    hidden = torch.randn(groups, tokens, h, generator=gen, device="cuda")
+    hidden = torch.randn(ep * groups, tokens, h, generator=gen,
+                         device="cuda")
     router = torch.randn(h, e, generator=gen, device="cuda") * 0.02
     routing, _ = top_k_routing_indexed(hidden @ router, k, cap)
     counts = slot_fill_counts_indexed(routing, e, cap)
     if shape == "train":
         counts[0], counts[1] = 0, cap
-    x = rnd(e, groups, cap, h)
+    e = e // ep
+    counts = counts[:e]  # [E/ep, ep·G]: (source rank, group) per expert
+    x = rnd(e, ep * groups, cap, h)
     wg, wu = rnd(e, h, i, scale=h ** -0.5), rnd(e, h, i, scale=h ** -0.5)
     wd = rnd(e, i, h, scale=i ** -0.5)
-    return x, counts.contiguous(), wg, wu, wd, rnd(e, groups, cap, h)
+    return x, counts.contiguous(), wg, wu, wd, rnd(e, ep * groups, cap, h)
 
 
 def slot_tile_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2442,11 +2481,12 @@ def gmlp_backward(args):
             *gm.grouped_mlp_dw(*args, grads))
 
 
-def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
+def gmlp_case(shape: str, dtype: torch.dtype, flush,
+              phase: str = "kernel_grouped_mlp") -> dict:
     args = gmlp_inputs(shape, dtype, seed=2024)
     x, counts, wg, wu, wd, dout = args
     fwd_args = args[:5]
-    bwd = GMLP_SHAPES[shape][3]
+    bwd = gmlp_shape(shape)[3]
     tol = GMLP_TOLERANCE[dtype]
     past = (torch.arange(x.shape[2], device="cuda")[None, None]
             >= counts[..., None])
@@ -2566,8 +2606,15 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush) -> dict:
                       "dU Wu^T); K7: three bmm (x^T dG, x^T dU, s^T dO); "
                       "backward: the einsum path's autograd; every slot, "
                       "several calls, not one")
+    if gmlp_shape(shape)[4] > 1:
+        per_source = counts.sum(0)
+        row["rows_per_source_rank"] = per_source.tolist()
+        row["rows_per_expert_min_max"] = [int(counts.sum(1).min()),
+                                          int(counts.sum(1).max())]
+        check(int(per_source.max()) > int(per_source.min()),
+              f"{shape}: the source ranks' counts are even")
     del lib_out, lib_in
-    emit("kernel_grouped_mlp", **row)
+    emit(phase, **row)
     violations = gmlp_violations(errs, tol)
     check(zeros, f"{shape} {dtype}: rows past the counts are not zero")
     check(not violations, f"{shape} {dtype}: kernels vs plain: {violations}")
@@ -2591,6 +2638,19 @@ def phase_kernel_grouped_mlp(dtypes=(torch.float32, torch.bfloat16)) -> dict:
             row = gmlp_case(shape, dtype, flush)
             results[(shape, row["dtype"])] = row
             torch.cuda.empty_cache()
+    return results
+
+
+def phase_kernel_ep_blocks(dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """K5, the grads pass, K6 and K7 on the slabs the ep exchange hands a
+    rank at the train cell under ep 4 (EP_SHAPE), as gmlp_case checks and
+    times them at the train shape."""
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for dtype in dtypes:
+        row = gmlp_case(EP_SHAPE, dtype, flush, phase="kernel_ep_blocks")
+        results[row["dtype"]] = row
+        torch.cuda.empty_cache()
     return results
 
 
@@ -3549,7 +3609,7 @@ def phase_runtime_serve(model32) -> dict:
 
 # ---- 19. training over the device mesh, one rank a card ------------------------
 PARALLEL_DIR = os.path.join("build", "parallel")
-PARALLEL_TIMEOUT_S = 420  # the torch.distributed.run of every layout
+PARALLEL_TIMEOUT_S = 720  # the torch.distributed.run of every layout
 PARALLEL_WARMUP, PARALLEL_STEPS = 2, 3
 # the timed window of each four-card layout: three steps spread by
 # 30-45% between two calls, so the layouts are compared over ten
@@ -3568,21 +3628,72 @@ PARALLEL_LAYOUTS = (
                                      cp_layout="contiguous")),
 )
 BIG_MODEL, BIG_SEQ = "qwen3-8b", 4096  # tp4 + SP: too big for one card
+# the pipeline layouts of the headline row: M = 4 microbatches a step
+PP_MICROBATCHES = 4
+PIPELINE_LAYOUTS = (
+    ("pp4_afab", dict(pipeline_parallel_size=4,
+                      gradient_accumulation_steps=PP_MICROBATCHES)),
+    ("pp2_dp2_memory_chunked", dict(
+        pipeline_parallel_size=2, data_parallel_size=2,
+        pp_engine="memory_chunked",
+        gradient_accumulation_steps=PP_MICROBATCHES)),
+    ("pp2_tp2_sp_interleaved", dict(
+        pipeline_parallel_size=2, tensor_parallel_size=2,
+        sequence_parallel=True, pp_engine="interleaved",
+        pp_virtual_stages=2, gradient_accumulation_steps=PP_MICROBATCHES)),
+)
+# Qwen3-30B-A3B's width cut to 2 layers, seq MOE_TRAIN_SEQ a row
+MOE_LAYOUT_LAYERS = 2
+MOE_LAYOUTS = (
+    ("ep4", dict(expert_parallel_size=4)),
+    ("pp2_ep2", dict(pipeline_parallel_size=2, expert_parallel_size=2,
+                     gradient_accumulation_steps=2)),
+)
+# routing statistics of a layout vs one card (fp32; a near-tie of the
+# top-k may flip one choice between two summation orders)
+MOE_STATS_ABS = 1e-3
+# the int8 gradient wire beside the fp32 one, dp 4, headline row
+INT8_LAYOUTS = (("dp4", dict(data_parallel_size=4)),
+                ("dp4_int8", dict(data_parallel_size=4,
+                                  grad_allreduce_dtype="int8")))
+INT8_COSINE = 0.999  # the reference's bound (quantized_collectives.py)
+# Qwen3-30B-A3B at full width under ep 4: bf16 masters, Adafactor, seq
+# 4096 a row (one a rank), GC; the depth reckoned to fit 80 GB (PERF.md
+# §6): Adafactor's update of the stacked expert leaf keeps ~7 fp32 copies
+# of it (6.4 GB a copy at 32 layers), so 28 of the 48 layers
+MOE_FULL_LAYERS = 28
+MOE_FULL = dict(expert_parallel_size=4, param_dtype="bfloat16",
+                optimizer_name="adafactor",
+                num_hidden_layers=MOE_FULL_LAYERS)
 
 
-def layout_launches(opts: dict, cp_rank: int, layers: int) -> dict:
-    """K1/K2/K3 launches a GC step on a rank with cp coordinate
-    ``cp_rank``, from the reference's schedule: one block a layer for
-    flash and ulysses; the contiguous ring's rank r computes r + 1 blocks,
-    the zigzag ring's every rank 3 + (cp - 1) half blocks; GC runs the
-    forward twice."""
+def layout_launches(opts: dict, cp_rank: int, layers: int,
+                    moe: bool = False) -> dict:
+    """K1/K2/K3 (and, for a MoE, K5, the grads pass, K6 and K7) launches a
+    GC step on a rank with cp coordinate ``cp_rank``, from the reference's
+    schedule: one block a layer for flash and ulysses; the contiguous
+    ring's rank r computes r + 1 blocks, the zigzag ring's every rank
+    3 + (cp - 1) half blocks; a pipeline stage runs its L/pp layers for
+    each of the M microbatches (interleaved: in vpp chunks, the same
+    count); GC runs the forward twice."""
     cp = opts.get("context_parallel_size", 1)
     blocks = 1
     if opts.get("attention_backend") == "ring":
         blocks = (3 + cp - 1 if opts["cp_layout"] == "zigzag"
                   else cp_rank + 1)
-    return {tf.K1_NAME: 2 * layers * blocks, tf.K2_NAME: layers * blocks,
-            tf.K3_NAME: layers * blocks}
+    per = (layers // opts.get("pipeline_parallel_size", 1)
+           * opts.get("gradient_accumulation_steps", 1))
+    out = {tf.K1_NAME: 2 * per * blocks, tf.K2_NAME: per * blocks,
+           tf.K3_NAME: per * blocks}
+    if moe:
+        out.update({gm.K5_NAME: 2 * per, gm.GRADS_NAME: per,
+                    gm.K6_NAME: per, gm.K7_NAME: per})
+    return out
+
+
+LAUNCH_NAMES = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)
+MOE_LAUNCH_NAMES = LAUNCH_NAMES + (gm.K5_NAME, gm.GRADS_NAME, gm.K6_NAME,
+                                   gm.K7_NAME)
 
 
 def parallel_cfg(opts: dict, model: str = MODEL, seq: int = TRAIN_SEQ):
@@ -3592,26 +3703,36 @@ def parallel_cfg(opts: dict, model: str = MODEL, seq: int = TRAIN_SEQ):
                            extra={**opts, "distributed_launcher": "env"})
 
 
+def moe_parallel_cfg(opts: dict):
+    """Qwen3-30B-A3B's train row (seq MOE_TRAIN_SEQ, GC) cut to
+    MOE_LAYOUT_LAYERS layers under the layout ``opts``."""
+    return parallel_cfg({"num_hidden_layers": MOE_LAYOUT_LAYERS, **opts},
+                        model=MOE_MODEL, seq=MOE_TRAIN_SEQ)
+
+
 def shard_diff(mm, cfg, params, grads, ref_grads) -> dict:
     """The whole model's |g - ref| / |ref| and |g| / |ref| - 1 from this
-    rank's shards (tp-sharded leaves summed over tp, replicated ones
-    counted once), and the worst leaf's relative difference here."""
-    from scaletorch_tpu_torch.parallel.spmd import per_leaf
-    from scaletorch_tpu_torch.parallel.tensor_parallel import (
-        llama_param_specs,
-    )
+    rank's shards (each leaf's sums summed over the tp, pp and ep axes it
+    is split over, the others counted once), and the worst leaf's
+    relative difference here."""
+    from scaletorch_tpu_torch.parallel.spmd import MODEL_AXES, leaf_shard_axes
 
-    sums = torch.zeros(2, 3, dtype=torch.float64, device="cuda")
+    axes = leaf_shard_axes(params, cfg, mm)
+    sigs = sorted(set(axes))
+    sums = torch.zeros(len(sigs), 3, dtype=torch.float64, device="cuda")
     worst = 0.0
-    for g, r, dim in zip(grads, ref_grads,
-                         per_leaf(params, llama_param_specs(cfg))):
+    for g, r, a in zip(grads, ref_grads, axes):
         g, r = g.double(), r.double()
         row = torch.stack([(g - r).square().sum(), r.square().sum(),
                            g.square().sum()])
-        sums[int(dim is not None and mm.tp > 1)] += row
+        sums[sigs.index(a)] += row
         worst = max(worst, float(row[0].sqrt() / row[1].sqrt()))
-    if mm.tp > 1:
-        torch.distributed.all_reduce(sums[1], group=mm.group("tp"))
+    for axis in MODEL_AXES:
+        rows = [i for i, sig in enumerate(sigs) if axis in sig]
+        if rows:
+            part = sums[rows].contiguous()
+            torch.distributed.all_reduce(part, group=mm.group(axis))
+            sums[rows] = part
     d2, r2, g2 = (float(x) for x in sums.sum(0))
     return {"grad_rel_l2_diff": (d2 / r2) ** 0.5,
             "grad_norm_rel_diff": abs((g2 / r2) ** 0.5 - 1.0),
@@ -3620,11 +3741,13 @@ def shard_diff(mm, cfg, params, grads, ref_grads) -> dict:
 
 def parallel_worker(out_dir: str) -> int:
     """One rank of ``phase_parallel`` (started by torch.distributed.run):
-    the world-1 check on one card, the four-card layouts on four."""
+    the world-1 checks on one card, the four-card layouts on four."""
     from scaletorch_tpu_torch import dist as stdist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the MoE configs read the kernel toggle once, when they are built
+    os.environ[qwen3_moe.GROUPED_MLP_ENV] = "1"
     world = int(os.environ["WORLD_SIZE"])
     result = (parallel_world1() if world == 1 else parallel_layouts(world))
     if stdist.process_index() == 0:
@@ -3635,30 +3758,37 @@ def parallel_worker(out_dir: str) -> int:
 
 
 def trainer_steps(trainer, steps: int) -> list:
-    """``steps`` steps' (loss, grad_norm, update_skipped) as floats."""
+    """``steps`` steps' (loss, grad_norm, update_skipped[, routing stats])
+    as floats."""
     out = []
     for _ in range(steps):
         m = trainer.step()
         out.append([float(m["loss"]), float(m["grad_norm"]),
-                    float(m["update_skipped"])])
+                    float(m["update_skipped"])]
+                   + [float(m[k]) for k in sorted(m) if k.startswith("moe_")])
     return out
 
 
-def parallel_world1() -> dict:
-    """The distributed Trainer (an NCCL group of one) against the
-    single-device Trainer on the same seeded weights and batches: 2 + 3
-    steps equal bit for bit, losses, norms and final parameters."""
-    steps = PARALLEL_WARMUP + PARALLEL_STEPS
-    single = Trainer(dataclasses.replace(
-        parallel_cfg({}), distributed_launcher="none"))
+def world1_reference(cfg) -> tuple:
+    """The single-device Trainer's steps and final parameters (on the
+    host), before any process group exists."""
+    single = Trainer(dataclasses.replace(cfg, distributed_launcher="none"))
     check(not torch.distributed.is_initialized(), "the single run joined a "
           "process group")
-    ref = trainer_steps(single, steps)
-    ref_params = [t.detach().clone() for t in tree_leaves(single.params)]
+    steps = trainer_steps(single, PARALLEL_WARMUP + PARALLEL_STEPS)
+    params = [t.detach().cpu() for t in tree_leaves(single.params)]
     del single
     gc.collect()
     torch.cuda.empty_cache()
-    trainer = Trainer(parallel_cfg({}))
+    return steps, params
+
+
+def world1_case(name: str, cfg, ref: tuple, moe: bool) -> dict:
+    """The distributed Trainer (an NCCL group of one) against ``ref``: 2 +
+    3 steps and the final parameters equal bit for bit, the kernels'
+    launches a step as reckoned."""
+    ref_steps, ref_params = ref
+    trainer = Trainer(cfg)
     check(torch.distributed.is_initialized()
           and torch.distributed.get_backend() == "nccl"
           and trainer.world == 1, "the distributed Trainer has no NCCL group")
@@ -3668,167 +3798,370 @@ def parallel_world1() -> dict:
     t0 = time.perf_counter()
     got += trainer_steps(trainer, PARALLEL_STEPS)
     elapsed = time.perf_counter() - t0
+    names = MOE_LAUNCH_NAMES if moe else LAUNCH_NAMES
     launches = {n: _build.launch_counts.get(n, 0) / PARALLEL_STEPS
-                for n in (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
-    layers = trainer.model_cfg.num_hidden_layers
-    want = layout_launches({}, 0, layers)
-    check(launches == want, f"world 1: launches a step {launches}, want "
-                            f"{want}")
-    check(got == ref, f"world 1: steps {got} != single-device {ref}")
-    same = all(bool(torch.equal(a, b)) for a, b in
+                for n in names}
+    want = layout_launches({}, 0, trainer.model_cfg.num_hidden_layers, moe)
+    check(launches == want, f"world 1 {name}: launches a step {launches}, "
+                            f"want {want}")
+    check(got == ref_steps, f"world 1 {name}: steps {got} != single-device "
+                            f"{ref_steps}")
+    same = all(bool(torch.equal(a.cpu(), b)) for a, b in
                zip(tree_leaves(trainer.params), ref_params))
-    check(same, "world 1: parameters differ from the single-device run")
+    check(same, f"world 1 {name}: parameters differ from the single-device "
+                "run")
     tok_s, mfu = trainer.metrics.throughput(PARALLEL_STEPS, elapsed)
-    return {"world": 1, "layouts_run": ["world1_vs_single_device"],
-            "layouts_not_run": [n for n, _ in PARALLEL_LAYOUTS]
-            + [f"{BIG_MODEL}_tp4_sp"],
-            "steps": got, "bitwise_equal": True, "launches_per_step": launches,
-            "tokens_per_s": tok_s, "mfu_per_card": mfu,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    row = {"steps": got, "bitwise_equal": True, "launches_per_step": launches,
+           "tokens_per_s": tok_s, "mfu_per_card": mfu,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
-def parallel_layouts(world: int) -> dict:
-    """Four ranks: each layout's fp32 loss and gradients against the
-    one-card step on the same weights and global batch (under
-    TRAIN_PARITY), then its bf16 Trainer 2 + 10 steps (tokens/s, MFU and
-    peak memory per card, K1/K2/K3 launches a step asserted against the
-    reference's schedule); then qwen3-8b under tp4 + SP."""
-    from scaletorch_tpu_torch import dist as stdist
+def parallel_world1() -> dict:
+    """The distributed Trainer (an NCCL group of one) against the
+    single-device Trainer on the same seeded weights and batches: 2 + 3
+    steps equal bit for bit, losses, norms (and routing statistics) and
+    final parameters; the headline row, then Qwen3-30B-A3B's train row
+    (4 layers, the grouped-MLP kernels on, K5-K7 counted)."""
+    dense_cfg = parallel_cfg({})
+    moe_cfg = parallel_cfg({"num_hidden_layers": MOE_TRAIN_LAYERS},
+                           model=MOE_MODEL, seq=MOE_TRAIN_SEQ)
+    refs = {"dense": world1_reference(dense_cfg),
+            "moe": world1_reference(moe_cfg)}
+    dense = world1_case("dense", dense_cfg, refs["dense"], moe=False)
+    moe = world1_case(f"{MOE_MODEL}_{MOE_TRAIN_LAYERS}l", moe_cfg,
+                      refs["moe"], moe=True)
+    not_run = ([n for n, _ in PARALLEL_LAYOUTS] + [f"{BIG_MODEL}_tp4_sp"]
+               + [n for n, _ in PIPELINE_LAYOUTS + MOE_LAYOUTS + INT8_LAYOUTS]
+               + [f"{MOE_MODEL}_ep4_full_width"])
+    return {"world": 1, "layouts_run": ["world1_vs_single_device",
+                                        "world1_moe_vs_single_device"],
+            "layouts_not_run": not_run, **dense,
+            "moe": {"model": MOE_MODEL, "layers": MOE_TRAIN_LAYERS, **moe}}
+
+
+def one_card_reference(cfg32, batch, dev, blocks: int = 1) -> tuple:
+    """(loss, stats, {name: fp32 gradient on the host}) of the one-card
+    step on ``batch`` (its microbatches accumulated), from the seeded
+    weights every layout draws. The routing statistics are the mean of
+    those of the ``blocks`` row blocks the data ranks hold (the
+    reference's definition: the mean over the data ranks of each rank's
+    statistics; ``moe_load_cv`` is not linear in the rows)."""
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+        make_loss_fn,
+    )
+
+    model = qwen3_moe if hasattr(cfg32, "num_experts") else None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = (model.init_params(cfg32, gen, dev, requires_grad=True)
+              if model else init_params(cfg32, gen, dev, requires_grad=True))
+    grads_fn = make_grad_fn(cfg32, attention_backend="flash",
+                            gradient_checkpointing=True)
+    loss, stats, grads = grads_fn(params, device_batch(batch, dev))
+    if stats and blocks > 1:
+        loss_fn = make_loss_fn(cfg32, attention_backend="flash",
+                               gradient_checkpointing=False)
+        rows = batch["input_ids"].shape[1] // blocks
+        acc = {k: 0.0 for k in stats}
+        with torch.no_grad():
+            for b in range(blocks):
+                for m in range(batch["input_ids"].shape[0]):
+                    part = {k: (v[m, b * rows:(b + 1) * rows] if v.ndim == 3
+                                else v[m]) for k, v in batch.items()}
+                    _, st = loss_fn(params, device_batch(part, dev))
+                    for k, v in st.items():
+                        acc[k] += float(v)
+        n = blocks * batch["input_ids"].shape[0]
+        stats = {k: v / n for k, v in acc.items()}
+    names = list(flatten_params(params))
+    # on the host: held through every layout, they would count in each
+    # layout's peak memory on the card
+    out = (float(loss), {k: float(v) for k, v in stats.items()},
+           {n: g.cpu() for n, g in zip(names, grads)})
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_parity(name: str, opts: dict, cfg32, batch, ref, dev) -> dict:
+    """The layout's fp32 loss, gradients (and routing statistics) against
+    the one-card step ``ref`` on the same weights and global batch."""
     from scaletorch_tpu_torch.data.dataloader import device_batch
     from scaletorch_tpu_torch.models.convert import local_shard_fn
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+    from scaletorch_tpu_torch.parallel.pipeline_parallel import (
+        stage_layer_layout,
+    )
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_grad_fn,
+    )
+
+    mm = MeshManager(dp=opts.get("data_parallel_size", 1),
+                     pp=opts.get("pipeline_parallel_size", 1),
+                     cp=opts.get("context_parallel_size", 1),
+                     ep=opts.get("expert_parallel_size", 1),
+                     tp=opts.get("tensor_parallel_size", 1),
+                     device_type="cuda")
+    engine = opts.get("pp_engine", "afab")
+    vpp = opts.get("pp_virtual_stages", 1)
+    backend = opts.get("attention_backend", "flash")
+    layout = opts.get("cp_layout", "zigzag")
+    slicer = local_shard_fn(cfg32, mm, mm.rank, layout=stage_layer_layout(
+        cfg32.num_hidden_layers, mm.pp, engine, vpp))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = qwen3_moe if hasattr(cfg32, "num_experts") else None
+    kw = dict(requires_grad=True, local_slice=slicer)
+    params = (model.init_params(cfg32, gen, dev, **kw) if model
+              else init_params(cfg32, gen, dev, **kw))
+    grads_fn = make_spmd_grad_fn(
+        mm, cfg32, attention_backend=backend, gradient_checkpointing=True,
+        sequence_parallel=opts.get("sequence_parallel", False),
+        cp_layout=layout, pp_engine=engine, pp_vpp=vpp)
+    lb = local_batch(batch, mm, zigzag=backend == "ring"
+                     and layout == "zigzag")
+    loss, grads = grads_fn(params, device_batch(lb, dev))
+    ref_loss, ref_stats, ref_grads = ref
+    names = list(flatten_params(params))
+    parity = shard_diff(mm, cfg32, params, grads,
+                        [slicer(n, ref_grads[n]).to(dev) for n in names])
+    # a layout's communicators and their buffers go with it: the layouts
+    # after it would run out of card memory outside PyTorch's allocator
+    mm.destroy()
+    parity.update(loss=float(loss), loss_one_card=ref_loss,
+                  loss_abs_diff=abs(float(loss) - ref_loss))
+    if ref_stats:
+        got = {k: float(v) for k, v in grads_fn.stats.items()}
+        parity.update(stats=got, stats_one_card=ref_stats,
+                      stats_abs_diff=max(abs(got[k] - v)
+                                         for k, v in ref_stats.items()))
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return parity
+
+
+def timed_layout(name: str, cfg, opts: dict, world: int, moe: bool,
+                 parity: dict, t0: float, steps: int = LAYOUT_STEPS) -> dict:
+    """The layout's bf16 Trainer, 2 + ``steps`` steps: tokens/s, MFU and
+    peak memory a card, launches a step on every rank against the
+    schedule's reckoning; emitted and checked."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    res = benchmark_config(cfg, warmup=PARALLEL_WARMUP, steps=steps,
+                           before_window=_build.reset_launch_counts)
+    trainer = res.pop("trainer")
+    names = MOE_LAUNCH_NAMES if moe else LAUNCH_NAMES
+    launches = {n: _build.launch_counts.get(n, 0) / steps for n in names}
+    want = layout_launches(opts, trainer.mm.axis_rank("cp"),
+                           trainer.model_cfg.num_hidden_layers, moe)
+    losses = res["warmup_losses"] + res["losses"]
+    mine = {"rank": trainer.mm.rank, "launches": launches, "want": want,
+            "peak_memory_gb": res["memory_gb"], "parity": parity,
+            "finite": bool(np.isfinite(losses).all()),
+            "skipped": sum(res["update_skipped"])}
+    num_params = trainer.num_params
+    trainer.mm.destroy()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = stdist.all_gather_object(mine)
+    row = {"options": opts, "num_params": num_params,
+           "sequence_length": cfg.sequence_length,
+           "tokens_per_step": (cfg.sequence_length * cfg.micro_batch_size
+                               * cfg.gradient_accumulation_steps
+                               * cfg.data_parallel_size
+                               * cfg.expert_parallel_size),
+           "parity": ranks[0]["parity"],
+           "parity_per_rank": [r["parity"] for r in ranks],
+           "tokens_per_s": res["tokens_per_second"],
+           "tokens_per_s_per_card": res["tokens_per_second"] / world,
+           "mfu_per_card": res["mfu"], "step_s": res["step_time_s"],
+           "losses": losses, "update_skipped": res["update_skipped"],
+           **{k: v for k, v in res.items() if k.startswith("moe_")},
+           "peak_memory_gb_per_card": [r["peak_memory_gb"] for r in ranks],
+           "launches_per_step": [r["launches"] for r in ranks],
+           "expected_launches": [r["want"] for r in ranks],
+           "seconds": time.monotonic() - t0}
+    if stdist.process_index() == 0:
+        emit("parallel_layout", name=name, **row)
+    for r in ranks:
+        p = r["parity"]
+        if p is not None:
+            check(p["loss_abs_diff"] <= TRAIN_PARITY["loss_abs"],
+                  f"{name} rank {r['rank']}: |dloss| {p['loss_abs_diff']}")
+            check(p["grad_rel_l2_diff"] <= TRAIN_PARITY["grad_rel"]
+                  and p["grad_norm_rel_diff"] <= TRAIN_PARITY["grad_rel"],
+                  f"{name} rank {r['rank']}: gradients {p}")
+            if "stats_abs_diff" in p:
+                check(p["stats_abs_diff"] <= MOE_STATS_ABS,
+                      f"{name} rank {r['rank']}: routing stats {p}")
+        check(r["launches"] == r["want"],
+              f"{name} rank {r['rank']}: launches {r['launches']}, want "
+              f"{r['want']}")
+        check(r["finite"] and not r["skipped"],
+              f"{name} rank {r['rank']}: losses {losses}")
+    return row
+
+
+def int8_wire(world: int, dev) -> dict:
+    """The headline row's bf16 gradients over dp 4 with the fp32 and the
+    int8 wire on one set of weights and one global batch: the int8 step's
+    loss (reduced in fp32) equal, every leaf's gradient and the whole
+    gradient with cosine >= INT8_COSINE against the fp32 wire's; the wire
+    bytes a step each reckons (``wire_bytes``)."""
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.ops.quantized_collectives import wire_bytes
     from scaletorch_tpu_torch.parallel.mesh import MeshManager
     from scaletorch_tpu_torch.parallel.spmd import (
         local_batch,
         make_spmd_grad_fn,
     )
 
+    cfg = model_config(MODEL)  # bf16 compute, fp32 masters
+    mm = MeshManager(dp=world, device_type="cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, dev, requires_grad=True)
+    batch = next(iter(SyntheticDataLoader(
+        vocab_size=cfg.vocab_size, sequence_length=TRAIN_SEQ,
+        micro_batch_size=world, gradient_accumulation_steps=1, seed=11)))
+    lb = device_batch(local_batch(batch, mm), dev)
+    out = {}
+    for wire in ("fp32", "int8"):
+        fn = make_spmd_grad_fn(mm, cfg, attention_backend="flash",
+                               gradient_checkpointing=True,
+                               grad_allreduce_dtype=wire)
+        loss, grads = fn(params, lb)
+        out[wire] = (float(loss), [g.detach().cpu() for g in grads])
+        del grads
+    (l32, g32), (l8, g8) = out["fp32"], out["int8"]
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+    per_leaf = [cosine(a, b) for a, b in zip(g32, g8) if a.abs().max() > 0]
+    whole = cosine(torch.cat([g.flatten() for g in g32]),
+                   torch.cat([g.flatten() for g in g8]))
+    n = sum(g.numel() for g in g32)
+    row = {"loss_fp32_wire": l32, "loss_int8_wire": l8,
+           "cosine_min_leaf": min(per_leaf), "cosine_whole": whole,
+           "wire_bytes_per_step": {w: wire_bytes(n, world, w)
+                                   for w in ("fp32", "int8")},
+           "gradient_elements": n}
+    check(l8 == l32, f"int8 wire: loss {l8} != fp32 wire's {l32}")
+    check(min(per_leaf) >= INT8_COSINE and whole >= INT8_COSINE,
+          f"int8 wire: cosine {row}")
+    mm.destroy()
+    del params, out, g32, g8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def parallel_layouts(world: int) -> dict:
+    """Four ranks. PR 12's layouts of the headline row (each layout's fp32
+    loss and gradients against the one-card step on the same weights and
+    global batch under TRAIN_PARITY, then its bf16 Trainer 2 + 10 steps:
+    tokens/s, MFU and peak memory per card, K1/K2/K3 launches a step
+    against the reference's schedule) and qwen3-8b under tp4 + SP; then
+    the pipeline layouts of the headline row (M = 4), Qwen3-30B-A3B's
+    width cut to 2 layers under ep4 and pp2 x ep2 (routing statistics
+    against one card too, K5-K7 counted), dp4 with the fp32 and the int8
+    gradient wire, and Qwen3-30B-A3B at full width under ep4 (bf16
+    masters, Adafactor)."""
+    from scaletorch_tpu_torch import dist as stdist
+
     check(world == 4, f"the layouts need 4 cards, found {world}")
     stdist.init_distributed("env")
     dev = torch.device("cuda", stdist.local_rank())
     cfg32 = model_config(MODEL, dtype=torch.float32)
-    layers = cfg32.num_hidden_layers
+    moe32 = model_config(MOE_MODEL, dtype=torch.float32,
+                         num_hidden_layers=MOE_LAYOUT_LAYERS,
+                         use_grouped_mlp_kernel=True)
 
-    def weights(local_slice=None):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        return init_params(cfg32, gen, dev, requires_grad=True,
-                           local_slice=local_slice)
-
-    def global_batch(rows: int):
+    def global_batch(cfg, rows: int, seq: int, accum: int = 1):
         loader = SyntheticDataLoader(
-            vocab_size=cfg32.vocab_size, sequence_length=TRAIN_SEQ,
-            micro_batch_size=rows, gradient_accumulation_steps=1, seed=11)
+            vocab_size=cfg.vocab_size, sequence_length=seq,
+            micro_batch_size=rows, gradient_accumulation_steps=accum,
+            seed=11)
         return next(iter(loader))
 
-    refs = {}
-    for rows in (1, 2):  # the global batch of dp 1 and of dp 2
-        params = weights()
-        loss_fn = make_loss_fn(cfg32, attention_backend="flash",
-                               gradient_checkpointing=True)
-        mb = {k: v[0] for k, v in device_batch(global_batch(rows),
-                                               dev).items()}
-        loss, _ = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        names = list(flatten_params(params))
-        # on the host: held through every layout, they would count in
-        # each layout's peak memory on the card
-        refs[rows] = (float(loss.detach()),
-                      {n: g.cpu() for n, g in zip(names, grads)})
-        del params, loss, grads
+    def batch_of(cfg, opts, seq):
+        rows = (opts.get("data_parallel_size", 1)
+                * opts.get("expert_parallel_size", 1))
+        return global_batch(cfg, rows, seq,
+                            opts.get("gradient_accumulation_steps", 1))
+
     out = {"world": world, "layouts_run": [], "layouts_not_run": [],
            "layouts": {}}
-    for name, opts in PARALLEL_LAYOUTS:
+    refs = {}
+
+    def run(name, opts, cfg32_, seq, cfg, moe=False):
         t0 = time.monotonic()
-        mm = MeshManager(dp=opts.get("data_parallel_size", 1),
-                         cp=opts.get("context_parallel_size", 1),
-                         tp=opts.get("tensor_parallel_size", 1),
-                         device_type="cuda")
-        backend = opts.get("attention_backend", "flash")
-        layout = opts.get("cp_layout", "zigzag")
-        sp = opts.get("sequence_parallel", False)
-        slicer = local_shard_fn(cfg32, mm, mm.rank)
-        params = weights(slicer if mm.tp > 1 else None)
-        grads_fn = make_spmd_grad_fn(
-            mm, cfg32, attention_backend=backend, gradient_checkpointing=True,
-            sequence_parallel=sp, cp_layout=layout)
-        lb = local_batch(global_batch(mm.dp), mm,
-                         zigzag=backend == "ring" and layout == "zigzag")
-        loss, grads = grads_fn(params, device_batch(lb, dev))
-        ref_loss, ref_grads = refs[mm.dp]
-        parity = shard_diff(mm, cfg32, params, grads,
-                            [slicer(n, ref_grads[n]).to(dev) for n in names])
-        parity.update(loss=float(loss), loss_one_card=ref_loss,
-                      loss_abs_diff=abs(float(loss) - ref_loss))
-        del params, grads
-        gc.collect()
-        torch.cuda.empty_cache()
-        res = benchmark_config(parallel_cfg(opts), warmup=PARALLEL_WARMUP,
-                               steps=LAYOUT_STEPS,
-                               before_window=_build.reset_launch_counts)
-        trainer = res.pop("trainer")
-        launches = {n: _build.launch_counts.get(n, 0) / LAYOUT_STEPS
-                    for n in (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
-        want = layout_launches(opts, trainer.mm.axis_rank("cp"), layers)
-        losses = res["warmup_losses"] + res["losses"]
-        mine = {"rank": trainer.mm.rank, "launches": launches, "want": want,
-                "peak_memory_gb": res["memory_gb"], "parity": parity,
-                "finite": bool(np.isfinite(losses).all()),
-                "skipped": sum(res["update_skipped"])}
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-        ranks = stdist.all_gather_object(mine)
-        row = {"options": opts, "parity": ranks[0]["parity"],
-               "parity_per_rank": [r["parity"] for r in ranks],
-               "tokens_per_s": res["tokens_per_second"],
-               "tokens_per_s_per_card": res["tokens_per_second"] / world,
-               "mfu_per_card": res["mfu"], "step_s": res["step_time_s"],
-               "losses": losses,
-               "peak_memory_gb_per_card": [r["peak_memory_gb"]
-                                           for r in ranks],
-               "launches_per_step": [r["launches"] for r in ranks],
-               "expected_launches": [r["want"] for r in ranks],
-               "seconds": time.monotonic() - t0}
+        batch = batch_of(cfg32_, opts, seq)
+        blocks = (opts.get("data_parallel_size", 1)
+                  * opts.get("expert_parallel_size", 1))
+        key = (cfg32_.num_hidden_layers, moe, blocks) + tuple(
+            batch["input_ids"].shape)
+        if key not in refs:
+            refs[key] = one_card_reference(cfg32_, batch, dev, blocks)
+        parity = layout_parity(name, opts, cfg32_, batch, refs[key], dev)
+        row = timed_layout(name, cfg, opts, world, moe, parity, t0)
         out["layouts"][name] = row
         out["layouts_run"].append(name)
-        emit("parallel_layout", name=name, **row)
-        for r in ranks:
-            p = r["parity"]
-            check(p["loss_abs_diff"] <= TRAIN_PARITY["loss_abs"],
-                  f"{name} rank {r['rank']}: |dloss| {p['loss_abs_diff']}")
-            check(p["grad_rel_l2_diff"] <= TRAIN_PARITY["grad_rel"]
-                  and p["grad_norm_rel_diff"] <= TRAIN_PARITY["grad_rel"],
-                  f"{name} rank {r['rank']}: gradients {p}")
-            check(r["launches"] == r["want"],
-                  f"{name} rank {r['rank']}: launches {r['launches']}, "
-                  f"want {r['want']}")
-            check(r["finite"] and not r["skipped"],
-                  f"{name} rank {r['rank']}: losses {losses}")
-    del refs
+
+    for name, opts in PARALLEL_LAYOUTS:
+        run(name, opts, cfg32, TRAIN_SEQ, parallel_cfg(opts))
+    refs.clear()
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     big = dict(tensor_parallel_size=4, sequence_parallel=True)
-    res = benchmark_config(parallel_cfg(big, model=BIG_MODEL, seq=BIG_SEQ),
-                           warmup=PARALLEL_WARMUP, steps=LAYOUT_STEPS)
-    trainer = res.pop("trainer")
-    losses = res["warmup_losses"] + res["losses"]
-    ranks = stdist.all_gather_object(res["memory_gb"])
-    row = {"options": big, "sequence_length": BIG_SEQ,
-           "num_params": trainer.num_params,
-           "tokens_per_s": res["tokens_per_second"],
-           "tokens_per_s_per_card": res["tokens_per_second"] / world,
-           "mfu_per_card": res["mfu"], "step_s": res["step_time_s"],
-           "losses": losses, "update_skipped": res["update_skipped"],
-           "peak_memory_gb_per_card": ranks,
-           "seconds": time.monotonic() - t0}
-    del trainer
+    row = timed_layout(f"{BIG_MODEL}_tp4_sp",
+                       parallel_cfg(big, model=BIG_MODEL, seq=BIG_SEQ), big,
+                       world, False, None, t0)
     out["layouts"][f"{BIG_MODEL}_tp4_sp"] = row
     out["layouts_run"].append(f"{BIG_MODEL}_tp4_sp")
-    emit("parallel_layout", name=f"{BIG_MODEL}_tp4_sp", **row)
-    check(all(np.isfinite(losses)), f"{BIG_MODEL}: losses {losses}")
-    check(not any(res["update_skipped"]),
-          f"{BIG_MODEL}: update_skipped {res['update_skipped']}")
+    for name, opts in PIPELINE_LAYOUTS:
+        run(name, opts, cfg32, TRAIN_SEQ, parallel_cfg(opts))
+    refs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, opts in MOE_LAYOUTS:
+        run(name, opts, moe32, MOE_TRAIN_SEQ, moe_parallel_cfg(opts),
+            moe=True)
+    refs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    wire = int8_wire(world, dev)
+    for name, opts in INT8_LAYOUTS:
+        row = timed_layout(name, parallel_cfg(opts), opts, world, False,
+                           None, t0)
+        if name == "dp4_int8":
+            row["wire"] = wire
+        out["layouts"][name] = row
+        out["layouts_run"].append(name)
+        t0 = time.monotonic()
+    if stdist.process_index() == 0:
+        emit("parallel_int8_wire", **wire)
+    full = f"{MOE_MODEL}_ep4_full_width"
+    row = timed_layout(full, make_bench_args(
+        MOE_MODEL, seq=MOE_TRAIN_SEQ, gc=True,
+        extra={**MOE_FULL, "distributed_launcher": "env"}), MOE_FULL, world,
+        True, None, time.monotonic())
+    out["layouts"][full] = row
+    out["layouts_run"].append(full)
     return out
 
 
@@ -3843,9 +4176,11 @@ def phase_parallel() -> dict:
            f"--nproc-per-node={world}", os.path.abspath(__file__),
            "--parallel-worker", os.path.abspath(PARALLEL_DIR)]
     t0 = time.monotonic()
-    # the ranks' output goes to stderr: stdout ends with the contract lines
+    # the ranks' output goes to stderr: stdout ends with the contract lines;
+    # segments that grow keep the large layouts' memory unfragmented
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
     proc = subprocess.Popen(cmd, stdout=sys.stderr, stderr=sys.stderr,
-                            start_new_session=True)
+                            start_new_session=True, env=env)
     try:
         rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -3913,6 +4248,8 @@ def main() -> int:
     timed("runtime_watchdog", phase_runtime_watchdog)
     torch.cuda.empty_cache()
     gmlp = timed("kernel_grouped_mlp", phase_kernel_grouped_mlp)
+    torch.cuda.empty_cache()
+    timed("kernel_ep_blocks", phase_kernel_ep_blocks)
     torch.cuda.empty_cache()
     timed("moe_decode_parity", phase_moe_decode_parity)
     torch.cuda.empty_cache()

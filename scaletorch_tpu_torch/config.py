@@ -6,10 +6,9 @@ The dataclasses keep the reference's names, field names and defaults:
 architecture fields, the MoE fields included, ``model_type``,
 ``model_name_or_path`` and ``load_pretrained_weights``),
 ``ParallelArguments`` and ``DistributedArguments`` (whole, with their
-validation, ``validate_world_size`` and ``mesh_kwargs``; the values that
-ask for a path of ROADMAP Queue 1 item 6b, pipeline or expert
-parallelism, the int8 gradient all-reduce and MoE over more than one
-process, raise ``NotImplementedError``), ``LrSchedulerArguments``,
+validation, ``validate_world_size`` and ``mesh_kwargs``, pipeline and
+expert parallelism and the int8 gradient all-reduce included),
+``LrSchedulerArguments``,
 ``OptimizerArguments``, ``TrainingArguments``, ``CheckpointArguments``,
 ``ResilienceArguments`` and ``TelemetryArguments`` (whole, with their
 validation), and the logging fields the port reads. They compose into
@@ -129,7 +128,7 @@ class ParallelArguments:
     tensor_parallel_size: int = field(default=1,
                                       metadata={"help": "TP degree."})
     pipeline_parallel_size: int = field(
-        default=1, metadata={"help": "PP degree (> 1: item 6b)."})
+        default=1, metadata={"help": "PP degree."})
     context_parallel_size: int = field(default=1,
                                        metadata={"help": "CP degree."})
     cp_layout: str = field(
@@ -139,7 +138,7 @@ class ParallelArguments:
                           "ring rank does equal causal work "
                           "(parallel/zigzag.py)."})
     expert_parallel_size: int = field(
-        default=1, metadata={"help": "EP degree (> 1: item 6b)."})
+        default=1, metadata={"help": "EP degree."})
     pp_engine: str = field(
         default="afab",
         metadata={"help": "Pipeline schedule: afab | interleaved | "
@@ -160,10 +159,11 @@ class ParallelArguments:
     grad_allreduce_dtype: str = field(
         default="fp32",
         metadata={"help": "fp32 | bf16 | int8: wire format of the gradient "
-                          "mean over grad_allreduce_axis (int8: item 6b)."})
+                          "mean over grad_allreduce_axis (int8: the "
+                          "block-scaled quantized all-reduce)."})
     grad_allreduce_axis: str = field(
         default="dp",
-        metadata={"help": "Mesh axis the bf16 gradient mean runs over "
+        metadata={"help": "Mesh axis the bf16/int8 gradient mean runs over "
                           "('dp' or 'cp'); the other data axis reduces in "
                           "fp32 first."})
     grad_allreduce_block_size: int = field(
@@ -194,9 +194,20 @@ class ParallelArguments:
                 f"pp_virtual_stages={self.pp_virtual_stages} requires "
                 f"pp_engine='interleaved' (got {self.pp_engine!r})")
         if self.pp_engine == "1f1b":
-            # the reference's alias: the chunked schedule bounds memory
-            # like 1F1B (pp > 1 raises below, so it never warns here)
+            # the reference's alias: the chunked schedule bounds boundary
+            # activations like 1F1B, it is not a faster schedule
             self.pp_engine = "memory_chunked"
+            if self.pipeline_parallel_size > 1:
+                import warnings
+
+                warnings.warn(
+                    "pp_engine='1f1b' selects the memory_chunked schedule: "
+                    "it bounds boundary activations at O(pp) like 1F1B but "
+                    "is slower than 'afab' (a bubble a chunk). Use "
+                    "pp_engine='afab', or 'interleaved' to cut the bubble, "
+                    "unless activation memory binds; use 'memory_chunked' "
+                    "to silence this warning.",
+                    RuntimeWarning, stacklevel=2)
         if self.cp_layout not in ("contiguous", "zigzag"):
             raise ValueError(
                 "cp_layout must be 'contiguous' or 'zigzag', got "
@@ -216,17 +227,6 @@ class ParallelArguments:
             raise ValueError(
                 "grad_allreduce_block_size must be >= 8, got "
                 f"{self.grad_allreduce_block_size}")
-        # the paths of ROADMAP Queue 1 item 6b
-        asks = [name for name, on in (
-            ("pipeline_parallel_size > 1", self.pipeline_parallel_size > 1),
-            ("expert_parallel_size > 1", self.expert_parallel_size > 1),
-            ("grad_allreduce_dtype='int8'",
-             self.grad_allreduce_dtype == "int8"),
-        ) if on]
-        if asks:
-            raise NotImplementedError(
-                f"{', '.join(asks)}: pipeline and expert parallelism and "
-                "the int8 gradient all-reduce are ROADMAP Queue 1 item 6b")
 
 
 @dataclass
@@ -962,10 +962,6 @@ class ScaleTorchTPUArguments(
                     f"sequence_parallel needs per-cp-rank sequence "
                     f"{seq_local} divisible by tensor_parallel_size "
                     f"{self.tensor_parallel_size}")
-        if self.model_type == "qwen3_moe" and self.world_size > 1:
-            raise NotImplementedError(
-                "qwen3_moe over more than one process is ROADMAP Queue 1 "
-                "item 6b")
         # ep shards the batch too, so the data-parallel width is dp * ep
         expected = (self.data_parallel_size * self.expert_parallel_size
                     * self.micro_batch_size

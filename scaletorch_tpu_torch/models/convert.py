@@ -14,11 +14,13 @@ parameter dict (fp32 leaves with ``requires_grad``) and
 an optax optimizer state (as numpy arrays) into the port's state dict of
 the same optimizer, so both sides can start from one mid-run state.
 
-``shard_numpy_params`` turns a full tree into one rank's tensor-parallel
-shards (``parallel/tensor_parallel.llama_param_specs``: each leaf's
-split dim, or replicated), ``local_shard_fn`` does the same leaf by leaf
-as ``llama.init_params`` draws them, and ``gather_params`` is the
-inverse over every rank's shards.
+``shard_numpy_params`` turns a full tree into one rank's shards over the
+mesh (``parallel/tensor_parallel.shard_dims``: the stacked layer axis over
+pp, after the pipeline's padding or interleave; the expert axis over ep;
+each leaf's tp dim), ``local_shard_fn`` does the same leaf by leaf as
+``init_params`` draws them, and ``gather_params`` is the inverse over
+every rank's shards. Every rank cuts its part from the one-card tree, so
+the shards are one card's parameters and parity needs no exchange.
 """
 
 from __future__ import annotations
@@ -167,36 +169,52 @@ def opt_state_from_jax(state: Any, device: DeviceLike = None
     raise ValueError(f"no port optimizer keeps the state {names}")
 
 
-# ---- tensor-parallel shards -----------------------------------------------------
-def _split_dims(cfg) -> Dict[str, Optional[int]]:
-    from scaletorch_tpu_torch.parallel.tensor_parallel import (
-        llama_param_specs,
-    )
+# ---- shards over the mesh ------------------------------------------------------
+def _split_dims(cfg) -> Dict[str, Dict[str, int]]:
+    from scaletorch_tpu_torch.parallel.tensor_parallel import shard_dims
 
-    return flatten_params(llama_param_specs(cfg))
+    return shard_dims(cfg)
 
 
-def _tp_slice(leaf: Any, dim: Optional[int], tp: int, tp_rank: int) -> Any:
-    if dim is None or tp == 1:
-        return leaf
+def _slice(leaf: Any, dim: int, n: int, i: int) -> Any:
     size = leaf.shape[dim]
-    if size % tp:
+    if size % n:
         raise ValueError(f"dim {dim} of size {size} does not split over "
-                         f"tp={tp}")
-    width = size // tp
+                         f"{n} ranks")
+    width = size // n
     index = [slice(None)] * leaf.ndim
-    index[dim] = slice(tp_rank * width, (tp_rank + 1) * width)
+    index[dim] = slice(i * width, (i + 1) * width)
     return leaf[tuple(index)]
 
 
-def shard_numpy_params(params: Dict[str, Any], cfg, mm, rank: int
+# the order a leaf is cut in: the pp split of the stacked layer axis (after
+# the layout's padding or interleave), the ep split of the expert axis, tp
+_SPLIT_AXES = ("pp", "ep", "tp")
+
+
+def _local(name: str, leaf: Any, dims: Dict[str, int], mm, coords,
+           layout: Optional[Callable[[Any], Any]]) -> Any:
+    if layout is not None and name.startswith("layers."):
+        leaf = layout(leaf)
+    for axis in _SPLIT_AXES:
+        n = mm.axis_size(axis)
+        if axis in dims and n > 1:
+            leaf = _slice(leaf, dims[axis], n, getattr(coords, axis))
+    return leaf
+
+
+def shard_numpy_params(params: Dict[str, Any], cfg, mm, rank: int, *,
+                       layout: Optional[Callable[[Any], Any]] = None
                        ) -> Dict[str, Any]:
     """Global rank ``rank``'s shards of the full tree ``params`` (nested
     numpy arrays or tensors in the reference layout) on the mesh ``mm``:
-    each tp-split leaf cut to its tp coordinate's slice, the others
-    whole. Slices are copies."""
+    each stacked layer leaf re-blocked by ``layout`` (``pipeline_parallel.
+    stage_layer_layout``: uneven padding or the interleave order) and cut
+    to its pp coordinate's block, each expert leaf to its ep coordinate's
+    experts, each tp-split leaf to its tp slice; the others whole. Slices
+    are copies."""
     dims = _split_dims(cfg)
-    tp_rank = mm.coords(rank).tp
+    coords = mm.coords(rank)
 
     def walk(tree, prefix=""):
         out = {}
@@ -205,7 +223,7 @@ def shard_numpy_params(params: Dict[str, Any], cfg, mm, rank: int
             if isinstance(value, dict):
                 out[key] = walk(value, f"{name}.")
             else:
-                part = _tp_slice(value, dims[name], mm.tp, tp_rank)
+                part = _local(name, value, dims[name], mm, coords, layout)
                 out[key] = (part.clone() if isinstance(part, torch.Tensor)
                             else np.array(part))
         return out
@@ -213,28 +231,53 @@ def shard_numpy_params(params: Dict[str, Any], cfg, mm, rank: int
     return walk(params)
 
 
-def local_shard_fn(cfg, mm, rank: int) -> Callable[[str, torch.Tensor],
-                                                   torch.Tensor]:
-    """``fn(flat_name, leaf) -> shard`` for ``llama.init_params``'s
-    ``local_slice``: rank ``rank``'s slice as a tensor of its own (the
-    full leaf can be freed)."""
+def local_shard_fn(cfg, mm, rank: int, *,
+                   layout: Optional[Callable[[Any], Any]] = None
+                   ) -> Callable[[str, torch.Tensor], torch.Tensor]:
+    """``fn(flat_name, leaf) -> shard`` for ``init_params``' ``local_slice``
+    (``llama`` or ``qwen3_moe``): rank ``rank``'s part, as
+    ``shard_numpy_params`` cuts it, as a tensor of its own (the full leaf
+    can be freed)."""
     dims = _split_dims(cfg)
-    tp_rank = mm.coords(rank).tp
+    coords = mm.coords(rank)
 
     def fn(name: str, leaf: torch.Tensor) -> torch.Tensor:
-        part = _tp_slice(leaf, dims[name], mm.tp, tp_rank)
+        part = _local(name, leaf, dims[name], mm, coords, layout)
         return part if part is leaf else part.contiguous().clone()
 
     return fn
 
 
-def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm
+def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm, *,
+                  unlayout: Optional[Callable[[Any], Any]] = None
                   ) -> Dict[str, Any]:
     """The full tree from every global rank's shards (``shards[r]``,
-    numpy arrays): tp-split leaves concatenated over the tp ranks of the
-    first (dp, cp) coordinate, replicated leaves taken from rank 0."""
+    numpy arrays): each leaf concatenated over the pp, ep and tp ranks of
+    the first (dp, cp) coordinate along the dims it splits over, the
+    stacked layer leaves then put back in model order by ``unlayout``
+    (the inverse of the layout they were cut in)."""
+    from scaletorch_tpu_torch.parallel.mesh import MeshCoords
+
     dims = _split_dims(cfg)
-    tp_ranks = list(range(mm.tp))  # global ranks 0..tp-1: tp fastest
+
+    def full(name: str, trees) -> np.ndarray:
+        d = dims[name]
+        split = [a for a in _SPLIT_AXES if a in d and mm.axis_size(a) > 1]
+
+        def build(coords: Dict[str, int], axes):
+            if not axes:
+                rank = mm.rank_of(MeshCoords(dp=0, cp=0, **{
+                    a: coords.get(a, 0) for a in ("pp", "ep", "tp")}))
+                return np.asarray(trees[rank])
+            axis, rest = axes[0], axes[1:]
+            return np.concatenate(
+                [build({**coords, axis: i}, rest)
+                 for i in range(mm.axis_size(axis))], axis=d[axis])
+
+        leaf = build({}, split)
+        if unlayout is not None and name.startswith("layers."):
+            leaf = unlayout(leaf)
+        return leaf
 
     def walk(trees, prefix=""):
         out = {}
@@ -242,12 +285,8 @@ def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm
             name = f"{prefix}{key}"
             if isinstance(value, dict):
                 out[key] = walk([t[key] for t in trees], f"{name}.")
-            elif dims[name] is None or mm.tp == 1:
-                out[key] = np.asarray(value)
             else:
-                out[key] = np.concatenate(
-                    [np.asarray(trees[r][key]) for r in tp_ranks],
-                    axis=dims[name])
+                out[key] = full(name, [t[key] for t in trees])
         return out
 
     return walk(list(shards))

@@ -457,6 +457,7 @@ def decoder_stack(
     sequence_parallel: bool = False,
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
+    active_layers: Optional[int] = None,
 ) -> Tensor:
     """Run every layer of a stack (leading axis = layer index) over x.
 
@@ -464,12 +465,19 @@ def decoder_stack(
     stack of the per-layer gradients. With ``gradient_checkpointing`` each
     layer runs under ``checkpoint(..., use_reentrant=False)`` with the
     policy's ``context_fn``: its input and what the policy saves are
-    kept, and the backward recomputes the rest of the layer."""
+    kept, and the backward recomputes the rest of the layer.
+
+    ``active_layers`` k (an uneven pipeline stage) runs the first k slots
+    only: the later ones are identity padding, never run, so their
+    parameters get zero gradient."""
     if gradient_checkpointing:
         context_fn = resolve_remat_policy(remat_policy)
         attn_fn = remat_attn_fn(attn_fn, remat_policy)
     names = list(layers)
-    for weights in zip(*(layers[n].unbind(0) for n in names)):
+    per_layer = zip(*(layers[n].unbind(0) for n in names))
+    if active_layers is not None:
+        per_layer = list(per_layer)[:active_layers]
+    for weights in per_layer:
         layer = dict(zip(names, weights))
         if gradient_checkpointing:
             x = checkpointed(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,

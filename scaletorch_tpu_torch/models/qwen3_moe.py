@@ -1,7 +1,6 @@
 """Qwen3-MoE: the Qwen3 decoder with a sparse top-k expert MLP.
 
-Counterpart of scaletorch_tpu/models/qwen3_moe.py, single device. The
-parameter layout is the reference's, so a JAX tree carries across with
+Counterpart of scaletorch_tpu/models/qwen3_moe.py. The parameter layout is the reference's, so a JAX tree carries across with
 ``models/convert.py``:
 
   * attention, norm and embedding keys as in ``llama.py`` (layers stacked
@@ -20,6 +19,16 @@ when ``use_grouped_mlp_kernel`` is set (read once from
 off, as in the reference), else three batched products over every slot.
 The forward returns the coefficient-scaled aux loss summed over the layers
 and the layer-mean routing statistics beside the hidden states.
+
+Over a mesh the training forward takes the reference's axes: with
+``ep_axis`` each rank holds E/ep experts (``qwen3_moe_param_specs``) and
+the slots go through the all-to-all exchange, K5-K7 then running on the
+exchanged ``[E/ep, ep·G, C, H]`` slabs with the fill counts exchanged
+beside them; with ``tp_axis`` attention runs Megatron-style and each
+expert's gate/up are column-parallel and its down row-parallel (under
+``sequence_parallel`` the block all-gathers the normed sequence, routes
+the whole sequence, and completes the tp-partial expert output with the
+reduce-scatter back into its slice).
 
 ``Qwen3MoEForCausalLM`` serves: its matmul weights are held in the compute
 dtype, the norms and the router in ``param_dtype`` (the router runs in
@@ -46,6 +55,7 @@ from scaletorch_tpu_torch.models.registry import get_attention_backend
 from scaletorch_tpu_torch.parallel.expert_parallel import (
     combine_routed,
     dispatch_routed,
+    exchange_slot_counts,
     expert_capacity,
     moe_mlp,
     resolve_moe_dispatch,
@@ -241,12 +251,17 @@ def _fill_(t: Tensor, init: str, generator: torch.Generator,
 
 def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None, *,
-                requires_grad: bool = False) -> Params:
+                requires_grad: bool = False,
+                local_slice: Optional[Callable[[str, Tensor], Tensor]] = None
+                ) -> Params:
     """Random parameters in the reference layout and distributions, as a
     nested dict of ``param_dtype`` tensors on ``device``: ones for norms,
     N(0, 0.02) for the embedding and the router, fan-in uniform for the
     projections and experts. ``generator`` lives on ``device`` (default:
-    a fresh one seeded with 0)."""
+    a fresh one seeded with 0). ``local_slice(name, leaf)`` keeps this
+    rank's part of each leaf as soon as it is drawn (``llama.
+    init_params``'s contract: the shards are those of one card's
+    parameters)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -255,6 +270,8 @@ def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None
     for name, (shape, init) in param_shapes(cfg).items():
         t = torch.empty(shape, dtype=cfg.param_dtype, device=dev)
         _fill_(t, init, generator, cfg.param_dtype)
+        if local_slice is not None:
+            t = local_slice(name, t)
         t.requires_grad_(requires_grad)
         if name.startswith("layers."):
             params["layers"][name[len("layers."):]] = t
@@ -265,12 +282,22 @@ def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None
 
 # ---- the MoE block and the training forward -------------------------------------
 def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
-                    with_aux: bool
+                    with_aux: bool, *, ep_axis: Optional[str] = None,
+                    tp_axis: Optional[str] = None,
+                    sequence_parallel: bool = False
                     ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """Post-attention MoE sub-block with residual -> (x, the routing's aux
     per group, or None without ``with_aux``): router (fp32) -> route ->
-    dispatch -> experts -> combine."""
+    dispatch (-> exchange) -> experts -> (exchange ->) combine."""
+    sp = tp_axis is not None and sequence_parallel
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    if sp:
+        from scaletorch_tpu_torch.parallel.sequence_parallel import (
+            all_gather_sequence,
+        )
+
+        # everything past here is tp-partial until the reduce-scatter
+        h = all_gather_sequence(h, tp_axis)
     s = h.shape[1]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = torch.matmul(h.float(), layer["router"].float())  # [B, S, E]
@@ -279,28 +306,52 @@ def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
     state, aux = route_tokens(logits, k, cap, mode=mode,
                               normalize_weights=cfg.norm_topk_prob,
                               with_aux=with_aux)
-    slots = dispatch_routed(h, state, mode=mode, num_experts=e, capacity=cap)
+    slots = dispatch_routed(h, state, mode=mode, num_experts=e, capacity=cap,
+                            axis=ep_axis)
     kernel = {}
     if cfg.use_grouped_mlp_kernel:
-        kernel = dict(slot_counts=routed_fill_counts(
-            state, mode=mode, num_experts=e, capacity=cap), capacity=cap)
+        counts = routed_fill_counts(state, mode=mode, num_experts=e,
+                                    capacity=cap)
+        kernel = dict(slot_counts=exchange_slot_counts(counts, ep_axis),
+                      capacity=cap)
     out = moe_mlp(slots, layer["expert_gate_proj"], layer["expert_up_proj"],
-                  layer["expert_down_proj"], compute_dtype=cfg.dtype,
+                  layer["expert_down_proj"], tp_axis=tp_axis,
+                  compute_dtype=cfg.dtype, reduce="none" if sp else "sum",
                   **kernel)
-    y = combine_routed(out, state, mode=mode, num_experts=e, capacity=cap)
+    y = combine_routed(out, state, mode=mode, num_experts=e, capacity=cap,
+                       axis=ep_axis)
+    if sp:
+        from scaletorch_tpu_torch.parallel.sequence_parallel import (
+            reduce_scatter_sequence,
+        )
+
+        y = reduce_scatter_sequence(y, tp_axis)
     return x + y.to(x.dtype), aux
 
 
-def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig
+def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig, *,
+              ep_axis: Optional[str] = None, tp_axis: Optional[str] = None,
+              sequence_parallel: bool = False
               ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
     """Post-attention MoE sub-block with residual -> (x, aux_loss, stats):
-    router (fp32) -> route -> dispatch -> experts -> combine. ``stats``
-    holds ``moe_dropped_fraction`` and ``moe_load_cv`` (the coefficient
-    of variation of the expert load, population std as ``jnp.std``)."""
-    x, aux = _routed_experts(x, layer, cfg, with_aux=True)
+    router (fp32) -> route -> dispatch -> experts -> combine, over the
+    mesh axes given. ``stats`` holds ``moe_dropped_fraction`` and
+    ``moe_load_cv`` (the coefficient of variation of the expert load,
+    population std as ``jnp.std``)."""
+    x, aux = _routed_experts(x, layer, cfg, with_aux=True, ep_axis=ep_axis,
+                             tp_axis=tp_axis,
+                             sequence_parallel=sequence_parallel)
     aux = {name: v.mean(dim=0) for name, v in aux.items()}  # over groups
     aux_total = (cfg.aux_loss_coef * aux["aux_loss"]
                  + cfg.z_loss_coef * aux["z_loss"])
+    if tp_axis is not None and sequence_parallel:
+        # under SP the routing's gradients are tp-partials (the
+        # reduce-scatter sums them), but every tp rank computes the same
+        # aux from the whole logits: its gradient enters as a 1/tp share
+        from scaletorch_tpu_torch.parallel.mesh import axis_group, group_size
+
+        share = 1.0 / group_size(axis_group(tp_axis))
+        aux_total = aux_total * share + (aux_total * (1.0 - share)).detach()
     load = aux["expert_load"]
     stats = {
         "moe_dropped_fraction": aux["dropped_fraction"],
@@ -318,9 +369,12 @@ def moe_block_serving(x: Tensor, layer: Dict[str, Tensor],
     return _routed_experts(x, layer, cfg, with_aux=False)[0]
 
 
-def _moe_layer(x, layer, cos, sin, cfg, attn_fn):
-    x = _llama.attention_block(x, layer, cos, sin, cfg, attn_fn)
-    x, aux, stats = moe_block(x, layer, cfg)
+def _moe_layer(x, layer, cos, sin, cfg, attn_fn, tp_axis=None, ep_axis=None,
+               sequence_parallel=False):
+    helpers = _llama.tp_region_helpers(tp_axis, sequence_parallel)
+    x = _llama.attention_block(x, layer, cos, sin, cfg, attn_fn, helpers)
+    x, aux, stats = moe_block(x, layer, cfg, ep_axis=ep_axis, tp_axis=tp_axis,
+                              sequence_parallel=sequence_parallel)
     return x, aux, stats["moe_dropped_fraction"], stats["moe_load_cv"]
 
 
@@ -334,37 +388,56 @@ def _per_layer(layers: Dict[str, Tensor]) -> List[Dict[str, Tensor]]:
 
 def moe_decoder_stack(x: Tensor, layers: Dict[str, Tensor], cos: Tensor,
                       sin: Tensor, cfg: Qwen3MoEConfig, attn_fn: Callable, *,
+                      tp_axis: Optional[str] = None,
+                      ep_axis: Optional[str] = None,
+                      sequence_parallel: bool = False,
                       gradient_checkpointing: bool = False,
-                      remat_policy: str = "nothing_saveable"
+                      remat_policy: str = "nothing_saveable",
+                      active_layers: Optional[int] = None
                       ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
     """Attention + MoE over every layer of a stack -> (hidden, aux loss
     summed over the layers, stats averaged over them). With
     ``gradient_checkpointing`` each layer runs under
     ``torch.utils.checkpoint`` with the policy's ``context_fn``
     (``llama.resolve_remat_policy``): the einsum path's expert ``bmm``s
-    are dots, the grouped-MLP kernels K5-K7 are not."""
+    are dots, the grouped-MLP kernels K5-K7 are not. ``active_layers`` k
+    (an uneven pipeline stage) runs the first k slots only: the aux sums
+    over them and the stats are their sum over max(k, 1)."""
     if gradient_checkpointing:
         context_fn = _llama.resolve_remat_policy(remat_policy)
         attn_fn = _llama.remat_attn_fn(attn_fn, remat_policy)
+    axes = (tp_axis, ep_axis, sequence_parallel)
+    per_layer = _per_layer(layers)
+    if active_layers is not None:
+        per_layer = per_layer[:active_layers]
     auxes, drops, cvs = [], [], []
-    for layer in _per_layer(layers):
+    for layer in per_layer:
         if gradient_checkpointing:
             x, aux, drop, cv = _llama.checkpointed(
-                _moe_layer, x, layer, cos, sin, cfg, attn_fn,
+                _moe_layer, x, layer, cos, sin, cfg, attn_fn, *axes,
                 context_fn=context_fn)
         else:
-            x, aux, drop, cv = _moe_layer(x, layer, cos, sin, cfg, attn_fn)
+            x, aux, drop, cv = _moe_layer(x, layer, cos, sin, cfg, attn_fn,
+                                          *axes)
         auxes.append(aux)
         drops.append(drop)
         cvs.append(cv)
-    stats = {"moe_dropped_fraction": torch.stack(drops).mean(),
-             "moe_load_cv": torch.stack(cvs).mean()}
+    if active_layers is None:
+        stats = {"moe_dropped_fraction": torch.stack(drops).mean(),
+                 "moe_load_cv": torch.stack(cvs).mean()}
+    else:
+        denom = max(active_layers, 1)
+        stats = {"moe_dropped_fraction": torch.stack(drops).sum() / denom,
+                 "moe_load_cv": torch.stack(cvs).sum() / denom}
     return x, torch.stack(auxes).sum(), stats
 
 
 def interleaved_decoder_stack(x: Tensor, layers: Dict[str, Tensor],
                               cos: Tensor, sin: Tensor, cfg: Qwen3MoEConfig,
                               attn_fn: Callable, *,
+                              tp_axis: Optional[str] = None,
+                              ep_axis: Optional[str] = None,
+                              sequence_parallel: bool = False,
                               gradient_checkpointing: bool = False,
                               remat_policy: str = "nothing_saveable"
                               ) -> Tuple[Tensor, Tensor, Dict[str, Tensor]]:
@@ -374,15 +447,16 @@ def interleaved_decoder_stack(x: Tensor, layers: Dict[str, Tensor],
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     stats_sum: Dict[str, Tensor] = {}
     n_sparse = d_off = s_off = 0
+    mesh = dict(tp_axis=tp_axis, sequence_parallel=sequence_parallel,
+                gradient_checkpointing=gradient_checkpointing,
+                remat_policy=remat_policy)
     for is_sparse, lo, hi in cfg.moe_segments():
         n = hi - lo
         seg = {k: layers[k][lo:hi] for k in _ATTN_KEYS if k in layers}
         if is_sparse:
             seg.update({k: layers[k][s_off:s_off + n] for k in _MOE_KEYS})
             x, aux, stats = moe_decoder_stack(
-                x, seg, cos, sin, cfg, attn_fn,
-                gradient_checkpointing=gradient_checkpointing,
-                remat_policy=remat_policy)
+                x, seg, cos, sin, cfg, attn_fn, ep_axis=ep_axis, **mesh)
             aux_total = aux_total + aux
             for name, v in stats.items():
                 stats_sum[name] = stats_sum.get(name, 0.0) + n * v
@@ -390,38 +464,44 @@ def interleaved_decoder_stack(x: Tensor, layers: Dict[str, Tensor],
             s_off += n
         else:
             seg.update({k: layers[k][d_off:d_off + n] for k in _DENSE_KEYS})
-            x = _llama.decoder_stack(
-                x, seg, cos, sin, cfg, attn_fn,
-                gradient_checkpointing=gradient_checkpointing,
-                remat_policy=remat_policy)
+            x = _llama.decoder_stack(x, seg, cos, sin, cfg, attn_fn, **mesh)
             d_off += n
     return x, aux_total, {k: v / n_sparse for k, v in stats_sum.items()}
 
 
 def forward(params: Params, input_ids: Tensor, cfg: Qwen3MoEConfig, *,
             positions: Optional[Tensor] = None,
-            attention_backend: str = "sdpa",
+            attention_backend: Any = "sdpa",
             gradient_checkpointing: bool = False,
             remat_policy: str = "nothing_saveable",
+            tp_axis: Optional[str] = None,
+            ep_axis: Optional[str] = None,
+            sequence_parallel: bool = False,
             return_hidden: bool = False,
             return_moe_stats: bool = False) -> Any:
     """[B, S] tokens -> logits [B, S, V]; with ``return_hidden`` the final
     hidden states and the aux loss ``(hidden, aux)``; with
     ``return_moe_stats`` the layer-mean routing stats as a third element
     (``(logits, aux, stats)`` without ``return_hidden``). The aux loss is
-    coefficient-scaled and summed over the layers: add it to the CE."""
-    x = _llama.embed(params, input_ids, cfg)
+    coefficient-scaled and summed over the layers: add it to the CE. With
+    ``tp_axis`` / ``ep_axis`` the parameters are this rank's shards
+    (``qwen3_moe_param_specs``)."""
+    x = _llama.embed(params, input_ids, cfg, tp_axis=tp_axis,
+                     sequence_parallel=sequence_parallel)
     cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
                            cfg.rope_theta, positions=positions,
                            device=input_ids.device)
-    attn_fn = get_attention_backend(attention_backend)
+    attn_fn = (attention_backend if callable(attention_backend)
+               else get_attention_backend(attention_backend))
     stack = (moe_decoder_stack if cfg.is_uniform_sparse
              else interleaved_decoder_stack)
     x, aux_loss, stats = stack(
-        x, params["layers"], cos, sin, cfg, attn_fn,
+        x, params["layers"], cos, sin, cfg, attn_fn, tp_axis=tp_axis,
+        ep_axis=ep_axis, sequence_parallel=sequence_parallel,
         gradient_checkpointing=gradient_checkpointing,
         remat_policy=remat_policy)
-    x = _llama.final_hidden(params, x, cfg)
+    x = _llama.final_hidden(params, x, cfg, tp_axis=tp_axis,
+                            sequence_parallel=sequence_parallel)
     if return_hidden:
         return (x, aux_loss, stats) if return_moe_stats else (x, aux_loss)
     logits = x @ lm_head_weight(params, cfg)
@@ -430,6 +510,29 @@ def forward(params: Params, input_ids: Tensor, cfg: Qwen3MoEConfig, *,
 
 def lm_head_weight(params: Params, cfg: Qwen3MoEConfig) -> Tensor:
     return _llama.lm_head_weight(params, cfg)
+
+
+def qwen3_moe_param_specs(cfg: Qwen3MoEConfig) -> Dict[str, object]:
+    """The dim of each leaf that splits over tp (None: replicated), in the
+    parameter dict's nesting (``tensor_parallel.llama_param_specs``'s
+    form): attention, embedding and norms as the dense model's; each
+    expert's gate/up split their intermediate dim (column-parallel) and
+    its down the input dim (row-parallel); the router is replicated.
+    Every expert leaf splits its expert dim (1) over ep
+    (``tensor_parallel.shard_dims``)."""
+    from scaletorch_tpu_torch.parallel.tensor_parallel import (
+        llama_param_specs,
+    )
+
+    specs = llama_param_specs(cfg)
+    layers = dict(specs["layers"])
+    if cfg.is_uniform_sparse:
+        for k in _DENSE_KEYS:
+            del layers[k]
+    layers.update(router=None, expert_gate_proj=3, expert_up_proj=3,
+                  expert_down_proj=2)
+    specs["layers"] = layers
+    return specs
 
 
 # ---- serving ------------------------------------------------------------------------

@@ -1,25 +1,32 @@
-"""Top-k routing and capacity dispatch of the MoE layer, single device.
+"""Top-k routing, capacity dispatch and the expert-parallel exchange of
+the MoE layer (counterpart of scaletorch_tpu/parallel/expert_parallel.py).
 
-PyTorch counterpart of the ``axis=None`` parts of
-scaletorch_tpu/parallel/expert_parallel.py. Each expert accepts at most C
-(token, choice) rows per group; routing decides, for every (token,
-choice), its expert and its slot in that expert's queue, and the movement
-forms carry rows into an ``[E, G, C, H]`` slot buffer and back:
+Each expert accepts at most C (token, choice) rows per group; routing
+decides, for every (token, choice), its expert and its slot in that
+expert's queue, and the movement forms carry rows into an ``[E, G, C, H]``
+slot buffer and back:
 
     route     [G, N, E] logits -> expert_idx, slot, weight [G, N, k] (index)
                                   or dispatch / combine [G, N, E, C] (einsum)
     dispatch  [G, N, H] -> [E, G·C, H]  (a scatter, or the one-hot einsum)
+              with ``axis``: all-to-all over ep -> [E/ep, ep·G·C, H]
     compute   the per-expert SwiGLU (``moe_mlp``: batched products, or the
-              grouped-MLP kernels K5-K7 with per-(expert, group) fill counts)
-    combine   [E, G·C, H] -> [G, N, H]  weighted top-k sum
+              grouped-MLP kernels K5-K7 with per-(expert, group) fill counts,
+              exchanged by ``exchange_slot_counts`` in the slabs' order)
+    combine   the reverse all-to-all, then [E, G·C, H] -> [G, N, H], the
+              weighted top-k sum
+
+The exchange is one ``torch.autograd.Function`` a direction
+(``all_to_all_single`` over the ep group of the current mesh manager),
+whose backward is the other direction: each rank sends the ``[E/ep, G·C,
+H]`` slab of every destination's experts and receives its own experts'
+slabs from every source rank, laid out (source_rank, group) along the
+token axis. With ``axis`` None, or one rank, it is the identity.
 
 The routing math lives in one place (``_route_core``), so both forms make
 the same decisions, drop the same rows and report the same aux losses.
 Ties in the top-k go to the lower expert index, as ``jax.lax.top_k``
 breaks them (a stable descending sort; ``torch.topk`` promises no order).
-
-Only the single-device forms are ported: an expert-parallel ``axis``
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 6b, the EP exchange).
 """
 
 from __future__ import annotations
@@ -27,15 +34,89 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from scaletorch_tpu_torch.parallel.mesh import axis_group, group_size
 
 Tensor = torch.Tensor
 
 
-def _single_device(axis: Optional[str]) -> None:
-    if axis is not None:
-        raise NotImplementedError(
-            f"expert-parallel axis {axis!r}: the port runs MoE on one device "
-            "only; the EP exchange is ROADMAP Queue 1 item 6b")
+# ---- the exchange over the ep axis ------------------------------------------------
+def _all_to_all(x: Tensor, group) -> Tensor:
+    x = x.contiguous()  # before empty_like, which keeps a view's strides
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _to_experts(slots: Tensor, group) -> Tensor:
+    """[E, G·C, H] -> [E/ep, ep·G·C, H]: every rank's slabs of this rank's
+    experts, in source-rank order."""
+    ep = group_size(group)
+    e, gc, h = slots.shape
+    recv = _all_to_all(slots.reshape(ep, e // ep, gc, h), group)
+    return recv.transpose(0, 1).reshape(e // ep, ep * gc, h)
+
+
+def _from_experts(expert_out: Tensor, group) -> Tensor:
+    """[E/ep, ep·G·C, H] -> [E, G·C, H]: the inverse of ``_to_experts``."""
+    ep = group_size(group)
+    e_local, t, h = expert_out.shape
+    send = expert_out.reshape(e_local, ep, t // ep, h).transpose(0, 1)
+    return _all_to_all(send, group).reshape(ep * e_local, t // ep, h)
+
+
+class _ToExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, slots, group):
+        ctx.group = group
+        return _to_experts(slots, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _from_experts(grad, ctx.group), None
+
+
+class _FromExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, expert_out, group):
+        ctx.group = group
+        return _from_experts(expert_out, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _to_experts(grad, ctx.group), None
+
+
+def _exchange_to_experts(slots: Tensor, axis: Optional[str]) -> Tensor:
+    """[E, G·C, H] full-expert slabs -> [E/ep, ep·G·C, H] on the rank that
+    owns each expert (identity with ``axis`` None or on one rank)."""
+    group = axis_group(axis)
+    if group_size(group) == 1:
+        return slots
+    return _ToExperts.apply(slots, group)
+
+
+def _exchange_from_experts(expert_out: Tensor, axis: Optional[str]
+                           ) -> Tensor:
+    """The reverse of ``_exchange_to_experts``."""
+    group = axis_group(axis)
+    if group_size(group) == 1:
+        return expert_out
+    return _FromExperts.apply(expert_out, group)
+
+
+def exchange_slot_counts(counts: Tensor, axis: Optional[str]) -> Tensor:
+    """[E, G] per-(expert, group) fill counts -> this rank's receive-slab
+    order [E/ep, ep·G], blocks of ``capacity`` rows ordered (source_rank,
+    group) as ``dispatch_tokens`` lays the tokens out."""
+    group = axis_group(axis)
+    ep = group_size(group)
+    if ep == 1:
+        return counts
+    e, g = counts.shape
+    recv = _all_to_all(counts.reshape(ep, e // ep, g), group)
+    return recv.transpose(0, 1).reshape(e // ep, ep * g).contiguous()
 
 
 def expert_capacity(num_tokens: int, num_experts: int, top_k: int,
@@ -145,19 +226,19 @@ def top_k_routing_indexed(router_logits: Tensor, top_k: int, capacity: int,
 def dispatch_tokens(x: Tensor, dispatch: Tensor, *,
                     axis: Optional[str] = None) -> Tensor:
     """One-hot dispatch: x [(G,) N, H], dispatch [(G,) N, E, C] ->
-    [E, G·C, H]."""
-    _single_device(axis)
+    [E, G·C, H], or [E/ep, ep·G·C, H] over ``axis``."""
     x, dispatch = _grouped(x, 2), _grouped(dispatch, 3)
     slots = torch.einsum("gnh,gnec->egch", x, dispatch.to(x.dtype))
     e, g, c, h = slots.shape
-    return slots.reshape(e, g * c, h)
+    return _exchange_to_experts(slots.reshape(e, g * c, h), axis)
 
 
 def gather_tokens(expert_out: Tensor, combine: Tensor, *,
                   axis: Optional[str] = None) -> Tensor:
-    """One-hot combine: expert_out [E, G·C, H], combine [(G,) N, E, C] ->
-    [(G,) N, H], the weighted sum over each token's kept slots."""
-    _single_device(axis)
+    """One-hot combine: expert_out [E, G·C, H] ([E/ep, ep·G·C, H] over
+    ``axis``), combine [(G,) N, E, C] -> [(G,) N, H], the weighted sum
+    over each token's kept slots."""
+    expert_out = _exchange_from_experts(expert_out, axis)
     grouped = combine.ndim == 4
     combine = _grouped(combine, 3)
     g, n, e, c = combine.shape
@@ -182,8 +263,8 @@ def dispatch_tokens_indexed(x: Tensor, routing: Dict[str, Tensor], *,
 
     A dropped row (slot >= C) goes to a trash expert E past the end of
     the buffer that is cut away, which is ``mode="drop"``'s semantics
-    without a data-dependent shape (no host synchronisation)."""
-    _single_device(axis)
+    without a data-dependent shape (no host synchronisation). Over
+    ``axis`` the buffer goes through the exchange: [E/ep, ep·G·C, H]."""
     x = _grouped(x, 2)
     routing = {k: _grouped(v, 2) for k, v in routing.items()}
     g, n, h = x.shape
@@ -194,16 +275,17 @@ def dispatch_tokens_indexed(x: Tensor, routing: Dict[str, Tensor], *,
     slot = torch.where(drop, 0, slot)
     slots = x.new_zeros(num_experts + 1, g, capacity, h)
     slots.index_put_((expert, gi, slot), x[gi, ni])
-    return slots[:num_experts].reshape(num_experts, g * capacity, h)
+    return _exchange_to_experts(
+        slots[:num_experts].reshape(num_experts, g * capacity, h), axis)
 
 
 def gather_tokens_indexed(expert_out: Tensor, routing: Dict[str, Tensor], *,
                           num_experts: int, capacity: int,
                           axis: Optional[str] = None) -> Tensor:
     """Index combine: gather each (token, choice) slot of expert_out [E,
-    G·C, H] and take the weighted top-k sum -> [(G,) N, H]; a dropped
-    choice carries weight 0."""
-    _single_device(axis)
+    G·C, H] (after the reverse exchange over ``axis``) and take the
+    weighted top-k sum -> [(G,) N, H]; a dropped choice carries weight 0."""
+    expert_out = _exchange_from_experts(expert_out, axis)
     grouped = routing["expert_idx"].ndim == 3
     routing = {k: _grouped(v, 2) for k, v in routing.items()}
     g = routing["expert_idx"].shape[0]
@@ -307,17 +389,33 @@ def validate_ep_divisibility(cfg, ep: int) -> None:
 
 def moe_mlp(x_grouped: Tensor, gate_w: Tensor, up_w: Tensor, down_w: Tensor,
             *, tp_axis: Optional[str] = None, compute_dtype=None,
-            slot_counts: Optional[Tensor] = None,
+            reduce: str = "sum", slot_counts: Optional[Tensor] = None,
             capacity: Optional[int] = None) -> Tensor:
     """Per-expert SwiGLU over x_grouped [E, T, H] with gate/up [E, H, I]
     and down [E, I, H], in ``compute_dtype``.
+
+    With ``tp_axis`` the weights are this rank's tp shards, gate/up
+    column-parallel ([E, H, I/tp]) and down row-parallel ([E, I/tp, H])
+    inside each expert: ``reduce='sum'`` enters the region
+    (``copy_to_tensor_parallel_region`` on the input) and leaves it with
+    the all-reduce; ``reduce='none'`` does neither and returns the
+    tp-partial output, for a caller that enters with the sequence
+    all-gather and leaves with the reduce-scatter (the SP path).
 
     With ``slot_counts`` [E, T / capacity] and ``capacity`` it runs the
     grouped-MLP op (``ops.grouped_mlp.grouped_swiglu_mlp``: the CUDA
     kernels K5-K7 on the card, their plain versions on the CPU), which
     skips the slots past each (expert, group)'s fill count. Without them,
     three batched products over every slot (the reference's einsum path)."""
-    _single_device(tp_axis)
+    if reduce not in ("sum", "none"):
+        raise ValueError(f"reduce must be 'sum' or 'none', got {reduce!r}")
+    region = tp_axis is not None and reduce == "sum"
+    if region:
+        from scaletorch_tpu_torch.parallel.tensor_parallel import (
+            copy_to_tensor_parallel_region,
+        )
+
+        x_grouped = copy_to_tensor_parallel_region(x_grouped, tp_axis)
     cdt = compute_dtype or x_grouped.dtype
     gate_w, up_w, down_w = (w.to(cdt) for w in (gate_w, up_w, down_w))
     x_grouped = x_grouped.to(cdt)
@@ -327,9 +425,17 @@ def moe_mlp(x_grouped: Tensor, gate_w: Tensor, up_w: Tensor, down_w: Tensor,
         e, t, h = x_grouped.shape
         x4 = x_grouped.reshape(e, t // capacity, capacity, h)
         out = grouped_swiglu_mlp(x4, slot_counts, gate_w, up_w, down_w)
-        return out.reshape(e, t, h)
-    from scaletorch_tpu_torch.models.layers import swiglu
+        out = out.reshape(e, t, h)
+    else:
+        from scaletorch_tpu_torch.models.layers import swiglu
 
-    g = torch.bmm(x_grouped, gate_w)
-    u = torch.bmm(x_grouped, up_w)
-    return torch.bmm(swiglu(g, u), down_w)
+        g = torch.bmm(x_grouped, gate_w)
+        u = torch.bmm(x_grouped, up_w)
+        out = torch.bmm(swiglu(g, u), down_w)
+    if region:
+        from scaletorch_tpu_torch.parallel.tensor_parallel import (
+            reduce_from_tensor_parallel_region,
+        )
+
+        out = reduce_from_tensor_parallel_region(out, tp_axis)
+    return out

@@ -7,8 +7,10 @@ dp: the reference's decomposition) and, when a process group is up, the
 ``torch.distributed.device_mesh.DeviceMesh`` over it
 (``init_device_mesh``, whose ranks are ``arange(world).view(shape)``, the
 same row-major order). Each axis's process group comes from the mesh;
-the fused data group ``("dp", "cp")`` (the gradient mean) is made once
-with ``new_group`` over the same rank sets.
+the fused data group ``("dp", "cp")`` (the gradient mean) and, at ep > 1,
+the batch group ``("dp", "cp", "ep")`` (the mean of every leaf but the
+expert shards) are made once with ``new_group`` over the same rank sets.
+``destroy`` frees the groups' communicators.
 
 Unlike the reference's rank-agnostic manager, a rank lives in one
 process here: ``rank`` and ``axis_rank`` give this process's place, and
@@ -31,6 +33,8 @@ import torch.distributed as dist
 MESH_AXES: Tuple[str, ...] = ("dp", "pp", "cp", "ep", "tp")
 # the gradient all-reduce group (the reference's cp_dp_group)
 DATA_AXES: Tuple[str, ...] = ("dp", "cp")
+# the ranks that see distinct data: the batch rows also shard over ep
+BATCH_AXES: Tuple[str, ...] = ("dp", "cp", "ep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +88,28 @@ class MeshManager:
                                       mesh_dim_names=MESH_AXES)
         for axis in MESH_AXES:
             self._groups[(axis,)] = self._mesh.get_group(axis)
-        # every rank makes every fused group, in one order
-        for ranks in self.axis_rank_sets(DATA_AXES):
-            group = dist.new_group(ranks)
-            if self.rank in ranks:
-                self._groups[DATA_AXES] = group
+        # every rank makes every fused group, in one order; at ep 1 the
+        # batch group is the data group
+        fused = (DATA_AXES, BATCH_AXES) if self.ep > 1 else (DATA_AXES,)
+        for axes in fused:
+            for ranks in self.axis_rank_sets(axes):
+                group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self._groups[axes] = group
+        self._groups.setdefault(BATCH_AXES, self._groups[DATA_AXES])
+
+    def destroy(self) -> None:
+        """Destroy this manager's process groups (each holds a
+        communicator and its buffers on the card); the manager is the
+        grid arithmetic alone afterwards. The default group stays."""
+        if self._mesh is None:
+            return
+        default = dist.distributed_c10d._get_default_group()
+        for group in {id(g): g for g in self._groups.values()}.values():
+            if group is not None and group is not default:
+                dist.destroy_process_group(group)
+        self._groups.clear()
+        self._mesh = None
 
     # ---- sizes --------------------------------------------------------------
     @property
@@ -146,7 +167,7 @@ class MeshManager:
 
     def group(self, axes) -> Optional[object]:
         """The process group over one axis name or the fused
-        ``DATA_AXES``; None without a process group."""
+        ``DATA_AXES`` / ``BATCH_AXES``; None without a process group."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
         if self._mesh is None:
             return None
@@ -190,6 +211,15 @@ class MeshManager:
 
     def pp_bwd_permutation(self) -> list:
         return [(i + 1, i) for i in range(self.pp - 1)]
+
+    def pp_ring_peers(self) -> Tuple[int, int]:
+        """(global rank of the next stage, of the previous one) of this
+        process, wrapping around (the interleaved pipeline's ring; the
+        chain never uses the wrap)."""
+        c = self.my_coords
+        nxt = dataclasses.replace(c, pp=(c.pp + 1) % self.pp)
+        prev = dataclasses.replace(c, pp=(c.pp - 1) % self.pp)
+        return self.rank_of(nxt), self.rank_of(prev)
 
     def __repr__(self) -> str:
         return (f"MeshManager(dp={self.dp}, pp={self.pp}, cp={self.cp}, "

@@ -277,19 +277,49 @@ def llama_param_specs(cfg) -> Dict[str, object]:
     return specs
 
 
+def param_specs(cfg) -> Dict[str, object]:
+    """The tp split dims of ``cfg``'s parameters: ``llama_param_specs``,
+    or ``models.qwen3_moe.qwen3_moe_param_specs`` for a Qwen3-MoE."""
+    if hasattr(cfg, "num_experts"):
+        from scaletorch_tpu_torch.models.qwen3_moe import (
+            qwen3_moe_param_specs,
+        )
+
+        return qwen3_moe_param_specs(cfg)
+    return llama_param_specs(cfg)
+
+
+def shard_dims(cfg) -> Dict[str, Dict[str, int]]:
+    """Flat leaf name -> {mesh axis: the dim that splits over it}: tp as
+    ``param_specs``; every stacked layer leaf's dim 0 over pp; every expert
+    leaf's expert dim over ep. An axis of size 1 splits nothing."""
+    from scaletorch_tpu_torch.models.convert import flatten_params
+
+    out = {}
+    for name, tp_dim in flatten_params(param_specs(cfg)).items():
+        dims = {} if tp_dim is None else {"tp": tp_dim}
+        if name.startswith("layers."):
+            dims["pp"] = 0
+            if name.split(".")[-1].startswith("expert_"):
+                dims["ep"] = 1
+        out[name] = dims
+    return out
+
+
 def llama_grad_partial_over_tp(cfg, sequence_parallel: bool
                                ) -> Dict[str, object]:
-    """Per leaf (nesting of ``llama_param_specs``): whether its gradient
-    on one tp rank is a partial to be summed over tp. The q/k norms
-    always are (each rank's heads); the hidden-size norms are under SP
-    (each rank's sequence slice); sharded leaves never are."""
+    """Per leaf (nesting of ``param_specs``): whether its gradient on one
+    tp rank is a partial to be summed over tp. The q/k norms always are
+    (each rank's heads); the hidden-size norms and the MoE router are
+    under SP (each rank's sequence slice, the tp-partial expert output);
+    sharded leaves never are."""
 
     def partial(name: str, dim) -> bool:
         if dim is not None:
             return False
         return name in ("q_norm", "k_norm") or sequence_parallel
 
-    specs = llama_param_specs(cfg)
+    specs = param_specs(cfg)
     return {k: ({n: partial(n, d) for n, d in v.items()}
                 if isinstance(v, dict) else partial(k, v))
             for k, v in specs.items()}

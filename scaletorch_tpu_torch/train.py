@@ -17,7 +17,19 @@ config.py``). Over a device mesh, one process a card (NCCL; gloo with
         --sequence_parallel true --data_parallel_size 2
 
 ``--context_parallel_size`` takes ``--attention_backend ring`` (with
-``--cp_layout zigzag`` or ``contiguous``), ``ulysses`` or ``auto``. A run on a local corpus with a held-out set, evaluated every
+``--cp_layout zigzag`` or ``contiguous``), ``ulysses`` or ``auto``.
+``--pipeline_parallel_size`` takes ``--pp_engine afab``,
+``memory_chunked`` or ``interleaved`` (with ``--pp_virtual_stages``, 0 for
+auto), the microbatches being ``--gradient_accumulation_steps``; a
+Qwen3-MoE takes ``--expert_parallel_size`` (the batch rows shard over dp
+x ep); ``--grad_allreduce_dtype int8`` sends the gradient mean over
+``--grad_allreduce_axis`` in int8:
+
+    torchrun --nproc-per-node 4 -m scaletorch_tpu_torch.train \
+        --model_type qwen3_moe ... --pipeline_parallel_size 2 \
+        --expert_parallel_size 2 --gradient_accumulation_steps 4
+
+A run on a local corpus with a held-out set, evaluated every
 100 steps and checkpointed every 500, that resumes from its newest
 checkpoint when restarted (``--resume must`` fails instead of starting
 from step 0):

@@ -15,8 +15,9 @@ opt_state, metrics)``. Per step:
      which join the metrics (averaged over the microbatches);
   2. the gradients of the loss, averaged over the batch's leading
      accumulation axis (one microbatch: no accumulation buffer at all);
-  3. the gradients promoted to fp32, their global norm, and the clip to
-     ``max_grad_norm`` (the metrics report the norm before the clip);
+  3. the gradients promoted to fp32 (one leaf at a time), their global
+     norm, and the clip to ``max_grad_norm``, in place (the metrics report
+     the norm before the clip);
   4. the gradients cast back to each parameter's dtype (bf16 masters get
      bf16 gradients, as the reference's), and ``guarded_update`` with any
      of the port's optimizers (``trainer/optimizer.py``): a non-finite
@@ -25,7 +26,9 @@ opt_state, metrics)``. Per step:
 
 A mesh (``parallel/spmd.MeshReductions``) adds its reductions to steps
 2 and 3 through the ``MeshHooks`` it overrides; the base hooks do
-nothing, so one device runs the steps above as they are.
+nothing, so one device runs the steps above as they are. Under pipeline
+parallelism a pipeline pass (``parallel/pipeline_parallel``) takes the
+place of step 1's microbatch loop and the gradients of step 2.
 
 Parameters and optimizer state are updated in place and returned.
 ``metrics`` holds 0-d device tensors: reading them is the caller's
@@ -82,6 +85,7 @@ class MeshHooks:
     them with the mesh's reductions."""
 
     tp_axis: Optional[str] = None
+    ep_axis: Optional[str] = None
     sequence_parallel: bool = False
 
     def scope(self):
@@ -97,6 +101,10 @@ class MeshHooks:
     def grad_norm(self, params, grads: List[Tensor]) -> Tensor:
         return global_grad_norm(grads)
 
+    def reduce_stats(self, stats: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The routing statistics of the whole step over the mesh."""
+        return stats
+
     def loss_sum(self, total: Tensor) -> Tuple[Tensor, int]:
         """(sum of ``total`` over the data ranks, their count)."""
         return total, 1
@@ -106,18 +114,22 @@ def make_loss_fn(cfg, *, attention_backend: str,
                  gradient_checkpointing: bool,
                  remat_policy: str = "nothing_saveable",
                  tp_axis: Optional[str] = None,
-                 sequence_parallel: bool = False) -> Callable:
+                 sequence_parallel: bool = False,
+                 ep_axis: Optional[str] = None) -> Callable:
     """loss(params, microbatch) -> (fp32 scalar, routing stats): the
     hidden states of the decoder through the chunked fused head + cross
     entropy, plus the router aux loss for a Qwen3-MoE config, whose
     routing statistics come beside it (empty for a dense model). With
-    ``tp_axis`` the dense decoder runs its tensor-parallel path (SP with
-    ``sequence_parallel``) and the loss is the vocab-parallel one."""
+    ``tp_axis`` the decoder runs its tensor-parallel path (SP with
+    ``sequence_parallel``) and the loss is the vocab-parallel one; with
+    ``ep_axis`` the MoE layers exchange their slots over ep."""
     chunk = ce_chunk_size()
     is_moe = isinstance(cfg, qwen3_moe.Qwen3MoEConfig)
     model = qwen3_moe if is_moe else llama
     tp_kw = ({"tp_axis": tp_axis, "sequence_parallel": sequence_parallel}
              if tp_axis is not None else {})
+    if ep_axis is not None and is_moe:
+        tp_kw["ep_axis"] = ep_axis
 
     def loss_fn(params, mb: Dict[str, Tensor]
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -141,6 +153,14 @@ def make_loss_fn(cfg, *, attention_backend: str,
     return loss_fn
 
 
+def _cast_(grads: List[Tensor], dtypes: List[torch.dtype]) -> None:
+    """grads[i] cast to dtypes[i] in the list, one at a time, so each
+    old tensor can go before the next is made (a whole second copy of the
+    gradients never exists)."""
+    for i, dtype in enumerate(dtypes):
+        grads[i] = grads[i].to(dtype)
+
+
 def _micro(batch: Batch, a: int) -> Dict[str, Tensor]:
     return {k: v[a] for k, v in batch.items()}
 
@@ -148,24 +168,33 @@ def _micro(batch: Batch, a: int) -> Dict[str, Tensor]:
 def make_grad_fn(cfg, *, attention_backend: str = "sdpa",
                  gradient_checkpointing: bool = False,
                  remat_policy: str = "nothing_saveable",
-                 mesh: Optional[MeshHooks] = None) -> Callable:
+                 mesh: Optional[MeshHooks] = None,
+                 pipeline: Optional[Callable] = None) -> Callable:
     """grads(params, batch) -> (loss, stats, fp32 gradients in
     ``tree_leaves`` order), averaged over the batch's accumulation axis
-    and reduced over ``mesh``: steps 1 and 2 of the step."""
+    and reduced over ``mesh``: steps 1 and 2 of the step. ``pipeline``
+    (``parallel/pipeline_parallel.make_pipeline_grad_fn``) replaces the
+    microbatch loop by a pipeline pass over the same axis."""
     mesh = mesh or MeshHooks()
     loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
                            gradient_checkpointing=gradient_checkpointing,
                            remat_policy=remat_policy, tp_axis=mesh.tp_axis,
-                           sequence_parallel=mesh.sequence_parallel)
+                           sequence_parallel=mesh.sequence_parallel,
+                           ep_axis=mesh.ep_axis)
 
     def grads_fn(params, batch: Batch):
+        if pipeline is not None:
+            with mesh.scope():
+                loss, stats, grads = pipeline(params, batch)
+            loss, grads = mesh.reduce(params, loss.detach(), grads)
+            return loss, mesh.reduce_stats(stats), grads
         leaves = tree_leaves(params)
         accum = batch["input_ids"].shape[0]
         with mesh.scope():
             loss, stats = loss_fn(params, _micro(batch, 0))
             grads = list(torch.autograd.grad(loss, leaves))
             if accum > 1:
-                grads = [g.float() for g in grads]
+                _cast_(grads, [torch.float32] * len(grads))
                 for a in range(1, accum):
                     loss_a, stats_a = loss_fn(params, _micro(batch, a))
                     for acc, g in zip(grads,
@@ -173,12 +202,13 @@ def make_grad_fn(cfg, *, attention_backend: str = "sdpa",
                         acc.add_(g.float())
                     loss = loss + loss_a
                     stats = {k: v + stats_a[k] for k, v in stats.items()}
-                grads = [g / accum for g in grads]
+                for g in grads:
+                    g.div_(accum)
                 loss = loss / accum
                 stats = {k: v / accum for k, v in stats.items()}
-        loss, grads = mesh.reduce(params, loss.detach(),
-                                  [g.float() for g in grads])
-        return loss, stats, grads
+        _cast_(grads, [torch.float32] * len(grads))
+        loss, grads = mesh.reduce(params, loss.detach(), grads)
+        return loss, mesh.reduce_stats(stats), grads
 
     return grads_fn
 
@@ -192,17 +222,19 @@ def make_train_step(
     remat_policy: str = "nothing_saveable",
     max_grad_norm: float = 0.0,
     mesh: Optional[MeshHooks] = None,
+    pipeline: Optional[Callable] = None,
 ) -> Callable:
     """Build ``step(params, opt_state, batch)`` for ``optimizer`` (AdamW,
     Adam, SGD, LAMB or Adafactor) and the remat policy. ``batch`` leaves
     live on the parameters' device: ``input_ids``/``target_ids`` [accum,
     micro_bs, seq], ``position_ids`` [accum, seq]. ``mesh``: the mesh's
     reductions (``parallel/spmd.make_spmd_train_step``); none on one
-    device."""
+    device. ``pipeline``: ``make_grad_fn``'s."""
     mesh = mesh or MeshHooks()
     grads_fn = make_grad_fn(cfg, attention_backend=attention_backend,
                             gradient_checkpointing=gradient_checkpointing,
-                            remat_policy=remat_policy, mesh=mesh)
+                            remat_policy=remat_policy, mesh=mesh,
+                            pipeline=pipeline)
 
     def step(params, opt_state, batch):
         leaves = tree_leaves(params)
@@ -210,8 +242,10 @@ def make_train_step(
         grad_norm = mesh.grad_norm(params, grads)
         if max_grad_norm and max_grad_norm > 0:
             scale = clip_scale(grad_norm, max_grad_norm)
-            grads = [g * scale for g in grads]
-        grads = [g.to(p.dtype) for g, p in zip(grads, leaves)]
+            # in place, each distinct tensor once: no second fp32 copy
+            for g in {id(g): g for g in grads}.values():
+                g.mul_(scale)
+        _cast_(grads, [p.dtype for p in leaves])
         tree = _like(params, grads)
         ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
         params, opt_state, skipped = guarded_update(
@@ -225,20 +259,29 @@ def make_train_step(
 
 
 def make_eval_step(cfg, *, attention_backend: str = "sdpa",
-                   mesh: Optional[MeshHooks] = None) -> Callable:
+                   mesh: Optional[MeshHooks] = None,
+                   pipeline: Optional[Callable] = None) -> Callable:
     """``eval_step(params, batch) -> loss``: the train step's loss (the
     MoE aux loss included) averaged over the batch's accumulation axis
     (and over the mesh's data ranks), under ``torch.no_grad()`` and
     without gradient checkpointing, on the train step's attention
-    backend. A 0-d fp32 device tensor."""
+    backend. A 0-d fp32 device tensor. ``pipeline``
+    (``parallel/pipeline_parallel.make_pipeline_eval_fn``) gives the
+    mean over the accumulation axis in one pipeline pass."""
     mesh = mesh or MeshHooks()
     loss_fn = make_loss_fn(cfg, attention_backend=attention_backend,
                            gradient_checkpointing=False,
                            tp_axis=mesh.tp_axis,
-                           sequence_parallel=mesh.sequence_parallel)
+                           sequence_parallel=mesh.sequence_parallel,
+                           ep_axis=mesh.ep_axis)
 
     @torch.no_grad()
     def eval_step(params, batch) -> Tensor:
+        if pipeline is not None:
+            with mesh.scope():
+                loss = pipeline(params, batch).float()
+            total, ranks = mesh.loss_sum(loss)
+            return total / ranks
         accum = batch["input_ids"].shape[0]
         total = torch.zeros((), dtype=torch.float32,
                             device=batch["input_ids"].device)

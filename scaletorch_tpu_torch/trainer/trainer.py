@@ -24,19 +24,26 @@ and raises without one; the CPU runs only when asked for by name.
 
 Over a mesh (``torchrun --nproc-per-node N -m scaletorch_tpu_torch.train
 --tensor_parallel_size ... --context_parallel_size ...
---data_parallel_size ...``) the constructor follows the reference's
-order: ``dist.init_distributed`` (NCCL on ``cuda:LOCAL_RANK``, gloo for
-``device='cpu'``), ``validate_world_size``, the mesh
-(``parallel/mesh.setup_mesh_manager``), the cp backend (``auto`` through
-``parallel/cp_select.resolve_cp_backend``; cp needs ``ring`` or
-``ulysses``) and the zigzag sequence check. Every rank draws the same
-full parameters from the seed and keeps its tensor-parallel slice
-(``models/convert.local_shard_fn``), so the weights are one card's; each
-step feeds the rank its part of the global batch
+--pipeline_parallel_size ... --pp_engine afab|memory_chunked|interleaved
+--expert_parallel_size ... --data_parallel_size ...``) the constructor
+follows the reference's order: ``dist.init_distributed`` (NCCL on
+``cuda:LOCAL_RANK``, gloo for ``device='cpu'``), ``validate_world_size``,
+the mesh (``parallel/mesh.setup_mesh_manager``), the virtual-stage count
+(``suggest_virtual_stages`` for ``pp_virtual_stages=0``), the cp backend
+(``auto`` through ``parallel/cp_select.resolve_cp_backend``; cp needs
+``ring`` or ``ulysses``), the zigzag sequence check, the tp and ep
+divisibility checks. Every rank draws the same full parameters from the
+seed and keeps its part (``models/convert.local_shard_fn``: the stacked
+layer axis padded for an uneven split, or put in interleaved order, then
+its pp block; its experts; its tp slice), so the weights are one card's;
+each step feeds the rank its part of the global batch
 (``parallel/spmd.local_batch``) to ``parallel/spmd.make_spmd_train_step``
-(the single-device step at world 1). Logs and the metrics JSON come
-from rank 0 only. Checkpoints, HF export of tensor-parallel shards and
-Adafactor over tp wait for ROADMAP Queue 1 items 6c and 6b and raise.
+(the single-device step at world 1), with the pipeline schedule and
+the gradient wire format (``grad_allreduce_dtype``) the config names. A
+Qwen3-MoE logs its routing statistics (``moe_dropped_fraction``,
+``moe_load_cv``). Logs and the metrics JSON come from rank 0 only.
+Checkpoints and the HF export of sharded parameters wait for ROADMAP
+Queue 1 item 6c, Adafactor over tp for item 6b-2, and raise.
 
 The runtime around the loop follows the reference's: a
 ``ResilienceManager`` (divergence sentinel with skip, rollback or abort;
@@ -79,7 +86,14 @@ from scaletorch_tpu_torch.models.convert import (
 )
 from scaletorch_tpu_torch.models.registry import resolve_attention_backend
 from scaletorch_tpu_torch.parallel.cp_select import resolve_cp_backend
+from scaletorch_tpu_torch.parallel.expert_parallel import (
+    validate_ep_divisibility,
+)
 from scaletorch_tpu_torch.parallel.mesh import setup_mesh_manager
+from scaletorch_tpu_torch.parallel.pipeline_parallel import (
+    stage_layer_layout,
+    suggest_virtual_stages,
+)
 from scaletorch_tpu_torch.parallel.spmd import (
     local_batch,
     make_spmd_eval_step,
@@ -267,6 +281,7 @@ class Trainer:
         self.mm = setup_mesh_manager(**cfg.mesh_kwargs(),
                                      device_type=self.device.type)
         self.model_cfg = build_model_config(cfg)
+        self.pp_vpp = self._resolve_virtual_stages()
         self.attention_backend = self._resolve_attention_backend()
         if cfg.tensor_parallel_size > 1:
             validate_tp_divisibility(self.model_cfg, cfg.tensor_parallel_size)
@@ -274,11 +289,19 @@ class Trainer:
                 raise NotImplementedError(
                     "adafactor over tensor-parallel shards (its factored "
                     "statistics reduce across the split dims) is ROADMAP "
-                    "Queue 1 item 6b")
+                    "Queue 1 item 6b-2")
         torch.manual_seed(cfg.seed)
         self.is_moe = isinstance(self.model_cfg, qwen3_moe.Qwen3MoEConfig)
+        if self.is_moe and cfg.expert_parallel_size > 1:
+            validate_ep_divisibility(self.model_cfg, cfg.expert_parallel_size)
         model = qwen3_moe if self.is_moe else llama
-        tp_shard = self.mm.tp > 1
+        # a rank keeps a part of the parameters when a model axis splits
+        tp_shard = self.mm.tp * self.mm.pp * self.mm.ep > 1
+        # the stacked layer axis before its pp split: uneven padding or
+        # the interleave order (the reference Trainer's order)
+        self.layer_layout = stage_layer_layout(
+            self.model_cfg.num_hidden_layers, self.mm.pp, cfg.pp_engine,
+            self.pp_vpp)
         if cfg.load_pretrained_weights:
             if not cfg.model_name_or_path:
                 raise ValueError(
@@ -289,15 +312,16 @@ class Trainer:
                                          self.model_cfg, device=self.device)
             if tp_shard:
                 self.params = shard_numpy_params(
-                    self.params, self.model_cfg, self.mm, self.mm.rank)
+                    self.params, self.model_cfg, self.mm, self.mm.rank,
+                    layout=self.layer_layout)
             for leaf in tree_leaves(self.params):
                 leaf.requires_grad_(True)
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
-            # tp shards are a dense model's (MoE over a mesh is item 6b)
             shard = ({"local_slice": local_shard_fn(
-                self.model_cfg, self.mm, self.mm.rank)} if tp_shard else {})
+                self.model_cfg, self.mm, self.mm.rank,
+                layout=self.layer_layout)} if tp_shard else {})
             self.params = model.init_params(
                 self.model_cfg, gen, self.device, requires_grad=True,
                 **shard)
@@ -321,8 +345,11 @@ class Trainer:
             sequence_parallel=cfg.sequence_parallel,
             max_grad_norm=cfg.max_grad_norm,
             cp_layout=cfg.cp_layout,
+            pp_engine=cfg.pp_engine,
+            pp_vpp=self.pp_vpp,
             grad_allreduce_dtype=cfg.grad_allreduce_dtype,
             grad_allreduce_axis=cfg.grad_allreduce_axis,
+            grad_allreduce_block_size=cfg.grad_allreduce_block_size,
         )
         # the whole model's count, whatever this rank holds
         self.num_params = (self.model_cfg.num_params() if tp_shard
@@ -378,7 +405,8 @@ class Trainer:
                 self.mm, self.model_cfg,
                 attention_backend=self.attention_backend,
                 sequence_parallel=cfg.sequence_parallel,
-                cp_layout=cfg.cp_layout)
+                cp_layout=cfg.cp_layout, pp_engine=cfg.pp_engine,
+                pp_vpp=self.pp_vpp)
             self._eval_loader = self._build_eval_loader()
         self.logger.info(
             f"model {cfg.model_type}: "
@@ -423,6 +451,33 @@ class Trainer:
             return None
         return self.world * get_theoretical_flops(
             torch.cuda.get_device_name(self.device))
+
+    def _resolve_virtual_stages(self) -> int:
+        """``pp_virtual_stages``, its 0 (auto) resolved by
+        ``suggest_virtual_stages`` into this attribute, never into the
+        config (the reference's rule)."""
+        cfg = self.cfg
+        vpp = cfg.pp_virtual_stages
+        if (cfg.pipeline_parallel_size > 1 and cfg.pp_engine == "interleaved"
+                and vpp == 0):
+            layers = self.model_cfg.num_hidden_layers
+            pp = cfg.pipeline_parallel_size
+            vpp = suggest_virtual_stages(layers, pp)
+            if vpp < 2:
+                if layers % pp:
+                    raise ValueError(
+                        f"pp_engine='interleaved' cannot apply: "
+                        f"num_hidden_layers={layers} is not divisible by "
+                        f"pp={pp} (no pp_virtual_stages value can fix this); "
+                        "use pp_engine='afab', which pads uneven layer "
+                        "counts")
+                raise ValueError(
+                    f"pp_virtual_stages=0 (auto) found no virtual-stage "
+                    f"count: per-rank layer count {layers // pp} has no "
+                    "divisor in [2, 4]; set pp_virtual_stages explicitly "
+                    "or use pp_engine='afab'")
+            self.logger.info(f"pp_virtual_stages auto-selected: {vpp}")
+        return vpp
 
     def _resolve_attention_backend(self) -> str:
         """The attention backend, as the reference's ``__init__`` settles
@@ -746,9 +801,9 @@ class Trainer:
             save_hf_params,
         )
 
-        if self.mm.tp > 1:
+        if self.mm.tp * self.mm.pp * self.mm.ep > 1:
             raise NotImplementedError(
-                "export of tensor-parallel shards (a gather of every rank's "
+                "export of sharded parameters (a gather of every rank's "
                 "slices) is ROADMAP Queue 1 item 6c")
         if not stdist.is_main_process():
             return ""

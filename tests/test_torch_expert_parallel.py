@@ -170,9 +170,17 @@ def test_modes_and_axes():
     assert tep.resolve_moe_dispatch("einsum", 4) == "einsum"
     with pytest.raises(ValueError, match="dispatch mode"):
         tep.route_tokens(torch.zeros(4, E), K, 2, mode="sort")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        tep.dispatch_tokens(torch.zeros(4, H), torch.zeros(4, E, 2),
-                            axis="ep")
+    # an expert-parallel axis names a mesh axis: without a mesh it raises,
+    # on a mesh of one rank the exchange is the identity
+    from scaletorch_tpu_torch.parallel import mesh as tmesh
+
+    x, d = torch.randn(4, H), torch.rand(4, E, 2)
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        with tmesh.using_mesh_manager(None):
+            tep.dispatch_tokens(x, d, axis="ep")
+    with tmesh.using_mesh_manager(tmesh.MeshManager()):
+        assert torch.equal(tep.dispatch_tokens(x, d, axis="ep"),
+                           tep.dispatch_tokens(x, d))
 
     class Cfg:
         num_experts = 8

@@ -98,9 +98,14 @@ def test_vocab_parallel_cross_entropy_matches(ignored):
 
 
 def test_tensor_parallel_axis_is_refused():
-    # a tp axis needs a mesh (the tp arms: tests/test_torch_tensor_parallel.py)
+    # a tp axis needs a mesh (the tp arms: tests/test_torch_tensor_parallel.py);
+    # none is installed here, whatever an earlier test in this process (a
+    # Trainer) left behind
+    from scaletorch_tpu_torch.parallel.mesh import using_mesh_manager
+
     hidden, head, targets = inputs(0, 0)
-    with pytest.raises(RuntimeError, match="axis='tp' needs a mesh"):
+    with using_mesh_manager(None), pytest.raises(
+            RuntimeError, match="axis='tp' needs a mesh"):
         ttp.fused_vocab_parallel_cross_entropy(
             torch.from_numpy(hidden), torch.from_numpy(head),
             torch.from_numpy(targets), axis="tp")

@@ -39,7 +39,9 @@ def imported_modules(path: Path):
 
 def test_the_scan_sees_the_port():
     names = {p.name for p in port_files()}
-    assert {"engine.py", "paged_attention.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "paged_attention.py", "chip_smoke.py",
+            "pipeline_parallel.py", "quantized_collectives.py",
+            "expert_parallel.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_files(),

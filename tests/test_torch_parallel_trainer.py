@@ -131,12 +131,24 @@ def test_mesh_configs_are_validated_as_the_reference_validates_them():
     with pytest.raises(ValueError, match="device count"):
         b.validate_world_size(4)
     b.validate_world_size(8)
-    # the paths of ROADMAP Queue 1 item 6b raise, naming it
-    for kw in (dict(pipeline_parallel_size=2), dict(expert_parallel_size=2),
-               dict(grad_allreduce_dtype="int8"),
+    # the paths of ROADMAP Queue 1 item 6b (pipeline and expert
+    # parallelism, the int8 wire, MoE over processes) are accepted as the
+    # reference accepts them
+    for kw in (dict(pipeline_parallel_size=2, pp_engine="interleaved",
+                    pp_virtual_stages=2, gradient_accumulation_steps=4),
+               dict(expert_parallel_size=2, micro_batch_size=2),
+               dict(grad_allreduce_dtype="int8", data_parallel_size=2),
                dict(model_type="qwen3_moe", data_parallel_size=2)):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            tconfig.ScaleTorchTPUArguments(**kw)
+        a = jconfig.ScaleTorchTPUArguments(**kw)
+        b = tconfig.ScaleTorchTPUArguments(**kw)
+        assert a.mesh_kwargs() == b.mesh_kwargs()
+        assert (a.world_size, a.global_batch_size, a.num_microbatches,
+                a.pp_engine) == (b.world_size, b.global_batch_size,
+                                 b.num_microbatches, b.pp_engine)
+    with pytest.warns(RuntimeWarning, match="memory_chunked"):
+        b = tconfig.ScaleTorchTPUArguments(pipeline_parallel_size=2,
+                                           pp_engine="1f1b")
+    assert b.pp_engine == "memory_chunked"
 
 
 def test_trainer_guards_over_two_gloo_processes(tmp_path):

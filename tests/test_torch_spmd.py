@@ -165,14 +165,19 @@ def test_bf16_wire_keeps_the_fp32_wires_steps(runs):
 
 
 def test_the_step_refuses_what_waits_for_item_6b():
+    # item 6b (pp, ep, int8) is ported; what stays refuses, naming 6b-2,
+    # and bad pipeline or wire settings are refused as the reference does
     from scaletorch_tpu_torch.parallel.spmd import make_spmd_train_step as t
 
     cfg = LlamaConfig(**ARCH)
-    with pytest.raises(NotImplementedError, match="6b"):
-        t(MeshManager(dp=2, pp=2), cfg, None)
-    with pytest.raises(NotImplementedError, match="6b"):
-        t(MeshManager(dp=2), cfg, None, grad_allreduce_dtype="int8")
-    with pytest.raises(NotImplementedError, match="context parallelism"):
+    with pytest.raises(NotImplementedError, match="6b-2"):
         t(MeshManager(cp=2), cfg, None, gradient_checkpointing=True,
           remat_policy="save_attn")
+    with pytest.raises(ValueError, match="pp_virtual_stages"):
+        t(MeshManager(dp=2, pp=2), cfg, None, pp_engine="interleaved",
+          pp_vpp=1)
+    with pytest.raises(ValueError, match="pp_engine"):
+        t(MeshManager(dp=2, pp=2), cfg, None, pp_engine="gpipe")
+    with pytest.raises(ValueError, match="grad_allreduce_dtype"):
+        t(MeshManager(dp=2), cfg, None, grad_allreduce_dtype="fp8")
 

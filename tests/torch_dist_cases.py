@@ -285,6 +285,158 @@ def case_trainer_guards(payload):
     return out
 
 
+# ---- pipeline and expert parallelism, the int8 wire ------------------------------
+def _arch_cfg(arch: dict):
+    """A dense Llama/Qwen3 config, or a Qwen3-MoE one when the arch names
+    experts; fp32 compute."""
+    if "num_experts" in arch:
+        from scaletorch_tpu_torch.models.qwen3_moe import Qwen3MoEConfig
+
+        return Qwen3MoEConfig(**arch, dtype=torch.float32)
+    return llama.LlamaConfig(**arch, dtype=torch.float32)
+
+
+def _stats(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def case_mesh_steps(payload):
+    """For every run: the step's first gradients (``make_spmd_grad_fn``,
+    with ``grads``), STEPS AdamW steps' metrics on the run's batches, the
+    eval loss of the first batch and the final parameters, each rank's
+    shards, over the run's mesh, pipeline schedule and wire format."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.parallel.pipeline_parallel import (
+        stage_layer_layout,
+    )
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_eval_step,
+        make_spmd_grad_fn,
+        make_spmd_train_step,
+    )
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+
+    os.environ["SCALETORCH_TPU_CE_CHUNK"] = str(payload["ce_chunk"])
+    out = []
+    for run in payload["runs"]:
+        model = payload["models"][run["model"]]
+        cfg = _arch_cfg(model["arch"])
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        engine, vpp = run.get("engine", "afab"), run.get("vpp", 1)
+        layout = stage_layer_layout(cfg.num_hidden_layers, mm.pp, engine,
+                                    vpp)
+        params = params_from_numpy(shard_numpy_params(
+            model["params"], cfg, mm, mm.rank, layout=layout), "cpu")
+        kw = dict(attention_backend=run.get("backend", "sdpa"),
+                  gradient_checkpointing=run.get("gc", False),
+                  sequence_parallel=run.get("sp", False),
+                  pp_engine=engine, pp_vpp=vpp)
+        wire = dict(grad_allreduce_dtype=run.get("wire", "fp32"),
+                    grad_allreduce_axis=run.get("wire_axis", "dp"),
+                    grad_allreduce_block_size=payload.get("block", 256))
+        batches = [device_batch(local_batch(b, mm), "cpu")
+                   for b in run["batches"]]
+        res = {}
+        if run.get("grads"):
+            grads_fn = make_spmd_grad_fn(mm, cfg, **kw, **wire)
+            loss, grads = grads_fn(params, batches[0])
+            res["loss0"] = float(loss)
+            res["stats0"] = _stats(grads_fn.stats)
+            res["grads0"] = [_np(g) for g in grads]
+        tcfg = ScaleTorchTPUArguments(**payload["train_cfg"])
+        opt, _ = create_optimizer(tcfg)
+        state = opt.init(params)
+        step = make_spmd_train_step(mm, cfg, opt,
+                                    max_grad_norm=tcfg.max_grad_norm,
+                                    **kw, **wire)
+        res["metrics"] = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            res["metrics"].append(_stats(m))
+        evaluate = make_spmd_eval_step(
+            mm, cfg, attention_backend=kw["attention_backend"],
+            sequence_parallel=kw["sequence_parallel"], pp_engine=engine,
+            pp_vpp=vpp)
+        res["val"] = float(evaluate(params, batches[0]))
+        res["params"] = params_to_numpy(params)
+        out.append(res)
+    return out
+
+
+def case_ep_ops(payload):
+    """The exchange to and from experts (a function of the slots, its
+    gradient), ``exchange_slot_counts``, and ``moe_block``'s output, aux,
+    stats and gradients on this rank's tokens, for every mesh in
+    ``payload['runs']``."""
+    from scaletorch_tpu_torch.models import qwen3_moe
+    from scaletorch_tpu_torch.parallel import expert_parallel as tep
+
+    cfg = _arch_cfg(payload["arch"])
+    out = []
+    for run in payload["runs"]:
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        c = mm.my_coords
+        res = {}
+        with tmesh.using_mesh_manager(mm):
+            slots = _t(payload["slots"][c.ep], grad=True)
+            got = tep._exchange_to_experts(slots, "ep")
+            back = tep._exchange_from_experts(got * 2.0, "ep")
+            (g,) = torch.autograd.grad((back * _t(payload["w_back"])).sum()
+                                       + (got * got).sum(), slots)
+            res.update(to_experts=_np(got), round_trip=_np(back),
+                       slots_grad=_np(g))
+            res["counts"] = tep.exchange_slot_counts(
+                _t(payload["counts"][c.ep]), "ep").numpy().copy()
+            # moe_block on this rank's rows (and, under SP, its sequence
+            # slice) with this rank's expert / tp shards of the layer
+            layer = shard_numpy_params({"layers": payload["layer"]}, cfg,
+                                       mm, mm.rank)["layers"]
+            layer = {k: _t(v[0], grad=True) for k, v in layer.items()}
+            rows = payload["x"].shape[0] // mm.ep
+            x = payload["x"][c.ep * rows:(c.ep + 1) * rows]
+            sp = run.get("sp", False)
+            if sp:
+                w = x.shape[1] // mm.tp
+                x = x[:, c.tp * w:(c.tp + 1) * w]
+            x = _t(np.ascontiguousarray(x), grad=True)
+            y, aux, stats = qwen3_moe.moe_block(
+                x, layer, cfg, ep_axis="ep" if mm.ep > 1 else None,
+                tp_axis="tp" if mm.tp > 1 else None, sequence_parallel=sp)
+            dy = payload["dy"][c.ep * rows:(c.ep + 1) * rows]
+            if sp:
+                dy = dy[:, c.tp * w:(c.tp + 1) * w]
+            obj = (y * _t(np.ascontiguousarray(dy))).sum() + 10.0 * aux
+            names = list(layer)
+            grads = torch.autograd.grad(obj, [x] + [layer[n] for n in names])
+            res.update(y=_np(y), aux=float(aux), stats=_stats(stats),
+                       x_grad=_np(grads[0]),
+                       layer_grads={n: _np(gr) for n, gr in
+                                    zip(names, grads[1:])})
+        out.append(res)
+    return out
+
+
+def case_quantized(payload):
+    """``quantized_pmean`` of this rank's array over the world, twice
+    (for equal bits), and ``quantized_pmean_tree`` of its leaves."""
+    from scaletorch_tpu_torch.ops import quantized_collectives as tq
+
+    rank = dist.get_rank()
+    group = dist.group.WORLD
+    out = {}
+    for name, per_rank in payload["arrays"].items():
+        x = torch.from_numpy(per_rank[rank])
+        a = tq.quantized_pmean(x, group, block_size=payload["block"])
+        b = tq.quantized_pmean(x, group, block_size=payload["block"])
+        out[name] = (a.numpy().copy(), bool(torch.equal(a, b)))
+    tree = [torch.from_numpy(t[rank]) for t in payload["tree"]]
+    out["tree"] = [t.numpy().copy() for t in tq.quantized_pmean_tree(
+        tree, group, dtype="int8", block_size=payload["block"])]
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
