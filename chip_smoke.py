@@ -38,7 +38,8 @@ is non-zero; no phase catches an exception):
                 it reached; beside the kernel's time, its time with the
                 host's enqueue kept out of the span (`time_ms`'s
                 ``spin``) and the wrapper's host µs per call; the same
-                at Qwen3-30B-A3B's heads (Hq 32, Hkv 4, n_rep 8) and at
+                at Qwen3-30B-A3B's heads (Hq 32, Hkv 4, n_rep 8), at one
+                tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8) and at
                 one slot of 32768 keys; then at qwen3-14b's heads (n_rep
                 5, D 128) and dense-tiny's (n_rep 2, D 32).
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
@@ -319,8 +320,33 @@ is non-zero; no phase catches an exception):
                 the wire bytes each reckons); Qwen3-30B-A3B at full width
                 under ep4 (bf16 masters, Adafactor, seq 4096 a rank, GC,
                 MOE_FULL_LAYERS layers): finite losses, no skipped update,
-                routing statistics, K1-K7 launches. The line names the
-                world and the layouts run and not run.
+                routing statistics, K1-K7 launches. Then (PR 14), one
+                card: the engine on a mesh of one against the plain
+                engine (paged and dense: tokens and every step's logits
+                bit for bit, one capture of each step), ``setup_fsdp``'s
+                step and the mesh step with Adafactor given its shard
+                layout, each against the one-card step bit for bit (3
+                steps, losses and parameters). Four cards: a captured NCCL
+                all-reduce replayed (the tp steps are built on it);
+                qwen3-32b at full width and depth, bf16, paged, 8 slots,
+                served on one card and then over tp4 (16/16 ok, the same
+                tokens on every rank, one capture of each step, K4 once a
+                layer per decode replay; decode tokens/s, TTFT, TPOT and
+                peak memory a card beside one card's); its width cut to
+                2 layers in fp32 over tp4 against one card (teacher-forced
+                logits <= 1e-3, greedy tokens equal); Qwen3-0.6B fp32
+                dense over tp2 x dp2 with the slots over dp (tokens equal
+                to one card's); FSDP over 4 of qwen3-8b at seq 4096 (fp32
+                parity at 2 layers, then bf16 at full depth: step s,
+                tokens/s, MFU and peak memory a card, parameters and AdamW
+                state 1/4 a rank); Adafactor's update over tp4 + SP
+                (headline row) and pp2 x ep2 (30B-A3B width, 2 layers)
+                against one card's, and the full-width ep4 Adafactor row
+                again; cp4 ring zigzag and cp4 Ulysses under each remat
+                policy (fp32 gradients bit for bit against
+                ``nothing_saveable``, K1-K3 launches as the policy reckons
+                them, bf16 step s). The line names the world and the
+                checks run and not run.
  19. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line (K1-K7,
@@ -433,6 +459,9 @@ LONG_CONTEXT_SLOT_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # takes to enqueue any call timed here
 SPIN_CYCLES = 4_000_000
 PARITY_TOLERANCE = 1e-3
+# the heads (Hq, Hkv, D) of one rank of qwen3-32b over tp 4
+TP_MODEL = "qwen3-32b"
+TP4_RANK_HEADS = (16, 2, 128)
 # the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
 TRAIN_SEQ = 8192
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 2, 5, 2
@@ -608,14 +637,17 @@ def phase_build() -> None:
 # ---- 3. the paged-decode kernel against its plain version --------------------
 def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
                   slots: int = SLOTS, max_seq: int = MAX_SEQ,
-                  positions=None):
-    """Serving-shaped inputs at ``model``'s heads: shuffled physical
+                  positions=None, heads=None):
+    """Serving-shaped inputs at ``model``'s heads (``heads``: (Hq, Hkv,
+    D) instead, e.g. one tensor-parallel rank's): shuffled physical
     pages of PAGE_SIZE, ``max_seq // PAGE_SIZE`` per slot; positions that
     include 0, both sides of a page boundary and the last position
     (``positions`` replaces them)."""
     cfg = model_config(model)
     b, hq, hkv = slots, cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.actual_head_dim
+    if heads is not None:
+        hq, hkv, d = heads
     pages = max_seq // PAGE_SIZE
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -750,10 +782,11 @@ def check_decode_row(row: dict, what: str) -> None:
 
 def phase_kernel() -> dict:
     """The serving shape of Qwen3-0.6B, then Qwen3-30B-A3B's heads (n_rep
-    8), one slot at 32768 keys, qwen3-14b's heads (n_rep 5) and
-    dense-tiny's (D 32). On each of the first three, a control: the
-    plain version with one page of the longest slot dropped must fail the
-    checks (both readings are printed)."""
+    8), one tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), one slot at
+    32768 keys, qwen3-14b's heads (n_rep 5) and dense-tiny's (D 32). On
+    each of the first four, a control: the plain version with one page of
+    the longest slot dropped must fail the checks (both readings are
+    printed)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -764,6 +797,10 @@ def phase_kernel() -> dict:
         row["rows"] = {
             "qwen3_30b_a3b_heads": decode_row(
                 decode_inputs(dtype, seed=1236, model=MOE_MODEL), flush),
+            # one rank of qwen3-32b served over tp4 (serve_tp4)
+            "qwen3_32b_tp4_rank_heads": decode_row(
+                decode_inputs(dtype, seed=1238, heads=TP4_RANK_HEADS),
+                flush),
             "b1_32768_keys": decode_row(
                 decode_inputs(dtype, seed=1237, slots=1,
                               max_seq=LONG_CONTEXT,
@@ -3609,8 +3646,13 @@ def phase_runtime_serve(model32) -> dict:
 
 # ---- 19. training over the device mesh, one rank a card ------------------------
 PARALLEL_DIR = os.path.join("build", "parallel")
-PARALLEL_TIMEOUT_S = 720  # the torch.distributed.run of every layout
+# the torch.distributed.run of every check: world 1, and four cards
+PARALLEL_TIMEOUT_S = {1: 720, 4: 1800}
 PARALLEL_WARMUP, PARALLEL_STEPS = 2, 3
+# what the four-card run does: PRs 12-13's layouts, then PR 14's checks
+PARALLEL_GROUPS = ("layouts", "nccl_capture", "serve_tp4", "tp_parity",
+                   "serve_tp2_dp2_dense", "fsdp4", "adafactor", "remat_cp",
+                   "cp_timing")
 # the timed window of each four-card layout: three steps spread by
 # 30-45% between two calls, so the layouts are compared over ten
 LAYOUT_STEPS = 10
@@ -3675,7 +3717,8 @@ def layout_launches(opts: dict, cp_rank: int, layers: int,
     ring's rank r computes r + 1 blocks, the zigzag ring's every rank
     3 + (cp - 1) half blocks; a pipeline stage runs its L/pp layers for
     each of the M microbatches (interleaved: in vpp chunks, the same
-    count); GC runs the forward twice."""
+    count); GC runs the forward twice, but once under ``save_attn``,
+    which keeps the attention op's output (K1's, the ring's, Ulysses')."""
     cp = opts.get("context_parallel_size", 1)
     blocks = 1
     if opts.get("attention_backend") == "ring":
@@ -3683,7 +3726,8 @@ def layout_launches(opts: dict, cp_rank: int, layers: int,
                   else cp_rank + 1)
     per = (layers // opts.get("pipeline_parallel_size", 1)
            * opts.get("gradient_accumulation_steps", 1))
-    out = {tf.K1_NAME: 2 * per * blocks, tf.K2_NAME: per * blocks,
+    fwd = 1 if opts.get("remat_policy") == "save_attn" else 2
+    out = {tf.K1_NAME: fwd * per * blocks, tf.K2_NAME: per * blocks,
            tf.K3_NAME: per * blocks}
     if moe:
         out.update({gm.K5_NAME: 2 * per, gm.GRADS_NAME: per,
@@ -3739,9 +3783,10 @@ def shard_diff(mm, cfg, params, grads, ref_grads) -> dict:
             "worst_leaf_rel_diff": worst}
 
 
-def parallel_worker(out_dir: str) -> int:
+def parallel_worker(out_dir: str, groups=PARALLEL_GROUPS) -> int:
     """One rank of ``phase_parallel`` (started by torch.distributed.run):
-    the world-1 checks on one card, the four-card layouts on four."""
+    the world-1 checks on one card, the four-card ``groups`` (of
+    PARALLEL_GROUPS) on four."""
     from scaletorch_tpu_torch import dist as stdist
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3749,7 +3794,8 @@ def parallel_worker(out_dir: str) -> int:
     # the MoE configs read the kernel toggle once, when they are built
     os.environ[qwen3_moe.GROUPED_MLP_ENV] = "1"
     world = int(os.environ["WORLD_SIZE"])
-    result = (parallel_world1() if world == 1 else parallel_layouts(world))
+    result = (parallel_world1() if world == 1
+              else parallel_layouts(world, groups))
     if stdist.process_index() == 0:
         with open(os.path.join(out_dir, "result.json"), "w") as f:
             json.dump(result, f)
@@ -3834,13 +3880,24 @@ def parallel_world1() -> dict:
     dense = world1_case("dense", dense_cfg, refs["dense"], moe=False)
     moe = world1_case(f"{MOE_MODEL}_{MOE_TRAIN_LAYERS}l", moe_cfg,
                       refs["moe"], moe=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.monotonic()
+    engine = world1_engine(dev)
+    fsdp = world1_fsdp(dev)
+    adafactor = world1_adafactor(dev)
     not_run = ([n for n, _ in PARALLEL_LAYOUTS] + [f"{BIG_MODEL}_tp4_sp"]
                + [n for n, _ in PIPELINE_LAYOUTS + MOE_LAYOUTS + INT8_LAYOUTS]
-               + [f"{MOE_MODEL}_ep4_full_width"])
-    return {"world": 1, "layouts_run": ["world1_vs_single_device",
-                                        "world1_moe_vs_single_device"],
+               + [f"{MOE_MODEL}_ep4_full_width"]
+               + [g for g in PARALLEL_GROUPS if g != "layouts"])
+    return {"world": 1, "layouts_run": [
+        "world1_vs_single_device", "world1_moe_vs_single_device",
+        "world1_engine", "world1_fsdp", "world1_adafactor"],
             "layouts_not_run": not_run, **dense,
-            "moe": {"model": MOE_MODEL, "layers": MOE_TRAIN_LAYERS, **moe}}
+            "moe": {"model": MOE_MODEL, "layers": MOE_TRAIN_LAYERS, **moe},
+            "engine": {"model": MODEL, "layers": WORLD1_SERVE_LAYERS,
+                       **engine},
+            "fsdp": fsdp, "adafactor": adafactor,
+            "new_checks_s": time.monotonic() - t0}
 
 
 def one_card_reference(cfg32, batch, dev, blocks: int = 1) -> tuple:
@@ -4068,7 +4125,7 @@ def int8_wire(world: int, dev) -> dict:
     return row
 
 
-def parallel_layouts(world: int) -> dict:
+def parallel_layouts(world: int, groups=PARALLEL_GROUPS) -> dict:
     """Four ranks. PR 12's layouts of the headline row (each layout's fp32
     loss and gradients against the one-card step on the same weights and
     global batch under TRAIN_PARITY, then its bf16 Trainer 2 + 10 steps:
@@ -4078,12 +4135,37 @@ def parallel_layouts(world: int) -> dict:
     width cut to 2 layers under ep4 and pp2 x ep2 (routing statistics
     against one card too, K5-K7 counted), dp4 with the fp32 and the int8
     gradient wire, and Qwen3-30B-A3B at full width under ep4 (bf16
-    masters, Adafactor)."""
+    masters, Adafactor). Then (PR 14) a captured NCCL all-reduce,
+    qwen3-32b served over tp 4 and its tp parity, tp 2 x dp 2 dense
+    serving, FSDP over 4, Adafactor over sharded leaves and selective
+    remat under cp. ``groups`` picks among PARALLEL_GROUPS ("layouts":
+    the layouts above)."""
     from scaletorch_tpu_torch import dist as stdist
 
     check(world == 4, f"the layouts need 4 cards, found {world}")
+    unknown = set(groups) - set(PARALLEL_GROUPS)
+    check(not unknown, f"unknown parallel groups {sorted(unknown)}")
     stdist.init_distributed("env")
     dev = torch.device("cuda", stdist.local_rank())
+    out = {"world": world, "groups": list(groups), "layouts_run": [],
+           "layouts_not_run": [], "layouts": {}}
+    # the captured collective first: the tp serving steps are built on it
+    for group, fn in (("nccl_capture", nccl_capture_probe),
+                      ("serve_tp4", serve_tp4), ("tp_parity", tp_parity),
+                      ("serve_tp2_dp2_dense", serve_tp2_dp2_dense),
+                      ("fsdp4", fsdp4), ("adafactor", adafactor_layouts),
+                      ("remat_cp", remat_cp), ("cp_timing", cp_timing)):
+        if group in groups:
+            t0 = time.monotonic()
+            out[group] = fn(world, dev)
+            out[group + "_s"] = time.monotonic() - t0
+            out["layouts_run"].append(group)
+            gc.collect()
+            torch.cuda.empty_cache()
+        else:
+            out["layouts_not_run"].append(group)
+    if "layouts" not in groups:
+        return out
     cfg32 = model_config(MODEL, dtype=torch.float32)
     moe32 = model_config(MOE_MODEL, dtype=torch.float32,
                          num_hidden_layers=MOE_LAYOUT_LAYERS,
@@ -4102,8 +4184,6 @@ def parallel_layouts(world: int) -> dict:
         return global_batch(cfg, rows, seq,
                             opts.get("gradient_accumulation_steps", 1))
 
-    out = {"world": world, "layouts_run": [], "layouts_not_run": [],
-           "layouts": {}}
     refs = {}
 
     def run(name, opts, cfg32_, seq, cfg, moe=False):
@@ -4165,16 +4245,779 @@ def parallel_layouts(world: int) -> dict:
     return out
 
 
-def phase_parallel() -> dict:
+# ---- 20. serving over a mesh, FSDP, sharded Adafactor, remat under cp --------
+# world 1: the engine on a mesh of one (0.6B cut to 4 layers, 8 requests
+# of 16 new tokens), setup_fsdp's and the mesh Adafactor's steps (0.6B cut
+# to 2 layers, seq 2048, 3 steps), each bit for bit against one card
+WORLD1_SERVE_LAYERS, WORLD1_SERVE_TOKENS = 4, 16
+WORLD1_TRAIN_LAYERS, WORLD1_TRAIN_SEQ, WORLD1_TRAIN_STEPS = 2, 2048, 3
+# four cards: qwen3-32b at full width and depth over tp 4 (and on one
+# card before it), its width cut to 2 layers for fp32 parity
+TP_PARITY_LAYERS, TP_PARITY_TOKENS = 2, 64
+# FSDP over 4: qwen3-8b, seq 4096 a rank, GC, AdamW, fp32 masters
+FSDP_MODEL, FSDP_SEQ, FSDP_PARITY_LAYERS = "qwen3-8b", 4096, 2
+FSDP_WARMUP, FSDP_STEPS = 2, 3
+ADAFACTOR_STEPS = 2
+ADAFACTOR_LAYOUTS = (
+    ("tp4_sp", dict(tensor_parallel_size=4, sequence_parallel=True), False),
+    ("pp2_ep2", dict(pipeline_parallel_size=2, expert_parallel_size=2,
+                     gradient_accumulation_steps=2), True),
+)
+# PR 13's full-width ep4 Adafactor row (ledger: losses 12.20 -> 12.12)
+REMAT_LAYOUTS = PARALLEL_LAYOUTS[1:3]  # cp4_ring_zigzag, cp4_ulysses
+REMAT_STEPS = 3
+
+
+def recorded_serve(eng, prompts, new_tokens: int) -> tuple:
+    """Serve ``prompts`` tick by tick: (tokens per request, the logits of
+    every prefill and decode replay, in order, as the steps returned
+    them)."""
+    ids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    logits = []
+    while eng.pending:
+        pre, dec = eng.metrics.prefill_calls, eng.metrics.decode_steps
+        eng.step()
+        if eng.metrics.prefill_calls != pre:
+            logits.append(eng._prefill.outputs[1].clone())
+        if eng.metrics.decode_steps != dec:
+            logits.append(eng._decode.outputs[1].clone())
+    results = [eng.result(i) for i in ids]
+    check(all(r.outcome == "ok" for r in results),
+          f"outcomes {[r.outcome for r in results]}")
+    return [r.tokens for r in results], logits
+
+
+def world1_engine(dev) -> dict:
+    """The engine on a mesh of one (an NCCL group of one) against the
+    plain engine on one set of weights, paged and dense: the tokens and
+    every step's logits bit for bit, one capture of each step."""
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    cfg = model_config(MODEL, dtype=torch.bfloat16,
+                       num_hidden_layers=WORLD1_SERVE_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = LlamaForCausalLM(cfg, dev).init_weights_(gen)
+    prompts = traffic(cfg.vocab_size)[:SLOTS]
+    mm = MeshManager(tp=1, device_type="cuda")
+    row = {}
+    for layout in ("paged", "dense"):
+        runs = []
+        for mesh in (None, mm):
+            _build.reset_launch_counts()
+            eng = serving_engine(model, cfg, cache_layout=layout,
+                                 device=dev, mesh=mesh)
+            runs.append(recorded_serve(eng, prompts, WORLD1_SERVE_TOKENS))
+            cap = check_one_capture(eng, f"world 1 engine {layout}")
+            del eng
+            free_engine()
+        (t0, l0), (t1, l1) = runs
+        check(t0 == t1, f"world 1 engine {layout}: tokens differ")
+        check(len(l0) == len(l1) and all(torch.equal(a, b)
+                                         for a, b in zip(l0, l1)),
+              f"world 1 engine {layout}: a step's logits differ")
+        row[layout] = {"steps": len(l0), "bitwise_equal": True, **cap}
+    mm.destroy()
+    del model
+    free_engine()
+    return row
+
+
+def train_pair(dev, build) -> dict:
+    """``build(cfg, params, one_card) -> (optimizer, step or None, state or
+    None, params)`` (None: ``make_train_step``'s step, ``init``'s state)
+    on the mesh against one card, on the same seeded weights and
+    batches: losses and final parameters bit for bit over
+    WORLD1_TRAIN_STEPS steps."""
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.trainer.train_step import make_train_step
+
+    cfg = model_config(MODEL, num_hidden_layers=WORLD1_TRAIN_LAYERS)
+    batches = [device_batch(b, dev) for b, _ in zip(SyntheticDataLoader(
+        vocab_size=cfg.vocab_size, sequence_length=WORLD1_TRAIN_SEQ,
+        micro_batch_size=1, gradient_accumulation_steps=1, seed=11),
+        range(WORLD1_TRAIN_STEPS))]
+    out = []
+    for which in ("one_card", "mesh"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, dev, requires_grad=True)
+        opt, step, state, params = build(cfg, params,
+                                         one_card=which == "one_card")
+        if step is None:
+            step = make_train_step(cfg, opt, attention_backend="flash",
+                                   gradient_checkpointing=True,
+                                   max_grad_norm=1.0)
+        if state is None:
+            state = opt.init(params)
+        losses = []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        out.append((losses, [t.detach().clone() for t in
+                             tree_leaves(params)]))
+        del params, state
+        free_engine()
+    (l0, p0), (l1, p1) = out
+    check(l0 == l1, f"losses {l1} != one card's {l0}")
+    check(all(torch.equal(a, b) for a, b in zip(p0, p1)),
+          "parameters differ from the one-card step's")
+    return {"losses": l1, "bitwise_equal": True}
+
+
+def world1_fsdp(dev) -> dict:
+    """``setup_fsdp``'s step at N = 1 against the one-card step."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.parallel.fsdp import setup_fsdp
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+
+    def build(cfg, params, one_card):
+        opt, _ = create_optimizer(ScaleTorchTPUArguments(
+            learning_rate=1e-3, total_train_steps=10, warmup_steps=1))
+        if one_card:
+            return opt, None, None, params
+        step, shards, state, _ = setup_fsdp(
+            cfg, params, opt, device=dev, attention_backend="flash",
+            gradient_checkpointing=True, max_grad_norm=1.0)
+        return opt, step, state, shards
+
+    return train_pair(dev, build)
+
+
+def world1_adafactor(dev) -> dict:
+    """The mesh step with Adafactor given the shard layout (a mesh of
+    one) against the one-card Adafactor step."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+    from scaletorch_tpu_torch.parallel.spmd import make_spmd_train_step
+    from scaletorch_tpu_torch.parallel.tensor_parallel import shard_dims
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+
+    args = ScaleTorchTPUArguments(optimizer_name="adafactor",
+                                  learning_rate=1e-3, total_train_steps=10,
+                                  warmup_steps=1)
+    mm = MeshManager(tp=1, device_type="cuda")
+
+    def build(cfg, params, one_card):
+        if one_card:
+            return create_optimizer(args)[0], None, None, params
+        opt, _ = create_optimizer(args, shard_dims=shard_dims(cfg), mesh=mm)
+        return opt, make_spmd_train_step(
+            mm, cfg, opt, attention_backend="flash",
+            gradient_checkpointing=True, max_grad_norm=1.0), None, params
+
+    row = train_pair(dev, build)
+    mm.destroy()
+    return row
+
+
+def nccl_capture_probe(world: int, dev) -> dict:
+    """A CUDA graph holding one NCCL all-reduce, captured after a warm-up
+    on the capture stream, replayed twice on new inputs: the sums must be
+    right (the tp serving steps are built on this)."""
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    mm = MeshManager(tp=world, device_type="cuda")
+    group = mm.group("tp")
+    rank = mm.axis_rank("tp")
+    x = torch.full((4096,), float(rank + 1), device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        torch.distributed.all_reduce(x, group=group)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        torch.distributed.all_reduce(x, group=group)
+    sums = []
+    for scale in (1.0, 3.0):
+        x.fill_(scale * (rank + 1))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        sums.append(float(x[0]))
+    want = [s * world * (world + 1) / 2 for s in (1.0, 3.0)]
+    check(sums == want and bool((x == x[0]).all()),
+          f"captured all-reduce gave {sums}, want {want}")
+    del graph
+    mm.destroy()
+    return {"replayed_sums": sums, "want": want}
+
+
+def engine_numbers(eng, stats: dict, dev) -> dict:
+    return {**stats, "peak_memory_gb": torch.cuda.max_memory_allocated(dev)
+            / 1e9, "decode_compile_count": eng.decode_compile_count,
+            "prefill_compile_count": eng.prefill_compile_count}
+
+
+def replay_ms(graph, dev, reps: int = 20) -> float:
+    """A captured graph's device ms a replay (CUDA events around
+    ``reps`` replays after one)."""
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def decode_breakdown(eng, mm, cfg, dev, calls: int = 100) -> dict:
+    """Where a tp decode tick goes (after the run; the replays rewrite the
+    last step's cache lines): the captured decode step's device ms, a
+    graph of its 2 L all-reduces of [slots, hidden] alone, and the host
+    ms of the tick's rank-0 broadcast (``_agree``)."""
+    x = torch.zeros(eng.max_slots, cfg.hidden_size, dtype=cfg.dtype,
+                    device=dev)
+    group = mm.group("tp")
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        torch.distributed.all_reduce(x, group=group)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(2 * cfg.num_hidden_layers):
+            torch.distributed.all_reduce(x, group=group)
+    out = {"decode_replay_ms": replay_ms(eng._decode.graph, dev),
+           "allreduces_graph_ms": replay_ms(graph, dev),
+           "allreduces_per_step": 2 * cfg.num_hidden_layers}
+    del graph
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        eng._agree(([], False))
+    out["host_agree_ms"] = 1e3 * (time.perf_counter() - t0) / calls
+    return out
+
+
+def serve_tp4(world: int, dev) -> dict:
+    """qwen3-32b at full width and depth, bf16, paged, 8 slots of
+    PREFILL_LEN positions (65.5 GB of weights leave one card a small
+    cache), the serve cell's 16 requests of 64 new tokens: first on one
+    card (rank 0, the
+    others waiting), then over tp 4. Asserted on every rank: 16/16 ok,
+    the same tokens on every rank, one capture of each step, K4 once a
+    layer per decode replay; printed beside one card's: decode tokens/s,
+    TTFT mean, TPOT p50, peak memory a card."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    cfg = model_config(TP_MODEL, dtype=torch.bfloat16)
+    prompts = traffic(cfg.vocab_size)
+    rank = stdist.process_index()
+    one = None
+    if rank == 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = LlamaForCausalLM(cfg, dev).init_weights_(gen)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        eng, results, ptrs, stats = serve(model, cfg, prompts, None,
+                                          device=dev, max_seq=PREFILL_LEN)
+        check_served(eng, results, ptrs, stats, "serve one card")
+        cap = check_one_capture(eng, "serve one card")
+        one = {"tokens": [r.tokens for r in results],
+               **engine_numbers(eng, stats, dev), **cap,
+               "decode_replay_ms": replay_ms(eng._decode.graph, dev)}
+        del eng, model
+        free_engine()
+    stdist.barrier()
+    mm = MeshManager(tp=world, device_type="cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = LlamaForCausalLM(cfg, dev, mesh=mm).init_weights_(gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    eng, results, ptrs, stats = serve(model, cfg, prompts, None, device=dev,
+                                      max_seq=PREFILL_LEN, mesh=mm)
+    check_served(eng, results, ptrs, stats, "serve_tp4")
+    cap = check_one_capture(eng, "serve_tp4")
+    k4 = cap["decode_launches_per_replay"].get("paged_decode", 0)
+    check(k4 == cfg.num_hidden_layers,
+          f"serve_tp4: K4 {k4} a decode replay, want {cfg.num_hidden_layers}")
+    mine = {"tokens": [r.tokens for r in results],
+            **engine_numbers(eng, stats, dev), **cap,
+            **decode_breakdown(eng, mm, cfg, dev)}
+    del eng, model
+    free_engine()
+    mm.destroy()
+    ranks = stdist.all_gather_object(mine)
+    check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
+          "serve_tp4: the ranks' tokens differ")
+    row = {"model": TP_MODEL, "dtype": "bfloat16", "slots": SLOTS,
+           "requests": len(prompts), "tp": world,
+           "tp4": {k: v for k, v in ranks[0].items() if k != "tokens"},
+           "peak_memory_gb_per_card": [r["peak_memory_gb"] for r in ranks],
+           "one_card": ({k: v for k, v in one.items() if k != "tokens"}
+                        if one else None),
+           "tp4_vs_one_card_greedy": (agreement(ranks[0]["tokens"],
+                                                one["tokens"])
+                                      if one else None)}
+    if rank == 0:
+        emit("serve_tp4", **row)
+    return row
+
+
+def tp_parity(world: int, dev) -> dict:
+    """qwen3-32b's width cut to TP_PARITY_LAYERS layers, fp32, over tp 4
+    against one card (every rank computes both): the teacher-forced
+    logits of every step (dense and paged through K4) within
+    PARITY_TOLERANCE, and 4 greedy requests' tokens equal."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        kv_cache_shardings,
+        paged_kv_cache_shardings,
+    )
+    from scaletorch_tpu_torch.parallel.mesh import (
+        MeshManager,
+        using_mesh_manager,
+    )
+
+    cfg = model_config(TP_MODEL, dtype=torch.float32,
+                       num_hidden_layers=TP_PARITY_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, TP_PARITY_TOKENS),
+                           generator=gen, device=dev)
+    prompts = traffic(cfg.vocab_size)[:4]
+    out = {}
+    for which in ("one_card", "tp"):
+        mm = MeshManager(tp=world, device_type="cuda") if which == "tp" \
+            else None
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = LlamaForCausalLM(cfg, dev, mesh=mm).init_weights_(gen)
+        shard = {} if mm is None else {"dense": {"sharding":
+                                                 kv_cache_shardings(mm)},
+                                       "paged": {"sharding":
+                                                 paged_kv_cache_shardings(
+                                                     mm)}}
+        with using_mesh_manager(mm), torch.inference_mode():
+            dense = teacher_forced_decode(model, cfg, tokens,
+                                          **shard.get("dense", {}))
+            paged = teacher_forced_decode_paged(model, cfg, tokens,
+                                                page_size=PAGE_SIZE,
+                                                **shard.get("paged", {}))
+        eng = serving_engine(model, cfg, device=dev, mesh=mm)
+        served, _ = recorded_serve(eng, prompts, 16)
+        out[which] = (dense, paged, served)
+        del eng, model
+        free_engine()
+        if mm is not None:
+            mm.destroy()
+    (d0, p0, s0), (d1, p1, s1) = out["one_card"], out["tp"]
+    row = {"model": TP_MODEL, "layers": TP_PARITY_LAYERS, "dtype": "float32",
+           "tp": world, "dense_max_abs": max_abs(d1, d0),
+           "paged_max_abs": max_abs(p1, p0), "tolerance": PARITY_TOLERANCE,
+           "greedy_tokens_equal": s0 == s1}
+    ranks = stdist.all_gather_object(row)
+    if stdist.process_index() == 0:
+        emit("tp_parity", **row, per_rank=ranks)
+    for r in ranks:
+        check(r["dense_max_abs"] <= PARITY_TOLERANCE
+              and r["paged_max_abs"] <= PARITY_TOLERANCE,
+              f"tp_parity: logits {r}")
+        check(r["greedy_tokens_equal"], f"tp_parity: greedy tokens {r}")
+    return row
+
+
+def serve_tp2_dp2_dense(world: int, dev) -> dict:
+    """Qwen3-0.6B, fp32, dense, tp 2 x dp 2 with ``batch_axis="dp"``:
+    each dp rank's slots, the tokens gathered; equal to the one-card dense
+    engine's on every rank, one capture of each step."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    cfg = model_config(MODEL, dtype=torch.float32)
+    prompts = traffic(cfg.vocab_size)
+    runs = {}
+    for which in ("one_card", "tp2_dp2"):
+        mm = (MeshManager(tp=2, dp=world // 2, device_type="cuda")
+              if which != "one_card" else None)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = LlamaForCausalLM(cfg, dev, mesh=mm).init_weights_(gen)
+        _build.reset_launch_counts()
+        eng = serving_engine(model, cfg, cache_layout="dense", device=dev,
+                             mesh=mm, batch_axis="dp" if mm else None)
+        tokens, _ = recorded_serve(eng, prompts, 32)
+        runs[which] = (tokens, check_one_capture(eng, which),
+                       tuple(eng.cache.k.shape))
+        del eng, model
+        free_engine()
+        if mm is not None:
+            mm.destroy()
+    same = runs["one_card"][0] == runs["tp2_dp2"][0]
+    ranks = stdist.all_gather_object({"same": same,
+                                      "cache_shape": runs["tp2_dp2"][2]})
+    row = {"model": MODEL, "dtype": "float32", "layout": "dense",
+           "mesh": {"tp": 2, "dp": world // 2}, "batch_axis": "dp",
+           "requests": len(prompts), "tokens_equal_one_card": same,
+           "cache_shape_per_rank": [r["cache_shape"] for r in ranks],
+           **runs["tp2_dp2"][1]}
+    if stdist.process_index() == 0:
+        emit("serve_tp2_dp2_dense", **row)
+    check(all(r["same"] for r in ranks),
+          "serve_tp2_dp2_dense: tokens differ from one card's")
+    return row
+
+
+def fsdp4(world: int, dev) -> dict:
+    """FSDP over the four cards, qwen3-8b, seq FSDP_SEQ a rank, GC, flash:
+    the fp32 loss and gradients at FSDP_PARITY_LAYERS layers against one
+    card (TRAIN_PARITY); then bf16 compute over fp32 masters at full
+    depth with AdamW, FSDP_WARMUP + FSDP_STEPS steps: step s, tokens/s,
+    MFU and peak memory a card, K1/K2/K3 launches a step (2L/L/L, GC),
+    and each rank's parameter and AdamW elements 1/N of the model's
+    (both asserted)."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.models import llama
+    from scaletorch_tpu_torch.parallel import fsdp as tfsdp
+    from scaletorch_tpu_torch.parallel.spmd import local_batch
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+    from scaletorch_tpu_torch.trainer.train_step import (
+        make_grad_fn,
+        make_train_step,
+    )
+    from scaletorch_tpu_torch.utils.device import get_theoretical_flops
+    from scaletorch_tpu_torch.utils.misc import get_mfu
+
+    mm = tfsdp.make_fsdp_mesh(world, device_type="cuda")
+    t0 = time.monotonic()
+    cfg32 = model_config(FSDP_MODEL, dtype=torch.float32,
+                         num_hidden_layers=FSDP_PARITY_LAYERS)
+    batch = next(iter(SyntheticDataLoader(
+        vocab_size=cfg32.vocab_size, sequence_length=FSDP_SEQ,
+        micro_batch_size=world, gradient_accumulation_steps=1, seed=11)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_params(cfg32, gen, dev, requires_grad=True)
+    ref_loss, _, ref_grads = make_grad_fn(
+        cfg32, attention_backend="flash", gradient_checkpointing=True)(
+        full, device_batch(batch, dev))
+    specs = tfsdp.fsdp_param_specs(full, world)
+    shards = tfsdp.shard_params_fsdp(mm, full, specs)
+    names = list(flatten_params(full))
+    flat_specs = flatten_params(specs)
+    ref = [tfsdp._slice(g, flat_specs[n], world, mm.axis_rank("dp"))
+           for n, g in zip(names, ref_grads)]
+    del full, ref_grads
+    free_engine()
+    loss, _, grads = make_grad_fn(
+        cfg32, attention_backend="flash", gradient_checkpointing=True,
+        mesh=tfsdp.FsdpReductions(mm, specs))(
+        shards, device_batch(local_batch(batch, mm), dev))
+    d2 = sum(float((g.double() - r.double()).square().sum())
+             for g, r in zip(grads, ref))
+    r2 = sum(float(r.double().square().sum()) for r in ref)
+    sums = torch.tensor([d2, r2], dtype=torch.float64, device=dev)
+    torch.distributed.all_reduce(sums, group=mm.group("dp"))
+    parity = {"loss": float(loss), "loss_one_card": float(ref_loss),
+              "loss_abs_diff": abs(float(loss) - float(ref_loss)),
+              "grad_rel_l2_diff": float((sums[0] / sums[1]).sqrt())}
+    check(parity["loss_abs_diff"] <= TRAIN_PARITY["loss_abs"]
+          and parity["grad_rel_l2_diff"] <= TRAIN_PARITY["grad_rel"],
+          f"fsdp4 parity {parity}")
+    del shards, grads, ref
+    free_engine()
+    # bf16 compute over fp32 masters, full depth
+    cfg = model_config(FSDP_MODEL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    shapes = {n: torch.empty(s, device="meta")
+              for n, (s, _) in llama._param_shapes(cfg).items()}
+    specs = tfsdp.fsdp_param_specs(
+        {"layers": {n[7:]: t for n, t in shapes.items()
+                    if n.startswith("layers.")},
+         **{n: t for n, t in shapes.items() if not n.startswith("layers.")}},
+        world)
+    params = init_params(cfg, gen, dev, requires_grad=True,
+                         local_slice=tfsdp.fsdp_local_slice(specs, mm))
+    opt, _ = create_optimizer(ScaleTorchTPUArguments(
+        learning_rate=1e-4, total_train_steps=100, warmup_steps=1))
+    state = opt.init(params)
+    step = tfsdp.make_fsdp_train_step(cfg, opt, mm, specs=specs,
+                                      attention_backend="flash",
+                                      gradient_checkpointing=True,
+                                      max_grad_norm=1.0)
+    local = tfsdp.local_numel(params)
+    state_local = sum(tfsdp.local_numel(state[k]) for k in ("mu", "nu"))
+    check(local * world == cfg.num_params() and state_local == 2 * local,
+          f"fsdp4: a rank holds {local} of {cfg.num_params()} elements, "
+          f"{state_local} of AdamW state")
+    loader = iter(SyntheticDataLoader(
+        vocab_size=cfg.vocab_size, sequence_length=FSDP_SEQ,
+        micro_batch_size=world, gradient_accumulation_steps=1, seed=12))
+    losses = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(FSDP_WARMUP + FSDP_STEPS):
+        if i == FSDP_WARMUP:
+            torch.cuda.synchronize(dev)
+            _build.reset_launch_counts()
+            tw = time.perf_counter()
+        b = device_batch(local_batch(next(loader), mm), dev)
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        check(float(m["update_skipped"]) == 0.0, "fsdp4: a skipped update")
+    step_s = (time.perf_counter() - tw) / FSDP_STEPS
+    launches = {n: _build.launch_counts.get(n, 0) / FSDP_STEPS
+                for n in LAUNCH_NAMES}
+    want = layout_launches({}, 0, cfg.num_hidden_layers)
+    check(launches == want, f"fsdp4: launches a step {launches}, want "
+                            f"{want}")
+    tok_s = world * FSDP_SEQ / step_s
+    peak = world * get_theoretical_flops(torch.cuda.get_device_name(dev))
+    mfu = get_mfu(tok_s, cfg.num_params(), cfg.num_hidden_layers,
+                  cfg.num_attention_heads, cfg.actual_head_dim, FSDP_SEQ,
+                  peak_flops=peak)
+    mine = {"peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "param_elements": local, "adamw_elements": state_local}
+    del params, state, step
+    free_engine()
+    mm.destroy()
+    ranks = stdist.all_gather_object(mine)
+    row = {"model": FSDP_MODEL, "sequence_length": FSDP_SEQ, "world": world,
+           "parity_fp32": {"layers": FSDP_PARITY_LAYERS, **parity},
+           "num_params": cfg.num_params(), "losses": losses,
+           "step_s": step_s, "tokens_per_s": tok_s,
+           "tokens_per_s_per_card": tok_s / world, "mfu_per_card": mfu,
+           "launches_per_step": launches,
+           "peak_memory_gb_per_card": [r["peak_memory_gb"] for r in ranks],
+           "param_elements_per_card": [r["param_elements"] for r in ranks],
+           "adamw_elements_per_card": [r["adamw_elements"] for r in ranks],
+           "seconds": time.monotonic() - t0}
+    check(all(np.isfinite(losses)), f"fsdp4: losses {losses}")
+    if stdist.process_index() == 0:
+        emit("fsdp4", **row)
+    return row
+
+
+def adafactor_parity(name: str, opts: dict, cfg32, batch, dev) -> dict:
+    """ADAFACTOR_STEPS Adafactor steps of the layout (the shard layout
+    given to the optimizer) against the one-card Adafactor steps on the
+    same weights and global batch: the loss and the parameters' change,
+    as the whole model's relative L2 difference (``shard_diff``)."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.models.convert import local_shard_fn
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+    from scaletorch_tpu_torch.parallel.pipeline_parallel import (
+        stage_layer_layout,
+    )
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_train_step,
+    )
+    from scaletorch_tpu_torch.parallel.tensor_parallel import shard_dims
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+    from scaletorch_tpu_torch.trainer.train_step import make_train_step
+
+    args = ScaleTorchTPUArguments(optimizer_name="adafactor",
+                                  learning_rate=1e-3, total_train_steps=10,
+                                  warmup_steps=1)
+    model = qwen3_moe if hasattr(cfg32, "num_experts") else None
+
+    def draw(local_slice=None):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        kw = dict(requires_grad=True, local_slice=local_slice)
+        return (model.init_params(cfg32, gen, dev, **kw) if model
+                else init_params(cfg32, gen, dev, **kw))
+
+    params = draw()
+    before = {n: t.detach().to("cpu", copy=True)
+              for n, t in flatten_params(params).items()}
+    opt = create_optimizer(args)[0]
+    state = opt.init(params)
+    step = make_train_step(cfg32, opt, attention_backend="flash",
+                           gradient_checkpointing=True, max_grad_norm=1.0)
+    for _ in range(ADAFACTOR_STEPS):
+        params, state, m = step(params, state, device_batch(batch, dev))
+    ref_loss = float(m["loss"])
+    ref = {n: t.detach().to("cpu", copy=True) - before[n]
+           for n, t in flatten_params(params).items()}
+    del params, state, step, before
+    free_engine()
+    mm = MeshManager(dp=opts.get("data_parallel_size", 1),
+                     pp=opts.get("pipeline_parallel_size", 1),
+                     ep=opts.get("expert_parallel_size", 1),
+                     tp=opts.get("tensor_parallel_size", 1),
+                     device_type="cuda")
+    slicer = local_shard_fn(cfg32, mm, mm.rank, layout=stage_layer_layout(
+        cfg32.num_hidden_layers, mm.pp, "afab", 1))
+    params = draw(slicer)
+    before = [t.detach().clone() for t in tree_leaves(params)]
+    opt, _ = create_optimizer(args, shard_dims=shard_dims(cfg32), mesh=mm)
+    state = opt.init(params)
+    step = make_spmd_train_step(
+        mm, cfg32, opt, attention_backend="flash",
+        gradient_checkpointing=True, max_grad_norm=1.0,
+        sequence_parallel=opts.get("sequence_parallel", False))
+    lb = device_batch(local_batch(batch, mm), dev)
+    for _ in range(ADAFACTOR_STEPS):
+        params, state, m = step(params, state, lb)
+    names = list(flatten_params(params))
+    deltas = [t.detach() - b for t, b in zip(tree_leaves(params), before)]
+    parity = shard_diff(mm, cfg32, params, deltas,
+                        [slicer(n, ref[n]).to(dev) for n in names])
+    parity.update(loss=float(m["loss"]), loss_one_card=ref_loss,
+                  loss_abs_diff=abs(float(m["loss"]) - ref_loss))
+    mm.destroy()
+    del params, state, step, deltas, ref
+    free_engine()
+    return parity
+
+
+def adafactor_layouts(world: int, dev) -> dict:
+    """The headline row (fp32, full depth) under tp4_sp and Qwen3-30B-A3B's
+    width cut to 2 layers under pp2_ep2: Adafactor's update against one
+    card's (TRAIN_PARITY); then PR 13's full-width ep4 Adafactor row again
+    (``MOE_FULL``), its losses to read beside PR 13's."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    out = {}
+    for name, opts, moe in ADAFACTOR_LAYOUTS:
+        cfg32 = (model_config(MOE_MODEL, dtype=torch.float32,
+                              num_hidden_layers=MOE_LAYOUT_LAYERS,
+                              use_grouped_mlp_kernel=True) if moe
+                 else model_config(MODEL, dtype=torch.float32))
+        seq = MOE_TRAIN_SEQ if moe else TRAIN_SEQ
+        rows = (opts.get("data_parallel_size", 1)
+                * opts.get("expert_parallel_size", 1))
+        batch = next(iter(SyntheticDataLoader(
+            vocab_size=cfg32.vocab_size, sequence_length=seq,
+            micro_batch_size=rows,
+            gradient_accumulation_steps=opts.get(
+                "gradient_accumulation_steps", 1), seed=11)))
+        parity = adafactor_parity(name, opts, cfg32, batch, dev)
+        ranks = stdist.all_gather_object(parity)
+        for r in ranks:
+            check(r["loss_abs_diff"] <= TRAIN_PARITY["loss_abs"]
+                  and r["grad_rel_l2_diff"] <= TRAIN_PARITY["grad_rel"],
+                  f"adafactor {name}: {r}")
+        out[name] = {"options": opts, "steps": ADAFACTOR_STEPS,
+                     "parity": ranks[0], "parity_per_rank": ranks}
+        if stdist.process_index() == 0:
+            emit("adafactor_layout", name=name, **out[name])
+    full = f"{MOE_MODEL}_ep4_full_width_adafactor"
+    out[full] = timed_layout(full, make_bench_args(
+        MOE_MODEL, seq=MOE_TRAIN_SEQ, gc=True,
+        extra={**MOE_FULL, "distributed_launcher": "env"}), MOE_FULL, world,
+        True, None, time.monotonic())
+    return out
+
+
+def cp_timing(world: int, dev) -> dict:
+    """The bf16 step of cp4_ring_zigzag and cp4_ulysses under
+    ``nothing_saveable`` alone (2 + LAYOUT_STEPS steps): run from a
+    checkout of another commit with this script copied in, it times that
+    commit's cp backends by the same yardstick."""
+    return {name: timed_layout(f"{name}_timing", parallel_cfg(opts), opts,
+                               world, False, None, time.monotonic())
+            for name, opts in REMAT_LAYOUTS}
+
+
+def remat_cp(world: int, dev) -> dict:
+    """The headline row under cp4_ring_zigzag and cp4_ulysses with each
+    remat policy: the fp32 loss and gradients bit for bit against the
+    same layout's ``nothing_saveable`` (one set of weights and one global
+    batch), K1/K2/K3 launches a rank as the policy reckons them
+    (``save_attn`` keeps the backend's op: one forward), then the bf16
+    Trainer's step s, 2 + REMAT_STEPS steps."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.models.convert import local_shard_fn
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+    from scaletorch_tpu_torch.parallel.spmd import (
+        local_batch,
+        make_spmd_grad_fn,
+    )
+
+    cfg32 = model_config(MODEL, dtype=torch.float32)
+    batch = next(iter(SyntheticDataLoader(
+        vocab_size=cfg32.vocab_size, sequence_length=TRAIN_SEQ,
+        micro_batch_size=1, gradient_accumulation_steps=1, seed=11)))
+    out = {}
+    for name, opts in REMAT_LAYOUTS:
+        mm = MeshManager(cp=world, device_type="cuda")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = init_params(cfg32, gen, dev, requires_grad=True,
+                             local_slice=local_shard_fn(cfg32, mm, mm.rank))
+        layout = opts.get("cp_layout", "zigzag")
+        lb = device_batch(local_batch(
+            batch, mm, zigzag=opts["attention_backend"] == "ring"
+            and layout == "zigzag"), dev)
+        base = None
+        rows = {}
+        for policy in REMAT_POLICIES:
+            fn = make_spmd_grad_fn(mm, cfg32,
+                                   attention_backend=opts["attention_backend"],
+                                   gradient_checkpointing=True,
+                                   remat_policy=policy, cp_layout=layout)
+            _build.reset_launch_counts()
+            loss, grads = fn(params, lb)
+            launches = {n: _build.launch_counts.get(n, 0)
+                        for n in LAUNCH_NAMES}
+            want = layout_launches({**opts, "remat_policy": policy},
+                                   mm.axis_rank("cp"),
+                                   cfg32.num_hidden_layers)
+            grads = [g.detach().cpu() for g in grads]
+            if base is None:
+                base = (float(loss), grads)
+            same = (float(loss) == base[0]
+                    and all(torch.equal(a, b) for a, b in zip(grads, base[1])))
+            rows[policy] = {"loss": float(loss), "bitwise_equal": same,
+                            "launches": launches, "want": want}
+            del grads
+        mm.destroy()
+        del params, base
+        free_engine()
+        ranks = stdist.all_gather_object(rows)
+        for r, per in enumerate(ranks):
+            for policy, res in per.items():
+                check(res["bitwise_equal"],
+                      f"{name} {policy} rank {r}: not bit for bit "
+                      "nothing_saveable's")
+                check(res["launches"] == res["want"],
+                      f"{name} {policy} rank {r}: launches "
+                      f"{res['launches']}, want {res['want']}")
+        steps = {}
+        for policy in REMAT_POLICIES:
+            popts = {**opts, "remat_policy": policy}
+            cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True,
+                                  remat_policy=policy,
+                                  extra={**opts,
+                                         "distributed_launcher": "env"})
+            steps[policy] = timed_layout(f"{name}_{policy}", cfg, popts,
+                                         world, False, None,
+                                         time.monotonic(),
+                                         steps=REMAT_STEPS)
+        out[name] = {"fp32": ranks, "bf16": {
+            p: {"step_s": r["step_s"], "peak_memory_gb_per_card":
+                r["peak_memory_gb_per_card"],
+                "launches_per_step": r["launches_per_step"]}
+            for p, r in steps.items()}}
+        if stdist.process_index() == 0:
+            emit("remat_cp", name=name, **out[name])
+    return out
+
+
+def phase_parallel(groups=PARALLEL_GROUPS) -> dict:
     """``torch.distributed.run`` of ``parallel_worker`` with one rank a
-    visible card, under a wall-clock limit; any failed rank fails it."""
+    visible card, under a wall-clock limit; any failed rank fails it.
+    ``groups``: the four-card groups to run (PARALLEL_GROUPS)."""
     world = torch.cuda.device_count()
     check(world in (1, 4), f"parallel: runs on 1 or 4 cards, found {world}")
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     os.makedirs(PARALLEL_DIR)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={world}", os.path.abspath(__file__),
-           "--parallel-worker", os.path.abspath(PARALLEL_DIR)]
+           "--parallel-worker", os.path.abspath(PARALLEL_DIR),
+           ",".join(groups)]
     t0 = time.monotonic()
     # the ranks' output goes to stderr: stdout ends with the contract lines;
     # segments that grow keep the large layouts' memory unfragmented
@@ -4182,7 +5025,7 @@ def phase_parallel() -> dict:
     proc = subprocess.Popen(cmd, stdout=sys.stderr, stderr=sys.stderr,
                             start_new_session=True, env=env)
     try:
-        rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+        rc = proc.wait(timeout=PARALLEL_TIMEOUT_S[world])
     except subprocess.TimeoutExpired:
         rc = None
     finally:
@@ -4191,7 +5034,8 @@ def phase_parallel() -> dict:
         except ProcessLookupError:
             pass
         proc.wait()
-    check(rc is not None, f"parallel: no end within {PARALLEL_TIMEOUT_S} s")
+    check(rc is not None,
+          f"parallel: no end within {PARALLEL_TIMEOUT_S[world]} s")
     check(rc == 0, f"parallel: torch.distributed.run exited {rc}")
     with open(os.path.join(PARALLEL_DIR, "result.json")) as f:
         result = json.load(f)
@@ -4323,5 +5167,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase_parallel
-        sys.exit(parallel_worker(sys.argv[2]))
+        sys.exit(parallel_worker(sys.argv[2], sys.argv[3].split(",")))
     sys.exit(main())

@@ -22,13 +22,24 @@ card it is captured once as a CUDA graph and only replayed after that
 (the counterpart of the reference's one jit compile per step); on the
 CPU, which the caller must ask for, the same function runs eagerly over
 the same buffers.
+
+Over a serving mesh the model runs its tensor-parallel path (its
+collectives inside the step, so inside the captured graph), and a dense
+step with ``batch_axis`` computes this rank's rows of the batch only and
+all-gathers the sampled tokens, the logits and the finite mask over that
+axis, so every rank returns the whole batch's.
+
+``donate_cache`` is accepted for the reference's signatures and changes
+nothing: the buffers are written in place whatever it says, the
+counterpart of donation (the reference turns donation off only on the
+CPU, to silence a warning).
 """
 
 from __future__ import annotations
 
 import collections
 import gc
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,42 +84,79 @@ def _head(logits: Tensor, seeds: Tensor, positions: Tensor,
             finite_mask(logits))
 
 
+def _batch_split(batch_axis: Optional[str]):
+    """(rows, gather) of a dense step over ``batch_axis``: ``rows(*xs)``
+    keeps this rank's rows of each [B, ...] input, ``gather(out)``
+    all-gathers a step's outputs back to [B, ...] (identities for None).
+    The axis resolves in the current mesh manager."""
+    if batch_axis is None:
+        return (lambda *xs: xs), (lambda out: out)
+    from scaletorch_tpu_torch.parallel.mesh import (
+        all_gather_cat,
+        axis_group,
+        current_mesh_manager,
+    )
+
+    def rows(*xs):
+        mm = current_mesh_manager()
+        n, r = mm.axis_size(batch_axis), mm.axis_rank(batch_axis)
+        w = xs[0].shape[0] // n
+        return tuple(x[r * w:(r + 1) * w] for x in xs)
+
+    def gather(out):
+        group = axis_group(batch_axis)
+        return tuple(all_gather_cat(t, group, 0) for t in out)
+
+    return rows, gather
+
+
 def make_prefill_step(cfg, sampling: SamplingParams, *,
-                      forward_fn: Optional[Callable] = None) -> Callable:
+                      forward_fn: Optional[Callable] = None,
+                      batch_axis: Optional[str] = None,
+                      donate_cache: Optional[bool] = None) -> Callable:
     """Dense prefill: the causal forward over the whole ``[B, P]`` buffer
     (positions [0, P) for every slot), writing cache [0, P) for the
     ``write_mask`` slots only; each slot's first token samples from the
-    logits at ``lengths - 1``."""
+    logits at ``lengths - 1``. ``batch_axis``: this rank's rows (its
+    cache shard), the outputs all-gathered."""
     fwd = forward_fn or resolve_forward_cached(cfg)
+    rows, gather = _batch_split(batch_axis)
 
     def prefill(model, tokens, lengths, write_mask, cache, seeds):
+        tokens, lengths, write_mask, seeds = rows(tokens, lengths,
+                                                  write_mask, seeds)
         b, p = tokens.shape
         positions = torch.arange(p, device=tokens.device,
                                  dtype=torch.int32).expand(b, p)
         logits, _ = fwd(model, tokens, cfg, tuple(cache),
                         positions=positions, write_mask=write_mask,
                         last_index=lengths - 1)
-        return _head(logits[:, 0, :], seeds, lengths - 1, sampling)
+        return gather(_head(logits[:, 0, :], seeds, lengths - 1, sampling))
 
     return prefill
 
 
 def make_decode_step(cfg, sampling: SamplingParams, *,
-                     forward_fn: Optional[Callable] = None) -> Callable:
+                     forward_fn: Optional[Callable] = None,
+                     batch_axis: Optional[str] = None,
+                     donate_cache: Optional[bool] = None) -> Callable:
     """Dense one-token decode: each slot's current token at its absolute
     position, K/V appended for ACTIVE slots only, next token sampled with
-    the slot's (seed, position)."""
+    the slot's (seed, position). ``batch_axis`` as the prefill's."""
     fwd = forward_fn or resolve_forward_cached(cfg)
+    rows, gather = _batch_split(batch_axis)
 
     def decode(model, tokens, positions, active, cache, seeds):
+        tokens, positions, active, seeds = rows(tokens, positions, active,
+                                                seeds)
         logits, _ = fwd(model, tokens[:, None], cfg, tuple(cache),
                         positions=positions[:, None], write_mask=active)
-        return _head(logits[:, 0, :], seeds, positions, sampling)
+        return gather(_head(logits[:, 0, :], seeds, positions, sampling))
 
     return decode
 
 
-def make_fill_slots_step() -> Callable:
+def make_fill_slots_step(donate_cache: Optional[bool] = None) -> Callable:
     """In-place masked fill over axis 1 of every cache buffer (the SLOT
     axis dense, the PAGE axis paged): ``fill_slots(cache, mask [n] bool,
     value)`` sets the masked lines to ``value`` and leaves every other
@@ -128,7 +176,8 @@ def make_fill_slots_step() -> Callable:
 def make_paged_prefill_step(cfg, sampling: SamplingParams, *,
                             page_size: int,
                             seq_limit: Optional[int] = None,
-                            forward_fn: Optional[Callable] = None
+                            forward_fn: Optional[Callable] = None,
+                            donate_cache: Optional[bool] = None
                             ) -> Callable:
     """Paged prefill: each admitted slot prefills only its prompt TAIL,
     at rows [0, tail_len) of the buffer and absolute positions ``starts +
@@ -156,7 +205,8 @@ def make_paged_decode_step(cfg, sampling: SamplingParams, *,
                            page_size: int,
                            seq_limit: Optional[int] = None,
                            forward_fn: Optional[Callable] = None,
-                           kernel: Optional[bool] = None) -> Callable:
+                           kernel: Optional[bool] = None,
+                           donate_cache: Optional[bool] = None) -> Callable:
     """Paged one-token decode: the K/V append is a scatter into each
     slot's current page, attention reads through its page table — the
     CUDA paged-decode kernel on the card (``kernel=None``), the gather
@@ -184,7 +234,8 @@ class StaticStep:
     the page tables), and returns a tuple of tensors. A call
     ``step(**arrays)`` copies each host array into its input and runs
     the step; it returns the step's outputs, which on the card are the
-    graph's static outputs, overwritten by the next call.
+    graph's static outputs, overwritten by the next call (``outputs``
+    holds the last call's, on the CPU too).
 
     On the card the constructor captures ``fn`` as a CUDA graph, as
     ``torch.cuda.graphs`` prescribes: one warm-up run on a side stream
@@ -194,6 +245,10 @@ class StaticStep:
     the capture on the same stream into a memory pool of the graph's
     own, with Python's cyclic collector run before it and held off
     during it. A failed capture raises: there is no eager fallback.
+    A step over a serving mesh holds NCCL collectives: the warm-up issues
+    each of them once on the capture stream, so every communicator
+    exists before the capture records it, and every rank captures (and
+    later replays) the same sequence of collectives.
 
     The warm-up's kernel launches run and stay in
     ``_build.launch_counts``; the capture's only record, so they are
@@ -286,7 +341,8 @@ class StaticStep:
         with torch.inference_mode():
             self.load(**arrays)
         if self.graph is None:
-            return self.run_eager()
+            self.outputs = self.run_eager()
+            return self.outputs
         return self.replay()
 
 
@@ -299,15 +355,18 @@ def teacher_forced_decode(
     prefill_len: int = 1,
     forward_fn: Optional[Callable] = None,
     dtype: Optional[torch.dtype] = None,
+    sharding: Any = None,
 ) -> Tensor:
     """Prefill the first ``prefill_len`` tokens, then decode the rest one
     at a time with the GROUND-TRUTH token at each step. Returns [B, S, V]
-    logits, position-aligned with a full-sequence forward."""
+    logits, position-aligned with a full-sequence forward. ``sharding``
+    (``kv_cache_shardings``): the cache shard of a tensor-parallel
+    model's rank."""
     fwd = forward_fn or resolve_forward_cached(cfg)
     b, s = tokens.shape
     dev = tokens.device
     cache = init_kv_cache(cfg, b, max_seq or s, dtype=dtype or cfg.dtype,
-                          device=dev)
+                          device=dev, sharding=sharding)
     p = prefill_len
     positions = torch.arange(p, device=dev, dtype=torch.int32).expand(b, p)
     logits_p, cache = fwd(model, tokens[:, :p], cfg, tuple(cache),
@@ -332,17 +391,20 @@ def teacher_forced_decode_paged(
     forward_fn: Optional[Callable] = None,
     dtype: Optional[torch.dtype] = None,
     kernel: Optional[bool] = None,
+    sharding: Any = None,
 ) -> Tensor:
     """Paged twin of ``teacher_forced_decode`` through an identity page
     table (slot ``b`` owns pages ``b*max_pages+1 ..``; page 0 is TRASH).
-    ``kernel`` goes to the decode steps' dispatcher."""
+    ``kernel`` goes to the decode steps' dispatcher; ``sharding``
+    (``paged_kv_cache_shardings``) as the dense twin's."""
     fwd = forward_fn or resolve_forward_cached(cfg)
     b, s = tokens.shape
     dev = tokens.device
     s_max = max_seq or s
     max_pages = ceil_div(s_max, page_size)
     pool = init_paged_kv_cache(cfg, b * max_pages + 1, page_size,
-                               dtype=dtype or cfg.dtype, device=dev)
+                               dtype=dtype or cfg.dtype, device=dev,
+                               sharding=sharding)
     tables = (torch.arange(b * max_pages, dtype=torch.int32, device=dev)
               + 1).view(b, max_pages)
     p = prefill_len

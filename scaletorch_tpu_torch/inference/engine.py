@@ -43,7 +43,19 @@ Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
     slot, imported pages) goes into the same storage in place, so the
     captured steps keep their buffers and are never captured again.
 
-Not in this slice: mesh/TP sharding (ROADMAP Queue 1 item 6).
+  * over a serving mesh (``mesh``: a ``parallel.mesh.MeshManager`` of tp
+    and dp ranks, one process and one card each): the model holds this
+    rank's tensor-parallel shards and the cache its KV heads
+    (``kv_cache_shardings``; dense slots also over ``batch_axis``), the
+    steps run the tp path with its collectives inside the captured
+    graphs, and every rank runs this engine. The host scheduler
+    (admission, pages, radix tree, retirements) is replicated, so every
+    rank must take the same decision on every tick: ``submit()``,
+    ``cancel()``, ``drain()`` and ``stop_admissions()`` are called
+    identically on every rank (the caller's contract), and the decisions
+    that read a clock or a signal (which deadlines have passed, whether a
+    preemption asks for a drain) are made once a tick on rank 0 and
+    shared over a gloo group, so the card never waits for it.
 """
 
 from __future__ import annotations
@@ -74,6 +86,8 @@ from scaletorch_tpu_torch.inference.kv_cache import (
     init_kv_cache,
     init_paged_kv_cache,
     kv_cache_bytes,
+    kv_cache_shardings,
+    paged_kv_cache_shardings,
 )
 from scaletorch_tpu_torch.inference.resilience import (
     TERMINAL_OUTCOMES,
@@ -241,6 +255,17 @@ def _page_bytes(page: torch.Tensor) -> bytes:
     return page.contiguous().view(torch.uint8).numpy().tobytes()
 
 
+def _in_mesh(fn: Callable, mesh) -> Callable:
+    """``fn`` with ``mesh`` the current mesh manager while it runs."""
+    from scaletorch_tpu_torch.parallel.mesh import using_mesh_manager
+
+    def scoped(**kw):
+        with using_mesh_manager(mesh):
+            return fn(**kw)
+
+    return scoped
+
+
 def _to_host(out: Tuple[torch.Tensor, ...]) -> np.ndarray:
     """A step's [2, B] (token, finite) rows on the host: the step's one
     device-to-host copy, which waits for the card."""
@@ -306,6 +331,16 @@ class InferenceEngine:
         card both steps are captured as CUDA graphs here, in the
         constructor (a Qwen3-MoE config must move tokens by index:
         the one-hot form cannot be captured).
+    mesh / tp_axis / batch_axis : serve over a mesh (the module
+        docstring): a Llama/Qwen3 model's weights over ``tp_axis`` (a
+        full parameter tree is cut to this rank's shards; a module must
+        have been built for the mesh), the cache's KV heads over
+        ``tp_axis`` and, dense only, its slots over ``batch_axis`` (each
+        rank computes its slots; the tokens are all-gathered in the
+        step). ``device`` is this rank's card.
+    donate_cache : accepted for the reference's signature; the buffers
+        are written in place whatever it says (the counterpart of
+        donation).
     """
 
     def __init__(
@@ -336,6 +371,10 @@ class InferenceEngine:
         on_tokens: Optional[Callable[[int, int, List[int]], None]] = None,
         paged_kernel: Optional[bool] = None,
         device: DeviceLike = None,
+        mesh: Any = None,
+        tp_axis: str = "tp",
+        batch_axis: Optional[str] = None,
+        donate_cache: Optional[bool] = None,
     ) -> None:
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
@@ -353,6 +392,9 @@ class InferenceEngine:
             raise ValueError(
                 f"cache_layout must be 'dense' or 'paged', "
                 f"got {cache_layout!r}")
+        self._check_mesh(cfg, mesh, tp_axis, batch_axis, cache_layout,
+                         max_slots)
+        self.mesh, self.tp_axis, self.batch_axis = mesh, tp_axis, batch_axis
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         resolved_dispatch = getattr(cfg, "resolved_moe_dispatch", None)
@@ -394,10 +436,23 @@ class InferenceEngine:
             num_pages = max_slots * self._pages_per_slot + 1
         self.num_pages = num_pages
 
+        sharding = None
+        if mesh is not None:
+            sharding = (paged_kv_cache_shardings(mesh, tp_axis=tp_axis)
+                        if self._paged else
+                        kv_cache_shardings(mesh, tp_axis=tp_axis,
+                                           batch_axis=batch_axis))
+        # this rank's slots of the dense cache (all of them without
+        # batch_axis)
+        self._local_rows = slice(None)
+        if batch_axis is not None:
+            w = max_slots // mesh.axis_size(batch_axis)
+            r = mesh.axis_rank(batch_axis)
+            self._local_rows = slice(r * w, (r + 1) * w)
         if self._paged:
             self.cache = init_paged_kv_cache(
                 cfg, num_pages, page_size, dtype=cache_dtype,
-                device=self.device)
+                device=self.device, sharding=sharding)
             self.allocator = PageAllocator(num_pages)
             self.radix = (
                 RadixPrefixCache(
@@ -426,7 +481,8 @@ class InferenceEngine:
                 max_slots, num_pages, page_size,
                 kv_cache_bytes(cfg, max_slots, max_seq, dtype=cache_dtype,
                                layout="paged", page_size=page_size,
-                               num_pages=num_pages) / 2**20,
+                               num_pages=num_pages,
+                               sharding=sharding) / 2**20,
                 self.device, ", prefix cache on" if prefix_cache else "")
             prefill = functools.partial(
                 make_paged_prefill_step(
@@ -442,21 +498,34 @@ class InferenceEngine:
                                 starts=np.zeros(max_slots, np.int32))
         else:
             self.cache = init_kv_cache(cfg, max_slots, max_seq,
-                                       dtype=cache_dtype, device=self.device)
+                                       dtype=cache_dtype, device=self.device,
+                                       sharding=sharding)
             self.allocator = None
             self.radix = None
             logger.info(
                 "inference engine: %d slots x %d positions, cache %.1f MiB "
                 "on %s", max_slots, max_seq,
-                kv_cache_bytes(cfg, max_slots, max_seq,
-                               dtype=cache_dtype) / 2**20, self.device)
+                kv_cache_bytes(cfg, max_slots, max_seq, dtype=cache_dtype,
+                               sharding=sharding) / 2**20, self.device)
             prefill = functools.partial(
-                make_prefill_step(cfg, sampling, forward_fn=forward_fn),
+                make_prefill_step(cfg, sampling, forward_fn=forward_fn,
+                                  batch_axis=batch_axis),
                 self.model, cache=self.cache)
             decode = functools.partial(
-                make_decode_step(cfg, sampling, forward_fn=forward_fn),
+                make_decode_step(cfg, sampling, forward_fn=forward_fn,
+                                 batch_axis=batch_axis),
                 self.model, cache=self.cache)
             prefill_meta = dict(lengths=np.ones(max_slots, np.int32))
+        if mesh is not None:
+            # the axis names resolve in the mesh while a step runs (and
+            # while it is captured)
+            prefill, decode = _in_mesh(prefill, mesh), _in_mesh(decode, mesh)
+        # the clock's and the signals' decisions, made on rank 0 (None:
+        # one process, nothing to share)
+        self._host_group = (mesh.host_group()
+                            if mesh is not None and mesh.world_size > 1
+                            else None)
+        self._preempt_agreed = False
         # the inputs' first values write nothing (no slot masked in), so
         # the capture's warm-up run leaves the cache as it was
         b = max_slots
@@ -484,6 +553,36 @@ class InferenceEngine:
         # appends no duplicate records
         self._exported_key = self._export_key()
 
+    @staticmethod
+    def _check_mesh(cfg, mesh, tp_axis: str, batch_axis: Optional[str],
+                    cache_layout: str, max_slots: int) -> None:
+        """The reference's checks of a serving mesh, and the port's."""
+        if mesh is None:
+            if batch_axis is not None:
+                raise ValueError("batch_axis needs a mesh")
+            return
+        if hasattr(cfg, "num_experts"):
+            raise NotImplementedError(
+                "a Qwen3-MoE engine over a mesh is not ported (the "
+                "reference runs it only through GSPMD): ROADMAP Queue 1")
+        if mesh.pp > 1 or mesh.cp > 1 or mesh.ep > 1:
+            raise ValueError(
+                f"a serving mesh spans tp and dp only, got {mesh!r}")
+        if tp_axis != "tp":
+            raise ValueError(f"tp_axis must be 'tp', got {tp_axis!r}")
+        if batch_axis is not None:
+            if cache_layout == "paged":
+                raise ValueError(
+                    "batch_axis shards dense slots: the paged pool's pages "
+                    "are not slot-aligned (dense layout only)")
+            if batch_axis != "dp":
+                raise ValueError(
+                    f"batch_axis must be 'dp' or None, got {batch_axis!r}")
+            if max_slots % mesh.dp:
+                raise ValueError(
+                    f"max_slots {max_slots} does not split over dp="
+                    f"{mesh.dp}")
+
     def _resolve_model(self, params, cfg) -> torch.nn.Module:
         if not isinstance(params, torch.nn.Module):
             from scaletorch_tpu_torch.models.llama import LlamaForCausalLM
@@ -492,9 +591,16 @@ class InferenceEngine:
                 Qwen3MoEForCausalLM,
             )
 
-            cls = (Qwen3MoEForCausalLM if isinstance(cfg, Qwen3MoEConfig)
-                   else LlamaForCausalLM)
-            return cls.from_params(params, cfg, device=self.device)
+            if isinstance(cfg, Qwen3MoEConfig):
+                return Qwen3MoEForCausalLM.from_params(params, cfg,
+                                                       device=self.device)
+            return LlamaForCausalLM.from_params(
+                params, cfg, device=self.device, mesh=self.mesh)
+        want = self.mesh.tp if self.mesh else 1
+        if getattr(params, "tp_size", 1) != want:
+            raise ValueError(
+                f"the model holds tp={getattr(params, 'tp_size', 1)} "
+                f"shards, the engine's mesh has tp={want}")
         dev = next(params.parameters()).device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev != self.device):
@@ -588,7 +694,8 @@ class InferenceEngine:
         lifecycle events on the tracer. Invalid submissions raise
         (``strict_submit``) or end as ``rejected``; a draining engine
         raises ``EngineDraining`` / rejects. A full queue sheds its
-        OLDEST request."""
+        OLDEST request. Over a mesh every rank submits the same requests
+        in the same order (each rank's engine numbers them alike)."""
         err = None
         if self._draining:
             err = "engine is draining: admissions are stopped"
@@ -710,11 +817,29 @@ class InferenceEngine:
             self._update_page_gauges()
 
     def _expire(self, now: float) -> None:
-        """Deadline sweep over queued and mid-decode requests."""
+        """Deadline sweep over queued and mid-decode requests. On a mesh
+        the requests whose deadline passed are rank 0's, and so is the
+        preemption flag: one broadcast a tick, made only while a request
+        has a deadline or a preemption handler is installed (replicated
+        state, so every rank skips it alike; it costs the host ~2 ms)."""
+        due = [r.request_id for r in self._queue
+               if r.deadline is not None and now >= r.deadline]
+        due += [s.request.request_id for s in self._slots
+                if s.active and s.request.deadline is not None
+                and now >= s.request.deadline]
+        timed = (self.preemption is not None
+                 or any(r.deadline is not None for r in self._queue)
+                 or any(s.active and s.request.deadline is not None
+                        for s in self._slots))
+        if self._host_group is not None and timed:
+            preempt = (self.preemption is not None
+                       and self.preemption.requested)
+            due, self._preempt_agreed = self._agree((due, preempt))
+        due = set(due)
         if self._queue:
             kept: deque[Request] = deque()
             for req in self._queue:
-                if req.deadline is not None and now >= req.deadline:
+                if req.request_id in due:
                     self._finalize(
                         req, "timeout", tokens=[],
                         detail="deadline exceeded before admission", now=now)
@@ -723,8 +848,7 @@ class InferenceEngine:
             self._queue = kept
             self.metrics.queue_depth = len(self._queue)
         for i, slot in enumerate(self._slots):
-            if (slot.active and slot.request.deadline is not None
-                    and now >= slot.request.deadline):
+            if slot.active and slot.request.request_id in due:
                 self._retire_slot(
                     i, "timeout", detail="deadline exceeded mid-decode",
                     now=now)
@@ -749,8 +873,33 @@ class InferenceEngine:
                                   detail=f"non-finite logits at {where}",
                                   now=now)
                 mask[i] = True
+        self._fill(mask, 0.0)
+
+    def _fill(self, mask: np.ndarray, value: float) -> None:
+        """``value`` into the cache lines ``mask`` selects (slots dense,
+        pages paged), this rank's rows of them."""
+        if not self._paged:
+            mask = mask[self._local_rows]
         with torch.inference_mode():
-            self._fill_slots(self.cache, mask, 0.0)
+            self._fill_slots(self.cache, mask, value)
+
+    def _agree(self, local: Any) -> Any:
+        """Rank 0's ``local`` on every rank of the mesh (one gloo
+        broadcast); ``local`` itself in one process."""
+        if self._host_group is None:
+            return local
+        import torch.distributed as dist
+
+        box = [local]
+        dist.broadcast_object_list(box, src=0, group=self._host_group)
+        return box[0]
+
+    def _preemption_requested(self) -> bool:
+        """Whether a preemption asks for a drain: the handler's flag, or on
+        a mesh rank 0's, as the last tick shared it."""
+        if self._host_group is not None:
+            return self._preempt_agreed
+        return self.preemption is not None and self.preemption.requested
 
     def _poison_slot(self, slot_idx: int) -> None:
         """Fault injection: NaN-fill one slot's cache lines so its next
@@ -773,8 +922,7 @@ class InferenceEngine:
         else:
             mask = np.zeros(self.max_slots, bool)
             mask[slot_idx] = True
-        with torch.inference_mode():
-            self._fill_slots(self.cache, mask, float("nan"))
+        self._fill(mask, float("nan"))
 
     # ---- warm prefix exchange ----------------------------------------------
     # A fresh engine warms its radix tree from a live peer. The donor side
@@ -1260,7 +1408,7 @@ class InferenceEngine:
         admitted requests finish, and the engine returns cleanly."""
         steps = 0
         while self.pending and steps < max_steps:
-            if self.preemption is not None and self.preemption.requested:
+            if self._preemption_requested():
                 logger.warning(
                     "preemption requested (signal %s): draining the engine",
                     self.preemption.signum)

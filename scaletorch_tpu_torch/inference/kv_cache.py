@@ -1,7 +1,6 @@
 """KV-cache containers in the models' stacked layout (PyTorch port).
 
-Counterpart of scaletorch_tpu/inference/kv_cache.py without the
-sharding helpers (those come with multi-GPU serving):
+Counterpart of scaletorch_tpu/inference/kv_cache.py:
 
   * dense: ``KVCache``, one buffer pair ``[L, B, Hkv, S_max, D]``;
   * paged: ``PagedKVCache``, a global pool of fixed-size pages
@@ -15,6 +14,16 @@ sharding helpers (those come with multi-GPU serving):
 The buffers are written in place by the steps (the counterpart of the
 JAX package's donation), so a pool keeps its ``data_ptr()`` for the
 engine's lifetime.
+
+Over a serving mesh (a ``parallel.mesh.MeshManager`` of tp and dp ranks,
+one process each) a rank holds its shard of each buffer:
+``kv_cache_specs`` / ``paged_kv_cache_specs`` name the mesh axis of each
+dim (the reference's ``PartitionSpec`` entries: KV heads over tp, as the
+column-parallel k/v projections split them; dense slots optionally over
+``batch_axis``; the page axis never), ``kv_cache_shardings`` /
+``paged_kv_cache_shardings`` bind them to a mesh (``CacheSharding``: the
+rank's local shape), and ``init_kv_cache`` / ``init_paged_kv_cache`` /
+``kv_cache_bytes`` take one to allocate and count only the rank's shard.
 """
 
 from __future__ import annotations
@@ -65,6 +74,73 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+Spec = Tuple[Optional[str], ...]
+
+
+class CacheSharding(NamedTuple):
+    """A cache buffer's ``spec`` (the mesh axis of each dim, None:
+    whole) on ``mesh`` (a ``MeshManager``): each rank holds the slice of
+    its coordinates."""
+
+    mesh: Any
+    spec: Spec
+
+    def local_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        out = []
+        for size, axis in zip(shape, self.spec):
+            n = 1 if axis is None else self.mesh.axis_size(axis)
+            if size % n:
+                raise ValueError(
+                    f"cache dim of size {size} does not split over {axis}="
+                    f"{n}")
+            out.append(size // n)
+        return tuple(out)
+
+
+def kv_cache_specs(*, tp_axis: Optional[str] = "tp",
+                   batch_axis: Optional[str] = None) -> KVCache:
+    """The axis of each dim of the dense pair ``[L, B, Hkv, S_max, D]``:
+    KV heads over ``tp_axis`` (the column-parallel k/v projections' split,
+    so the decode never re-shards), slots over ``batch_axis``; layer,
+    sequence and head_dim whole (the reference's ``kv_cache_specs``)."""
+    spec = (None, batch_axis, tp_axis, None, None)
+    return KVCache(k=spec, v=spec)
+
+
+def kv_cache_shardings(mesh, *, tp_axis: Optional[str] = "tp",
+                       batch_axis: Optional[str] = None) -> KVCache:
+    """``kv_cache_specs`` on ``mesh``."""
+    specs = kv_cache_specs(tp_axis=tp_axis, batch_axis=batch_axis)
+    return KVCache(k=CacheSharding(mesh, specs.k),
+                   v=CacheSharding(mesh, specs.v))
+
+
+def paged_kv_cache_specs(*, tp_axis: Optional[str] = "tp") -> PagedKVCache:
+    """The axis of each dim of the pools ``[L, n_pages, Hkv, page_size,
+    D]``: KV heads over ``tp_axis``; the page axis whole (any page must be
+    reachable from any slot's table)."""
+    spec = (None, None, tp_axis, None, None)
+    return PagedKVCache(k=spec, v=spec)
+
+
+def paged_kv_cache_shardings(mesh, *, tp_axis: Optional[str] = "tp"
+                             ) -> PagedKVCache:
+    """``paged_kv_cache_specs`` on ``mesh``."""
+    specs = paged_kv_cache_specs(tp_axis=tp_axis)
+    return PagedKVCache(k=CacheSharding(mesh, specs.k),
+                        v=CacheSharding(mesh, specs.v))
+
+
+def _local(shape: Tuple[int, ...], sharding) -> Tuple[int, ...]:
+    """The rank's shape of a buffer (a ``CacheSharding`` or a pair of
+    them; None: whole)."""
+    if sharding is None:
+        return shape
+    if not isinstance(sharding, CacheSharding):
+        sharding = sharding[0]
+    return sharding.local_shape(shape)
+
+
 def paged_kv_cache_shape(cfg, num_pages: int, page_size: int
                          ) -> Tuple[int, ...]:
     """[L, n_pages, Hkv, page_size, D] (page 0 is the reserved TRASH page
@@ -82,11 +158,13 @@ def kv_cache_bytes(
     layout: str = "dense",
     page_size: Optional[int] = None,
     num_pages: Optional[int] = None,
+    sharding: Any = None,
 ) -> int:
-    """Total cache footprint (both buffers). ``dense`` is the per-slot
-    ``[L, B, Hkv, S_max, D]`` pair; ``paged`` is the pool pair — pass
-    ``page_size`` and ``num_pages`` (None sizes the dense-equivalent
-    pool ``batch * ceil(max_seq / page_size)`` + trash)."""
+    """Total cache footprint (both buffers) a rank holds. ``dense`` is the
+    per-slot ``[L, B, Hkv, S_max, D]`` pair; ``paged`` is the pool pair —
+    pass ``page_size`` and ``num_pages`` (None sizes the dense-equivalent
+    pool ``batch * ceil(max_seq / page_size)`` + trash). ``sharding``
+    (the layout's ``*_shardings``): the rank's shard; None: all of it."""
     if layout == "paged":
         if not page_size or page_size < 1:
             raise ValueError(
@@ -100,31 +178,39 @@ def kv_cache_bytes(
         raise ValueError(f"unknown cache layout {layout!r}")
     dt = dtype or getattr(cfg, "dtype", torch.bfloat16)
     n = 1
-    for d in shape:
+    for d in _local(shape, sharding):
         n *= d
     return 2 * n * dt.itemsize
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, *,
                   dtype: Optional[torch.dtype] = None,
-                  device: DeviceLike = None) -> KVCache:
-    """Zeroed dense cache in the model's compute dtype."""
+                  device: DeviceLike = None,
+                  sharding: Optional[KVCache] = None) -> KVCache:
+    """Zeroed dense cache in the model's compute dtype; with ``sharding``
+    (``kv_cache_shardings``) only this rank's shard is allocated."""
     shape = kv_cache_shape(cfg, batch, max_seq)
     dt = dtype or getattr(cfg, "dtype", torch.bfloat16)
     dev = resolve_device(device)
-    return KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
-                   v=torch.zeros(shape, dtype=dt, device=dev))
+    sk, sv = sharding if sharding is not None else (None, None)
+    return KVCache(k=torch.zeros(_local(shape, sk), dtype=dt, device=dev),
+                   v=torch.zeros(_local(shape, sv), dtype=dt, device=dev))
 
 
 def init_paged_kv_cache(cfg, num_pages: int, page_size: int, *,
                         dtype: Optional[torch.dtype] = None,
-                        device: DeviceLike = None) -> PagedKVCache:
-    """Zeroed page pool in the model's compute dtype."""
+                        device: DeviceLike = None,
+                        sharding: Optional[PagedKVCache] = None
+                        ) -> PagedKVCache:
+    """Zeroed page pool in the model's compute dtype; with ``sharding``
+    (``paged_kv_cache_shardings``) only this rank's KV heads."""
     shape = paged_kv_cache_shape(cfg, num_pages, page_size)
     dt = dtype or getattr(cfg, "dtype", torch.bfloat16)
     dev = resolve_device(device)
-    return PagedKVCache(k=torch.zeros(shape, dtype=dt, device=dev),
-                        v=torch.zeros(shape, dtype=dt, device=dev))
+    sk, sv = sharding if sharding is not None else (None, None)
+    return PagedKVCache(
+        k=torch.zeros(_local(shape, sk), dtype=dt, device=dev),
+        v=torch.zeros(_local(shape, sv), dtype=dt, device=dev))
 
 
 class PageAllocator:

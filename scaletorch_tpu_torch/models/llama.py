@@ -299,10 +299,15 @@ def _decoder_layer(
     attn_fn: Callable,
     tp_axis: Optional[str] = None,
     sequence_parallel: bool = False,
+    layer_gather: Optional[Callable] = None,
 ) -> Tensor:
     """One pre-norm decoder block: attention, then the SwiGLU MLP. With
     ``tp_axis`` the weights are this rank's shards and, under
-    ``sequence_parallel``, x is this rank's sequence slice."""
+    ``sequence_parallel``, x is this rank's sequence slice. With
+    ``layer_gather`` (FSDP) the weights are shards, gathered here, so a
+    recomputed layer gathers them again."""
+    if layer_gather is not None:
+        layer = layer_gather(layer)
     cdt = cfg.dtype
     helpers = tp_region_helpers(tp_axis, sequence_parallel)
     enter_full_seq, row = helpers
@@ -387,8 +392,11 @@ def _saved_ops(name: str) -> Tuple[Any, ...]:
     if name == "dots_with_no_batch_dims_saveable":
         return _NO_BATCH_DOTS
     from scaletorch_tpu_torch.ops.flash import FLASH_FORWARD_OP
+    from scaletorch_tpu_torch.ops.ring_attention import RING_ATTENTION_OP
+    from scaletorch_tpu_torch.ops.ulysses import ULYSSES_ATTENTION_OP
 
-    return (FLASH_FORWARD_OP, torch.ops.scaletorch_tpu_torch.attn_out.default)
+    return (FLASH_FORWARD_OP, RING_ATTENTION_OP, ULYSSES_ATTENTION_OP,
+            torch.ops.scaletorch_tpu_torch.attn_out.default)
 
 
 def resolve_remat_policy(name: str) -> Optional[Callable]:
@@ -400,7 +408,13 @@ def resolve_remat_policy(name: str) -> Optional[Callable]:
         ``addmm``, ``bmm``, ``baddbmm``);
       * ``dots_with_no_batch_dims_saveable``: only ``mm`` and ``addmm``;
       * ``save_attn``: K1's ``(out, lse)`` (the ``flash_forward`` op),
+        the context-parallel ring's or Ulysses' whole op (its output and
+        residuals: the recomputation re-issues none of its exchanges),
         or the ``attn_out`` copy of another backend's output.
+
+    The cp backends run as one op each (``ops/ring_attention.py``,
+    ``ops/ulysses.py``), so a policy never saves a part of their
+    exchanges: the dots policies recompute them whole, in order.
 
     A kernel of the port is never a dot, as a Pallas kernel is not one in
     JAX. An unknown name raises."""
@@ -458,6 +472,7 @@ def decoder_stack(
     gradient_checkpointing: bool = False,
     remat_policy: str = "nothing_saveable",
     active_layers: Optional[int] = None,
+    layer_gather: Optional[Callable] = None,
 ) -> Tensor:
     """Run every layer of a stack (leading axis = layer index) over x.
 
@@ -469,7 +484,8 @@ def decoder_stack(
 
     ``active_layers`` k (an uneven pipeline stage) runs the first k slots
     only: the later ones are identity padding, never run, so their
-    parameters get zero gradient."""
+    parameters get zero gradient. ``layer_gather`` (FSDP's) makes each
+    layer's full weights from its shards inside the layer."""
     if gradient_checkpointing:
         context_fn = resolve_remat_policy(remat_policy)
         attn_fn = remat_attn_fn(attn_fn, remat_policy)
@@ -481,11 +497,11 @@ def decoder_stack(
         layer = dict(zip(names, weights))
         if gradient_checkpointing:
             x = checkpointed(_decoder_layer, x, layer, cos, sin, cfg, attn_fn,
-                             tp_axis, sequence_parallel,
+                             tp_axis, sequence_parallel, layer_gather,
                              context_fn=context_fn)
         else:
             x = _decoder_layer(x, layer, cos, sin, cfg, attn_fn,
-                               tp_axis, sequence_parallel)
+                               tp_axis, sequence_parallel, layer_gather)
     return x
 
 
@@ -501,6 +517,7 @@ def forward(
     tp_axis: Optional[str] = None,
     sequence_parallel: bool = False,
     return_hidden: bool = False,
+    layer_gather: Optional[Callable] = None,
 ) -> Tensor:
     """Full decoder forward: [B, S] tokens -> logits [B, S, V] in compute
     dtype, or the final hidden states [B, S, H] with ``return_hidden``
@@ -509,7 +526,8 @@ def forward(
     parallel rank passes its shard's positions). ``attention_backend``
     is a registered name or the backend itself. With ``tp_axis`` the
     parameters are this rank's shards and the logits are vocab-sharded
-    [B, S, V/tp]."""
+    [B, S, V/tp]. ``layer_gather`` (FSDP's ``FsdpGather.layer``): the
+    stacked leaves are shards, each layer's gathered inside it."""
     x = embed(params, input_ids, cfg, tp_axis=tp_axis,
               sequence_parallel=sequence_parallel)
     cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
@@ -520,7 +538,7 @@ def forward(
     x = decoder_stack(x, params["layers"], cos, sin, cfg, attn_fn,
                       tp_axis=tp_axis, sequence_parallel=sequence_parallel,
                       gradient_checkpointing=gradient_checkpointing,
-                      remat_policy=remat_policy)
+                      remat_policy=remat_policy, layer_gather=layer_gather)
     x = final_hidden(params, x, cfg, tp_axis=tp_axis,
                      sequence_parallel=sequence_parallel)
     if return_hidden:
@@ -551,16 +569,20 @@ def attention_block_cached(
     *,
     write_mask: Optional[Tensor] = None,
     kv_io: Optional[Any] = None,
+    tp_axis: Optional[str] = None,
 ) -> Tensor:
     """Cache-aware pre-norm attention sub-block with residual.
 
     x: [B, S, H]; cache_k/cache_v: one layer's cache, [B, Hkv, S_max, D]
     (or the ``kv_io`` adapter's layout, e.g. the paged pool), written IN
     PLACE at ``positions`` [B, S]; attention runs q-against-cache with
-    the j <= p mask. Returns the block output.
+    the j <= p mask. Returns the block output. With ``tp_axis`` the
+    weights and the cache hold this rank's heads (q/k/v column-parallel)
+    and ``o_proj`` is row-parallel: one all-reduce.
     """
+    enter, row = tp_region_helpers(tp_axis, False)
     dh = cfg.actual_head_dim
-    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    h = enter(rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps))
     b, s, _ = h.shape
     q = (h @ layer["q_proj"]).view(b, s, -1, dh)
     k = (h @ layer["k_proj"]).view(b, s, -1, dh)
@@ -581,29 +603,54 @@ def attention_block_cached(
         kv_io.write(cache_v, v, positions, write_mask)
         attn = kv_io.attend(q, cache_k, cache_v, positions)
     attn = attn.transpose(1, 2).reshape(b, s, -1)
-    return x + attn @ layer["o_proj"]
+    return x + row(attn, layer["o_proj"])
 
 
-def mlp_block(x: Tensor, layer: Dict[str, Tensor], cfg: LlamaConfig) -> Tensor:
-    """Dense SwiGLU MLP sub-block with residual."""
-    h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+def mlp_block(x: Tensor, layer: Dict[str, Tensor], cfg: LlamaConfig, *,
+              tp_axis: Optional[str] = None) -> Tensor:
+    """Dense SwiGLU MLP sub-block with residual; with ``tp_axis`` gate/up
+    column-parallel and down row-parallel (one all-reduce)."""
+    enter, row = tp_region_helpers(tp_axis, False)
+    h = enter(rms_norm(x, layer["post_attention_layernorm"],
+                       cfg.rms_norm_eps))
     gate = h @ layer["gate_proj"]
     up = h @ layer["up_proj"]
-    return x + swiglu(gate, up) @ layer["down_proj"]
+    return x + row(swiglu(gate, up), layer["down_proj"])
 
 
 class LlamaForCausalLM(nn.Module):
     """The decoder with weights in the reference layout (see the module
     docstring). Built empty on ``device`` (None = the CUDA card); fill it
-    with ``models.convert.load_numpy_params`` or build it with
-    ``from_params``. Weights carry no gradient: this slice serves."""
+    with ``models.convert.load_numpy_params``, build it with
+    ``from_params`` or draw it with ``init_weights_``. Weights carry no
+    gradient: it serves.
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None) -> None:
+    With ``mesh`` (a ``parallel.mesh.MeshManager`` whose tp axis has size
+    > 1) the module holds this rank's tensor-parallel shards, cut as
+    training cuts them (``models.convert.local_shard_fn``): q/k/v and
+    gate/up by output columns, o/down by input rows, the embedding by
+    vocab rows and the untied head by vocab columns; ``forward_cached``
+    runs the tp path (the mesh must be current: ``using_mesh_manager``)
+    and returns the full-vocabulary logits on every rank."""
+
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = None, *,
+                 mesh: Any = None) -> None:
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.tp_size = mesh.tp if mesh is not None else 1
+        self.tp_axis = "tp" if self.tp_size > 1 else None
+        # this rank's part of a full leaf (None: the leaves are whole)
+        self._local = None
+        if self.tp_axis is not None:
+            from scaletorch_tpu_torch.models.convert import local_shard_fn
+
+            self._local = local_shard_fn(cfg, mesh, mesh.rank)
         layers: Dict[str, nn.Parameter] = {}
         for name, (shape, is_norm) in _param_shapes(cfg).items():
+            if self._local is not None:
+                shape = tuple(self._local(
+                    name, torch.empty(shape, device="meta")).shape)
             dtype = cfg.param_dtype if is_norm else cfg.dtype
             p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
                              requires_grad=False)
@@ -617,14 +664,53 @@ class LlamaForCausalLM(nn.Module):
 
     @classmethod
     def from_params(cls, params: Params, cfg: LlamaConfig,
-                    device: DeviceLike = None) -> "LlamaForCausalLM":
+                    device: DeviceLike = None, *,
+                    mesh: Any = None) -> "LlamaForCausalLM":
         """A model holding ``params`` (a nested dict of tensors or numpy
-        arrays in the reference layout, e.g. ``init_params``'s output)."""
-        from scaletorch_tpu_torch.models.convert import load_numpy_params
+        arrays in the reference layout, e.g. ``init_params``'s output);
+        with ``mesh``, this rank's slices of the full tree."""
+        from scaletorch_tpu_torch.models.convert import (
+            load_numpy_params,
+            shard_numpy_params,
+        )
 
-        model = cls(cfg, device=device)
+        model = cls(cfg, device=device, mesh=mesh)
+        if model.tp_axis is not None:
+            params = shard_numpy_params(params, cfg, mesh, mesh.rank)
         load_numpy_params(model, params)
         return model
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator
+                      ) -> "LlamaForCausalLM":
+        """Random weights with ``init_params``' distributions (ones for
+        norms, N(0, 0.02) for the embedding, fan-in uniform for the
+        projections), drawn on the parameters' device in ``param_dtype``
+        one layer slice at a time, in one order whatever the mesh: every
+        rank draws the full slices and keeps its part, so the shards are
+        one card's weights (the draws differ from ``init_params``')."""
+        full = _param_shapes(self.cfg)
+        for name, p in self.named_parameters():
+            shape, is_norm = full[name]
+            if is_norm:
+                p.fill_(1.0)
+                continue
+            stacked = name.startswith("layers.")
+            parts = p.unbind(0) if stacked else (p,)
+            draw = shape[1:] if stacked else shape
+            for part in parts:
+                tmp = torch.empty(draw, dtype=self.cfg.param_dtype,
+                                  device=p.device)
+                if name == "embed_tokens":
+                    tmp.normal_(0.0, 0.02, generator=generator)
+                else:
+                    bound = 1.0 / math.sqrt(shape[-2])
+                    tmp.uniform_(-bound, bound, generator=generator)
+                if self._local is not None:  # one layer is a stack of one
+                    tmp = (self._local(name, tmp[None])[0] if stacked
+                           else self._local(name, tmp))
+                part.copy_(tmp)
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -655,8 +741,17 @@ class LlamaForCausalLM(nn.Module):
         [B, S, V] logits buffer.
         """
         cfg = self.cfg
+        tp = self.tp_axis
         cache_k, cache_v = cache
-        x = self.embed_tokens[input_ids.long()]
+        if tp is None:
+            x = self.embed_tokens[input_ids.long()]
+        else:
+            from scaletorch_tpu_torch.parallel.tensor_parallel import (
+                vocab_parallel_embedding,
+            )
+
+            x = vocab_parallel_embedding(input_ids, self.embed_tokens,
+                                         axis=tp)
         cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
                                cfg.rope_theta, positions=positions)
         names = list(self.layers.keys())
@@ -665,13 +760,22 @@ class LlamaForCausalLM(nn.Module):
             layer = dict(zip(names, weights))
             x = attention_block_cached(
                 x, layer, cache_k[i], cache_v[i], cos, sin, positions, cfg,
-                write_mask=write_mask, kv_io=kv_io)
-            x = mlp_block(x, layer, cfg)
+                write_mask=write_mask, kv_io=kv_io, tp_axis=tp)
+            x = mlp_block(x, layer, cfg, tp_axis=tp)
         if last_index is not None:
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_index.long()][:, None]
         x = rms_norm(x, self.norm, cfg.rms_norm_eps)
-        return x @ self.lm_head_weight(), (cache_k, cache_v)
+        logits = x @ self.lm_head_weight()
+        if tp is not None:
+            # the vocab-parallel head's columns, gathered: every rank
+            # samples from the same full-vocabulary bits
+            from scaletorch_tpu_torch.parallel.tensor_parallel import (
+                gather_from_tensor_parallel_region,
+            )
+
+            logits = gather_from_tensor_parallel_region(logits, tp)
+        return logits, (cache_k, cache_v)
 
 
 def forward_cached(

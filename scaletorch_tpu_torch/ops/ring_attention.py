@@ -34,6 +34,12 @@ Two sequence layouts (the trainer permutes the host batch for zigzag,
     S/2cp), a newer one (j > r) the high query stripe against its whole
     shard (Sq = S/2cp, Skv = S/cp).
 
+The ring runs as one dispatcher op, ``scaletorch_tpu_torch::
+ring_attention`` (``RING_ATTENTION_OP``, with its VJP), so a selective
+remat policy keeps or recomputes it whole (``models/llama.py``:
+``save_attn`` keeps its ``(out, lse)``; the dots policies re-run it, its
+exchanges in order), never a part of its exchanges.
+
 Registered backends: ``ring`` and ``ring_contiguous`` (the contiguous
 layout) and ``ring_zigzag``. The axis names the cp axis of the
 current ``parallel.mesh.MeshManager`` (the train step installs its own,
@@ -233,30 +239,49 @@ def _ring_backward_zigzag(q, k, v, out, lse, dout, ring: _Ring,
     return dq.to(q.dtype), dk_acc.to(k.dtype), dv_acc.to(v.dtype)
 
 
-class _RingAttention(torch.autograd.Function):
-    """Forward: the ring schedule, saving (q, k, v, out, lse). Backward:
-    the dual K/V + dK/dV ring. Under gradient checkpointing the forward
-    runs again in the backward, re-issuing its exchanges in the same
-    order on every rank."""
+@torch.library.custom_op("scaletorch_tpu_torch::ring_attention",
+                         mutates_args=())
+def _ring_attention_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                       layout: str) -> Tuple[Tensor, Tensor]:
+    """The whole ring forward as ONE dispatcher op: (out in q's dtype,
+    lse fp32). A selective-checkpoint policy sees this op and none of the
+    exchanges and K1 calls inside it, so it keeps or recomputes the ring
+    whole: ``save_attn`` keeps (out, lse) and the recomputation skips the
+    ring; another policy re-runs it, its exchanges re-issued in order on
+    every rank. The ring is the current mesh manager's."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    fwd = _ring_forward_zigzag if layout == "zigzag" else _ring_forward
+    return fwd(q, k, v, _ring_of("cp"), scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, ring, scale, layout):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        fwd = _ring_forward_zigzag if layout == "zigzag" else _ring_forward
-        out, lse = fwd(q, k, v, ring, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.ring, ctx.scale, ctx.layout = ring, scale, layout
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        ring = ctx.ring
-        bwd = (_ring_backward_zigzag if ctx.layout == "zigzag"
-               else _ring_backward)
-        dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), ring,
-                         ctx.scale)
-        return dq, dk, dv, None, None, None
+@_ring_attention_op.register_fake
+def _ring_attention_fake(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                         layout: str) -> Tuple[Tensor, Tensor]:
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _ring_setup(ctx, inputs, output) -> None:
+    q, k, v, scale, layout = inputs
+    out, lse = output
+    ctx.save_for_backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                          out, lse)
+    ctx.ring, ctx.scale, ctx.layout = _ring_of("cp"), scale, layout
+
+
+def _ring_vjp(ctx, dout, dlse):
+    """The dual K/V + dK/dV ring (``lse`` is an output no caller
+    differentiates)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    bwd = (_ring_backward_zigzag if ctx.layout == "zigzag"
+           else _ring_backward)
+    dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), ctx.ring,
+                     ctx.scale)
+    return dq, dk, dv, None, None
+
+
+_ring_attention_op.register_autograd(_ring_vjp, setup_context=_ring_setup)
+RING_ATTENTION_OP = torch.ops.scaletorch_tpu_torch.ring_attention.default
 
 
 def _check_layout(layout: str, causal: bool, seq_local: int) -> None:
@@ -280,10 +305,13 @@ def ring_attention(q: Tensor, k: Tensor, v: Tensor, axis: str = "cp",
         raise ValueError(
             f"query heads {q.shape[1]} not a multiple of kv heads "
             f"{k.shape[1]}")
+    if axis != "cp":
+        raise ValueError(f"ring attention runs over the 'cp' axis, not "
+                         f"{axis!r}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _RingAttention.apply(q, k, v, _ring_of(axis), float(scale),
-                                layout)
+    out, _ = RING_ATTENTION_OP(q, k, v, float(scale), layout)
+    return out
 
 
 def ring_attention_backend(q, k, v, *, layout: str, causal: bool = True,
@@ -293,9 +321,13 @@ def ring_attention_backend(q, k, v, *, layout: str, causal: bool = True,
     return ring_attention(q, k, v, axis, causal, scale, layout)
 
 
-register_attention_backend(
-    "ring", partial(ring_attention_backend, layout="contiguous"))
-register_attention_backend(
-    "ring_contiguous", partial(ring_attention_backend, layout="contiguous"))
-register_attention_backend(
-    "ring_zigzag", partial(ring_attention_backend, layout="zigzag"))
+def _backend(layout: str):
+    fn = partial(ring_attention_backend, layout=layout)
+    # the ring's own op holds (out, lse): save_attn keeps it, no copy
+    fn.saves_attn_residuals = True
+    return fn
+
+
+register_attention_backend("ring", _backend("contiguous"))
+register_attention_backend("ring_contiguous", _backend("contiguous"))
+register_attention_backend("ring_zigzag", _backend("zigzag"))

@@ -4,5 +4,5 @@ tensor- and sequence-parallel regions, layers and vocab-parallel losses
 and the context-parallel backend choice (``zigzag.py``,
 ``cp_select.py``), the pipeline schedules (``pipeline_parallel.py``), the
 MoE routing, token movement and the expert-parallel all-to-all exchange
-(``expert_parallel.py``), and the train step over the mesh
-(``spmd.py``)."""
+(``expert_parallel.py``), the train step over the mesh (``spmd.py``)
+and FSDP (``fsdp.py``)."""

@@ -111,6 +111,19 @@ class MeshManager:
         self._groups.clear()
         self._mesh = None
 
+    def host_group(self):
+        """A gloo group over every rank of the mesh, for decisions made on
+        the host and shared (the default group when it is gloo; made once,
+        on the first call, which every rank makes in one order). None
+        without a process group."""
+        if self._mesh is None:
+            return None
+        if ("host",) not in self._groups:
+            self._groups[("host",)] = (
+                dist.group.WORLD if dist.get_backend() == "gloo"
+                else dist.new_group(backend="gloo"))
+        return self._groups[("host",)]
+
     # ---- sizes --------------------------------------------------------------
     @property
     def shape(self) -> Tuple[int, int, int, int, int]:

@@ -130,8 +130,7 @@ def resolve_pp_engine(pp_engine: str) -> str:
     return engine
 
 
-def _check(mm: MeshManager, cfg, gradient_checkpointing: bool,
-           remat_policy: str, grad_allreduce_dtype: str,
+def _check(mm: MeshManager, cfg, grad_allreduce_dtype: str,
            grad_allreduce_axis: str, pp_engine: str, pp_vpp: int) -> None:
     from scaletorch_tpu_torch.parallel.expert_parallel import (
         validate_ep_divisibility,
@@ -148,14 +147,6 @@ def _check(mm: MeshManager, cfg, gradient_checkpointing: bool,
         raise ValueError(
             f"grad_allreduce_axis must be one of {DATA_AXES}, got "
             f"{grad_allreduce_axis!r}")
-    if (mm.cp > 1 and gradient_checkpointing
-            and remat_policy != "nothing_saveable"):
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} under context parallelism: a "
-            "selective policy would save some of the ring's ops and "
-            "recompute others; use nothing_saveable (the whole layer, its "
-            "exchanges re-issued in order). Selective remat under cp is "
-            "ROADMAP Queue 1 item 6b-2")
     if mm.ep > 1 and hasattr(cfg, "num_experts"):
         validate_ep_divisibility(cfg, mm.ep)
     if mm.pp > 1 and resolve_pp_engine(pp_engine) == "interleaved":
@@ -379,8 +370,8 @@ def make_spmd_grad_fn(mm: MeshManager, cfg, *, attention_backend,
     as the step reduces it. The first half of the step; the parity checks
     read it (and ``make_spmd_grad_fn(...).stats`` after a call, the
     routing statistics)."""
-    _check(mm, cfg, gradient_checkpointing, remat_policy,
-           grad_allreduce_dtype, grad_allreduce_axis, pp_engine, pp_vpp)
+    _check(mm, cfg, grad_allreduce_dtype, grad_allreduce_axis, pp_engine,
+           pp_vpp)
     backend = _resolve_backend(attention_backend, cp_layout)
     grads_fn = make_grad_fn(
         cfg, attention_backend=backend,
@@ -434,8 +425,8 @@ def make_spmd_train_step(
     step clips by the global norm itself. At world 1 this is
     ``make_train_step``'s step, bit for bit."""
     if mm.world_size > 1:
-        _check(mm, cfg, gradient_checkpointing, remat_policy,
-               grad_allreduce_dtype, grad_allreduce_axis, pp_engine, pp_vpp)
+        _check(mm, cfg, grad_allreduce_dtype, grad_allreduce_axis,
+               pp_engine, pp_vpp)
     backend = _resolve_backend(attention_backend, cp_layout)
     return make_train_step(
         cfg, optimizer, attention_backend=backend,

@@ -1,6 +1,6 @@
 """Adafactor as the reference's ``Trainer`` runs it (counterpart of
-scaletorch_tpu/trainer/factored.py's ``adafactor_sharded`` at one device,
-every spec replicated).
+scaletorch_tpu/trainer/factored.py's ``adafactor_sharded``), on one
+device or over the local shards of a device mesh.
 
 This is not ``optax.adafactor``'s chain: v_row and v_col keep the
 reduced dims as size 1 (the keepdims layout), every state leaf is in the
@@ -19,21 +19,35 @@ fp32:
 
 The state is ``{"count", "v_row", "v_col", "v"}`` with a leaf of each
 tree per parameter (size-1 placeholders where a leaf does not use it).
+
+Over a mesh (``shard_dims`` and ``mesh`` given: ``tensor_parallel.
+shard_dims``' split dim of each leaf per axis, and the ``MeshManager``)
+each rank holds its shard of a leaf, and every statistic is the whole
+leaf's, as the reference's ``_mean_over_dim`` / ``_global_mean_sq``
+make it: the factored dims are chosen from the GLOBAL shape, and each
+local mean that runs over a split dim (the row and column means, the
+mean of ``v_row`` over its remaining dim, the update's and the
+parameter's mean squares) is summed over that dim's axis group and
+divided by its size. Shards are equal (a stacked leaf is padded for an
+uneven pp split, and its padding counts as the reference's does), so
+the mean of the local means is exact. With every axis of size 1 nothing
+is exchanged and the update is the one-device one, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import math
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from scaletorch_tpu_torch.parallel.mesh import all_reduce_
 from scaletorch_tpu_torch.trainer.optimizer import (
     Optimizer,
     Tree,
     commit,
     tree_leaves,
-    tree_map,
 )
 
 Tensor = torch.Tensor
@@ -60,15 +74,67 @@ def factored_dims(shape: Tuple[int, ...],
     return int(order[-2]), int(order[-1])
 
 
+class _Split:
+    """One leaf's split over the mesh: the axes of size > 1 that cut each
+    of its dims, and its global shape."""
+
+    def __init__(self, shape: Tuple[int, ...], dims: Dict[str, int],
+                 mesh) -> None:
+        self.by_dim: Dict[int, List[str]] = {}
+        if mesh is not None:
+            for axis, dim in dims.items():
+                if mesh.axis_size(axis) > 1:
+                    self.by_dim.setdefault(dim, []).append(axis)
+        self.mesh = mesh
+        self.shape = tuple(
+            s * math.prod(mesh.axis_size(a) for a in self.by_dim.get(i, ()))
+            for i, s in enumerate(shape))
+
+    def _mean(self, m: Tensor, axes: List[str]) -> Tensor:
+        """A local mean ``m`` made the mean over ``axes``' groups too."""
+        if not axes:
+            return m
+        m = m.contiguous()
+        for axis in axes:
+            all_reduce_(m, self.mesh.group(axis))
+        return m / math.prod(self.mesh.axis_size(a) for a in axes)
+
+    def mean_over(self, x: Tensor, dim: int) -> Tensor:
+        """The GLOBAL mean over ``dim``, keepdims (``_mean_over_dim``)."""
+        return self._mean(x.mean(dim, True), self.by_dim.get(dim, []))
+
+    def mean_sq(self, x: Tensor) -> Tensor:
+        """The GLOBAL mean of ``x * x`` over the leaf
+        (``_global_mean_sq``)."""
+        axes = [a for d in sorted(self.by_dim) for a in self.by_dim[d]]
+        return self._mean(torch.mean(x * x), axes)
+
+
 class Adafactor(Optimizer):
+    """``shard_dims`` (flat leaf name -> {mesh axis: split dim}) and
+    ``mesh`` (a ``MeshManager``): the layout of the local shards the
+    optimizer updates (the module docstring); None: whole leaves."""
+
     def __init__(self, schedule: Callable[[int], float],
-                 weight_decay_rate: Optional[float] = None) -> None:
+                 weight_decay_rate: Optional[float] = None, *,
+                 shard_dims: Optional[Dict[str, Dict[str, int]]] = None,
+                 mesh=None) -> None:
         super().__init__(schedule)
         self.weight_decay_rate = weight_decay_rate
+        self.shard_dims = shard_dims or {}
+        self.mesh = mesh
+
+    def _leaf_splits(self, params: Tree) -> List[_Split]:
+        """Each leaf's ``_Split``, in ``tree_leaves`` order."""
+        from scaletorch_tpu_torch.models.convert import flatten_params
+
+        return [_Split(tuple(p.shape), self.shard_dims.get(name, {}),
+                       self.mesh)
+                for name, p in flatten_params(params).items()]
 
     def init(self, params: Tree) -> Tree:
-        def one(p, which):
-            fd = factored_dims(tuple(p.shape))
+        def one(p, split, which):
+            fd = factored_dims(split.shape)
             if fd is None:
                 shape = tuple(p.shape) if which == "v" else (1,)
             elif which == "v":
@@ -80,8 +146,14 @@ class Adafactor(Optimizer):
                               for i, s in enumerate(p.shape))
             return torch.zeros(shape, dtype=p.dtype, device=p.device)
 
+        def build(tree, splits, which):
+            return {k: (build(v, splits, which) if isinstance(v, dict)
+                        else one(v, next(splits), which))
+                    for k, v in tree.items()}
+
+        splits = self._leaf_splits(params)
         return {"count": torch.zeros((), dtype=torch.int64),
-                **{w: tree_map(lambda p, w=w: one(p, w), params)
+                **{w: build(params, iter(splits), w)
                    for w in ("v_row", "v_col", "v")}}
 
     @torch.no_grad()
@@ -92,18 +164,20 @@ class Adafactor(Optimizer):
         decay = 1.0 - t ** (-DECAY_RATE)  # fp32, as the reference's
         decay_t, keep = float(decay), float(1.0 - decay)
         lr = self.lr(count)
-        for p, vr, vc, v, g in zip(
+        for p, vr, vc, v, g, split in zip(
                 tree_leaves(params), tree_leaves(state["v_row"]),
                 tree_leaves(state["v_col"]), tree_leaves(state["v"]),
-                tree_leaves(grads)):
+                tree_leaves(grads), self._leaf_splits(params)):
             g32 = g.float()
             gsq = g32 * g32 + EPSILON
-            fd = factored_dims(tuple(p.shape))
+            fd = factored_dims(split.shape)
             if fd is not None:
                 d1, d0 = fd
-                new_vr = decay_t * vr.float() + keep * gsq.mean(d0, True)
-                new_vc = decay_t * vc.float() + keep * gsq.mean(d1, True)
-                row_factor = (new_vr / new_vr.mean(d1, True)) ** -0.5
+                new_vr = (decay_t * vr.float()
+                          + keep * split.mean_over(gsq, d0))
+                new_vc = (decay_t * vc.float()
+                          + keep * split.mean_over(gsq, d1))
+                row_factor = (new_vr / split.mean_over(new_vr, d1)) ** -0.5
                 u = g32 * row_factor * new_vc ** -0.5
                 commit(vr, new_vr.to(vr.dtype), ok)
                 commit(vc, new_vc.to(vc.dtype), ok)
@@ -111,10 +185,10 @@ class Adafactor(Optimizer):
                 new_v = decay_t * v.float() + keep * gsq
                 u = g32 * new_v ** -0.5
                 commit(v, new_v.to(v.dtype), ok)
-            u_rms = torch.sqrt(torch.mean(u * u))
+            u_rms = torch.sqrt(split.mean_sq(u))
             u = u / torch.clamp(u_rms / CLIPPING_THRESHOLD, min=1.0)
             p32 = p.float()
-            p_rms = torch.sqrt(torch.mean(p32 * p32))
+            p_rms = torch.sqrt(split.mean_sq(p32))
             scaled = lr * u * torch.clamp(p_rms, min=MIN_PARAMETER_SCALE)
             if self.weight_decay_rate is not None:
                 scaled = scaled + self.weight_decay_rate * p32

@@ -207,13 +207,17 @@ def guarded_update(optimizer: Optimizer, params: Tree, opt_state: Tree,
     return params, opt_state, 1.0 - ok.float()
 
 
-def create_optimizer(cfg, schedule: Callable[[int], float] = None
-                     ) -> Tuple[Optimizer, Callable[[int], float]]:
+def create_optimizer(cfg, schedule: Callable[[int], float] = None, *,
+                     shard_dims: Optional[Dict[str, Dict[str, int]]] = None,
+                     mesh=None) -> Tuple[Optimizer, Callable[[int], float]]:
     """(optimizer, schedule) from the config's optimizer fields, as the
     reference's ``Trainer`` builds them: the train step clips by the
     global norm itself, so no clip is chained here, and ``adafactor`` is
-    the reference's sharded Adafactor at one device (decay
-    ``weight_decay or None``). An unknown name raises."""
+    the reference's sharded Adafactor (decay ``weight_decay or None``)
+    over the local shards that ``shard_dims`` (``tensor_parallel.
+    shard_dims``) and ``mesh`` (the ``MeshManager``) describe, whole
+    leaves without them; the other optimizers work leaf by leaf and need
+    no layout. An unknown name raises."""
     if schedule is None:
         from scaletorch_tpu_torch.trainer.lr_scheduler import (
             create_lr_scheduler,
@@ -236,7 +240,8 @@ def create_optimizer(cfg, schedule: Callable[[int], float] = None
     elif name == "adafactor":
         from scaletorch_tpu_torch.trainer.factored import Adafactor
 
-        opt = Adafactor(schedule, weight_decay_rate=cfg.weight_decay or None)
+        opt = Adafactor(schedule, weight_decay_rate=cfg.weight_decay or None,
+                        shard_dims=shard_dims, mesh=mesh)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer_name!r}; have "
                          f"{OPTIMIZERS}")

@@ -24,9 +24,11 @@ opt_state, metrics)``. Per step:
      loss or norm leaves the parameters and the float optimizer state as
      they were and reports ``update_skipped = 1``.
 
-A mesh (``parallel/spmd.MeshReductions``) adds its reductions to steps
-2 and 3 through the ``MeshHooks`` it overrides; the base hooks do
-nothing, so one device runs the steps above as they are. Under pipeline
+A mesh (``parallel/spmd.MeshReductions``, or FSDP's
+``parallel/fsdp.FsdpReductions``) adds its reductions to steps 2 and 3
+through the ``MeshHooks`` it overrides (FSDP also gathers the shards in
+step 1); the base hooks do nothing, so one device runs the steps above as
+they are. Under pipeline
 parallelism a pipeline pass (``parallel/pipeline_parallel``) takes the
 place of step 1's microbatch loop and the gradients of step 2.
 
@@ -41,7 +43,7 @@ under ``torch.no_grad()``, without gradient checkpointing.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -87,6 +89,9 @@ class MeshHooks:
     tp_axis: Optional[str] = None
     ep_axis: Optional[str] = None
     sequence_parallel: bool = False
+    # FSDP's ``parallel/fsdp.FsdpGather``: the shards' full leaves for the
+    # forward (None: the leaves are whole)
+    param_gather: Optional[Any] = None
 
     def scope(self):
         """Context of the forward and backward (on a mesh, its axis names
@@ -115,14 +120,17 @@ def make_loss_fn(cfg, *, attention_backend: str,
                  remat_policy: str = "nothing_saveable",
                  tp_axis: Optional[str] = None,
                  sequence_parallel: bool = False,
-                 ep_axis: Optional[str] = None) -> Callable:
+                 ep_axis: Optional[str] = None,
+                 param_gather: Optional[Any] = None) -> Callable:
     """loss(params, microbatch) -> (fp32 scalar, routing stats): the
     hidden states of the decoder through the chunked fused head + cross
     entropy, plus the router aux loss for a Qwen3-MoE config, whose
     routing statistics come beside it (empty for a dense model). With
     ``tp_axis`` the decoder runs its tensor-parallel path (SP with
     ``sequence_parallel``) and the loss is the vocab-parallel one; with
-    ``ep_axis`` the MoE layers exchange their slots over ep."""
+    ``ep_axis`` the MoE layers exchange their slots over ep; with
+    ``param_gather`` (FSDP) the parameters are shards, gathered for the
+    head and embedding once and for each layer inside it."""
     chunk = ce_chunk_size()
     is_moe = isinstance(cfg, qwen3_moe.Qwen3MoEConfig)
     model = qwen3_moe if is_moe else llama
@@ -133,6 +141,10 @@ def make_loss_fn(cfg, *, attention_backend: str,
 
     def loss_fn(params, mb: Dict[str, Tensor]
                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        fwd_kw = dict(tp_kw)
+        if param_gather is not None:
+            params = param_gather.outer(params)
+            fwd_kw["layer_gather"] = param_gather.layer
         out = model.forward(
             params, mb["input_ids"], cfg,
             positions=mb["position_ids"],
@@ -141,7 +153,7 @@ def make_loss_fn(cfg, *, attention_backend: str,
             remat_policy=remat_policy,
             return_hidden=True,
             **({"return_moe_stats": True} if is_moe else {}),
-            **tp_kw,
+            **fwd_kw,
         )
         hidden, aux, stats = out if is_moe else (out, 0.0, {})
         head = model.lm_head_weight(params, cfg)
@@ -180,7 +192,8 @@ def make_grad_fn(cfg, *, attention_backend: str = "sdpa",
                            gradient_checkpointing=gradient_checkpointing,
                            remat_policy=remat_policy, tp_axis=mesh.tp_axis,
                            sequence_parallel=mesh.sequence_parallel,
-                           ep_axis=mesh.ep_axis)
+                           ep_axis=mesh.ep_axis,
+                           param_gather=mesh.param_gather)
 
     def grads_fn(params, batch: Batch):
         if pipeline is not None:
@@ -273,7 +286,8 @@ def make_eval_step(cfg, *, attention_backend: str = "sdpa",
                            gradient_checkpointing=False,
                            tp_axis=mesh.tp_axis,
                            sequence_parallel=mesh.sequence_parallel,
-                           ep_axis=mesh.ep_axis)
+                           ep_axis=mesh.ep_axis,
+                           param_gather=mesh.param_gather)
 
     @torch.no_grad()
     def eval_step(params, batch) -> Tensor:

@@ -43,7 +43,8 @@ the gradient wire format (``grad_allreduce_dtype``) the config names. A
 Qwen3-MoE logs its routing statistics (``moe_dropped_fraction``,
 ``moe_load_cv``). Logs and the metrics JSON come from rank 0 only.
 Checkpoints and the HF export of sharded parameters wait for ROADMAP
-Queue 1 item 6c, Adafactor over tp for item 6b-2, and raise.
+Queue 1 item 6c and raise. Adafactor reduces its statistics over the
+split dims of each shard (``trainer/factored.py``).
 
 The runtime around the loop follows the reference's: a
 ``ResilienceManager`` (divergence sentinel with skip, rollback or abort;
@@ -100,6 +101,7 @@ from scaletorch_tpu_torch.parallel.spmd import (
     make_spmd_train_step,
 )
 from scaletorch_tpu_torch.parallel.tensor_parallel import (
+    shard_dims,
     validate_tp_divisibility,
 )
 from scaletorch_tpu_torch.resilience import (
@@ -285,11 +287,6 @@ class Trainer:
         self.attention_backend = self._resolve_attention_backend()
         if cfg.tensor_parallel_size > 1:
             validate_tp_divisibility(self.model_cfg, cfg.tensor_parallel_size)
-            if cfg.optimizer_name.lower() == "adafactor":
-                raise NotImplementedError(
-                    "adafactor over tensor-parallel shards (its factored "
-                    "statistics reduce across the split dims) is ROADMAP "
-                    "Queue 1 item 6b-2")
         torch.manual_seed(cfg.seed)
         self.is_moe = isinstance(self.model_cfg, qwen3_moe.Qwen3MoEConfig)
         if self.is_moe and cfg.expert_parallel_size > 1:
@@ -325,7 +322,10 @@ class Trainer:
             self.params = model.init_params(
                 self.model_cfg, gen, self.device, requires_grad=True,
                 **shard)
-        self.optimizer, self.schedule = create_optimizer(cfg)
+        # Adafactor's statistics reduce over the split dims of each shard
+        # (the reference passes its param specs and mesh sizes)
+        self.optimizer, self.schedule = create_optimizer(
+            cfg, shard_dims=shard_dims(self.model_cfg), mesh=self.mm)
         self.opt_state = self.optimizer.init(self.params)
         self.tokenizer = tokenizer
         # host-side resilience, built before the loader so its corrupt-read

@@ -165,14 +165,16 @@ def test_bf16_wire_keeps_the_fp32_wires_steps(runs):
 
 
 def test_the_step_refuses_what_waits_for_item_6b():
-    # item 6b (pp, ep, int8) is ported; what stays refuses, naming 6b-2,
-    # and bad pipeline or wire settings are refused as the reference does
+    # items 6b and 6b-2 are ported: a selective policy under cp builds a
+    # step (the cp backends are one op each under a policy), and bad
+    # pipeline or wire settings are refused as the reference does
     from scaletorch_tpu_torch.parallel.spmd import make_spmd_train_step as t
 
     cfg = LlamaConfig(**ARCH)
-    with pytest.raises(NotImplementedError, match="6b-2"):
-        t(MeshManager(cp=2), cfg, None, gradient_checkpointing=True,
-          remat_policy="save_attn")
+    for policy in ("save_attn", "dots_saveable"):
+        assert callable(t(MeshManager(cp=2), cfg, None,
+                          gradient_checkpointing=True, remat_policy=policy,
+                          attention_backend="ring"))
     with pytest.raises(ValueError, match="pp_virtual_stages"):
         t(MeshManager(dp=2, pp=2), cfg, None, pp_engine="interleaved",
           pp_vpp=1)

@@ -271,6 +271,8 @@ def case_trainer_guards(payload):
             out[name] = None
         except (ValueError, NotImplementedError) as exc:
             out[name] = f"{type(exc).__name__}: {exc}"
+    for name, kw in payload.get("built", {}).items():
+        out[name] = float(Trainer(cfg(**kw), device="cpu").step()["loss"])
     trainer = Trainer(cfg(context_parallel_size=2), device="cpu")
     out["auto"] = trainer.attention_backend
     out["zigzag"] = trainer._zigzag_cp
@@ -302,8 +304,9 @@ def _stats(m) -> dict:
 
 def case_mesh_steps(payload):
     """For every run: the step's first gradients (``make_spmd_grad_fn``,
-    with ``grads``), STEPS AdamW steps' metrics on the run's batches, the
-    eval loss of the first batch and the final parameters, each rank's
+    with ``grads``), the metrics of a step on each of the run's batches
+    (the optimizer of the run's or the payload's ``train_cfg``), the eval
+    loss of the first batch and the final parameters, each rank's
     shards, over the run's mesh, pipeline schedule and wire format."""
     from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
     from scaletorch_tpu_torch.data.dataloader import device_batch
@@ -316,6 +319,7 @@ def case_mesh_steps(payload):
         make_spmd_grad_fn,
         make_spmd_train_step,
     )
+    from scaletorch_tpu_torch.parallel.tensor_parallel import shard_dims
     from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
 
     os.environ["SCALETORCH_TPU_CE_CHUNK"] = str(payload["ce_chunk"])
@@ -345,8 +349,13 @@ def case_mesh_steps(payload):
             res["loss0"] = float(loss)
             res["stats0"] = _stats(grads_fn.stats)
             res["grads0"] = [_np(g) for g in grads]
-        tcfg = ScaleTorchTPUArguments(**payload["train_cfg"])
-        opt, _ = create_optimizer(tcfg)
+        tcfg = ScaleTorchTPUArguments(**run.get("train_cfg",
+                                                payload["train_cfg"]))
+        # the Trainer's layout of the shards; ``local_stats``: none, so an
+        # Adafactor takes its statistics over the local shard (a control)
+        layout_kw = ({} if run.get("local_stats")
+                     else dict(shard_dims=shard_dims(cfg), mesh=mm))
+        opt, _ = create_optimizer(tcfg, **layout_kw)
         state = opt.init(params)
         step = make_spmd_train_step(mm, cfg, opt,
                                     max_grad_norm=tcfg.max_grad_norm,
@@ -434,6 +443,137 @@ def case_quantized(payload):
     tree = [torch.from_numpy(t[rank]) for t in payload["tree"]]
     out["tree"] = [t.numpy().copy() for t in tq.quantized_pmean_tree(
         tree, group, dtype="int8", block_size=payload["block"])]
+    return out
+
+
+# ---- tensor-parallel serving --------------------------------------------------------
+class _SkewedClock:
+    """The ``time`` module with ``monotonic`` ``offset`` seconds ahead."""
+
+    def __init__(self, real) -> None:
+        self._real, self.offset = real, 0.0
+
+    def monotonic(self) -> float:
+        return self._real.monotonic() + self.offset
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+def case_tp_serving(payload):
+    """For every run: an ``InferenceEngine`` over the run's mesh (this
+    rank's shards of the full weights) serving the run's schedule, with
+    what every rank must agree on: tokens and outcomes per request, the
+    compile counts, the local cache shape, page conservation; and the
+    teacher-forced logits of the mesh's model over ``payload['tokens']``.
+    ``skew``: the rank whose clock jumps ahead once the requests are in
+    (a TTL passes there first)."""
+    from scaletorch_tpu_torch.inference import engine as teng
+    from scaletorch_tpu_torch.inference.decode import (
+        teacher_forced_decode,
+        teacher_forced_decode_paged,
+    )
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        kv_cache_shardings,
+        paged_kv_cache_shardings,
+    )
+    from scaletorch_tpu_torch.inference.sampling import SamplingParams
+
+    out = []
+    for run in payload["runs"]:
+        cfg = llama.LlamaConfig(**payload["archs"][run["arch"]],
+                                dtype=torch.float32)
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        params = payload["params"][run["arch"]]
+        layout = run.get("layout", "dense")
+        eng = teng.InferenceEngine(
+            params, cfg, max_slots=2, max_seq=run["max_seq"], prefill_len=8,
+            sampling=SamplingParams(temperature=0.0), cache_layout=layout,
+            page_size=4, mesh=mm, batch_axis=run.get("batch_axis"),
+            donate_cache=False, device="cpu")
+        clock = _SkewedClock(teng.time)
+        teng.time = clock
+        try:
+            ids = [eng.submit(list(p), max_new_tokens=n,
+                              **({"ttl_s": run["ttl_s"]} if "ttl_s" in run
+                                 else {}))
+                   for p, n in run["schedule"]]
+            if run.get("skew") == mm.rank:
+                clock.offset = 1000.0
+            results = eng.run()
+        finally:
+            teng.time = clock._real
+        res = {"tokens": [results[i].tokens for i in ids],
+               "outcomes": [results[i].outcome for i in ids],
+               "compiles": (eng.prefill_compile_count,
+                            eng.decode_compile_count),
+               "cache_shape": tuple(eng.cache.k.shape),
+               "embed_shape": tuple(eng.model.embed_tokens.shape)}
+        if eng.allocator is not None:
+            eng.allocator.check_conservation()
+            eng.radix.evict(eng.num_pages)
+            res["pages_free"] = (eng.allocator.free_count
+                                 == eng.allocator.capacity)
+        if "tokens" in payload and "skew" not in run:
+            toks = torch.from_numpy(payload["tokens"])
+            with tmesh.using_mesh_manager(mm), torch.inference_mode():
+                if layout == "paged":
+                    logits = teacher_forced_decode_paged(
+                        eng.model, cfg, toks, page_size=4, prefill_len=3,
+                        sharding=paged_kv_cache_shardings(mm))
+                else:
+                    logits = teacher_forced_decode(
+                        eng.model, cfg, toks, prefill_len=3,
+                        sharding=kv_cache_shardings(mm))
+            res["logits"] = _np(logits)
+        out.append(res)
+        del eng
+        mm.destroy()
+    return out
+
+
+# ---- FSDP -------------------------------------------------------------------------
+def case_fsdp(payload):
+    """For every run: ``setup_fsdp`` over the world (fp32 or bf16
+    parameters, the payload's optimizer), a step on each global batch
+    (this rank's rows), and what the rank stores: its losses, the
+    elements of its parameters and optimizer state, its shards."""
+    from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
+    from scaletorch_tpu_torch.data.dataloader import device_batch
+    from scaletorch_tpu_torch.parallel.fsdp import local_numel, setup_fsdp
+    from scaletorch_tpu_torch.parallel.spmd import local_batch
+    from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
+
+    out = []
+    for run in payload["runs"]:
+        dtype = {"float32": torch.float32,
+                 "bfloat16": torch.bfloat16}[run["dtype"]]
+        cfg = llama.LlamaConfig(**payload["arch"], dtype=dtype,
+                                param_dtype=dtype)
+        opt, _ = create_optimizer(ScaleTorchTPUArguments(
+            **payload["train_cfg"]))
+        step, params, state, mesh = setup_fsdp(
+            cfg, payload["params"], opt, device="cpu", dtype=dtype,
+            gradient_checkpointing=run.get("gc", False),
+            attention_backend=run.get("backend", "sdpa"))
+        losses = []
+        for b in payload["batches"][:run["steps"]]:
+            params, state, m = step(params, state, device_batch(
+                local_batch(b, mesh), "cpu"))
+            losses.append(float(m["loss"]))
+            assert float(m["update_skipped"]) == 0.0
+        state_trees = {k: v for k, v in state.items() if k != "count"}
+        out.append({
+            "losses": losses,
+            "dtypes": sorted({str(t.dtype) for t in
+                              flatten_params(params).values()}),
+            "numel": {n: int(t.numel())
+                      for n, t in flatten_params(params).items()},
+            "state_numel": {f"{k}.{n}": int(t.numel())
+                            for k, tree in state_trees.items()
+                            for n, t in flatten_params(tree).items()},
+            "param_numel": local_numel(params),
+            "params": params_to_numpy(params)})
     return out
 
 
