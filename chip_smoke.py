@@ -6,7 +6,8 @@ Run from the root of a checkout, with one visible card:
     python3 chip_smoke.py
 
 It takes no arguments (``--parallel-worker DIR`` is the rank side of
-the ``parallel`` phase, started by it). One phase alone, e.g. the grouped-MLP kernels in
+the ``parallel`` phase, ``--fleet-worker DIR SCENARIO`` of the
+multi-process runtime's, each started by it). One phase alone, e.g. the grouped-MLP kernels in
 bf16 (copied into a checkout of another commit and run there, this times
 that commit's kernels by the same yardstick):
 
@@ -347,6 +348,28 @@ is non-zero; no phase catches an exception):
                 ``nothing_saveable``, K1-K3 launches as the policy reckons
                 them, bf16 step s). The line names the world and the
                 checks run and not run.
+ 18b. runtime_multiproc — the multi-process checkpoint on one card: the
+                headline row (fp32 masters, AdamW) in a world-1 NCCL
+                group takes 2 steps and saves through the process-group
+                path (global tensors, DCP over the checkpoint's gloo
+                group); a new ``Trainer`` restores it bit for bit; 2 CPU
+                gloo ranks at tp2 (``scaletorch_tpu_torch.launch``)
+                restore it, each holding its slices of the card's tensors
+                bit for bit, and export it sharded, byte-equal to the
+                card's one-card export. Prints the save's blocking and
+                total s, restore s, bytes a rank, the ranks' restore and
+                export s. Four cards only, alone (``phase_runtime_fleet``):
+                ``nccl_abort`` (does an all-reduce with a SIGKILLed peer
+                raise, and does a group re-form in place), ``elastic_kill``
+                and ``elastic_hang`` (the headline row at dp4 under
+                ``launch.py --elastic``: in place, shrink and regrow;
+                where NCCL cannot re-form, exit 43 and a fleet restart;
+                identical final parameters either way; detection,
+                recovery and step s), ``sigterm_one_rank`` (tp2 x dp2,
+                fp32: one emergency step on every rank, a dp4 resume bit
+                for bit and its next loss within TRAIN_PARITY) and
+                ``coordination_cost`` (dp4 steps with and without the
+                coordinated decisions in alternated windows).
  19. kernels  — every Pallas kernel of the JAX package, ported or not.
 
 Then the seconds each phase took, the per-kernel contract line (K1-K7,
@@ -357,6 +380,7 @@ and the grads pass that K6 and K7 share), the nvidia-smi line, and last:
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
 import json
 import os
@@ -5044,6 +5068,722 @@ def phase_parallel(groups=PARALLEL_GROUPS) -> dict:
     return result
 
 
+# ---- 18b. the multi-process runtime ----------------------------------------------
+# one card: the process-group checkpoint path, a restore, and 2 CPU ranks
+# at tp2 restoring and exporting the card's checkpoint; four cards
+# (``phase_runtime_fleet``): the NCCL abort probe and the fleet drills
+MULTIPROC_STEPS = 2
+MULTIPROC_TP = 2
+FLEET_DIR = os.path.join("build", "fleet")
+FLEET_TIMEOUT_S = 900
+FLEET_STEPS = 6
+# the elastic deadline on the cards: the groups' timeout (NCCL's watchdog
+# ends a rank blocked on a lost peer there), the suspect round twice that
+# (the trainer's rule); a 7.15 GB save and a rank's set-up at full width
+# stay well inside it
+ELASTIC_DEADLINE_S = 10.0
+# a survivor's end after the kill: the watchdog's deadline, then its
+# debug dump's wait (60 s by default: the survivors ended 70.7-73.0 s
+# after the kill on four H100s), the process's teardown
+ELASTIC_DETECT_LIMIT_S = ELASTIC_DEADLINE_S + 60.0 + 30.0
+# the wedged rank's stall: past the survivors' deadline
+ELASTIC_HANG_S = 2 * ELASTIC_DEADLINE_S + 10.0
+COORD_WINDOWS, COORD_WINDOW_STEPS = 3, 10
+NCCL_PROBE_TIMEOUT_S = 20.0
+
+
+def leaf_digests(tree, prefix: str = "") -> dict:
+    """sha256 of each leaf's bytes, by dotted name (a bit-for-bit check
+    across processes without moving the tensors)."""
+    import hashlib
+
+    out = {}
+    for name, t in flatten_params(tree).items():
+        a = t.detach().to("cpu").contiguous()
+        out[prefix + name] = hashlib.sha256(
+            a.reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def state_digests(state, shard=None) -> dict:
+    """``leaf_digests`` of an optimizer state (its parameter-shaped trees
+    cut by ``shard(name, leaf)`` when given)."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            if shard is not None:
+                v = {n: shard(n, t) for n, t in flatten_params(v).items()}
+            out.update(leaf_digests(v, f"{k}."))
+        else:
+            out.update(leaf_digests({k: v}))
+    return out
+
+
+def shard_digests(trainer, mm) -> list:
+    """Per rank of ``mm``: the digests of the slices that rank holds of
+    ``trainer``'s (whole) parameters and optimizer state."""
+    from scaletorch_tpu_torch.models.convert import local_shard_fn
+
+    out = []
+    for rank in range(mm.world_size):
+        cut = local_shard_fn(trainer.model_cfg, mm, rank)
+
+        def shard(name, t, cut=cut):
+            return cut(name, t.detach().to("cpu"))
+
+        params = {n: shard(n, t)
+                  for n, t in flatten_params(trainer.params).items()}
+        out.append({**leaf_digests(params, "params."),
+                    **state_digests(trainer.opt_state, shard)})
+    return out
+
+
+def trainer_digests(trainer) -> dict:
+    return {**leaf_digests(trainer.params, "params."),
+            **state_digests(trainer.opt_state)}
+
+
+def same_files(a: str, b: str) -> bool:
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, \
+                open(os.path.join(b, name), "rb") as fb:
+            while True:
+                x, y = fa.read(1 << 24), fb.read(1 << 24)
+                if x != y:
+                    return False
+                if not x:
+                    break
+    return True
+
+
+def launch_ranks(nproc: int, worker: list, directory: str, *,
+                 elastic: bool = False, max_restarts: int = 0,
+                 membership: str = None, env: dict = None,
+                 timeout: float = FLEET_TIMEOUT_S) -> int:
+    """``scaletorch_tpu_torch.launch`` of ``nproc`` ranks of this script's
+    ``worker`` (``--fleet-worker ...``), output to stderr, every process
+    stopped by the end; its exit code."""
+    cmd = [sys.executable, "-m", "scaletorch_tpu_torch.launch",
+           "--nproc", str(nproc), "--rdzv-dir",
+           os.path.join(directory, "rdzv"), "--timeout", str(timeout),
+           "--events", os.path.join(directory, "events.jsonl"),
+           "--max-restarts", str(max_restarts)]
+    if elastic:
+        cmd += ["--elastic"]
+    if membership:
+        cmd += ["--membership-dir", membership]
+    cmd += ["--", sys.executable, os.path.abspath(__file__)] + worker
+    proc = subprocess.Popen(cmd, stdout=sys.stderr, stderr=sys.stderr,
+                            start_new_session=True,
+                            env={**os.environ, **(env or {})},
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rc = proc.wait(timeout=timeout + 60)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    check(rc is not None, f"{worker}: no end within {timeout} s")
+    return rc
+
+
+def rank_results(directory: str, every: bool = False):
+    """The ``result_r<rank>_a<attempt>_p<pid>.json`` of a launch: by
+    (rank, attempt), the newest of each (a fleet restart starts the
+    attempts again); with ``every``, all of them, oldest first."""
+    every_r = []
+    for name in os.listdir(directory):
+        if name.startswith("result_r") and name.endswith(".json"):
+            with open(os.path.join(directory, name)) as f:
+                every_r.append(json.load(f))
+    every_r.sort(key=lambda r: r["start"])
+    if every:
+        return every_r
+    return {(r["rank"], r["attempt"]): r for r in every_r}
+
+
+def launch_events(directory: str) -> list:
+    with open(os.path.join(directory, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def write_rank_result(directory: str, result: dict) -> None:
+    from scaletorch_tpu_torch import dist as stdist
+
+    path = os.path.join(directory, f"result_r{result['rank']}_a"
+                        f"{stdist.restart_count()}_p{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(result, f)
+    os.replace(path + ".tmp", path)
+
+
+def multiproc_cfg(ckpt: str, **kw):
+    """The headline row (fp32 masters, AdamW) checkpointed to ``ckpt``."""
+    cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
+    return dataclasses.replace(cfg, checkpoint_dir=ckpt, keep_n_checkpoints=1,
+                               async_checkpointing=True, log_frequency=1,
+                               total_train_steps=MULTIPROC_STEPS, **kw)
+
+
+def phase_runtime_multiproc() -> dict:
+    """The checkpoint's process-group path on one card (a world-1 NCCL
+    group): MULTIPROC_STEPS steps, a save (global tensors through DCP
+    over the checkpoint's gloo group), a restore in a new Trainer bit for
+    bit; then MULTIPROC_TP CPU gloo ranks at tp2 restore that checkpoint
+    (each holds its slices of the card's tensors bit for bit) and export
+    it sharded, byte-equal to the card's one-card export."""
+    import torch.distributed as dist
+
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    root = os.path.abspath(runtime_root("multiproc"))
+    ckpt = os.path.join(root, "ckpt")
+    emit("runtime_multiproc_disk", free_gb=shutil.disk_usage(root).free / 1e9)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{root}/store", world_size=1, rank=0,
+        device_id=torch.device("cuda", 0))
+    try:
+        t = Trainer(multiproc_cfg(ckpt))
+        mgr = t.checkpoint_manager
+        check(mgr._global and t.mm.mesh is not None,
+              "runtime_multiproc: the trainer is not on the process-group "
+              "checkpoint path")
+        losses = [float(t.step()["loss"]) for _ in range(MULTIPROC_STEPS)]
+        check(all(np.isfinite(losses)), f"runtime_multiproc: losses {losses}")
+        check(t.save_checkpoint() and mgr.wait(),
+              "runtime_multiproc: the save failed")
+        save = mgr.saves[-1]
+        step = t.global_step
+        row = {"losses": losses, "step": step,
+               "save_blocking_s": save["blocking_s"],
+               "save_total_s": save["total_s"],
+               "checkpoint_bytes": mgr.step_bytes(step),
+               "bytes_per_rank": [mgr.rank_bytes(step, 0)]}
+        t0 = time.perf_counter()
+        t.export_hf(os.path.join(root, "hf_one"), dtype="bfloat16",
+                    max_shard_bytes=HF_SHARD_BYTES)
+        row["export_s"] = time.perf_counter() - t0
+        want = shard_digests(t, MeshManager(tp=MULTIPROC_TP))
+        r = Trainer(multiproc_cfg(ckpt, resume="must"))
+        check(r.global_step == step, f"runtime_multiproc: restored step "
+              f"{r.global_step}, saved {step}")
+        diff = [n for (n, a), b in zip(
+            flatten_params({"p": t.params, "s": t.opt_state}).items(),
+            flatten_params({"p": r.params, "s": r.opt_state}).values())
+            if not torch.equal(a, b)]
+        check(not diff, f"runtime_multiproc: restored leaves differ: "
+              f"{diff[:5]}")
+        row["restore_s"] = r.checkpoint_manager.last_restore["seconds"]
+        close_trainer(r)
+        close_trainer(t)
+    finally:
+        dist.destroy_process_group()
+    # the CPU ranks see no card
+    t0 = time.monotonic()
+    rc = launch_ranks(MULTIPROC_TP, ["--fleet-worker", root, "tp_restore"],
+                      root, env={"CUDA_VISIBLE_DEVICES": "",
+                                 "OMP_NUM_THREADS": "4"})
+    check(rc == 0, f"runtime_multiproc: the tp{MULTIPROC_TP} ranks exited "
+          f"{rc}")
+    got = rank_results(root)
+    for rank in range(MULTIPROC_TP):
+        res = got[(rank, 0)]
+        bad = sorted(n for n in want[rank]
+                     if want[rank][n] != res["digests"].get(n))
+        check(not bad and res["step"] == step,
+              f"runtime_multiproc: tp rank {rank} at step {res['step']}, "
+              f"leaves unlike the card's slices: {bad[:5]}")
+    check(same_files(os.path.join(root, "hf_one"),
+                     os.path.join(root, "hf_tp")),
+          "runtime_multiproc: the tp2 export differs from the one-card "
+          "export")
+    row.update(tp_ranks_s=time.monotonic() - t0,
+               tp_restore_s=[got[(r, 0)]["restore_s"]
+                             for r in range(MULTIPROC_TP)],
+               tp_export_s=got[(0, 0)]["export_s"],
+               tp_bit_for_bit=True, export_byte_equal=True)
+    shutil.rmtree(root)
+    row["nvidia_smi"] = card_name_and_power_limit()
+    emit("runtime_multiproc", model=MODEL, **row)
+    return row
+
+
+# -- the four-card drills (the rank side is ``fleet_worker``) ------------------------
+def fleet_cfg(ckpt: str, **kw):
+    """The headline row (GC, bf16 compute, fp32 masters), synthetic
+    data, a save every 2 steps."""
+    return make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True, extra={
+        "checkpoint_dir": ckpt, "save_frequency": 2,
+        "keep_n_checkpoints": 3, "total_train_steps": FLEET_STEPS,
+        "log_frequency": 1, "checkpoint_retry_base_delay": 0.05,
+        "distributed_launcher": "env", **kw})
+
+
+def timed_steps(trainer) -> list:
+    """Wrap ``trainer.step`` to record (step, start, end) wall times."""
+    marks = []
+    step = trainer.step
+
+    def recorded(*a, **kw):
+        t0 = time.time()
+        m = step(*a, **kw)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        marks.append((trainer.global_step, t0, time.time()))
+        return m
+
+    trainer.step = recorded
+    return marks
+
+
+def fleet_worker(directory: str, scenario: str) -> int:
+    """One rank of a fleet drill (started by ``launch_ranks``):
+    ``scenario`` and ``directory/drill.json`` say what it runs; the result
+    goes to ``result_r<rank>_a<attempt>.json``."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    drill = {}
+    if os.path.exists(os.path.join(directory, "drill.json")):
+        with open(os.path.join(directory, "drill.json")) as f:
+            drill = json.load(f)
+    result = {"rank": rank, "attempt": stdist.restart_count(),
+              "start": time.time()}
+    if scenario in ("nccl_abort", "elastic"):
+        if scenario == "nccl_abort":
+            result.update(nccl_abort_rank(directory, rank))
+            code = 0 if result["returned"] else None
+        else:
+            code = elastic_rank(directory, drill, result)
+        write_rank_result(directory, result)
+        if code != 0:
+            # the group may hold a lost peer: no teardown may wait on it
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(code or 0)
+        stdist.shutdown_distributed()
+        return 0
+    elif scenario == "tp_restore":
+        result.update(tp_restore_rank(directory))
+    elif scenario == "sigterm":
+        result.update(sigterm_rank(directory, drill))
+    elif scenario == "coordination":
+        result.update(coordination_rank(drill))
+    else:
+        raise ValueError(f"unknown fleet scenario {scenario!r}")
+    write_rank_result(directory, result)
+    stdist.shutdown_distributed()
+    return 0
+
+
+def tp_restore_rank(root: str) -> dict:
+    """A CPU rank at tp2: restore the card's checkpoint, export sharded."""
+    t = Trainer(multiproc_cfg(os.path.join(root, "ckpt"), resume="must",
+                              tensor_parallel_size=MULTIPROC_TP),
+                device="cpu")
+    out = {"step": t.global_step, "digests": trainer_digests(t),
+           "restore_s": t.checkpoint_manager.last_restore["seconds"]}
+    t0 = time.perf_counter()
+    t.export_hf(os.path.join(root, "hf_tp"), dtype="bfloat16",
+                max_shard_bytes=HF_SHARD_BYTES)
+    out["export_s"] = time.perf_counter() - t0
+    t.close()
+    return out
+
+
+def nccl_abort_rank(directory: str, rank: int) -> dict:
+    """The probe: two ranks all-reduce over NCCL (timeout
+    NCCL_PROBE_TIMEOUT_S; error handling that aborts the communicator
+    and raises in the waiting call, ``CleanUpOnly``, with blocking
+    waits); rank 1 is SIGKILLed; whether rank 0's next all-reduce raises
+    within the timeout (waited for NCCL_PROBE_TIMEOUT_S + 10 s on a
+    thread), and, if it does, whether rank 0 then aborts the group,
+    forms a new one alone and all-reduces again. What
+    ``dist.can_reform_in_process`` rests on."""
+    import threading
+
+    import torch.distributed as dist
+
+    from scaletorch_tpu_torch import dist as stdist
+
+    os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "2"
+    os.environ["TORCH_NCCL_BLOCKING_WAIT"] = "1"
+    stdist.init_distributed("env", timeout_s=NCCL_PROBE_TIMEOUT_S)
+    dev = torch.device("cuda", rank)
+    x = torch.ones(1024, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize(dev)
+    ok = float(x[0]) == 2.0
+    dist.barrier()
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(1.0)  # rank 1 is gone before the next collective
+    got = {}
+
+    def reduce():
+        try:
+            dist.all_reduce(x)
+            torch.cuda.synchronize(dev)
+            got["returned"] = "without an error"
+        except Exception as exc:  # the peer is gone: this should raise
+            got["error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+
+    t0 = time.time()
+    th = threading.Thread(target=reduce, daemon=True)
+    th.start()
+    th.join(NCCL_PROBE_TIMEOUT_S + 10.0)
+    out = {"first_all_reduce": ok, "raised": "error" in got,
+           "error": got.get("error"), "returned": not th.is_alive(),
+           "detect_s": time.time() - t0, "reformed_all_reduce": None,
+           "torch": torch.__version__}
+    if not out["raised"]:
+        return out  # the caller ends the process without a teardown
+    dist.distributed_c10d._abort_process_group()
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(directory, "probe_e1"),
+        world_size=1, rank=0, device_id=dev,
+        timeout=datetime.timedelta(seconds=NCCL_PROBE_TIMEOUT_S))
+    y = torch.full((1024,), 3.0, device=dev)
+    dist.all_reduce(y)
+    torch.cuda.synchronize(dev)
+    out["reformed_all_reduce"] = float(y[0]) == 3.0
+    return out
+
+
+def elastic_rank(directory: str, drill: dict, result: dict) -> int:
+    """One rank of the kill or hang drill: the Trainer of the drill's
+    config (elastic, dp over the fleet, NCCL), step times recorded. The
+    kill drill's rank is SIGKILLed inside the backward of the step after
+    ``kill_after`` (a hook on a parameter's gradient), after a timestamp
+    file; the hang drill stalls its rank through the injector. Either
+    fault fires in the first process of its rank only (the restarted
+    fleet resumes before the fault's step)."""
+    from scaletorch_tpu_torch.resilience_distributed import (
+        WATCHDOG_EXIT_CODE,
+        ElasticRemeshError,
+    )
+
+    try:
+        t = Trainer(fleet_cfg(**drill["cfg"]))
+    except ElasticRemeshError as exc:  # parked (NCCL: gives up at once)
+        result.update(remesh_error=str(exc), end=time.time())
+        return WATCHDOG_EXIT_CODE
+    result["resumed"] = t.global_step
+    marker = os.path.join(directory, "armed")
+    if os.path.exists(marker):
+        t.resilience.injector.host_hang_elastic = 0
+    elif drill["rank"] == int(os.environ["RANK"]):
+        open(marker, "w").close()
+        if "kill_after" in drill:
+            def kill(grad):
+                if t.global_step == drill["kill_after"]:
+                    with open(os.path.join(directory, "killed_at.json"),
+                              "w") as f:
+                        json.dump({"time": time.time(),
+                                   "step": t.global_step}, f)
+                    os.kill(os.getpid(), signal.SIGKILL)
+                return grad
+
+            tree_leaves(t.params)[0].register_hook(kill)
+    marks = timed_steps(t)
+    code = 0
+    try:
+        t.train()
+    except ElasticRemeshError as exc:
+        result["remesh_error"] = str(exc)
+        code = WATCHDOG_EXIT_CODE
+    result.update(step=t.global_step, view=[t.elastic.view.epoch,
+                                            list(t.elastic.view.members)],
+                  counters=t.elastic.counters(), timeline=t.elastic_timeline,
+                  marks=marks, end=time.time())
+    if code == 0:
+        result["digests"] = trainer_digests(t)
+        t.close()
+    return code
+
+
+def sigterm_rank(directory: str, drill: dict) -> dict:
+    """tp2 x dp2 with a SIGTERM to rank 2 after step 3 (``resume``: off),
+    or a resume at the drill's layout and one more step."""
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    t = Trainer(fleet_cfg(**drill["cfg"]))
+    out = {"layout": list(t.mm.shape)}
+    if drill.get("resume"):
+        out["step0"] = t.global_step
+        if drill.get("cut"):  # the slices the saved layout's ranks held
+            out["cut_digests"] = shard_digests(t, MeshManager(
+                **drill["cut"]))
+        m = t.step()
+        out.update(loss=float(m["loss"]), step=t.global_step)
+    else:
+        t.train()
+        out.update(preempted=t.preempted, step=t.global_step,
+                   saved=t.emergency_checkpoint_saved,
+                   latest=t.checkpoint_manager.latest_step(),
+                   digests=trainer_digests(t))
+    t.close()
+    return out
+
+
+def coordination_rank(drill: dict) -> dict:
+    """dp4 steps in COORD_WINDOW_STEPS-step windows, coordinated and not
+    in turns (on, off, off, on, ...): each window's seconds."""
+    t = Trainer(fleet_cfg(**drill["cfg"]))
+    t.train(num_steps=2)  # warm-up
+    windows = {"on": [], "off": []}
+    order = ["on", "off", "off", "on"] * COORD_WINDOWS
+    for mode in order[:2 * COORD_WINDOWS]:
+        t.coordinator.enabled = mode == "on"
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        t.train(num_steps=COORD_WINDOW_STEPS)
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        windows[mode].append((time.perf_counter() - t0)
+                             / COORD_WINDOW_STEPS)
+    t.close()
+    return {"step_s": windows}
+
+
+def drill_dir(name: str, drill: dict = None) -> str:
+    d = os.path.abspath(os.path.join(FLEET_DIR, name))
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    if drill is not None:
+        with open(os.path.join(d, "drill.json"), "w") as f:
+            json.dump(drill, f)
+    return d
+
+
+def fleet_nccl_abort() -> dict:
+    """The probe's outcome on this torch (``nccl_abort_rank``), beside
+    what ``dist.can_reform_in_process`` assumes for NCCL; the probe must
+    end within its bounds either way."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    d = drill_dir("nccl_abort")
+    # elastic supervision: rank 1's SIGKILL must not end rank 0
+    rc = launch_ranks(2, ["--fleet-worker", d, "nccl_abort"], d,
+                      elastic=True, timeout=300)
+    res = rank_results(d)
+    check((0, 0) in res, f"nccl_abort: rank 0 wrote nothing (launch {rc})")
+    r = res[(0, 0)]
+    check(r["first_all_reduce"], f"nccl_abort: {r}")
+    return {**{k: r[k] for k in ("raised", "returned", "error", "detect_s",
+                                 "reformed_all_reduce", "torch")},
+            "in_place_assumed": stdist.can_reform_in_process("nccl")}
+
+
+def elastic_drill(name: str, cfg: dict, **drill):
+    """Launch an elastic drill of ``cfg`` on 4 ranks (one fleet restart
+    allowed); (the launch's exit code, every rank result, the launch's
+    events, the kill's record or None)."""
+    d = drill_dir(name)
+    ckpt = os.path.join(d, "ckpt")
+    with open(os.path.join(d, "drill.json"), "w") as f:
+        json.dump({"cfg": dict(
+            ckpt=ckpt, data_parallel_size=4, elastic=True, resume="auto",
+            elastic_deadline_seconds=ELASTIC_DEADLINE_S,
+            elastic_heartbeat_seconds=1.0, **cfg), "rank": 2, **drill}, f)
+    rc = launch_ranks(4, ["--fleet-worker", d, "elastic"], d, elastic=True,
+                      max_restarts=1,
+                      membership=os.path.join(ckpt, "membership"))
+    killed = None
+    if os.path.exists(os.path.join(d, "killed_at.json")):
+        with open(os.path.join(d, "killed_at.json")) as f:
+            killed = json.load(f)
+    return rc, rank_results(d, every=True), launch_events(d), killed
+
+
+def fleet_finish(every: list, events: list, what: str) -> list:
+    """The 4 ranks the restarted fleet ran: resumed from step 2, at
+    FLEET_STEPS with equal parameters; one fleet restart."""
+    fin = [r for r in every if r.get("digests")]
+    check(len(fin) == 4 and sorted(r["rank"] for r in fin) == [0, 1, 2, 3]
+          and all(r["step"] == FLEET_STEPS for r in fin)
+          and all(r["digests"] == fin[0]["digests"] for r in fin),
+          f"{what}: the finishing ranks {[(r['rank'], r['step']) for r in fin]}"
+          " do not end alike at the last step")
+    check(all(r["resumed"] == 2 for r in fin),
+          f"{what}: the restarted fleet resumed {[r['resumed'] for r in fin]}"
+          ", not step 2")
+    restarts = [e for e in events if e["event"] == "fleet_restart"]
+    check(len(restarts) == 1, f"{what}: {len(restarts)} fleet restarts")
+    return fin
+
+
+def first_exits(events: list) -> dict:
+    """rank -> (exit code, time) of each rank's first process."""
+    out = {}
+    for e in events:
+        if e["event"] == "exit" and e["rank"] not in out:
+            out[e["rank"]] = (e["code"], e["time"])
+    return out
+
+
+def step_times(marks, lo: float, hi: float) -> list:
+    return [end - start for _, start, end in marks if lo <= start < hi]
+
+
+def fleet_elastic_kill() -> dict:
+    """Rank 2 SIGKILLed inside the backward of step 4 (after step 3) of
+    the headline row at dp4: the survivors, blocked in the step's NCCL
+    gradient all-reduce, are ended by NCCL's watchdog at the groups'
+    timeout (the elastic deadline) — an NCCL group is not re-formed in
+    place (``dist.can_reform_in_process``) — their relaunches give up at
+    once (43), and the launcher restarts the fleet, which resumes from
+    step 2 and ends alike at FLEET_STEPS."""
+    rc, every, events, killed = elastic_drill("elastic_kill", {},
+                                              kill_after=3)
+    check(rc == 0, f"elastic_kill: launch exited {rc}")
+    check(killed is not None and killed["step"] == 3,
+          f"elastic_kill: killed at {killed}")
+    fin = fleet_finish(every, events, "elastic_kill")
+    ends = first_exits(events)
+    ended = {r: t - killed["time"] for r, (_, t) in ends.items() if r != 2}
+    check(sorted(ended) == [0, 1, 3]
+          and max(ended.values()) <= ELASTIC_DETECT_LIMIT_S,
+          f"elastic_kill: the survivors ended {ended} s after the kill "
+          f"(limit {ELASTIC_DETECT_LIMIT_S} s)")
+    restart = next(e["time"] for e in events
+                   if e["event"] == "fleet_restart")
+    first = min(fin, key=lambda r: r["rank"])
+    marks = first["marks"]
+    return {"survivor_exit_codes": {r: ends[r][0] for r in (0, 1, 3)},
+            "detection_s": sorted(ended.values()),
+            "fleet_restart_s": restart - killed["time"],
+            "recovery_s": min(end for _, start, end in marks
+                              if start > restart) - killed["time"],
+            "step_s_after_restart": step_times(marks, restart,
+                                               float("inf"))}
+
+
+def fleet_elastic_hang() -> dict:
+    """``ft_host_hang_elastic`` on rank 2 for ELASTIC_HANG_S after step
+    3: the survivors' bounded collective (the decision bus's gather, or
+    NCCL's watchdog) ends their wait at the deadline and they give up
+    (an NCCL group is not re-formed in place); the wedged rank, awake,
+    finds its peers gone and exits 43 (``ElasticRemeshError``); the
+    fleet restarts (the wedged rank with it) and finishes from step 2."""
+    rc, every, events, _ = elastic_drill(
+        "elastic_hang", dict(ft_host_hang_elastic=3, ft_kill_host=2,
+                             ft_host_hang_seconds=ELASTIC_HANG_S))
+    check(rc == 0, f"elastic_hang: launch exited {rc}")
+    fleet_finish(every, events, "elastic_hang")
+    ends = first_exits(events)
+    w = min((r for r in every if r["rank"] == 2), key=lambda r: r["start"])
+    check(ends[2][0] == 43 and w.get("remesh_error"),
+          f"elastic_hang: the wedged rank exited {ends[2][0]}: "
+          f"{w.get('remesh_error')}")
+    # the stall starts at step 3's boundary
+    hang = next(end for step, _, end in w["marks"] if step == 3)
+    ended = {r: ends[r][1] - hang for r in (0, 1, 3)}
+    check(max(ended.values()) <= ELASTIC_DETECT_LIMIT_S
+          + 2 * ELASTIC_DEADLINE_S,
+          f"elastic_hang: the survivors ended {ended} s into the stall")
+    return {"survivor_exit_codes": {r: ends[r][0] for r in (0, 1, 3)},
+            "survivors_end_s": ended,
+            "wedged_end_s": ends[2][1] - hang,
+            "wedged_counters": w["counters"]}
+
+
+def fleet_sigterm() -> dict:
+    """SIGTERM to rank 2 of tp2 x dp2 after step 3 (fp32, so the resumed
+    step is held to TRAIN_PARITY): every rank saves the same emergency
+    step and exits 0; a dp4 resume holds the saved tensors bit for bit
+    and its next loss matches the tp2 x dp2 run's next loss."""
+    ckpt = os.path.abspath(os.path.join(FLEET_DIR, "sigterm_ckpt"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = dict(ckpt=ckpt, dtype="float32", save_frequency=0)
+    tp = dict(tensor_parallel_size=2, data_parallel_size=2)
+    # 4 rows a step in both layouts: the resumed runs draw the same batch
+    d = drill_dir("sigterm", {"cfg": dict(base, **tp, micro_batch_size=2,
+                                          ft_sigterm_at_step=3,
+                                          ft_sigterm_host=2)})
+    rc = launch_ranks(4, ["--fleet-worker", d, "sigterm"], d)
+    res = rank_results(d)
+    check(rc == 0 and len(res) == 4, f"sigterm: launch {rc}, {sorted(res)}")
+    got = [(res[(r, 0)]["preempted"], res[(r, 0)]["step"],
+            res[(r, 0)]["saved"], res[(r, 0)]["latest"]) for r in range(4)]
+    check(got == [(True, 3, True, 3)] * 4, f"sigterm: {got}")
+    saved = [res[(r, 0)]["digests"] for r in range(4)]
+    d2 = drill_dir("sigterm_straight", {"cfg": dict(base, **tp,
+                                                    micro_batch_size=2,
+                                                    resume="must"),
+                                        "resume": True})
+    check(launch_ranks(4, ["--fleet-worker", d2, "sigterm"], d2) == 0,
+          "sigterm: the tp2 x dp2 resume failed")
+    straight = rank_results(d2)
+    d3 = drill_dir("sigterm_dp4", {"cfg": dict(base, data_parallel_size=4,
+                                               resume="must"),
+                                   "resume": True,
+                                   "cut": {"tp": 2, "dp": 2}})
+    check(launch_ranks(4, ["--fleet-worker", d3, "sigterm"], d3) == 0,
+          "sigterm: the dp4 resume failed")
+    dp4 = rank_results(d3)
+    for r in range(4):
+        cut = dp4[(r, 0)]["cut_digests"]
+        check(dp4[(r, 0)]["step0"] == 3 and cut == saved,
+              f"sigterm: dp4 rank {r} does not hold the saved tensors")
+    loss_tp = straight[(0, 0)]["loss"]
+    losses = [dp4[(r, 0)]["loss"] for r in range(4)]
+    check(len(set(losses)) == 1, f"sigterm: dp4 losses differ {losses}")
+    check(abs(losses[0] - loss_tp) <= TRAIN_PARITY["loss_abs"],
+          f"sigterm: dp4 step-4 loss {losses[0]} vs tp2 x dp2 {loss_tp}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"step4_loss_dp4": losses[0], "step4_loss_tp2_dp2": loss_tp,
+            "abs_diff": abs(losses[0] - loss_tp)}
+
+
+def fleet_coordination() -> dict:
+    d = drill_dir("coordination", {"cfg": dict(
+        ckpt=None, data_parallel_size=4, save_frequency=0)})
+    check(launch_ranks(4, ["--fleet-worker", d, "coordination"], d) == 0,
+          "coordination_cost: launch failed")
+    w = rank_results(d)[(0, 0)]["step_s"]
+    on, off = statistics.median(w["on"]), statistics.median(w["off"])
+    return {"step_s_on": w["on"], "step_s_off": w["off"],
+            "median_on": on, "median_off": off,
+            "change": on / off - 1.0,
+            "separated": min(w["on"]) > max(w["off"])
+            or max(w["on"]) < min(w["off"])}
+
+
+FLEET_DRILLS = {"nccl_abort": fleet_nccl_abort,
+                "elastic_kill": fleet_elastic_kill,
+                "elastic_hang": fleet_elastic_hang,
+                "sigterm_one_rank": fleet_sigterm,
+                "coordination_cost": fleet_coordination}
+
+
+def phase_runtime_fleet(drills=tuple(FLEET_DRILLS)) -> dict:
+    """The four-card drills of the multi-process runtime, each under
+    ``scaletorch_tpu_torch.launch`` (one process a card)."""
+    world = torch.cuda.device_count()
+    check(world >= 4, f"runtime_fleet: needs 4 cards, found {world}")
+    out = {}
+    for name in drills:
+        t0 = time.monotonic()
+        out[name] = FLEET_DRILLS[name]()
+        out[name]["seconds"] = time.monotonic() - t0
+        emit(f"runtime_fleet_{name}", **out[name])
+    out["nvidia_smi"] = card_name_and_power_limit()
+    emit("runtime_fleet", nvidia_smi=out["nvidia_smi"],
+         drills=list(drills))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -5110,6 +5850,9 @@ def main() -> int:
     timed("moe_train_save_attn", phase_moe_train_save_attn)
     gc.collect()
     torch.cuda.empty_cache()
+    timed("runtime_multiproc", phase_runtime_multiproc)
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("parallel", phase_parallel)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()))
     emit("kernels", kernels=[
@@ -5168,4 +5911,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase_parallel
         sys.exit(parallel_worker(sys.argv[2], sys.argv[3].split(",")))
+    if sys.argv[1:2] == ["--fleet-worker"]:  # a rank of a fleet drill
+        sys.exit(fleet_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -364,11 +364,10 @@ class CheckpointArguments:
 
 @dataclass
 class ResilienceArguments:
-    """Fault-tolerance knobs (``resilience.py``): divergence sentinel
-    policy, preemption handling, and fault-injection hooks. The
-    multi-process fields keep their names and defaults; a value that asks
-    for more than one process raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 6c)."""
+    """Fault-tolerance knobs (``resilience.py``,
+    ``resilience_distributed.py``): divergence sentinel policy,
+    preemption handling, the coordinated and elastic multi-process paths,
+    and fault-injection hooks."""
 
     nonfinite_guard: bool = field(
         default=True,
@@ -430,10 +429,11 @@ class ResilienceArguments:
                           "across hosts on multi-process runs: host 0 "
                           "forms each decision (sentinel action, stop "
                           "request, checkpoint retry/fallback) from the "
-                          "all-gathered per-host observations and "
-                          "broadcasts it, so every host acts in "
-                          "lockstep. Costs one small object gather + "
-                          "broadcast per optimizer step. Env override: "
+                          "all-gathered per-host observations (every "
+                          "host forms the same one from the same gather), "
+                          "so every host acts in lockstep. Costs one "
+                          "small object gather per optimizer step. Env "
+                          "override: "
                           "SCALETORCH_TPU_FT_COORDINATE."},
     )
     ft_hang_timeout: float = field(
@@ -754,18 +754,6 @@ class ResilienceArguments:
                 f"ft_gw_tenant_storm_count must be >= 1, "
                 f"got {self.ft_gw_tenant_storm_count}"
             )
-        # the coordinated and elastic multi-process paths wait for
-        # ROADMAP Queue 1 item 6c
-        asks = [name for name, on in (
-            ("elastic", self.elastic),
-            ("ft_sigterm_host", self.ft_sigterm_host > 0),
-            ("ft_kill_host", self.ft_kill_host > 0),
-            ("ft_host_hang_elastic", self.ft_host_hang_elastic > 0),
-        ) if on]
-        if asks:
-            raise NotImplementedError(
-                f"{', '.join(asks)}: the multi-process resilience paths "
-                "are ROADMAP Queue 1 item 6c")
 
 
 @dataclass
@@ -940,6 +928,35 @@ class ScaleTorchTPUArguments(
         # for 'auto' that never weakens an explicit 'must'
         if self.resume_from_checkpoint and self.resume == "off":
             self.resume = "auto"
+        if self.elastic:
+            # every membership change restores the newest checkpoint onto
+            # the new topology: a config that cannot resume, or whose
+            # geometry cannot shed a process, is refused here
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "--elastic requires --checkpoint_dir: every membership "
+                    "transition restores from the latest checkpoint")
+            if self.resume == "off":
+                raise ValueError(
+                    "--elastic requires --resume auto|must: survivors (and "
+                    "relaunched processes) continue by restoring, never "
+                    "from scratch")
+            if self.num_processes:
+                if self.elastic_min_hosts > self.num_processes:
+                    raise ValueError(
+                        f"--elastic_min_hosts {self.elastic_min_hosts} > "
+                        f"--num_processes {self.num_processes}: the fleet "
+                        "could never satisfy its own floor — lower "
+                        "elastic_min_hosts or launch more processes")
+                if (self.num_processes > 1
+                        and self.data_parallel_size % self.num_processes):
+                    raise ValueError(
+                        f"--elastic needs data_parallel_size "
+                        f"{self.data_parallel_size} divisible by "
+                        f"num_processes {self.num_processes} so each process "
+                        "holds whole dp replicas; otherwise tp/pp/cp/ep "
+                        "span processes and none can be shed — raise dp or "
+                        "disable --elastic")
         if self.sequence_length % self.context_parallel_size:
             raise ValueError(
                 f"sequence_length {self.sequence_length} not divisible by "

@@ -115,6 +115,26 @@ class MicroBatchDataLoader:
         rng = np.random.default_rng(self.seed + self.epoch)
         return rng.permutation(len(self.tokens))
 
+    def set_data_parallel_size(self, data_parallel_size: int) -> None:
+        """Adopt a new dp degree in place (an elastic remesh). Only the
+        step geometry changes (global batch, samples per step); the epoch
+        permutation does not depend on dp, so the caller re-seats
+        ``position`` with ``remap_loader_position`` and ``set_state`` and
+        drops any live iterator."""
+        if data_parallel_size < 1:
+            raise ValueError(
+                f"data_parallel_size must be >= 1, got {data_parallel_size}"
+            )
+        self.dp = data_parallel_size
+        self.global_batch_size = self.micro_batch_size * data_parallel_size
+        self.samples_per_step = self.global_batch_size * self.grad_accum
+        if len(self.tokens) < self.samples_per_step:
+            raise ValueError(
+                f"dataset has {len(self.tokens)} sequences < "
+                f"{self.samples_per_step} needed per step after the dp "
+                "change"
+            )
+
     def set_state(self, steps_consumed: int) -> None:
         """Fast-forward to just after ``steps_consumed`` step batches.
         Index-only: no data is read. A live iterator predates the new
@@ -209,6 +229,16 @@ class SyntheticDataLoader:
         self.dp = data_parallel_size
         self.global_batch_size = micro_batch_size * data_parallel_size
         self.rng = np.random.default_rng(seed)
+
+    def set_data_parallel_size(self, data_parallel_size: int) -> None:
+        """An elastic remesh's new dp degree (the synthetic stream has no
+        position to re-seat)."""
+        if data_parallel_size < 1:
+            raise ValueError(
+                f"data_parallel_size must be >= 1, got {data_parallel_size}"
+            )
+        self.dp = data_parallel_size
+        self.global_batch_size = self.micro_batch_size * data_parallel_size
 
     @property
     def tokens_per_step(self) -> int:

@@ -14,7 +14,16 @@ The reference's ``put_global`` has no counterpart: every rank holds
 plain local shards (``models/convert.shard_numpy_params``,
 ``parallel/spmd.local_batch``), so there is no global array to
 assemble. The object collectives move picklables over the default
-group (``torch.distributed.all_gather_object``).
+group or a gloo group given as ``group`` (``torch.distributed.
+all_gather_object``).
+
+An elastic gloo run (``leave_process_group``, ``join_process_group``)
+leaves a membership epoch's groups without a collective (a peer may be
+dead) and joins the next epoch's group at its own ``file://``
+rendezvous. An NCCL group is never left in place
+(``can_reform_in_process``): NCCL's error handling keeps its default, so
+a collective that outlasts the group's timeout (a lost peer) ends the
+process, and the launcher restarts the fleet.
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ DEFAULT_PORT = "29500"
 DEFAULT_TIMEOUT_S = 600.0
 
 # whether this module created the default group (shutdown_distributed
-# destroys only a group it made)
+# destroys only a group it made), and the timeout it was made with (the
+# mesh's own groups take it too)
 _owned = False
+_timeout_s = DEFAULT_TIMEOUT_S
 
 
 def _first_env(names: Sequence[str]) -> Optional[str]:
@@ -97,6 +108,12 @@ def local_rank() -> int:
     return int(v) if v is not None else 0
 
 
+def restart_count() -> int:
+    """How many times the launcher restarted this rank (torchrun's and
+    ``launch.py``'s ``TORCHELASTIC_RESTART_COUNT``), else 0."""
+    return int(os.environ.get("TORCHELASTIC_RESTART_COUNT", "0") or 0)
+
+
 def _rendezvous(launcher: str, coordinator_address: Optional[str],
                 num_processes: Optional[int],
                 process_id: Optional[int]):
@@ -127,6 +144,21 @@ def _rendezvous(launcher: str, coordinator_address: Optional[str],
     # a full URL (file://..., tcp://...) is used as it is
     init_method = addr if "://" in addr else f"tcp://{addr}"
     return init_method, int(nproc), int(pid)
+
+
+def launch_identity(launcher: str = "auto",
+                    coordinator_address: Optional[str] = None,
+                    num_processes: Optional[int] = None,
+                    process_id: Optional[int] = None):
+    """``(rank, world)`` as the launcher started this process, before
+    any group exists; ``(0, 1)`` for a single process."""
+    if launcher == "auto":
+        launcher = infer_launcher()
+    if launcher == "none":
+        return 0, 1
+    _, world, rank = _rendezvous(launcher, coordinator_address,
+                                 num_processes, process_id)
+    return rank, world
 
 
 def init_distributed(
@@ -172,6 +204,7 @@ def init_distributed(
         backend, init_method=init_method, world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
     _owned = True
+    _set_timeout(timeout_s)
     get_logger().info(
         f"distributed runtime up: launcher={launcher} backend={backend} "
         f"process {rank}/{world} local_rank={local_rank()}")
@@ -186,16 +219,97 @@ def shutdown_distributed() -> None:
     _owned = False
 
 
+def leave_process_group() -> None:
+    """Destroy the default gloo group and every subgroup without a
+    collective (a peer may be dead). An NCCL group cannot be left so
+    (``can_reform_in_process``)."""
+    global _owned
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        raise RuntimeError("leave_process_group: an NCCL group is not left "
+                           "in place (dist.can_reform_in_process)")
+    dist.destroy_process_group()
+    _owned = False
+
+
+def join_process_group(init_method: str, world: int, rank: int, *,
+                       device: DeviceLike = None,
+                       timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """Form a new default group (after ``leave_process_group``) at
+    ``init_method`` (``file://`` of one membership epoch), NCCL on the
+    card and gloo on the CPU, every wait bounded by ``timeout_s``."""
+    global _owned
+    if dist.is_initialized():
+        raise RuntimeError("join_process_group: leave the current group "
+                           "first")
+    _set_timeout(timeout_s)
+    dev = resolve_device(device)
+    kwargs = {}
+    if dev.type == "cuda":
+        backend = "nccl"
+        kwargs["device_id"] = torch.device("cuda", local_rank())
+    else:
+        backend = "gloo"
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    _owned = True
+    get_logger().info(f"process group formed at {init_method}: "
+                      f"process {rank}/{world} backend={backend}")
+
+
+def _set_timeout(timeout_s: float) -> None:
+    global _timeout_s
+    _timeout_s = float(timeout_s)
+
+
+def group_timeout() -> datetime.timedelta:
+    """The default group's timeout, for every group made beside it
+    (``new_group`` would otherwise take the backend's default, 30 min for
+    gloo, and a lost peer would surface that late)."""
+    return datetime.timedelta(seconds=_timeout_s)
+
+
+def store_barrier(name: str, timeout_s: float) -> None:
+    """Every process of the default group reaches ``name``, waited for
+    on the group's store up to ``timeout_s`` (not the group's timeout: a
+    rank admitted by a grow builds its model between the rendezvous and
+    the restore the members start at once)."""
+    store = dist.distributed_c10d._get_default_store()
+    store.set(f"{name}/{dist.get_rank()}", "1")
+    store.wait([f"{name}/{r}" for r in range(dist.get_world_size())],
+               datetime.timedelta(seconds=timeout_s))
+
+
+def can_reform_in_process(backend: Optional[str] = None) -> bool:
+    """Whether a process can leave a group whose peer died and form the
+    next membership epoch's group in place. Gloo can. NCCL could not on
+    four H100s (torch 2.11.0+cu128): with the communicator-abort error
+    handling, an all-reduce with a SIGKILLed peer never returned within
+    300 s, and the survivors' abort of their NCCL groups ended them with
+    SIGSEGV. An elastic NCCL run therefore takes the reference's
+    fallback, a fleet restart from the newest checkpoint: a survivor
+    that learns of the loss on the gloo decision bus exits 43
+    (``ElasticRemeshError``), and one blocked in an NCCL collective is
+    ended by NCCL's watchdog at the group's timeout (the elastic
+    deadline). ``backend``: the one a group would have (default: the
+    current group's)."""
+    if backend is None:
+        backend = dist.get_backend() if dist.is_initialized() else "gloo"
+    return backend != "nccl"
+
+
 def is_distributed() -> bool:
     return process_count() > 1
 
 
-def process_index() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+def process_index(group: Any = None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
 
 
-def process_count() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def process_count(group: Any = None) -> int:
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def is_main_process() -> bool:
@@ -210,12 +324,14 @@ def barrier(name: str = "barrier") -> None:
         dist.barrier()
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """``[obj_0, ..., obj_{P-1}]`` on every process, in process order."""
-    if process_count() == 1:
+def all_gather_object(obj: Any, group: Any = None) -> List[Any]:
+    """``[obj_0, ..., obj_{P-1}]`` on every process of ``group`` (the
+    default group when None), in process order."""
+    n = process_count(group)
+    if n == 1:
         return [obj]
-    out: List[Any] = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -226,12 +342,14 @@ def gather_object(obj: Any, dst: int = 0) -> Optional[List[Any]]:
     return out if process_index() == dst else None
 
 
-def broadcast_object_list(objs: list, src: int = 0) -> list:
-    """Replace every element with ``src``'s version, in place."""
-    if process_count() == 1:
+def broadcast_object_list(objs: list, src: int = 0,
+                          group: Any = None) -> list:
+    """Replace every element with ``src``'s version (an index into
+    ``group``), in place."""
+    if process_count(group) == 1:
         return list(objs)
-    mine = list(objs) if process_index() == src else None
-    chosen = all_gather_object(mine)[src]
+    mine = list(objs) if process_index(group) == src else None
+    chosen = all_gather_object(mine, group=group)[src]
     if len(chosen) != len(objs):
         raise ValueError(
             f"broadcast_object_list: src={src} holds {len(chosen)} objects, "

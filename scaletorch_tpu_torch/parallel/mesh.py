@@ -29,6 +29,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from scaletorch_tpu_torch import dist as stdist
+
 # tp is fastest-varying (the reference's view(dp, pp, cp, ep, tp))
 MESH_AXES: Tuple[str, ...] = ("dp", "pp", "cp", "ep", "tp")
 # the gradient all-reduce group (the reference's cp_dp_group)
@@ -93,7 +95,7 @@ class MeshManager:
         fused = (DATA_AXES, BATCH_AXES) if self.ep > 1 else (DATA_AXES,)
         for axes in fused:
             for ranks in self.axis_rank_sets(axes):
-                group = dist.new_group(ranks)
+                group = dist.new_group(ranks, timeout=stdist.group_timeout())
                 if self.rank in ranks:
                     self._groups[axes] = group
         self._groups.setdefault(BATCH_AXES, self._groups[DATA_AXES])
@@ -111,6 +113,27 @@ class MeshManager:
         self._groups.clear()
         self._mesh = None
 
+    def forget(self) -> None:
+        """Drop this manager's groups without a collective, after
+        ``dist.leave_process_group`` tore every group down (an elastic
+        membership change); the manager is the grid arithmetic alone
+        afterwards."""
+        self._groups.clear()
+        self._mesh = None
+
+    def checkpoint_group(self):
+        """A gloo group over every rank of the mesh that only the
+        checkpoint's writer thread uses (its collectives must not cross
+        the host group's decisions on the main thread); made once, on the
+        first call, which every rank makes in one order. None without a
+        process group."""
+        if self._mesh is None:
+            return None
+        if ("checkpoint",) not in self._groups:
+            self._groups[("checkpoint",)] = dist.new_group(
+                backend="gloo", timeout=stdist.group_timeout())
+        return self._groups[("checkpoint",)]
+
     def host_group(self):
         """A gloo group over every rank of the mesh, for decisions made on
         the host and shared (the default group when it is gloo; made once,
@@ -121,7 +144,8 @@ class MeshManager:
         if ("host",) not in self._groups:
             self._groups[("host",)] = (
                 dist.group.WORLD if dist.get_backend() == "gloo"
-                else dist.new_group(backend="gloo"))
+                else dist.new_group(backend="gloo",
+                                    timeout=stdist.group_timeout()))
         return self._groups[("host",)]
 
     # ---- sizes --------------------------------------------------------------
@@ -338,3 +362,34 @@ def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(world)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+# ---- elastic remesh (resilience_distributed.ElasticCoordinator) ----------------
+class MeshShrinkError(ValueError):
+    """The requested host-count change cannot be absorbed by the dp axis:
+    the loud abort to the fleet-restart fallback (the trainer turns it
+    into ``ElasticRemeshError``)."""
+
+
+def elastic_mesh_kwargs(kwargs: dict, *, hosts_before: int,
+                        hosts_after: int) -> dict:
+    """Axis sizes for a fleet that changed its process count: dp shrinks
+    (or grows), tp/pp/cp/ep stay. Every process carries ``dp / hosts``
+    whole data-parallel replicas; a geometry where dp does not divide by
+    the process count (tp/pp/cp/ep span processes) raises
+    ``MeshShrinkError``."""
+    if hosts_before < 1 or hosts_after < 1:
+        raise MeshShrinkError(
+            f"host counts must be >= 1, got {hosts_before} -> {hosts_after}")
+    dp = int(kwargs.get("dp", 1))
+    if dp % hosts_before != 0:
+        raise MeshShrinkError(
+            f"elastic remesh needs dp divisible by the host count so every "
+            f"host holds whole dp replicas (dp={dp}, hosts={hosts_before}): "
+            "tp/pp/cp/ep would span hosts and cannot shrink — falling back "
+            "to a fleet restart"
+        )
+    per_host = dp // hosts_before
+    out = dict(kwargs)
+    out["dp"] = per_host * hosts_after
+    return out

@@ -9,8 +9,8 @@ One layer shared by the trainer and the inference engine:
   * ``profiling``  — slow-step-triggered and manual ``torch.profiler``
                      windows, SIGUSR1 live snapshots
   * ``stragglers`` — per-host step and data-fetch times of a
-                     multi-process run (its trainer hook waits for
-                     ROADMAP Queue 1 item 6)
+                     multi-process run, riding the coordinated decision's
+                     gather
   * ``export``     — schema-versioned JSONL event stream and an optional
                      Prometheus text endpoint
   * ``histogram``  — log-bucketed latency histograms

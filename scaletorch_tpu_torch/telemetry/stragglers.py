@@ -22,9 +22,11 @@ already pay for, and host 0 reduces them:
     and crash reports.
 
 Single-process runs have no fleet to compare against; the detector is
-simply not attached there. The trainer hook that feeds it rides the
-multi-process observation gather, which waits for ROADMAP Queue 1 item
-6; the detector itself is ported and tested on recorded timing streams.
+simply not attached there. Over processes the trainer attaches it when
+``straggler_factor`` is set, and the per-process times ride the
+coordinated decision's observation gather (``resilience_distributed.
+CoordinatedResilience.after_step``): rank 0 observes, no collective of
+its own.
 """
 
 from __future__ import annotations

@@ -59,7 +59,9 @@ next step boundary; the log says whether it is on disk, and a restart
 with ``--resume auto`` continues from it), 42 when the divergence
 sentinel aborted (a crash report is under ``--crash_report_dir``), 43
 when the hang watchdog fired (``--ft_hang_timeout``; it exits from its
-own thread), 130 on a KeyboardInterrupt. ``--telemetry_dir D`` writes a
+own thread) or the elastic layer could not continue in place
+(``--elastic``: a fleet restart resumes the run), 130 on a
+KeyboardInterrupt. ``--telemetry_dir D`` writes a
 Chrome trace, the JSONL event stream and profiler windows under D, and
 ``kill -USR1 <pid>`` dumps a live snapshot there.
 """
@@ -94,13 +96,19 @@ def _run(cfg, extra) -> int:
     from scaletorch_tpu_torch.resilience import TrainingDivergedError
     from scaletorch_tpu_torch.resilience_distributed import (
         DIVERGED_EXIT_CODE,
+        WATCHDOG_EXIT_CODE,
+        ElasticRemeshError,
     )
     from scaletorch_tpu_torch.trainer.trainer import Trainer
     from scaletorch_tpu_torch.utils.logger import get_logger
 
-    # with --resume auto|must the Trainer restores the newest checkpoint
-    trainer = Trainer(cfg, device=extra["--device"])
     log = get_logger()
+    # with --resume auto|must the Trainer restores the newest checkpoint
+    try:
+        trainer = Trainer(cfg, device=extra["--device"])
+    except ElasticRemeshError as exc:  # a parked rank never admitted
+        log.error(f"elastic continuation impossible: {exc}")
+        return WATCHDOG_EXIT_CODE
     if trainer.telemetry.enabled:
         log.info(f"telemetry enabled -> {trainer.telemetry.directory} "
                  "(Chrome trace + JSONL event stream; kill -USR1 "
@@ -131,6 +139,18 @@ def _run(cfg, extra) -> int:
         # "diverged, needs a human" from "preempted, just restart"
         log.error(f"training aborted: {exc}")
         return DIVERGED_EXIT_CODE
+    except ElasticRemeshError as exc:
+        # the elastic layer cannot continue in place (membership below
+        # its floor, an unshrinkable mesh, a group that cannot be
+        # re-formed): the restartable code, for the launcher's fleet
+        # restart from the newest checkpoint. The process group may hold
+        # the lost peer, and a teardown (an NCCL destroy) would wait on
+        # it: the process ends here, without one
+        log.error(f"elastic continuation impossible: {exc}")
+        trainer.close()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(WATCHDOG_EXIT_CODE)
     except KeyboardInterrupt:
         log.warning("interrupted; exiting")
         return 130

@@ -42,9 +42,11 @@ each step feeds the rank its part of the global batch
 the gradient wire format (``grad_allreduce_dtype``) the config names. A
 Qwen3-MoE logs its routing statistics (``moe_dropped_fraction``,
 ``moe_load_cv``). Logs and the metrics JSON come from rank 0 only.
-Checkpoints and the HF export of sharded parameters wait for ROADMAP
-Queue 1 item 6c and raise. Adafactor reduces its statistics over the
-split dims of each shard (``trainer/factored.py``).
+Adafactor reduces its statistics over the split dims of each shard
+(``trainer/factored.py``). Checkpoints over processes are global
+tensors written once per distinct shard and agreed on the decision bus
+(``utils/checkpoint.py``); ``export_hf`` gathers the shards leaf by leaf
+to rank 0, in the model's layer order, and writes the one-card files.
 
 The runtime around the loop follows the reference's: a
 ``ResilienceManager`` (divergence sentinel with skip, rollback or abort;
@@ -54,8 +56,20 @@ for an emergency checkpoint at the next step boundary and a clean
 return with ``preempted`` set), a ``HangWatchdog`` when
 ``ft_hang_timeout`` > 0, a crash report on every abort path, and the
 ``Telemetry`` facade (spans, the JSONL stream, profiler windows, SIGUSR1
-live snapshots) when ``telemetry_dir`` is set. The multi-process
-decisions and the elastic paths wait for ROADMAP Queue 1 item 6c.
+live snapshots) when ``telemetry_dir`` is set. Over processes every
+control decision is coordinated (``CoordinatedResilience`` on a gloo
+``DecisionBus``: one rank's SIGTERM is a collective emergency save at one
+step, one rank's NaN a fleet-wide skip, rollback or abort), with a
+``StragglerDetector`` on rank 0 when ``straggler_factor`` is set. With
+``elastic`` an ``ElasticCoordinator`` keeps the membership: a lost peer
+(``PeerLostError``) makes the survivors agree a smaller epoch, re-form
+their process group at the epoch's rendezvous, rebuild the mesh with dp
+absorbing the change and restore the newest checkpoint; a relaunched rank
+parks until a checkpoint boundary readmits it; the run ends at the same
+``total_train_steps``. An NCCL group cannot be re-formed in place
+(``dist.can_reform_in_process``): there the elastic layer hands over to
+the launcher's fleet restart (exit 43, or NCCL's watchdog ending a rank
+blocked on the lost peer at the group's timeout).
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scaletorch_tpu_torch import dist as stdist
 from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
@@ -90,7 +105,11 @@ from scaletorch_tpu_torch.parallel.cp_select import resolve_cp_backend
 from scaletorch_tpu_torch.parallel.expert_parallel import (
     validate_ep_divisibility,
 )
-from scaletorch_tpu_torch.parallel.mesh import setup_mesh_manager
+from scaletorch_tpu_torch.parallel.mesh import (
+    MeshShrinkError,
+    elastic_mesh_kwargs,
+    setup_mesh_manager,
+)
 from scaletorch_tpu_torch.parallel.pipeline_parallel import (
     stage_layer_layout,
     suggest_virtual_stages,
@@ -110,11 +129,20 @@ from scaletorch_tpu_torch.resilience import (
 )
 from scaletorch_tpu_torch.resilience_distributed import (
     CoordinatedResilience,
+    DecisionBus,
+    ElasticCoordinator,
+    ElasticRemeshError,
     HangWatchdog,
+    PeerLostError,
     hang_timeout_from_config,
+    is_transport_error,
     write_crash_report,
 )
-from scaletorch_tpu_torch.telemetry import NOOP_SPAN, Telemetry
+from scaletorch_tpu_torch.telemetry import (
+    NOOP_SPAN,
+    StragglerDetector,
+    Telemetry,
+)
 from scaletorch_tpu_torch.trainer.metrics import MetricsLogger
 from scaletorch_tpu_torch.trainer.optimizer import (
     create_optimizer,
@@ -132,6 +160,9 @@ from scaletorch_tpu_torch.utils.misc import (
 )
 
 _DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# in-place remeshes (every member alive) at one step before a further
+# transport error there is raised as itself
+MAX_SPURIOUS_REMESHES = 2
 
 
 def build_model_config(cfg: ScaleTorchTPUArguments):
@@ -260,15 +291,31 @@ class Trainer:
         self.logger = get_logger(log_file=cfg.log_file)
         # the process group first: everything after may be collective
         device = resolve_device(device)
-        stdist.init_distributed(
-            cfg.distributed_launcher,
-            coordinator_address=cfg.coordinator_address,
-            num_processes=cfg.num_processes, process_id=cfg.process_id,
-            device=device)
+        # spans, the JSONL stream, profiler windows and SIGUSR1 snapshots:
+        # every component None (one branch a site) without telemetry_dir;
+        # named by the launch rank, and up before the membership records
+        self.telemetry = Telemetry.from_config(
+            cfg, process_index=stdist.launch_identity(
+                cfg.distributed_launcher, cfg.coordinator_address,
+                cfg.num_processes, cfg.process_id)[0])
+        self._tracer = self.telemetry.tracer
+        # with elastic, the membership decides which group to form: a
+        # relaunched rank the fleet shed parks here until a grow admits it
+        self.elastic: Optional[ElasticCoordinator] = None
+        view = self._elastic_membership(device)
+        if view is None or view.epoch == 0:
+            stdist.init_distributed(
+                cfg.distributed_launcher,
+                coordinator_address=cfg.coordinator_address,
+                num_processes=cfg.num_processes, process_id=cfg.process_id,
+                device=device, **self._group_timeout())
+        else:
+            self._join_epoch_group(view, device)
         self.world = stdist.process_count()
         if device.type == "cuda" and self.world > 1:
             device = torch.device("cuda", stdist.local_rank())
         self.device = device
+        self._group_epoch = 0 if view is None else view.epoch
         if not stdist.is_main_process():
             self.logger.setLevel(logging.ERROR)
         if cfg.verbose:
@@ -279,9 +326,17 @@ class Trainer:
             raise NotImplementedError(
                 "donate_params false: the port always updates parameters "
                 "and optimizer state in place")
-        cfg.validate_world_size(self.world)
-        self.mm = setup_mesh_manager(**cfg.mesh_kwargs(),
+        self.mesh_kwargs = self._epoch_mesh_kwargs(view)
+        if self.elastic is None:
+            cfg.validate_world_size(self.world)
+        self.mm = setup_mesh_manager(**self.mesh_kwargs,
                                      device_type=self.device.type)
+        if self.mm.world_size != self.world:
+            raise ElasticRemeshError(
+                f"membership epoch {view.epoch} has {self.world} processes "
+                f"but the mesh {self.mesh_kwargs} needs {self.mm.world_size}")
+        self._make_groups()
+        self._mesh_epoch = self._group_epoch
         self.model_cfg = build_model_config(cfg)
         self.pp_vpp = self._resolve_virtual_stages()
         self.attention_backend = self._resolve_attention_backend()
@@ -332,25 +387,16 @@ class Trainer:
         # drill binds the same injector; the device-side half is the
         # train step's guarded_update
         self.resilience = ResilienceManager.from_config(cfg)
+        if self.elastic is not None:
+            # the drills target a launch rank, whatever the epoch's rank
+            self.resilience.injector.host_index = self.elastic.rank
         self.coordinator = CoordinatedResilience.from_config(
-            cfg, self.resilience)
+            cfg, self.resilience, bus=self._epoch_bus())
         self._watchdog: Optional[HangWatchdog] = None
         self.loader = build_dataloader(cfg, self.model_cfg, tokenizer,
                                        fault_injector=self.resilience.injector)
-        self.step_fn = make_spmd_train_step(
-            self.mm, self.model_cfg, self.optimizer,
-            attention_backend=self.attention_backend,
-            gradient_checkpointing=cfg.gradient_checkpointing,
-            remat_policy=cfg.remat_policy,
-            sequence_parallel=cfg.sequence_parallel,
-            max_grad_norm=cfg.max_grad_norm,
-            cp_layout=cfg.cp_layout,
-            pp_engine=cfg.pp_engine,
-            pp_vpp=self.pp_vpp,
-            grad_allreduce_dtype=cfg.grad_allreduce_dtype,
-            grad_allreduce_axis=cfg.grad_allreduce_axis,
-            grad_allreduce_block_size=cfg.grad_allreduce_block_size,
-        )
+        self._set_loader_dp()
+        self.step_fn = self._make_step_fn()
         # the whole model's count, whatever this rank holds
         self.num_params = (self.model_cfg.num_params() if tp_shard
                            else get_num_params(self.params))
@@ -369,11 +415,15 @@ class Trainer:
             peak_flops=self.peak_flops(),
             device=self.device,
         )
-        # spans, the JSONL stream, profiler windows and SIGUSR1 snapshots:
-        # every component None (one branch a site) without telemetry_dir
-        self.telemetry = Telemetry.from_config(cfg)
-        self._tracer = self.telemetry.tracer
         self.metrics.exporter = self.telemetry.exporter
+        if cfg.straggler_factor and self.coordinator.coordinated:
+            # a fleet to compare: the per-process step and data-fetch
+            # times ride the decision gather, reduced on rank 0
+            self.coordinator.straggler = StragglerDetector(
+                factor=cfg.straggler_factor,
+                patience=cfg.straggler_patience,
+                log_frequency=cfg.log_frequency,
+                tracer=self._tracer)
         self._last_data_fetch_s = 0.0
         if self.telemetry.snapshotter is not None:
             # armed now, not in train(): SIGUSR1's default disposition
@@ -382,6 +432,10 @@ class Trainer:
         self.global_step = 0
         self.tokens_seen = 0
         self.preempted = False
+        # wall-clock marks of each elastic transition (a lost peer, an
+        # adopted epoch's restore), read by the drills
+        self.elastic_timeline: list = []
+        self._spurious_remeshes: Dict[int, int] = {}
         self.emergency_checkpoint_saved = False
         # seconds of the last emergency checkpoint: the drain of a save in
         # flight, the save's blocking snapshot, the wait for its write
@@ -416,7 +470,10 @@ class Trainer:
             f"grad_accum {cfg.gradient_accumulation_steps}, "
             f"gc {cfg.gradient_checkpointing}, "
             f"data {cfg.dataset_name or 'synthetic'}")
-        if cfg.resume != "off" and cfg.checkpoint_dir:
+        # a rank admitted by a grow restores with the fleet, in train()
+        if (cfg.resume != "off" and cfg.checkpoint_dir
+                and not (self.elastic is not None
+                         and self.elastic.needs_join)):
             self.load_checkpoint(required=cfg.resume == "must")
 
     @property
@@ -443,6 +500,145 @@ class Trainer:
         self.global_step += 1
         self.tokens_seen += int(np.prod(np.shape(batch["input_ids"])))
         return m
+
+    # -- processes, membership and the mesh ----------------------------------
+    def _launch_rank(self) -> int:
+        """This process's rank as the launcher started it (its identity
+        across elastic epochs, whose group ranks renumber)."""
+        if self.elastic is not None:
+            return self.elastic.rank
+        return stdist.process_index()
+
+    def _group_timeout(self) -> Dict[str, float]:
+        """An elastic run's groups time out at its deadline, so a dead
+        peer surfaces as an error in time."""
+        if self.elastic is None:
+            return {}
+        return {"timeout_s": float(self.cfg.elastic_deadline_seconds)}
+
+    def _elastic_membership(self, device: torch.device):
+        """With ``elastic``: the coordinator over
+        ``<checkpoint_dir>/membership`` and the epoch this process enters
+        (a relaunched rank the fleet shed waits here, at the rejoin
+        barrier, for a grow epoch that admits it). None without."""
+        cfg = self.cfg
+        if not cfg.elastic:
+            return None
+        rank, world = stdist.launch_identity(
+            cfg.distributed_launcher, cfg.coordinator_address,
+            cfg.num_processes, cfg.process_id)
+        self.elastic = ElasticCoordinator.from_config(
+            cfg, rank=rank, num_hosts=world,
+            bus_factory=lambda view, rank: DecisionBus.default(
+                self.mm.host_group()),
+            exporter=self.telemetry.exporter,
+            relaunched=stdist.restart_count() > 0,
+            # a survivor blocked on the lost peer itself learns of the loss
+            # only at the group's timeout (the deadline), up to one
+            # deadline after the others: the roll call spans that
+            suspect_seconds=2 * float(cfg.elastic_deadline_seconds))
+        self._fleet_hosts = world
+        if not stdist.can_reform_in_process(
+                "nccl" if device.type == "cuda" else "gloo"):
+            # only a group re-formed in place admits a parked rank: here
+            # a parked rank gives up at once, for the fleet restart
+            self.elastic.join_timeout = 0.0
+        if self.elastic.parked:
+            self.logger.warning(
+                f"rank {rank}: the fleet is at membership epoch "
+                f"{self.elastic.view.epoch} without this rank; parking at "
+                "the rejoin barrier")
+            self.elastic.join(step=None)
+        return self.elastic.view
+
+    def _join_epoch_group(self, view, device: torch.device) -> None:
+        """Form the default group of membership epoch ``view`` at its
+        rendezvous (every member calls this for the same epoch)."""
+        store = self.elastic.store
+        stdist.join_process_group(
+            store.rendezvous(view.epoch), view.num_hosts,
+            view.bus_index(self.elastic.rank), device=device,
+            **self._group_timeout())
+        self._group_epoch = view.epoch
+
+    def _make_groups(self) -> None:
+        """The mesh's host-side gloo groups, made by every rank in one
+        order right after the mesh: the decision bus's, and the
+        checkpoint's own (its writer thread uses it alone)."""
+        if self.mm.mesh is not None:
+            self.mm.host_group()
+            if self.cfg.checkpoint_dir:
+                self.mm.checkpoint_group()
+
+    def _epoch_mesh_kwargs(self, view) -> Dict[str, int]:
+        """The mesh of this epoch: the config's, its dp scaled by the
+        membership (``elastic_mesh_kwargs``; an unshrinkable geometry
+        raises ``ElasticRemeshError``)."""
+        kwargs = self.cfg.mesh_kwargs()
+        if self.elastic is None:
+            return kwargs
+        try:
+            return elastic_mesh_kwargs(kwargs, hosts_before=self._fleet_hosts,
+                                       hosts_after=view.num_hosts)
+        except MeshShrinkError as exc:
+            raise ElasticRemeshError(str(exc)) from exc
+
+    def _epoch_bus(self) -> Optional[DecisionBus]:
+        """The decision bus over this epoch's processes (a gloo group),
+        transport failures raised as ``PeerLostError`` under elastic;
+        None for one process."""
+        if self.elastic is not None:
+            return self.elastic.bus
+        if self.world == 1:
+            return None
+        return DecisionBus.default(self.mm.host_group())
+
+    def _set_loader_dp(self) -> None:
+        """The loader's dp degree for this mesh (an elastic epoch's)."""
+        dp = self.mesh_kwargs["dp"] * self.cfg.expert_parallel_size
+        if (hasattr(self.loader, "set_data_parallel_size")
+                and self.loader.dp != dp):
+            self.loader.set_data_parallel_size(dp)
+
+    def _make_step_fn(self):
+        cfg = self.cfg
+        return make_spmd_train_step(
+            self.mm, self.model_cfg, self.optimizer,
+            attention_backend=self.attention_backend,
+            gradient_checkpointing=cfg.gradient_checkpointing,
+            remat_policy=cfg.remat_policy,
+            sequence_parallel=cfg.sequence_parallel,
+            max_grad_norm=cfg.max_grad_norm,
+            cp_layout=cfg.cp_layout,
+            pp_engine=cfg.pp_engine,
+            pp_vpp=self.pp_vpp,
+            grad_allreduce_dtype=cfg.grad_allreduce_dtype,
+            grad_allreduce_axis=cfg.grad_allreduce_axis,
+            grad_allreduce_block_size=cfg.grad_allreduce_block_size,
+        )
+
+    def _stacked_layout(self) -> Dict[str, Any]:
+        """How the stacked layer axis lies in the parameters (the
+        checkpoint records it): the model's order, or the pp padding or
+        interleave order a checkpoint must be restored at."""
+        if self.layer_layout is None:
+            return {"stacked": "plain"}
+        return {"stacked": self.cfg.pp_engine, "pp": self.mm.pp,
+                "vpp": self.pp_vpp,
+                "layers": self.model_cfg.num_hidden_layers}
+
+    def _agree_all(self, flag: bool) -> bool:
+        """True iff every process holds True (the identity for one): a
+        branch whose arms run different collectives is taken from an
+        agreed flag, never from one process's view."""
+        if self.coordinator.coordinated:
+            return self.coordinator.bus.agree_all(flag)
+        return bool(flag)
+
+    def _agree_any(self, flag: bool) -> bool:
+        if self.coordinator.coordinated:
+            return self.coordinator.bus.agree_any(flag)
+        return bool(flag)
 
     def peak_flops(self) -> Optional[float]:
         """The dense peak of every card of the run together, for MFU per
@@ -577,12 +773,10 @@ class Trainer:
 
             if not self.cfg.checkpoint_dir:
                 raise ValueError("checkpoints need --checkpoint_dir")
-            if self.world > 1:
-                # the DCP writer would store every rank's shard under one
-                # key
-                raise NotImplementedError(
-                    "checkpoint save and resume over more than one process "
-                    "are ROADMAP Queue 1 item 6c")
+            # with a process group: global tensors of this mesh's layout,
+            # DCP over the checkpoint's own gloo group; over processes
+            # every decision agreed on the epoch's bus
+            pg = self.mm.mesh is not None
             self._ckpt_mgr = CheckpointManager(
                 self.cfg.checkpoint_dir,
                 keep_n=self.cfg.keep_n_checkpoints,
@@ -591,6 +785,11 @@ class Trainer:
                 retry_base_delay=self.cfg.checkpoint_retry_base_delay,
                 fault_injector=self.resilience.injector,
                 verify=self.cfg.checkpoint_verify,
+                decision_bus=self._epoch_bus() if self.world > 1 else None,
+                mesh=self.mm,
+                split_dims=shard_dims(self.model_cfg),
+                group=self.mm.checkpoint_group() if pg else None,
+                layout=self._stacked_layout(),
             )
         return self._ckpt_mgr
 
@@ -621,14 +820,18 @@ class Trainer:
             self._saved_loader_position = position
         return saved
 
-    def load_checkpoint(self, required: bool = False) -> bool:
+    def load_checkpoint(self, required: bool = False,
+                        target_mesh: Any = None) -> bool:
         """Restore the newest readable checkpoint in place; returns
         whether one was restored. ``required`` (``--resume must``) raises
         when none restores. The loader is fast-forwarded to the saved
-        ``loader_position`` (translated if the step size changed; ahead
-        of the step after a rollback) and the live iterator dropped."""
+        ``loader_position`` (translated if the step size changed, as after
+        an elastic dp change; ahead of the step after a rollback) and the
+        live iterator dropped. ``target_mesh``: the mesh the live shards
+        lie on, when it changed since the manager was made."""
         restored = self.checkpoint_manager.load_latest(
-            params=self.params, opt_state=self.opt_state)
+            params=self.params, opt_state=self.opt_state,
+            target_mesh=target_mesh)
         if restored is None:
             if required:
                 raise FileNotFoundError(
@@ -666,7 +869,10 @@ class Trainer:
         if not self.cfg.checkpoint_dir:
             return False
         self.checkpoint_manager.wait()
-        if self.checkpoint_manager.latest_step() is None:
+        # agreed before any process can return early: either every
+        # process restores or every process skips
+        if not self._agree_all(
+                self.checkpoint_manager.latest_step() is not None):
             return False
         self.logger.warning(
             f"divergence at step {anomaly_step}: rolling back to the last "
@@ -706,8 +912,13 @@ class Trainer:
         mgr.wait()
         drained = time.perf_counter()
         self.emergency_timing["drain_s"] = drained - t0
-        if mgr.latest_step() == self.global_step:
-            if self._saved_loader_position == self._stream_position():
+        # every branch below is taken from an agreed flag, so all
+        # processes run the same collectives
+        if self._agree_any(mgr.latest_step() == self.global_step):
+            if self._agree_all(
+                    mgr.latest_step() == self.global_step
+                    and self._saved_loader_position
+                    == self._stream_position()):
                 # the cadence already saved this very state
                 self.logger.warning(
                     f"preemption requested (signal {sig}): step "
@@ -715,13 +926,16 @@ class Trainer:
                 self.emergency_checkpoint_saved = True
                 return True
             # same step, stale loader position (a rollback moved the
-            # stream after it was saved): replace it
-            try:
-                mgr.delete(self.global_step)
-            except OSError as exc:
-                self.logger.error(
-                    f"could not replace stale checkpoint at step "
-                    f"{self.global_step}: {exc!r}")
+            # stream after it was saved): replace it, rank 0 alone on the
+            # shared directory, seen by every process before the save
+            if stdist.is_main_process():
+                try:
+                    mgr.delete(self.global_step)
+                except OSError as exc:
+                    self.logger.error(
+                        f"could not replace stale checkpoint at step "
+                        f"{self.global_step}: {exc!r}")
+            self._agree_all(True)
         self.logger.warning(
             f"preemption requested (signal {sig}): writing emergency "
             f"checkpoint at step {self.global_step}")
@@ -732,8 +946,10 @@ class Trainer:
             blocking_s=saved_at - drained,
             write_s=time.perf_counter() - saved_at,
             total_s=time.perf_counter() - t0)
-        # the directory is the ground truth of "is my step on disk"
-        saved = saved and mgr.latest_step() == self.global_step
+        # the directory is the ground truth of "is my step on disk", and
+        # the verdict is the fleet's
+        saved = self._agree_all(saved and mgr.latest_step()
+                                == self.global_step)
         self.emergency_checkpoint_saved = saved
         return saved
 
@@ -766,6 +982,7 @@ class Trainer:
             counters=self.resilience.counters(),
             thread_stacks=thread_stacks,
             span_tail=self.telemetry.span_tail(),
+            process_index=self._launch_rank(),
         )
 
     def _live_snapshot(self) -> Dict[str, Any]:
@@ -795,21 +1012,34 @@ class Trainer:
                   max_shard_bytes: int = 5 * 1024 ** 3) -> str:
         """Write the parameters as a HF checkpoint directory: safetensors
         (``save_hf_params``) and its ``config.json``. Returns the
-        safetensors file's path, or the index's when sharded."""
+        safetensors file's path, or the index's when sharded ('' off rank
+        0). Parameters split over tp, pp or ep are gathered to rank 0 leaf
+        by leaf (``save_hf_params_sharded``; every rank calls this): the
+        files are a one-card export's."""
+        from scaletorch_tpu_torch.parallel.pipeline_parallel import (
+            stage_layer_unlayout,
+        )
         from scaletorch_tpu_torch.utils.hf_interop import (
             hf_config_dict,
             save_hf_params,
+            save_hf_params_sharded,
         )
 
         if self.mm.tp * self.mm.pp * self.mm.ep > 1:
-            raise NotImplementedError(
-                "export of sharded parameters (a gather of every rank's "
-                "slices) is ROADMAP Queue 1 item 6c")
+            out = save_hf_params_sharded(
+                path, self.params, self.model_cfg, self.mm,
+                group=self.mm.host_group(),
+                unlayout=stage_layer_unlayout(
+                    self.model_cfg.num_hidden_layers, self.mm.pp,
+                    self.cfg.pp_engine, self.pp_vpp),
+                dtype=dtype, max_shard_bytes=max_shard_bytes)
+        elif stdist.is_main_process():
+            out = save_hf_params(path, self.params, self.model_cfg,
+                                 dtype=dtype, max_shard_bytes=max_shard_bytes)
+        else:
+            return ""
         if not stdist.is_main_process():
             return ""
-
-        out = save_hf_params(path, self.params, self.model_cfg, dtype=dtype,
-                             max_shard_bytes=max_shard_bytes)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(hf_config_dict(self.model_cfg, dtype), f, indent=2)
         self.logger.info(f"HF weights written to {path}")
@@ -845,57 +1075,41 @@ class Trainer:
         profiler = self.telemetry.profiler
         self.metrics.start_window(self.global_step)
         try:
-            while self.global_step < target:
-                self._beat("step_boundary")
-                t_boundary = time.perf_counter()
-                # the telemetry drill stalls the step about to run, so the
-                # slow-step detector fires on exactly that step
-                self.resilience.injector.maybe_slow_step(self.global_step + 1)
-                if profiler is not None:
-                    profiler.before_step(self.global_step + 1)
-                if self.coordinator.should_stop():
-                    self._emergency_checkpoint()
-                    self.preempted = True
+            # the remesh-and-resume loop: a lost peer (a process died or
+            # hung past the deadline: a step's, a save's or a restore's
+            # collective failed in its transport) makes the survivors
+            # agree a new membership epoch, restore onto it and go on to
+            # the same target; without elastic it propagates
+            lost: Optional[PeerLostError] = None
+            while True:
+                try:
+                    if lost is not None:
+                        exc, lost = lost, None
+                        self._elastic_recover(exc)
+                    elif self.elastic is not None and self.elastic.needs_join:
+                        # a rank admitted by a grow: restore the fleet's
+                        # checkpoint with the fleet before entering
+                        # lockstep
+                        self._elastic_join()
+                    last = self._train_until(target, profiler, last)
                     break
-                m = self.step()
-                step_time = time.perf_counter() - t_boundary
-                step = self.global_step
-                m, action = self.coordinator.after_step(
-                    step, m,
-                    rollback=lambda: self._rollback_to_last_good(step),
-                    position=self._stream_position(),
-                    telemetry={"step_time": step_time,
-                               "data_fetch_time": self._last_data_fetch_s})
-                if profiler is not None:
-                    profiler.after_step(step, step_time)
-                if action == "rollback":
-                    # global_step is back at the restored checkpoint: the
-                    # anomalous step's record would be logged against the
-                    # wrong step
-                    continue
-                record = self.metrics.log_step(
-                    step, loss=m["loss"],
-                    # the update just applied used the count before it
-                    # advanced
-                    lr=float(self.schedule(step - 1)),
-                    grad_norm=m["grad_norm"],
-                    extras={**{k: v for k, v in m.items()
-                               if k not in ("loss", "grad_norm")},
-                            **self.coordinator.counters(),
-                            **self.coordinator.straggler_counters()})
-                last = record or last
-                if cfg.eval_frequency and step % cfg.eval_frequency == 0:
-                    val = self.evaluate()
-                    if val is not None:
-                        self.logger.info(
-                            f"step {step:>6} | val_loss {val:.4f}")
-                        if record:
-                            record["val_loss"] = val
-                        else:
-                            last = {**last, "val_loss": val}
-                if (cfg.save_frequency and cfg.checkpoint_dir
-                        and step % cfg.save_frequency == 0):
-                    self.save_checkpoint()
+                except Exception as exc:
+                    if self.elastic is None or not is_transport_error(exc):
+                        raise
+                    if (self._spurious_remeshes.get(self.global_step, 0)
+                            >= MAX_SPURIOUS_REMESHES):
+                        # every member answered each roll call at this
+                        # step: not a lost peer but a fault of its own (a
+                        # deterministic error in a collective), raised as
+                        # itself
+                        raise (exc.__cause__ if isinstance(
+                            exc, PeerLostError) and exc.__cause__
+                            else exc) from None
+                    if isinstance(exc, PeerLostError):
+                        lost = exc
+                    else:
+                        lost = PeerLostError(f"collective failed: {exc!r}")
+                        lost.__cause__ = exc
         except TrainingDivergedError as exc:
             # every abort path leaves a post-mortem on disk
             self._write_crash_report(str(exc))
@@ -920,6 +1134,195 @@ class Trainer:
                 f"performance_log_step{self.global_step}.json"))
             self.logger.info(f"performance log written to {path}")
         return last
+
+    def _train_until(self, target: int, profiler,
+                     last: Dict[str, Any]) -> Dict[str, Any]:
+        """The inner loop of ``train``: steps up to ``target``, or a
+        preemption's emergency checkpoint."""
+        cfg = self.cfg
+        while self.global_step < target:
+            self._beat("step_boundary")
+            if self.elastic is not None:
+                self.elastic.beat(self.global_step)
+            t_boundary = time.perf_counter()
+            # the telemetry drill stalls the step about to run, so the
+            # slow-step detector fires on exactly that step
+            self.resilience.injector.maybe_slow_step(self.global_step + 1)
+            if profiler is not None:
+                profiler.before_step(self.global_step + 1)
+            if self.coordinator.should_stop():
+                self._emergency_checkpoint()
+                self.preempted = True
+                break
+            m = self.step()
+            step_time = time.perf_counter() - t_boundary
+            step = self.global_step
+            m, action = self.coordinator.after_step(
+                step, m,
+                rollback=lambda: self._rollback_to_last_good(step),
+                position=self._stream_position(),
+                telemetry={"step_time": step_time,
+                           "data_fetch_time": self._last_data_fetch_s})
+            if profiler is not None:
+                profiler.after_step(step, step_time)
+            if action == "rollback":
+                # global_step is back at the restored checkpoint: the
+                # anomalous step's record would be logged against the
+                # wrong step
+                continue
+            record = self.metrics.log_step(
+                step, loss=m["loss"],
+                # the update just applied used the count before it
+                # advanced
+                lr=float(self.schedule(step - 1)),
+                grad_norm=m["grad_norm"],
+                extras={**{k: v for k, v in m.items()
+                           if k not in ("loss", "grad_norm")},
+                        **self.coordinator.counters(),
+                        **self.coordinator.straggler_counters()})
+            last = record or last
+            if cfg.eval_frequency and step % cfg.eval_frequency == 0:
+                val = self.evaluate()
+                if val is not None:
+                    self.logger.info(
+                        f"step {step:>6} | val_loss {val:.4f}")
+                    if record:
+                        record["val_loss"] = val
+                    else:
+                        last = {**last, "val_loss": val}
+            if (cfg.save_frequency and cfg.checkpoint_dir
+                    and step % cfg.save_frequency == 0):
+                self.save_checkpoint()
+                # a checkpoint boundary is the only scale-up point: the
+                # state a parked rank restores is freshly on disk
+                self._maybe_elastic_grow()
+        return last
+
+    # -- elastic membership ---------------------------------------------------
+    def _elastic_join(self) -> None:
+        """A relaunched rank: wait at the rejoin barrier until a grow
+        epoch admits it (already done when it was parked at
+        construction), then take the restore path the members take at
+        that boundary."""
+        view = self._elastic_membership_change(self.elastic.join)
+        self._elastic_apply_view(view)
+
+    def _elastic_recover(self, exc: BaseException) -> None:
+        """A collective broke: the membership recovery (store-based, no
+        collective over the broken group), then onto the agreed epoch."""
+        self.logger.warning(
+            f"elastic recovery at step {self.global_step}: {exc!r}")
+        self.elastic_timeline.append({"event": "peer_lost",
+                                      "time": time.time(),
+                                      "step": self.global_step,
+                                      "error": repr(exc)[:300]})
+        step, before = self.global_step, self.elastic.view.members
+        view = self._elastic_membership_change(
+            self.elastic.on_peer_lost, exc=exc)
+        if view.members == before:
+            # every member answered the roll call: remeshed in place
+            self._spurious_remeshes[step] = (
+                self._spurious_remeshes.get(step, 0) + 1)
+        self._elastic_apply_view(view)
+
+    def _elastic_membership_change(self, change, **kw):
+        """``change(step, **kw)``'s view; when the fleet goes on without
+        this rank (``ElasticRemeshError``), its process group is left
+        without a collective first: a destroy would wait on the peers."""
+        try:
+            return change(self.global_step, **kw)
+        except ElasticRemeshError:
+            self._leave_group()
+            raise
+
+    def _leave_group(self) -> None:
+        """Off the current group without a collective: left in place
+        (gloo); an NCCL group stays as it is for the process's end
+        (``dist.can_reform_in_process``; ``train.py`` ends the process
+        without a teardown that would wait on the lost peer)."""
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.detach()
+            self._ckpt_mgr = None
+        if stdist.can_reform_in_process():
+            self.mm.forget()
+            stdist.leave_process_group()
+
+    def _maybe_elastic_grow(self) -> None:
+        """At a checkpoint boundary, rank 0 of the epoch reads the rejoin
+        mailbox and the decision rides the epoch's bus: every member
+        admits the same joiners at the same boundary, or none does."""
+        if self.elastic is None:
+            return
+        self.checkpoint_manager.wait()
+        view = self.elastic.maybe_grow(self.global_step)
+        if view is not None:
+            self._elastic_apply_view(view)
+
+    def _elastic_apply_view(self, view) -> None:
+        """Move onto an adopted membership epoch: retire the checkpoint
+        manager without a collective, re-form the process group at the
+        epoch's rendezvous, rebind the decision bus, rebuild the mesh and
+        the step, and restore the newest checkpoint. Every member
+        restores, those that lost no step too, so the collectives match
+        on every process and what follows is a function of the
+        checkpoint alone."""
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.detach()
+            self._ckpt_mgr = None
+        self._elastic_rebuild_topology(view)
+        self.coordinator.rebind_bus(self.elastic.bus)
+        if dist.is_initialized():
+            # every member enters the restore's collectives together
+            stdist.store_barrier(
+                f"elastic_restore_e{view.epoch}",
+                max(self.elastic.join_timeout,
+                    10 * float(self.cfg.elastic_deadline_seconds)))
+        self.load_checkpoint(required=True, target_mesh=self.mm)
+        self.elastic.pending_bootstrap = False
+        self.elastic_timeline.append({"event": "epoch", "time": time.time(),
+                                      "step": self.global_step,
+                                      "epoch": view.epoch,
+                                      "members": list(view.members)})
+
+    def _elastic_rebuild_topology(self, view) -> None:
+        """The process group, mesh, step and loader geometry of epoch
+        ``view``: dp absorbs the change (``elastic_mesh_kwargs``; an
+        unshrinkable geometry raises ``ElasticRemeshError``)."""
+        if view.epoch == self._mesh_epoch:
+            return  # a rank admitted by this grow built it already
+        kwargs = self._epoch_mesh_kwargs(view)
+        if view.epoch != self._group_epoch:
+            if dist.is_initialized() and not stdist.can_reform_in_process():
+                self._leave_group()
+                raise ElasticRemeshError(
+                    f"membership epoch {view.epoch} needs a new process "
+                    "group, and this backend's group cannot be re-formed "
+                    "in the process (dist.can_reform_in_process) — falling "
+                    "back to a fleet restart")
+            self.mm.forget()
+            stdist.leave_process_group()
+            try:
+                self._join_epoch_group(view, self.device)
+            except Exception as exc:
+                raise ElasticRemeshError(
+                    f"rendezvous of membership epoch {view.epoch} failed: "
+                    f"{exc!r}") from exc
+        self.world = stdist.process_count()
+        self.mesh_kwargs = kwargs
+        self.mm = setup_mesh_manager(**kwargs, device_type=self.device.type)
+        self._make_groups()
+        self._mesh_epoch = view.epoch
+        self.step_fn = self._make_step_fn()
+        if self._eval_fn is not None:
+            self._eval_fn = make_spmd_eval_step(
+                self.mm, self.model_cfg,
+                attention_backend=self.attention_backend,
+                sequence_parallel=self.cfg.sequence_parallel,
+                cp_layout=self.cfg.cp_layout, pp_engine=self.cfg.pp_engine,
+                pp_vpp=self.pp_vpp)
+        self._set_loader_dp()
+        self.metrics.tokens_per_step = self.loader.tokens_per_step
+        self._train_iter = None
 
     def close(self) -> None:
         """Finish any asynchronous save, release its buffers, and close

@@ -358,6 +358,129 @@ def save_hf_params(path: str, params: Params, cfg, *,
 _HF_LAYER_RE = re.compile(r"model\.layers\.(\d+)\.")
 
 
+def _hf_leaf_order(params: Params, cfg) -> List[str]:
+    """The flat leaf names in the order ``save_hf_params`` reads them."""
+    top = [k for k in ("embed_tokens", "norm", "lm_head") if k in params]
+    layers = [n for n in _param_shapes(cfg) if n.startswith("layers.")]
+    return top + layers
+
+
+class _GatheredLeaf:
+    """A leaf ``save_hf_params`` reads on rank 0: its global shape, and
+    its value gathered from the owners of its shards when first read."""
+
+    def __init__(self, name: str, shape: Tuple[int, ...], dtype, gather):
+        self.name, self.shape, self.dtype = name, torch.Size(shape), dtype
+        self._gather = gather
+
+    def detach(self) -> torch.Tensor:
+        return self._gather(self.name)
+
+
+def save_hf_params_sharded(path: str, params: Params, cfg, mm, *,
+                           group: Any, unlayout=None,
+                           dtype: str = "float32",
+                           max_shard_bytes: int = 5 * 1024 ** 3) -> str:
+    """``save_hf_params`` of parameters split over ``mm``'s tp, pp and ep
+    axes, called by every rank: rank 0 writes the files, byte-equal to a
+    one-card export of the same parameters. Leaf by leaf, in the order
+    ``save_hf_params`` reads them, the ranks at dp = cp = 0 send their
+    shard to rank 0 over ``group`` (gloo), which concatenates the shards
+    along their split dims and puts a stacked leaf back in model order
+    (``unlayout``: the pp padding dropped, the interleave undone), so
+    rank 0 holds one gathered leaf at a time beyond its own shards.
+    Returns rank 0's path ('' elsewhere)."""
+    import torch.distributed as dist
+
+    from scaletorch_tpu_torch.models.convert import flatten_params
+    from scaletorch_tpu_torch.parallel.mesh import MeshCoords
+    from scaletorch_tpu_torch.parallel.tensor_parallel import shard_dims
+
+    dims = shard_dims(cfg)
+    flat = flatten_params(params)
+    order = _hf_leaf_order(params, cfg)
+    split = {n: [a for a in ("pp", "ep", "tp")
+                 if a in dims[n] and mm.axis_size(a) > 1] for n in order}
+    owners = [r for r in range(mm.world_size)
+              if mm.coords(r).dp == 0 and mm.coords(r).cp == 0]
+    rank = dist.get_rank()
+    me = mm.coords(rank)
+
+    def as_bytes(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8)
+
+    def send(i: int, name: str) -> None:
+        if rank in owners and rank != 0:
+            dist.send(as_bytes(flat[name]), dst=0, group=group, tag=i)
+
+    def global_shape(name: str) -> Tuple[int, ...]:
+        shape = list(flat[name].shape)
+        for a in split[name]:
+            shape[dims[name][a]] *= mm.axis_size(a)
+        if unlayout is not None and name.startswith("layers."):
+            shape[0] = cfg.num_hidden_layers
+        return tuple(shape)
+
+    if rank != 0:
+        for i, name in enumerate(order):
+            send(i, name)
+        dist.barrier(group=group)
+        return ""
+
+    state = {"next": 0}
+
+    def gather(name: str) -> torch.Tensor:
+        # a stacked leaf is read once per layer: the last one is kept
+        if state.get("name") == name:
+            return state["leaf"]
+        state.pop("leaf", None)
+        i = order.index(name)
+        if i != state["next"]:
+            raise RuntimeError(f"export read {name!r} out of order (leaf "
+                               f"{i}, expected {state['next']})")
+        state["next"] += 1
+        local = flat[name].detach().to("cpu")
+        pieces = {0: local}
+        for r in owners[1:]:
+            buf = torch.empty(local.numel() * local.element_size(),
+                              dtype=torch.uint8)
+            dist.recv(buf, src=r, group=group, tag=i)
+            pieces[r] = buf.view(local.dtype).view(local.shape)
+
+        def build(coords: Dict[str, int], axes: List[str]) -> torch.Tensor:
+            if not axes:
+                r = mm.rank_of(MeshCoords(dp=0, cp=0, **{
+                    a: coords.get(a, 0) for a in ("pp", "ep", "tp")}))
+                return pieces[r]
+            axis, rest = axes[0], axes[1:]
+            return torch.cat([build({**coords, axis: j}, rest)
+                              for j in range(mm.axis_size(axis))],
+                             dim=dims[name][axis])
+
+        leaf = build({}, split[name])
+        if unlayout is not None and name.startswith("layers."):
+            leaf = unlayout(leaf)
+        state.update(name=name, leaf=leaf)
+        return leaf
+
+    assert me.dp == 0 and me.cp == 0
+    lazy: Params = {}
+    for name in order:
+        node = lazy
+        parts = name.split(".")
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = _GatheredLeaf(name, global_shape(name),
+                                        flat[name].dtype, gather)
+    out = save_hf_params(path, lazy, cfg, dtype=dtype,
+                         max_shard_bytes=max_shard_bytes)
+    if state["next"] != len(order):
+        raise RuntimeError(f"export read {state['next']} of {len(order)} "
+                           "leaves")
+    dist.barrier(group=group)
+    return out
+
+
 def hf_checkpoint_layer_names(path: str) -> Dict[int, list]:
     """The checkpoint's tensor names grouped by layer index."""
     tensors, handles = _open_shards(path)

@@ -278,12 +278,23 @@ def case_trainer_guards(payload):
     out["zigzag"] = trainer._zigzag_cp
     out["world"] = trainer.world
     out["rank_logs"] = trainer.logger.level
-    try:
-        trainer.save_checkpoint()
-        out["save"] = None
-    except NotImplementedError as exc:
-        out["save"] = str(exc)
     out["loss"] = float(trainer.step()["loss"])
+    # a save and a resume at dp2, over a loader that counts its position:
+    # the resumed step's loss is the straight run's, on both ranks
+    from tests.torch_dist_runtime import token_loader
+
+    dp2 = Trainer(cfg(data_parallel_size=2), device="cpu")
+    dp2.loader = token_loader(2)
+    dp2.step()
+    out["save"] = dp2.save_checkpoint()
+    straight = float(dp2.step()["loss"])
+    dp2.close()
+    resumed = Trainer(cfg(data_parallel_size=2), device="cpu")
+    resumed.loader = token_loader(2)
+    assert resumed.load_checkpoint(required=True)
+    out["resume"] = (resumed.global_step, float(resumed.step()["loss"]),
+                     straight)
+    resumed.close()
     return out
 
 
@@ -579,15 +590,23 @@ def case_fsdp(payload):
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
+# the multi-process runtime's cases (coordinated decisions, checkpoints,
+# exports, elastic yardsticks)
+from tests import torch_dist_runtime  # noqa: E402
+
+CASES.update(torch_dist_runtime.CASES)
 
 
 def main(argv) -> int:
     case, rank, world, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
+    # a case may ask for a shorter timeout of every collective (a control
+    # that must fail its waits in bounded time)
     stdist.init_distributed(
         "env", coordinator_address=f"file://{tmp}/store",
         num_processes=world, process_id=rank, device="cpu",
-        timeout_s=INIT_TIMEOUT_S)
+        timeout_s=float(os.environ.get("TORCH_DIST_CASE_TIMEOUT_S",
+                                       INIT_TIMEOUT_S)))
     with open(os.path.join(tmp, "payload.pkl"), "rb") as f:
         payload = pickle.load(f)
     try:

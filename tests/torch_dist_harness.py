@@ -8,7 +8,9 @@ meet at a ``FileStore`` under ``tmp_path`` (no TCP port, so parallel test
 workers cannot collide), and returns each rank's result in rank order.
 Every wait is bounded: the process group's own timeout, and ``timeout``
 seconds for the whole run, after which every rank is killed and the
-test fails with their output. The ranks run one CPU thread each.
+test fails with their output. The ranks run one CPU thread each; ``env``
+adds variables (``TORCH_DIST_CASE_TIMEOUT_S`` shortens the process
+group's timeout).
 """
 
 from __future__ import annotations
@@ -19,18 +21,21 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 DEFAULT_TIMEOUT_S = 240.0
 
 
 def run_ranks(tmp_path, world: int, case: str, payload=None,
-              timeout: float = DEFAULT_TIMEOUT_S) -> list:
+              timeout: float = DEFAULT_TIMEOUT_S,
+              env: Optional[dict] = None) -> list:
     tmp = Path(tmp_path) / f"ranks-{case}-{time.monotonic_ns()}"
     tmp.mkdir(parents=True)
     with open(tmp / "payload.pkl", "wb") as f:
         pickle.dump(payload, f)
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+           **(env or {})}
     for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
                  "LOCAL_RANK"):
         env.pop(name, None)
