@@ -130,6 +130,44 @@ is non-zero; no phase catches an exception):
                 launches = warm-ups + per capture x replays, every static
                 buffer where it was, one terminal outcome per request,
                 page conservation.
+ 7d. gateway  — the serving front door at the same width, fp32, 8 slots,
+                paged: the serve traffic through an in-process
+                ServingGateway over SSE (its worker thread replays the
+                graphs the main thread captured; the worker is held until
+                every request is offered, so the engine admits as a
+                direct run does), tokens bit for bit the same engine's
+                driven directly, one capture of each step, K4 28 a
+                replay; tokens/s, TTFT mean and TPOT p50 beside the
+                direct run's, the gateway's added host µs a token; then
+                ``python -m scaletorch_tpu_torch.serve`` as a process:
+                one request equal to the direct engine's, one capture on
+                its /metrics, SIGTERM's drain exits 0.
+ 7e. gateway_fleet — the serve entry with two replica processes
+                (``python -m scaletorch_tpu_torch.replica``, unix sockets)
+                on the one card: the replica serving the first stream is
+                SIGKILLed (``--ft_gw_replica_crash_at 1``), the stream
+                ends ``aborted``, the supervisor restarts it, a follow-up
+                streams the direct engine's tokens; the other replica is
+                SIGKILLed mid-stream while the survivor streams the
+                shared prompt (its tokens the direct engine's prefix-hit
+                pass) and rejoins WARM (the donor's frozen prefix
+                pages pulled over the wire), its first shared-prefix
+                request a prefix hit with the tokens of the direct
+                engine's prefix-hit pass; per replica process one capture
+                of each step, K4 28 a decode replay (its /metrics); the
+                gateway's ledger; SIGTERM drains the fleet to exit 0;
+                spawn-to-READY and crash-to-READY s, warm pages and
+                transfer s.
+ 7f. disagg_serve — DisaggregatedEngine split "1:1" with both slices on
+                the card (two page pools, the weights shared) behind the
+                gateway: the serve traffic's tokens bit for bit the
+                colocated engine's without a prefix cache, one capture of
+                each step, K4 28 a decode replay on the decode pool and
+                none in the prefill step, both allocators conserved;
+                TTFT, TPOT, tokens/s, handoff p50 s, pages and bytes, the
+                two slices' busy fractions; then the serve entry with
+                ``--disagg 1:1`` as a process: one request, the /healthz
+                disagg block, SIGTERM's drain exits 0.
   8. geometry_serve — the presets' other head geometries through K4: a
                 paged engine at dense-tiny (head_dim 32), fp32, whose
                 greedy tokens must equal the dense engine's, K4 launched
@@ -412,6 +450,7 @@ from scaletorch_tpu_torch.inference import (
     teacher_forced_decode,
     teacher_forced_decode_paged,
 )
+from scaletorch_tpu_torch.launch import ELASTIC_NCCL_ENV
 from scaletorch_tpu_torch.models import (
     LlamaForCausalLM,
     Qwen3MoEForCausalLM,
@@ -3668,6 +3707,565 @@ def phase_runtime_serve(model32) -> dict:
     return row
 
 
+# ---- 11f. the serving front door: gateway, replica processes, disagg ------------
+FRONT_DIR = os.path.join("build", "front_door")
+# a serve or replica process on the card builds the 0.6B model and
+# captures its graphs before READY
+READY_CEILING_S = 300.0
+FRONT_NEW_TOKENS = 64
+# the serve entry's flags for the serve cell's engine at fp32 (its seed-0
+# draw is decode_parity's model32, weight for weight)
+FRONT_ARGS = ("--preset", MODEL, "--dtype", "float32", "--param_seed", "0",
+              "--max_slots", str(SLOTS), "--max_seq", str(MAX_SEQ),
+              "--prefill_len", str(PREFILL_LEN), "--page_size",
+              str(PAGE_SIZE))
+
+
+def sse_generate(port: int, prompt, n: int, on_token=None):
+    """One streamed ``POST /v1/generate``: (token ids, the done events,
+    each token's arrival on the host clock); ``on_token()`` after each
+    token event."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=READY_CEILING_S)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": prompt, "max_new_tokens": n}).encode())
+        resp = conn.getresponse()
+        check(resp.status == 200, f"generate answered {resp.status}")
+        tokens, dones, times, event = [], [], [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\r\n")
+            if line.startswith("event:"):
+                event = line[6:].strip()
+            elif line.startswith("data:"):
+                data = json.loads(line[5:])
+                if event == "token":
+                    tokens += data["token_ids"]
+                    times.append(time.monotonic())
+                    if on_token is not None:
+                        on_token()
+                elif event == "done":
+                    dones.append(data)
+        return tokens, dones, times
+    finally:
+        conn.close()
+
+
+def http_get(port: int, path: str, uds: str = None) -> str:
+    """The body of a GET on the gateway's port or a replica's socket."""
+    import http.client
+
+    if uds is None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    else:
+        from scaletorch_tpu_torch.serving.remote import _UDSHTTPConnection
+
+        conn = _UDSHTTPConnection(uds, timeout=60)
+    try:
+        conn.request("GET", path)
+        return conn.getresponse().read().decode()
+    finally:
+        conn.close()
+
+
+def get_json(port: int, path: str, uds: str = None) -> dict:
+    return json.loads(http_get(port, path, uds))
+
+
+def wait_for(predicate, what: str, ceiling_s: float = READY_CEILING_S):
+    deadline = time.monotonic() + ceiling_s
+    while True:
+        got = predicate()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def gated_gateway(eng, prompts, new_tokens: int) -> dict:
+    """``prompts`` through a ``ServingGateway`` over ``eng``, streamed
+    over HTTP, one client thread each. The worker is held on a gate
+    until every request has been offered, in order, and dispatched (or
+    queued in the gateway), so the engine admits them as a direct run
+    that submits them all at once does: the tokens can be held to it
+    bit for bit. Times are from the gate's release."""
+    import threading
+
+    from scaletorch_tpu_torch.serving.gateway import ServingGateway
+
+    gw = ServingGateway(eng, port=0, max_backlog=4 * len(prompts))
+    gw.start_in_thread()
+    worker = gw.workers["r0"]
+    gate = threading.Event()
+    held = threading.Thread(target=worker.call_engine,
+                            args=(lambda _e: gate.wait(READY_CEILING_S),),
+                            kwargs={"timeout_s": READY_CEILING_S})
+    held.start()
+    out = [None] * len(prompts)
+
+    def client(i):
+        out[i] = sse_generate(gw.port, prompts[i], new_tokens)
+
+    threads = []
+    try:
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=client, args=(i,)))
+            threads[-1].start()
+            wait_for(lambda: gw.metrics.http_requests_received == i + 1,
+                     "the request's arrival", 60)
+        wait_for(lambda: gw._dispatch_count + len(gw.admission.queue)
+                 == len(prompts), "every request dispatched or queued", 60)
+        if hasattr(eng.metrics, "busy_fractions"):
+            eng.metrics.reset_window()
+        t0 = time.monotonic()
+        gate.set()
+        for t in threads:
+            t.join(READY_CEILING_S)
+        wall = time.monotonic() - t0
+        check(all(not t.is_alive() for t in threads), "a client hung")
+    finally:
+        gate.set()
+        held.join(60)
+        gw.stop_sync()
+    gw.metrics.check_conservation()
+    dones = [o[1] for o in out]
+    check(all(len(d) == 1 and d[0]["outcome"] == "ok" for d in dones),
+          f"want one ok done event per request: {dones}")
+    tokens = [o[0] for o in out]
+    check(all(t == d[0]["token_ids"] for t, d in zip(tokens, dones)),
+          "the streamed tokens differ from the done events'")
+    gaps = [b - a for o in out for a, b in zip(o[2], o[2][1:])]
+    n = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "wall_s": wall, "tokens_generated": n,
+            "tokens_per_s": n / wall,
+            "client_ttft_mean_s": statistics.mean(o[2][0] - t0 for o in out),
+            "client_tpot_p50_s": statistics.median(gaps),
+            "engine_mean_ttft_s": eng.metrics.snapshot()["mean_ttft_s"],
+            "engine_tpot_p50_s": eng.metrics.hist["tpot"].quantile(0.5),
+            "http_outcomes": {k: v for k, v in gw.metrics.outcomes.items()
+                              if v}}
+
+
+def k4_per_replay(eng, cfg, what: str) -> int:
+    per = eng._decode.captured_launches.get("paged_decode")
+    check(per == cfg.num_hidden_layers,
+          f"{what}: paged_decode launched {per} times a decode replay, "
+          f"want {cfg.num_hidden_layers}")
+    return per
+
+
+class ServeProcess:
+    """``python -m scaletorch_tpu_torch.serve`` as a child of this
+    script, in a session of its own: its stdout pumped into a queue,
+    READY awaited, SIGTERM's drain and exit code read; the session (the
+    serve process and any replica process it started) killed at the
+    end, whatever happened."""
+
+    def __init__(self, *args: str):
+        import queue
+        import threading
+
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "scaletorch_tpu_torch.serve", *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        self.lines: "queue.Queue" = queue.Queue()
+        self.log = []
+        threading.Thread(target=self._pump, daemon=True).start()
+        self.port = None
+        deadline = time.monotonic() + READY_CEILING_S
+        try:
+            while self.port is None:
+                check(time.monotonic() < deadline,
+                      "serve never printed READY")
+                try:
+                    line = self.lines.get(timeout=1.0)
+                except queue.Empty:
+                    check(self.proc.poll() is None,
+                          f"serve exited {self.proc.returncode} before "
+                          "READY: " + "".join(self.log[-40:]))
+                    continue
+                if line.startswith("READY port="):
+                    self.port = int(line.strip().split("=")[1])
+        except BaseException:
+            self.close()
+            raise
+        self.ready_s = time.monotonic() - self.t0
+
+    def _pump(self):
+        for line in self.proc.stdout:
+            self.log.append(line)
+            self.lines.put(line)
+
+    def drain(self) -> int:
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=READY_CEILING_S)
+        finally:
+            self.close()
+
+    def close(self):
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass  # the drain ended every process of the session
+        self.proc.wait(timeout=60)
+
+
+def prom_values(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def phase_gateway(model32) -> dict:
+    """The HTTP gateway over the serve cell's engine at fp32 (8 slots,
+    paged, K4), the serve traffic streamed over SSE, against the same
+    engine driven directly: tokens bit for bit, one capture each step
+    (replays from the gateway's worker thread), K4 = L launches a decode
+    replay; then the serve entry as a process, one request, SIGTERM's
+    drain exits 0."""
+    cfg = model_config(MODEL, dtype=torch.float32)
+    prompts = traffic(cfg.vocab_size)
+    free_engine()
+    with torch.inference_mode():
+        eng, direct, _, direct_stats = serve(model32, cfg, prompts, None)
+    direct_tokens = [r.tokens for r in direct]
+    del eng
+    free_engine()
+    _build.reset_launch_counts()
+    eng = serving_engine(model32, cfg)
+    ptrs = static_pointers(eng)
+    run = gated_gateway(eng, prompts, FRONT_NEW_TOKENS)
+    check(run["tokens"] == direct_tokens,
+          "gateway: streamed tokens differ from the direct engine's: "
+          + json.dumps(agreement(run["tokens"], direct_tokens)))
+    graphs = check_one_capture(eng, "gateway")
+    check(static_pointers(eng) == ptrs, "gateway: a static buffer moved")
+    m = eng.metrics
+    check(m.requests_submitted == sum(m.outcomes.values()) == len(prompts)
+          and eng.pending == 0, f"gateway: outcomes {m.outcomes}")
+    eng.allocator.check_conservation()
+    per = k4_per_replay(eng, cfg, "gateway")
+    launches = _build.launch_counts["paged_decode"]
+    del eng
+    free_engine()
+    added_us = (1e6 * (run["wall_s"] - direct_stats["wall_s"])
+                / run["tokens_generated"])
+    proc = ServeProcess(*FRONT_ARGS, "--serve_port", "0")
+    try:
+        tokens, dones, _ = sse_generate(proc.port, prompts[0],
+                                        FRONT_NEW_TOKENS)
+        prom = prom_values(http_get(proc.port, "/metrics"))
+    finally:
+        rc = proc.drain()
+    check(len(dones) == 1 and dones[0]["outcome"] == "ok"
+          and tokens == direct_tokens[0],
+          "the serve process's stream differs from the direct engine's")
+    check(prom.get('scaletorch_engine_decode_compile_count{replica="r0"}')
+          == 1.0, "the serve process captured its decode step again")
+    check(rc == 0, f"serve drained with exit code {rc}, want 0")
+    del run["tokens"]
+    row = {"requests": f"{len(prompts)}/{len(prompts)}", **run,
+           "direct": {k: direct_stats[k] for k in (
+               "wall_s", "tokens_per_s", "decode_tokens_per_s",
+               "mean_ttft_s", "tpot_p50_s")},
+           "gateway_added_host_us_per_token": added_us,
+           "k4_launches": launches, "k4_per_decode_replay": per, **graphs,
+           "serve_process": {"ready_s": proc.ready_s, "drain_exit_code": rc,
+                             "tokens_equal_direct": True},
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("gateway", model=MODEL, dtype="float32", slots=SLOTS,
+         new_tokens=FRONT_NEW_TOKENS, **row)
+    return row
+
+
+def phase_gateway_fleet(model32) -> dict:
+    """Two replica processes of the serve cell's engine (fp32) behind the
+    serve entry's supervisor on the one card: the replica serving the
+    first stream is SIGKILLed mid-stream (``--ft_gw_replica_crash_at
+    1``) and that stream ends ``aborted``; the supervisor restarts it; a
+    follow-up streams the direct engine's tokens; the other replica is
+    SIGKILLed while it decodes a stream of its own and the survivor
+    streams the shared prompt (which must end as the direct engine's),
+    rejoins WARM (the donor's frozen prefix pages pulled over the wire)
+    and its first shared-prefix request is a prefix hit with the direct
+    engine's tokens. Each replica captures each step once and runs
+    K4 L times a decode replay; SIGTERM drains the fleet to exit 0."""
+    import threading
+
+    from scaletorch_tpu_torch.serving.router import (
+        _rendezvous,
+        page_chunk_hashes,
+    )
+
+    cfg = model_config(MODEL, dtype=torch.float32)
+    prompt = traffic(cfg.vocab_size)[0]  # the shared 256-token prefix
+    free_engine()
+    with torch.inference_mode():
+        oracle = serving_engine(model32, cfg)
+        first = oracle.submit(prompt, max_new_tokens=FRONT_NEW_TOKENS)
+        cold = oracle.run()[first].tokens
+        again = oracle.submit(prompt, max_new_tokens=FRONT_NEW_TOKENS)
+        warm = oracle.run()[again]
+        check(warm.prefix_hit, "the oracle's second pass missed its prefix")
+        warm = warm.tokens
+    del oracle
+    free_engine()
+    root = os.path.abspath(FRONT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    sock_dir = os.path.join(root, "sock")
+    proc = ServeProcess(
+        *FRONT_ARGS, "--serve_port", "0", "--serve_replica_procs", "2",
+        "--ft_gw_replica_crash_at", "1", "--supervisor_backoff_base_s",
+        "0.2", "--supervisor_backoff_max_s", "1.0", "--telemetry_dir",
+        root, "--serve_replica_uds", sock_dir)
+    try:
+        port = proc.port
+        health = get_json(port, "/healthz")
+        pids = {rid: r["pid"] for rid, r in health["replicas"].items()}
+        check(len(pids) == 2, f"want 2 replicas: {health}")
+        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
+        check(len(dones) == 1 and dones[0]["outcome"] == "aborted",
+              f"the killed replica's stream: {dones}")
+        crash_t = time.monotonic()
+
+        def restarted():
+            h = get_json(port, "/healthz")["replicas"]
+            return next((rid for rid, r in h.items()
+                         if r.get("restarts_total", 0) >= 1
+                         and r.get("state") == "up"), None)
+
+        victim = wait_for(restarted, "the supervisor's restart")
+        restart_wall_s = time.monotonic() - crash_t
+        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
+        check(len(dones) == 1 and dones[0]["outcome"] == "ok"
+              and tokens == cold,
+              "the healed fleet's stream differs from the direct engine's")
+
+        def donor():
+            h = get_json(port, "/healthz")["replicas"]
+            return next((rid for rid, r in h.items()
+                         if (r.get("prefix_pages") or 0) > 0), None)
+
+        donor_id = wait_for(donor, "a replica holding prefix pages")
+        victim2 = next(rid for rid in sorted(pids) if rid != donor_id)
+        # the second kill lands mid-replay: the victim decodes a cold
+        # prompt (routed to it by the router's rendezvous on its first
+        # page chunk) while the donor streams the shared prompt, whose
+        # tokens must be the direct engine's prefix-hit pass
+        rng = np.random.default_rng(11)
+        cold = next(q for q in (rng.integers(0, cfg.vocab_size,
+                                             PREFILL_LEN // 2).tolist()
+                                for _ in range(64))
+                    if _rendezvous(page_chunk_hashes(q, PAGE_SIZE)[0],
+                                   sorted(pids)) == victim2)
+        first = {"cold": threading.Event(), "shared": threading.Event()}
+        both = {}
+
+        def stream(name, q, n):
+            try:
+                both[name] = sse_generate(port, q, n,
+                                          on_token=first[name].set)
+            finally:
+                first[name].set()  # a stream that ends before a token
+
+        streams = [threading.Thread(target=stream, args=a) for a in (
+            ("cold", cold, 8 * FRONT_NEW_TOKENS),
+            ("shared", prompt, FRONT_NEW_TOKENS))]
+        for t in streams:
+            t.start()
+        check(all(e.wait(READY_CEILING_S) for e in first.values()),
+              "the two streams' first tokens")
+        before = get_json(port, "/healthz")["replicas"][victim2]
+        os.kill(before["pid"], signal.SIGKILL)
+        for t in streams:
+            t.join(READY_CEILING_S)
+        check([d["outcome"] for d in both["cold"][1]] == ["aborted"],
+              f"the stream on the killed replica: {both['cold'][1]}")
+        check([d["outcome"] for d in both["shared"][1]] == ["ok"]
+              and both["shared"][0] == warm,
+              "the survivor's stream was disturbed by the kill")
+
+        def warmed():
+            r = get_json(port, "/healthz")["replicas"][victim2]
+            return r if (r.get("state") == "up"
+                         and r["restarts_total"] > before["restarts_total"]
+                         and (r.get("warm_pages") or 0) > 0) else None
+
+        rejoined = wait_for(warmed, "the warm rejoin")
+        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
+        check(len(dones) == 1 and dones[0]["outcome"] == "ok"
+              and tokens == warm,
+              "the warmed replica's stream differs from the direct "
+              "engine's prefix-hit pass")
+        replicas = {}
+        for rid in sorted(pids):
+            m = get_json(None, "/metrics",
+                         uds=os.path.join(sock_dir, f"{rid}.sock"))
+            per = m["decode_launches_per_replay"].get("paged_decode")
+            k4 = m["kernel_launches"].get("paged_decode", 0)
+            check(m["decode_compile_count"] == m["prefill_compile_count"]
+                  == 1, f"{rid}: captured {m['decode_compile_count']} / "
+                  f"{m['prefill_compile_count']} times, want 1 each")
+            check(per == cfg.num_hidden_layers,
+                  f"{rid}: {per} K4 launches a decode replay")
+            # the capture's one warm-up run plus one set per replay
+            check(k4 == per * (m["decode_replays"] + 1) and k4 > 0,
+                  f"{rid}: {k4} K4 launches for {m['decode_replays']} "
+                  "replays")
+            replicas[rid] = {"pid": m["pid"], "k4_launches": k4,
+                             "k4_per_decode_replay": per,
+                             "decode_replays": m["decode_replays"]}
+        prom = prom_values(http_get(port, "/metrics"))
+        compiles = [v for k, v in prom.items() if k.startswith(
+            "scaletorch_engine_decode_compile_count")]
+        check(compiles == [1.0, 1.0], f"decode captures {compiles}")
+        check(prom["scaletorch_http_requests_received"] == 5
+              and prom["scaletorch_http_aborted"] == 2
+              and prom["scaletorch_http_ok"] == 3,
+              "the gateway's ledger through the crashes")
+    except BaseException:
+        proc.close()
+        print("".join(proc.log[-60:]), file=sys.stderr, flush=True)
+        raise
+    rc = proc.drain()
+    check(rc == 0, f"the fleet drained with exit code {rc}, want 0")
+    records = read_jsonl(os.path.join(root, "gateway_events.jsonl"))
+    sup = [r for r in records if r.get("kind") == "supervisor"]
+    restarts = []
+    for rid in (victim, victim2):
+        crashes = [r["time"] for r in sup
+                   if r["replica"] == rid and r["event"] == "crash"]
+        readies = [r["time"] for r in sup
+                   if r["replica"] == rid and r["event"] == "ready"]
+        for c in crashes:
+            after = [t for t in readies if t > c]
+            check(bool(after), f"{rid}: no READY after its crash")
+            restarts.append(min(after) - c)
+    # each spawn's seconds to READY: the first boots, then the restarts
+    spawn_to_ready = {}
+    for rid in sorted(pids):
+        spawns = [r["time"] for r in sup
+                  if r["replica"] == rid and r["event"] == "spawn"]
+        readies = [r["time"] for r in sup
+                   if r["replica"] == rid and r["event"] == "ready"]
+        spawn_to_ready[rid] = [b - a for a, b in zip(spawns, readies)]
+    warmups = [r for r in records if r.get("kind") == "warmup"
+               and r["replica"] == victim2 and r["status"] == "warmed"]
+    check(bool(warmups), f"no warmed record for {victim2}")
+    access = [r for r in records if r.get("kind") == "access"]
+    check(any(r["replica"] == victim2 and r["prefix_hit"]
+              and r["outcome"] == "ok" for r in access),
+          "the warmed replica's first request was no prefix hit")
+    row = {"requests": "5/5 answered (2 aborted by the kills, 3 ok)",
+           "survivor_stream_equal_direct": True,
+           "fleet_ready_s": proc.ready_s,
+           "spawn_to_ready_s": spawn_to_ready,
+           "crash_to_ready_s": restarts,
+           "restart_seen_up_s": restart_wall_s,
+           "killed": [victim, victim2], "donor": donor_id,
+           "warm_pages": rejoined.get("warm_pages"),
+           "warm_transfer_s": warmups[0].get("seconds"),
+           "warm_chunks_dropped": warmups[0].get("chunks_dropped"),
+           "replicas": replicas, "drain_exit_code": rc,
+           "nvidia_smi": card_name_and_power_limit()}
+    shutil.rmtree(root, ignore_errors=True)
+    emit("gateway_fleet", model=MODEL, dtype="float32", slots=SLOTS, **row)
+    return row
+
+
+def phase_disagg_serve(model32) -> dict:
+    """``DisaggregatedEngine`` at the serve cell's shape (fp32), split
+    ``"1:1"`` with both slices on the one card (two page pools, the
+    weights shared), behind the gateway: the serve traffic's tokens
+    equal the colocated engine's without a prefix cache (every prompt
+    prefilled whole, as the prefill slice does) bit for bit; each step
+    captured once; K4 L times a decode replay on the decode pool; both
+    allocators conserved; then the serve entry with ``--disagg 1:1`` as
+    a process, one request, SIGTERM's drain exits 0."""
+    from scaletorch_tpu_torch.inference import DisaggregatedEngine
+
+    cfg = model_config(MODEL, dtype=torch.float32)
+    prompts = traffic(cfg.vocab_size)
+    free_engine()
+    with torch.inference_mode():
+        eng, whole, _, colo_stats = serve(model32, cfg, prompts, None,
+                                          prefix_cache=False)
+        del eng
+        free_engine()
+        eng, hit, _, _ = serve(model32, cfg, prompts, None)
+        del eng
+    whole = [r.tokens for r in whole]
+    hit = [r.tokens for r in hit]
+    free_engine()
+    _build.reset_launch_counts()
+    eng = DisaggregatedEngine(
+        model32, cfg, devices=["cuda:0", "cuda:0"], disagg_split="1:1",
+        max_slots=SLOTS, max_seq=MAX_SEQ, prefill_len=PREFILL_LEN,
+        sampling=SamplingParams(temperature=0.0), page_size=PAGE_SIZE)
+    check(eng.prefill_model is eng.model, "the slices copied the weights")
+    run = gated_gateway(eng, prompts, FRONT_NEW_TOKENS)
+    busy_p, busy_d = eng.metrics.busy_fractions()
+    check(run["tokens"] == whole,
+          "disagg: tokens differ from the colocated engine's: "
+          + json.dumps(agreement(run["tokens"], whole)))
+    graphs = check_one_capture(eng, "disagg_serve")
+    per = k4_per_replay(eng, cfg, "disagg_serve")
+    check(eng._prefill.captured_launches.get("paged_decode", 0) == 0,
+          "the prefill slice ran K4")
+    eng.check_conservation()
+    m = eng.metrics
+    check(m.handoffs == len(prompts) and m.handoff_failures == 0,
+          f"{m.handoffs} handoffs, {m.handoff_failures} failed")
+    row = {"requests": f"{len(prompts)}/{len(prompts)}",
+           **{k: v for k, v in run.items() if k != "tokens"},
+           "colocated_no_prefix_cache": {k: colo_stats[k] for k in (
+               "wall_s", "tokens_per_s", "mean_ttft_s", "tpot_p50_s")},
+           "agreement_with_prefix_cache_colocated": agreement(
+               run["tokens"], hit),
+           "handoff_p50_s": m.hist["handoff"].quantile(0.5),
+           "handoff_pages": m.pages_handed_off,
+           "handoff_bytes": m.handoff_bytes,
+           "prefix_hits_decode_side": m.prefix_hits,
+           "prefill_busy_fraction": busy_p, "decode_busy_fraction": busy_d,
+           "k4_launches": _build.launch_counts["paged_decode"],
+           "k4_per_decode_replay": per, **graphs}
+    del eng
+    free_engine()
+    proc = ServeProcess(*FRONT_ARGS, "--serve_port", "0", "--disagg", "1:1")
+    try:
+        tokens, dones, _ = sse_generate(proc.port, prompts[1],
+                                        FRONT_NEW_TOKENS)
+        health = get_json(proc.port, "/healthz")
+    finally:
+        rc = proc.drain()
+    check(len(dones) == 1 and dones[0]["outcome"] == "ok"
+          and tokens == whole[1],
+          "the disagg serve process's stream differs from the colocated "
+          "engine's")
+    block = health["replicas"]["r0"].get("disagg")
+    check(block is not None and block["handoffs"] == 1,
+          f"no disagg block on /healthz: {health}")
+    check(rc == 0, f"serve --disagg drained with exit code {rc}, want 0")
+    row["serve_process"] = {"ready_s": proc.ready_s, "drain_exit_code": rc,
+                            "tokens_equal_colocated": True}
+    row["nvidia_smi"] = card_name_and_power_limit()
+    emit("disagg_serve", model=MODEL, dtype="float32", slots=SLOTS,
+         split="1:1", devices=["cuda:0", "cuda:0"],
+         new_tokens=FRONT_NEW_TOKENS, **row)
+    return row
+
+
 # ---- 19. training over the device mesh, one rank a card ------------------------
 PARALLEL_DIR = os.path.join("build", "parallel")
 # the torch.distributed.run of every check: world 1, and four cards
@@ -5082,10 +5680,12 @@ FLEET_STEPS = 6
 # (the trainer's rule); a 7.15 GB save and a rank's set-up at full width
 # stay well inside it
 ELASTIC_DEADLINE_S = 10.0
-# a survivor's end after the kill: the watchdog's deadline, then its
-# debug dump's wait (60 s by default: the survivors ended 70.7-73.0 s
-# after the kill on four H100s), the process's teardown
-ELASTIC_DETECT_LIMIT_S = ELASTIC_DEADLINE_S + 60.0 + 30.0
+# a survivor's end after the kill: the watchdog's deadline, then the
+# process's teardown. With NCCL's debug dump on, its 60 s wait came
+# first (the survivors ended 70.7-73.0 s after the kill on four H100s);
+# the elastic launch turns it off (launch.ELASTIC_NCCL_ENV), and they
+# ended 10.95-12.78 s after the kill
+ELASTIC_DETECT_LIMIT_S = ELASTIC_DEADLINE_S + 10.0
 # the wedged rank's stall: past the survivors' deadline
 ELASTIC_HANG_S = 2 * ELASTIC_DEADLINE_S + 10.0
 COORD_WINDOWS, COORD_WINDOW_STEPS = 3, 10
@@ -5417,6 +6017,7 @@ def nccl_abort_rank(directory: str, rank: int) -> dict:
 
     os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "2"
     os.environ["TORCH_NCCL_BLOCKING_WAIT"] = "1"
+    os.environ.update(ELASTIC_NCCL_ENV)  # no debug dump, no wait for one
     stdist.init_distributed("env", timeout_s=NCCL_PROBE_TIMEOUT_S)
     dev = torch.device("cuda", rank)
     x = torch.ones(1024, device=dev)
@@ -5809,6 +6410,9 @@ def main() -> int:
     timed("profile", phase_profile, model32)
     timed("decode_graph", phase_decode_graph, model32)
     timed("runtime_serve", phase_runtime_serve, model32)
+    timed("gateway", phase_gateway, model32)
+    timed("gateway_fleet", phase_gateway_fleet, model32)
+    timed("disagg_serve", phase_disagg_serve, model32)
     del model32
     torch.cuda.empty_cache()
     timed("geometry_serve", phase_geometry_serve)

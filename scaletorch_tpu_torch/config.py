@@ -10,8 +10,8 @@ validation, ``validate_world_size`` and ``mesh_kwargs``, pipeline and
 expert parallelism and the int8 gradient all-reduce included),
 ``LrSchedulerArguments``,
 ``OptimizerArguments``, ``TrainingArguments``, ``CheckpointArguments``,
-``ResilienceArguments`` and ``TelemetryArguments`` (whole, with their
-validation), and the logging fields the port reads. They compose into
+``ResilienceArguments``, ``ServingArguments`` and ``TelemetryArguments``
+(whole, with their validation), and the logging fields the port reads. They compose into
 ``ScaleTorchTPUArguments``. ``parse_args`` is plain ``argparse`` over the
 fields (the machine with the card has no ``transformers``, so no
 ``HfArgumentParser``).
@@ -757,6 +757,133 @@ class ResilienceArguments:
 
 
 @dataclass
+class ServingArguments:
+    """Serving-gateway knobs (``serving/``): the async HTTP front door —
+    bind address, tenant fairness/rate limits, admission backpressure,
+    and multi-replica routing; the reference's fields and defaults.
+    Consumed by ``python -m scaletorch_tpu_torch.serve`` and
+    ``serving.gateway.ServingGateway``."""
+
+    serve_host: str = field(
+        default="127.0.0.1",
+        metadata={"help": "Gateway bind address."},
+    )
+    serve_port: int = field(
+        default=8000,
+        metadata={"help": "Gateway bind port (0 = ephemeral; the chosen "
+                          "port is logged and exposed as gateway.port)."},
+    )
+    serve_tenants: str = field(
+        default="",
+        metadata={"help": "Tenant spec 'name:weight[:rate[:burst]],...' — "
+                          "WFQ weight plus an optional token-bucket rate "
+                          "limit (request-cost units/s) and burst. Unknown "
+                          "tenants get weight serve_default_weight and no "
+                          "rate limit. Example: "
+                          "'free:1:100:200,pro:4,batch:0.5'."},
+    )
+    serve_default_weight: float = field(
+        default=1.0,
+        metadata={"help": "WFQ weight for tenants not named in "
+                          "serve_tenants."},
+    )
+    serve_max_backlog: int = field(
+        default=256,
+        metadata={"help": "Gateway admission backlog bound (all tenants). "
+                          "Beyond it new arrivals are shed (HTTP 429 with "
+                          "Retry-After) — backpressure degrades to "
+                          "shedding before it degrades to latency."},
+    )
+    serve_free_page_watermark: float = field(
+        default=0.05,
+        metadata={"help": "Paged engines only: when the page pool's free "
+                          "fraction sits below this watermark AND the "
+                          "gateway backlog is non-empty, new arrivals are "
+                          "shed instead of queued (the pool gauge drives "
+                          "admission, not wishful queueing)."},
+    )
+    serve_default_ttl_s: float = field(
+        default=0.0,
+        metadata={"help": "Deadline applied to requests that carry no "
+                          "ttl_s of their own (0 = none). Expired "
+                          "requests end 'timeout' (HTTP 504)."},
+    )
+    serve_replicas: int = field(
+        default=1,
+        metadata={"help": "In-process engine replicas behind the "
+                          "prefix-aware router (the serve entry)."},
+    )
+    serve_disagg: str = field(
+        default="",
+        metadata={"help": "Disaggregated prefill/decode serving "
+                          "(inference/disagg.py): 'P:D' device counts "
+                          "for the prefill and decode slices, or 'auto' "
+                          "to size the split from the port's per-phase "
+                          "memory rows (an even split without them). '' = colocated (default). "
+                          "Paged cache layout only."},
+    )
+    serve_slo_path: str = field(
+        default="",
+        metadata={"help": "SLO target file (serving/slo.json grammar, see "
+                          "serving/slo.py); when set, /healthz carries a "
+                          "live 'slo' verdict. "
+                          "'' disables."},
+    )
+    serve_slo_preset: str = field(
+        default="tiny",
+        metadata={"help": "Preset name inside serve_slo_path."},
+    )
+
+    def __post_init__(self) -> None:
+        if self.serve_port < 0:
+            raise ValueError(
+                f"serve_port must be >= 0, got {self.serve_port}")
+        if self.serve_default_weight <= 0:
+            raise ValueError(
+                f"serve_default_weight must be > 0, "
+                f"got {self.serve_default_weight}")
+        if self.serve_max_backlog < 1:
+            raise ValueError(
+                f"serve_max_backlog must be >= 1, "
+                f"got {self.serve_max_backlog}")
+        if not 0.0 <= self.serve_free_page_watermark < 1.0:
+            raise ValueError(
+                f"serve_free_page_watermark must be in [0, 1), "
+                f"got {self.serve_free_page_watermark}")
+        if self.serve_default_ttl_s < 0:
+            raise ValueError(
+                f"serve_default_ttl_s must be >= 0, "
+                f"got {self.serve_default_ttl_s}")
+        if self.serve_replicas < 1:
+            raise ValueError(
+                f"serve_replicas must be >= 1, got {self.serve_replicas}")
+        if self.serve_tenants:
+            # delegate the spec grammar to its single home so the CLI
+            # fails at parse time, not mid-serve
+            from scaletorch_tpu_torch.serving.admission import parse_tenant_spec
+
+            parse_tenant_spec(self.serve_tenants)
+        if self.serve_disagg:
+            # same single-home delegation for the slice-split grammar
+            # (pure host parsing at config time)
+            from scaletorch_tpu_torch.inference.disagg import parse_disagg_spec
+
+            parse_disagg_spec(self.serve_disagg)
+        if self.serve_slo_path:
+            # same parse-time discipline for the SLO file: a typo'd
+            # path or malformed target key fails the CLI, not /healthz
+            from scaletorch_tpu_torch.serving.slo import load_slo, preset_targets
+
+            try:
+                preset_targets(load_slo(self.serve_slo_path),
+                               self.serve_slo_preset)
+            except OSError as exc:
+                raise ValueError(
+                    f"serve_slo_path {self.serve_slo_path!r} is not "
+                    f"readable: {exc}") from None
+
+
+@dataclass
 class TelemetryArguments:
     """Observability knobs (``telemetry/``): span tracing,
     anomaly-triggered profiling, straggler detection, JSONL export.
@@ -909,6 +1036,7 @@ class ScaleTorchTPUArguments(
     TrainingArguments,
     CheckpointArguments,
     ResilienceArguments,
+    ServingArguments,
     TelemetryArguments,
     LoggingArguments,
 ):
@@ -919,6 +1047,7 @@ class ScaleTorchTPUArguments(
         DistributedArguments.__post_init__(self)
         CheckpointArguments.__post_init__(self)
         ResilienceArguments.__post_init__(self)
+        ServingArguments.__post_init__(self)
         TelemetryArguments.__post_init__(self)
         for name in ("data_read_retries", "data_max_skipped_batches"):
             if getattr(self, name) < 0:

@@ -9,7 +9,10 @@
   * ``engine``     — ``InferenceEngine``: continuous batching over a
     fixed-slot batch;
   * ``resilience`` — the terminal-outcome taxonomy, the serving fault
-    injector and the serving stall watchdog.
+    injector and the serving stall watchdog;
+  * ``disagg``    — disaggregated prefill/decode serving: a prefill
+    slice and a decode slice, a page pool each, prompt pages handed off
+    through a ``PageHandoffChannel``.
 """
 
 from scaletorch_tpu_torch.inference.kv_cache import (  # noqa: F401
@@ -52,4 +55,12 @@ from scaletorch_tpu_torch.inference.engine import (  # noqa: F401
     InferenceEngine,
     Request,
     RequestResult,
+)
+from scaletorch_tpu_torch.inference.disagg import (  # noqa: F401
+    DisaggMetrics,
+    DisaggregatedEngine,
+    HandoffError,
+    PageHandoffChannel,
+    parse_disagg_spec,
+    plan_slice_split,
 )

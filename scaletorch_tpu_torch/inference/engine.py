@@ -182,6 +182,12 @@ class EngineMetrics:
         self.ttft_count += 1
         self.hist["ttft"].observe(ttft_s)
 
+    def histogram_state(self) -> Dict[str, Dict]:
+        """Sparse JSON form of every latency histogram (the
+        ``latency_histograms`` JSONL record shape, unlabeled)."""
+        return {name: h.to_dict() for name, h in self.hist.items()
+                if h.count}
+
     def record_outcome(self, outcome: str) -> None:
         self.outcomes[outcome] += 1
         if outcome == "ok":
@@ -190,6 +196,10 @@ class EngineMetrics:
     def tokens_per_second(self) -> float:
         dt = time.monotonic() - self._window_start
         return self._window_tokens / dt if dt > 0 else 0.0
+
+    def reset_window(self) -> None:
+        self._window_start = time.monotonic()
+        self._window_tokens = 0
 
     def snapshot(self) -> Dict[str, float]:
         terminal = sum(self.outcomes.values())
@@ -248,6 +258,13 @@ class _Slot:
     @property
     def active(self) -> bool:
         return self.request is not None
+
+
+def dtype_name(dtype: Any) -> str:
+    """A dtype as the warm exchange names it: the reference's name
+    (``"float32"``, ``"bfloat16"``), for a torch dtype or a name in
+    either spelling."""
+    return str(dtype).removeprefix("torch.")
 
 
 def _page_bytes(page: torch.Tensor) -> bytes:
@@ -424,6 +441,7 @@ class InferenceEngine:
         self.preemption = preemption
         self.watchdog = watchdog
         self.on_tokens = on_tokens
+        self._forward_fn = forward_fn
 
         self.cache_layout = cache_layout
         self._paged = cache_layout == "paged"
@@ -529,10 +547,9 @@ class InferenceEngine:
         # the inputs' first values write nothing (no slot masked in), so
         # the capture's warm-up run leaves the cache as it was
         b = max_slots
-        self._prefill = StaticStep(prefill, dict(
+        self._prefill = self._make_prefill_step(prefill, dict(
             tokens=np.zeros((b, self.prefill_len), np.int32), **prefill_meta,
-            write_mask=np.zeros(b, bool), seeds=np.zeros(b, np.int64)),
-            self.device)
+            write_mask=np.zeros(b, bool), seeds=np.zeros(b, np.int64)))
         self._decode = StaticStep(decode, dict(
             tokens=np.zeros(b, np.int32), positions=np.zeros(b, np.int32),
             active=np.zeros(b, bool), seeds=np.zeros(b, np.int64)),
@@ -608,6 +625,13 @@ class InferenceEngine:
                 f"the model lives on {dev}, the engine runs on {self.device}")
         self.device = dev
         return params
+
+    def _make_prefill_step(self, prefill: Callable,
+                           inputs: Dict[str, np.ndarray]) -> StaticStep:
+        """The prefill step over its static buffers (captured here on the
+        card). A disaggregated engine builds its own, over the pool of its
+        prefill slice."""
+        return StaticStep(prefill, inputs, self.device)
 
     def _update_page_gauges(self) -> None:
         self.metrics.pages_in_use = self.allocator.used_count
@@ -948,7 +972,7 @@ class InferenceEngine:
                     "chains": [], "pages": {}}
         return {
             "page_size": self.page_size,
-            "dtype": str(self.cache.k.dtype),
+            "dtype": dtype_name(self.cache.k.dtype),
             "page_shape": self._page_shape(),
             "chains": [
                 {"tokens": [int(t) for t in tokens],
@@ -969,7 +993,7 @@ class InferenceEngine:
         ``(meta, {page: (k_bytes, v_bytes)})``. Pages no longer registered
         are left out."""
         meta: Dict[str, Any] = {
-            "dtype": str(self.cache.k.dtype) if self._paged else None,
+            "dtype": dtype_name(self.cache.k.dtype) if self._paged else None,
             "page_shape": self._page_shape() if self._paged else [],
             "page_size": self.page_size if self._paged else None,
         }
@@ -1013,7 +1037,7 @@ class InferenceEngine:
             return result
         expected = tuple(self._page_shape())
         if (page_size != self.page_size
-                or str(dtype) != str(self.cache.k.dtype)
+                or dtype_name(dtype) != dtype_name(self.cache.k.dtype)
                 or tuple(int(d) for d in page_shape) != expected):
             logger.warning(
                 "warm import skipped: peer pool is incompatible "

@@ -27,7 +27,10 @@ from the newest checkpoint. That is the path of an NCCL run, whose
 group cannot be re-formed in place: a survivor blocked on the lost peer
 is ended by NCCL's watchdog at the group's timeout (a signal: relaunched
 like a crash), a relaunched rank exits 43 at once, and the fleet, once
-down, restarts. Without ``--elastic`` a failure ends the launch; a
+down, restarts. An elastic launch turns off NCCL's debug dump on a
+watchdog timeout (``ELASTIC_NCCL_ENV``, unless the caller's environment
+sets the variables): waiting for the dump would add its wait (60 s) to
+every survivor's end after a lost peer. Without ``--elastic`` a failure ends the launch; a
 fired watchdog (43) relaunches the whole fleet, up to
 ``--max-restarts`` times.
 
@@ -56,6 +59,10 @@ INTERRUPTED_EXIT = 130
 TIMEOUT_EXIT = 124
 # exits that end a rank for good: done, diverged, interrupted
 _FINAL = (0, DIVERGED_EXIT, INTERRUPTED_EXIT)
+# an elastic rank blocked on a lost peer is ended by NCCL's watchdog at
+# the group's timeout: no debug dump, and no wait for one, first
+ELASTIC_NCCL_ENV = {"TORCH_NCCL_DUMP_ON_TIMEOUT": "0",
+                    "TORCH_NCCL_WAIT_TIMEOUT_DUMP_MILSEC": "0"}
 
 
 class Launcher:
@@ -96,6 +103,9 @@ class Launcher:
                "TORCHELASTIC_RESTART_COUNT": str(self.tries[rank])}
         for name in ("MASTER_ADDR", "MASTER_PORT"):
             env.pop(name, None)
+        if self.elastic:
+            for name, value in ELASTIC_NCCL_ENV.items():
+                env.setdefault(name, value)
         out = None
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
