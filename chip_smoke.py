@@ -40,9 +40,10 @@ is non-zero; no phase catches an exception):
                 host's enqueue kept out of the span (`time_ms`'s
                 ``spin``) and the wrapper's host µs per call; the same
                 at Qwen3-30B-A3B's heads (Hq 32, Hkv 4, n_rep 8), at one
-                tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8) and at
-                one slot of 32768 keys; then at qwen3-14b's heads (n_rep
-                5, D 128) and dense-tiny's (n_rep 2, D 32).
+                tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), at one
+                slot of 32768 keys and at GPT-MoE's heads (Hq 4, Hkv 4,
+                D 32, 8 slots of up to 256 keys); then at qwen3-14b's
+                heads (n_rep 5, D 128) and dense-tiny's (n_rep 2, D 32).
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
                 dV) against their plain versions at the training shape of
                 Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
@@ -331,6 +332,30 @@ is non-zero; no phase catches an exception):
                 warm-up and 3 timed steps, K1 4 a step (8 under
                 ``nothing_saveable``), K2 / K3 / K6 / K7 and the grads
                 pass 4, K5 8.
+ 17c. gpt_moe_serve — GPT-MoE at GPTMoEConfig's defaults (the minGPT
+                width: block 256, vocab 65, 4 layers, 4 heads of 32,
+                n_embd 128, 8 experts top-2, capacity 1.25), fp32,
+                seeded weights with every matrix scaled by 10: the
+                teacher-forced paged decode through K4 against the gather
+                path (max |Δlogit| <= 1e-3, K4 once a layer a decode step);
+                the paged engine (8 slots, page 16) serves 16 greedy
+                requests of 16-160 prompt tokens, 64 new each: every
+                outcome ok, one capture of each step, K4 4 launches a
+                decode replay and none in the prefill, counted from a
+                zeroed count; decode tokens/s, TTFT, TPOT; at capacity 4.0
+                (dropless) the paged engine on the gather path and the
+                dense engine, prefix cache off, token for token.
+      model_zoo — on the card: MLA (embed 1024, 16 heads, q / kv ranks
+                512 / 256) prefill + 128 decode steps against its full
+                forward; ``sorted_moe_forward`` at world 1 against a
+                float64 per-token loop; LeNet against its CPU run (each
+                <= 1e-4).
+      mingpt_train — the port's minGPT example on the card, dense then
+                ``--use_moe true``, 120 steps at block 64: the eval NLL
+                falls (dense below 2.4, the JAX example test's bound);
+                tokens/s and ms a step.
+      mnist_train — the port's MNIST example, synthetic digits, 2
+                epochs: last loss below 1.6; test accuracy, steps/s.
  18. parallel — ``torch.distributed.run`` of this script (``--parallel-
                 worker``) with one rank a visible card, NCCL, under a
                 wall-clock limit; a failed rank fails the phase. One card:
@@ -450,14 +475,22 @@ from scaletorch_tpu_torch.inference import (
     teacher_forced_decode,
     teacher_forced_decode_paged,
 )
+from scaletorch_tpu_torch.examples.mingpt import train_mingpt
+from scaletorch_tpu_torch.examples.mnist import train_mnist
 from scaletorch_tpu_torch.launch import ELASTIC_NCCL_ENV
 from scaletorch_tpu_torch.models import (
+    GPTMoEConfig,
+    GPTMoEForCausalLM,
     LlamaForCausalLM,
     Qwen3MoEForCausalLM,
     init_params,
     model_config,
 )
-from scaletorch_tpu_torch.models import qwen3_moe
+from scaletorch_tpu_torch.models import gpt_moe, lenet, qwen3_moe
+from scaletorch_tpu_torch.models.attention import (
+    AttentionConfig,
+    MultiHeadLatentAttention,
+)
 from scaletorch_tpu_torch.models.llama import REMAT_POLICIES
 from scaletorch_tpu_torch.models.presets import preset
 from scaletorch_tpu_torch.ops import _build
@@ -467,6 +500,7 @@ from scaletorch_tpu_torch.parallel.expert_parallel import (
     expert_capacity,
     moe_mlp,
     slot_fill_counts_indexed,
+    sorted_moe_forward,
     top_k_routing_indexed,
 )
 from scaletorch_tpu_torch.ops.paged_attention import (
@@ -846,9 +880,10 @@ def check_decode_row(row: dict, what: str) -> None:
 def phase_kernel() -> dict:
     """The serving shape of Qwen3-0.6B, then Qwen3-30B-A3B's heads (n_rep
     8), one tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), one slot at
-    32768 keys, qwen3-14b's heads (n_rep 5) and dense-tiny's (D 32). On
-    each of the first four, a control: the plain version with one page of
-    the longest slot dropped must fail the checks (both readings are
+    32768 keys, GPT-MoE's heads (Hq 4, Hkv 4, D 32, up to 256 keys),
+    qwen3-14b's heads (n_rep 5) and dense-tiny's (D 32). On each of the
+    first five, a control: the plain version with one page of the
+    longest slot dropped must fail the checks (both readings are
     printed)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -869,6 +904,10 @@ def phase_kernel() -> dict:
                               max_seq=LONG_CONTEXT,
                               positions=[LONG_CONTEXT - 1]), flush,
                 LONG_CONTEXT_SLOT_REL),
+            # GPT-MoE's decode (gpt_moe_serve): n_rep 1, D 32, 256 keys
+            "gpt_moe_heads": decode_row(
+                decode_inputs(dtype, seed=1239, heads=GPT_HEADS,
+                              max_seq=GPT_MAX_SEQ), flush),
         }
         row["geometries"] = {m: paged_geometry(m, dtype, flush)
                              for m in GEOMETRY_MODELS}
@@ -2979,6 +3018,292 @@ def phase_moe_train_save_attn() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return per_step
+
+
+# ---- 17c. the model zoo: GPT-MoE served, MLA, sorted dispatch, the examples ---
+# GPT-MoE at GPTMoEConfig's defaults (the minGPT width: block 256, vocab 65,
+# 4 layers, 4 heads of 32, n_embd 128, 8 experts top-2, capacity 1.25), fp32
+GPT_SLOTS, GPT_PAGE, GPT_MAX_SEQ, GPT_PREFILL = 8, 16, 256, 160
+GPT_NEW_TOKENS = 64
+GPT_WEIGHT_SCALE = 10.0  # on every matrix: at the init's 0.02 the tied head
+# answers every prompt with its last token, and the tokens would not move
+GPT_PARITY = dict(batch=4, prefill=64)  # teacher-forced K4 vs gather
+GPT_DROPLESS_CF = 4.0  # capacity == the row: paged (gather) == dense
+# the heads K4 serves GPT-MoE with: Hq 4, Hkv 4 (n_rep 1), D 32, <= 256 keys
+GPT_HEADS = (4, 4, 32)
+ZOO_TOLERANCE = 1e-4  # fp32 on the card: MLA cache vs full, sorted MoE
+MINGPT_ARGS = ("--block_size", "64", "--batch_size", "32", "--steps", "120",
+               "--eval_interval", "60", "--sample_tokens", "32")
+MINGPT_DENSE_NLL = 2.4  # the JAX example test's bound
+MNIST_ARGS = ("--epochs", "2", "--batch_size", "128", "--log_interval",
+              "1000")
+MNIST_LOSS = 1.6  # the JAX example test's bound
+MNIST_REPEATS = 2  # card runs a setting: their spread is the noise
+# card (fp32, deterministic) vs CPU test accuracy from one init: 0.16
+# points measured on an H100, where TF32 convolutions moved it 0.83
+MNIST_CPU_GAP = 0.01
+
+
+def gpt_moe_model(cfg: GPTMoEConfig) -> GPTMoEForCausalLM:
+    """Seeded weights (``init_params`` on the card by default), every
+    matrix scaled by GPT_WEIGHT_SCALE."""
+    params = gpt_moe.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg)
+    check(params["wte"].is_cuda, "gpt_moe.init_params did not default to "
+          "the card")
+    return GPTMoEForCausalLM.from_params(
+        gpt_moe.scale_matrices(params, GPT_WEIGHT_SCALE), cfg, "cuda")
+
+
+def gpt_traffic(vocab: int, seed: int = 11) -> list:
+    """16 prompts of 16-160 tokens; every other one opens with a shared
+    32-token (two-page) prefix."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 2 * GPT_PAGE).tolist()
+    prompts = []
+    for i in range(16):
+        if i % 2 == 0:
+            tail = int(rng.integers(1, GPT_PREFILL - len(prefix) + 1))
+            prompts.append(prefix + rng.integers(0, vocab, tail).tolist())
+        else:
+            n = int(rng.integers(16, GPT_PREFILL + 1))
+            prompts.append(rng.integers(0, vocab, n).tolist())
+    return prompts
+
+
+def phase_gpt_moe_serve() -> dict:
+    """GPT-MoE served through the paged engine, its decode on K4: the
+    teacher-forced paged decode through K4 against the gather path
+    (max |Δlogit|); 16 greedy requests on 8 slots (every outcome ok, one
+    capture of each step, K4 once a layer a decode replay, counted from
+    a zeroed count; decode tokens/s, TTFT, TPOT); at the dropless
+    capacity factor, the paged engine on the gather path against the
+    dense engine, token for token (prefix cache off, so both prefill the
+    same rows)."""
+    cfg = GPTMoEConfig()
+    check(cfg.head_dim == GPT_HEADS[2] and cfg.n_head == GPT_HEADS[0],
+          f"GPT-MoE's heads moved: {cfg}")
+    model = gpt_moe_model(cfg)
+    cfg4 = dataclasses.replace(cfg, capacity_factor=GPT_DROPLESS_CF)
+    model4 = GPTMoEForCausalLM.from_params(model.tree(), cfg4, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (GPT_PARITY["batch"], cfg.block_size),
+                           generator=gen, device="cuda")
+    with torch.inference_mode():
+        tf = {}
+        for name, kernel in (("k4", None), ("gather", False)):
+            _build.reset_launch_counts()
+            tf[name] = teacher_forced_decode_paged(
+                model, cfg, tokens, page_size=GPT_PAGE,
+                max_seq=cfg.block_size, prefill_len=GPT_PARITY["prefill"],
+                kernel=kernel)
+            tf[name + "_launches"] = _build.launch_counts["paged_decode"]
+        torch.cuda.synchronize()
+        parity = max_abs(tf["k4"], tf["gather"])
+        decode_steps = cfg.block_size - GPT_PARITY["prefill"]
+        check(parity <= PARITY_TOLERANCE,
+              f"gpt_moe: K4 vs gather max |dlogit| {parity} > "
+              f"{PARITY_TOLERANCE}")
+        check(tf["k4_launches"] == cfg.n_layer * decode_steps
+              and tf["gather_launches"] == 0,
+              f"gpt_moe teacher-forced: K4 launched {tf['k4_launches']} / "
+              f"{tf['gather_launches']} times, want "
+              f"{cfg.n_layer * decode_steps} / 0")
+        prompts = gpt_traffic(cfg.vocab_size)
+        kw = dict(max_slots=GPT_SLOTS, max_seq=GPT_MAX_SEQ,
+                  prefill_len=GPT_PREFILL, page_size=GPT_PAGE)
+        free_engine()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        eng, results, ptrs, stats = serve(model, cfg, prompts, None, **kw)
+        launches = _build.launch_counts["paged_decode"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        outcomes = check_served(eng, results, ptrs, stats, "gpt_moe_serve")
+        graphs = check_one_capture(eng, "gpt_moe_serve")
+        per_step = graphs["decode_launches_per_replay"].get("paged_decode")
+        check(per_step == cfg.n_layer,
+              f"gpt_moe_serve: paged_decode launched {per_step} times a "
+              f"decode replay, want {cfg.n_layer}")
+        check(not graphs["prefill_launches_per_replay"].get("paged_decode"),
+              "gpt_moe_serve: the prefill step launched K4")
+        del eng
+        free_engine()
+        runs = {}
+        for layout, kernel in (("paged_gather", False), ("dense", None)):
+            eng, res, _, _ = serve(model4, cfg4, prompts, kernel,
+                                   cache_layout=layout.split("_")[0],
+                                   prefix_cache=False, **kw)
+            check(all(r.outcome == "ok" for r in res),
+                  f"gpt_moe {layout}: outcomes {[r.outcome for r in res]}")
+            check_one_capture(eng, f"gpt_moe {layout}")
+            runs[layout] = [r.tokens for r in res]
+            del eng
+            free_engine()
+        check(runs["paged_gather"] == runs["dense"],
+              f"gpt_moe at capacity {GPT_DROPLESS_CF}: paged (gather) "
+              f"tokens differ from dense: "
+              f"{agreement(runs['paged_gather'], runs['dense'])}")
+    moving = sum(len(set(r.tokens)) > 1 for r in results)
+    out = dict(
+        config={"block_size": cfg.block_size, "vocab": cfg.vocab_size,
+                "n_layer": cfg.n_layer, "n_head": cfg.n_head,
+                "n_embd": cfg.n_embd, "experts": cfg.num_experts,
+                "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor},
+        dtype="float32", weight_scale=GPT_WEIGHT_SCALE,
+        teacher_forced_max_abs=parity, tolerance=PARITY_TOLERANCE,
+        teacher_forced_k4_launches=tf["k4_launches"], slots=GPT_SLOTS,
+        max_seq=GPT_MAX_SEQ, prefill_len=GPT_PREFILL, page_size=GPT_PAGE,
+        requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+        outcomes=sorted(set(outcomes)), requests_with_moving_tokens=moving,
+        kernel_launches=launches, launches_per_decode_step=per_step,
+        peak_memory_gb=peak_gb, **stats, **graphs,
+        dropless_paged_gather_equals_dense=True)
+    emit("gpt_moe_serve", **out)
+    return out
+
+
+def phase_model_zoo() -> dict:
+    """On the card: MLA's latent-cache prefill + decode against its full
+    forward; ``sorted_moe_forward`` at world 1 against its dense per-token
+    loop (float64); LeNet's forward against its CPU run."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    acfg = AttentionConfig(embed_dim=1024, num_heads=16, q_lora_rank=512,
+                           kv_lora_rank=256)
+    mla = MultiHeadLatentAttention(acfg)
+    params = mla.init(gen)
+    b, s, p = 4, 256, 128
+    x = torch.randn(b, s, acfg.embed_dim, generator=gen, device=dev)
+    with torch.inference_mode():
+        full = mla(params, x)
+        cache = mla.init_cache(b, s)
+        check(cache.is_cuda, "MLA init_cache did not default to the card")
+        out, cache = mla.prefill(params, x[:, :p], cache)
+        outs = [out]
+        for t in range(p, s):
+            o, cache = mla.decode(params, x[:, t:t + 1], cache,
+                                  torch.full((b,), t, device=dev))
+            outs.append(o)
+        mla_err = max_abs(torch.cat(outs, dim=1), full)
+    check(mla_err <= ZOO_TOLERANCE,
+          f"MLA cache vs full forward max abs {mla_err} > {ZOO_TOLERANCE}")
+
+    n, h, i, e, k = 512, 1024, 1024, 4, 2
+    xs = torch.randn(n, h, generator=gen, device=dev)
+    ws = [torch.randn(shape, generator=gen, device=dev) * h ** -0.5
+          for shape in ((e, h, i), (e, h, i), (e, i, h))]
+    gate_idx = torch.randint(0, e, (n, k), generator=gen, device=dev)
+    gate_w = torch.rand(n, k, generator=gen, device=dev)
+    with torch.inference_mode():
+        got = sorted_moe_forward(xs, gate_idx, gate_w, *ws, axis=None,
+                                 num_experts=e)
+        want = torch.zeros(n, h, dtype=torch.float64, device=dev)
+        g, u, d = (w.double() for w in ws)
+        for j in range(k):
+            sel = gate_idx[:, j]
+            hid = F.silu(torch.einsum("nh,nhi->ni", xs.double(), g[sel])) \
+                * torch.einsum("nh,nhi->ni", xs.double(), u[sel])
+            want += gate_w[:, j, None].double() * torch.einsum(
+                "ni,nih->nh", hid, d[sel])
+        sorted_err = max_abs(got, want)
+    check(sorted_err <= ZOO_TOLERANCE,
+          f"sorted_moe_forward vs dense max abs {sorted_err} > "
+          f"{ZOO_TOLERANCE}")
+
+    lparams = lenet.init_params(torch.Generator().manual_seed(0),
+                                device="cpu")
+    card_params = lenet.init_params(torch.Generator().manual_seed(0))
+    check(all(v.is_cuda for v in card_params.values()),
+          "lenet.init_params did not default to the card")
+    images = torch.rand(256, 1, 28, 28, generator=torch.Generator()
+                        .manual_seed(1))
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        cpu = lenet.forward(lparams, images)
+        card = lenet.forward(card_params, images.to(dev)).cpu()
+    lenet_err = max_abs(card, cpu)
+    check(lenet_err <= ZOO_TOLERANCE,
+          f"LeNet card vs CPU max abs {lenet_err} > {ZOO_TOLERANCE}")
+    out = {"mla": {"embed_dim": acfg.embed_dim, "heads": acfg.num_heads,
+                   "q_lora_rank": acfg.q_lora_rank,
+                   "kv_lora_rank": acfg.kv_lora_rank, "batch": b,
+                   "prefill": p, "decode_steps": s - p,
+                   "cache_shape": list(cache.shape),
+                   "max_abs_vs_full": mla_err},
+           "sorted_moe_world1": {"tokens": n, "hidden": h, "experts": e,
+                                 "top_k": k, "max_abs_vs_dense": sorted_err},
+           "lenet": {"batch": 256, "max_abs_vs_cpu": lenet_err},
+           "tolerance": ZOO_TOLERANCE}
+    emit("model_zoo", **out)
+    return out
+
+
+def phase_mingpt_train() -> dict:
+    """The port's minGPT example on the card: dense, then ``--use_moe
+    true``, 120 steps each at block 64; the eval NLL falls (dense below
+    the JAX example test's bound); tokens/s and ms a step."""
+    out = {}
+    for name, extra in (("dense", ()), ("moe", ("--use_moe", "true"))):
+        r = train_mingpt.run(list(MINGPT_ARGS + extra))
+        check(r["device"].startswith("cuda"), f"mingpt {name} ran on "
+              f"{r['device']}")
+        check(len(r["evals"]) == 2 and r["evals"][1] < r["evals"][0],
+              f"mingpt {name}: the eval NLL did not fall {r['evals']}")
+        out[name] = {k: r[k] for k in ("evals", "train_nll", "tokens_per_s",
+                                       "step_ms", "sample")}
+    check(out["dense"]["evals"][-1] < MINGPT_DENSE_NLL,
+          f"mingpt dense: eval NLL {out['dense']['evals'][-1]} >= "
+          f"{MINGPT_DENSE_NLL}")
+    emit("mingpt_train", args=list(MINGPT_ARGS), **out)
+    return out
+
+
+def mnist_runs(tf32: bool) -> list:
+    """MNIST_REPEATS card runs of the MNIST example, cuDNN and matmuls in
+    TF32 with cuDNN's default algorithm choice (PyTorch's defaults for
+    cuDNN) or in fp32 with deterministic algorithms."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=not tf32,
+                                        allow_tf32=tf32):
+            return [train_mnist.run(list(MNIST_ARGS))
+                    for _ in range(MNIST_REPEATS)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_mnist_train() -> dict:
+    """The port's MNIST example on the card, synthetic digits, 2 epochs:
+    the last loss below the JAX example test's bound; test accuracy and
+    steps/s. The example draws its init from a CPU generator, so the card
+    and the CPU start from the same weights: the card runs it in TF32 and
+    in deterministic fp32, MNIST_REPEATS times each, and the host's CPU
+    once. The fp32 runs equal each other and come within MNIST_CPU_GAP of
+    the CPU's accuracy."""
+    runs = {"tf32": mnist_runs(True), "fp32_deterministic": mnist_runs(False)}
+    for name, rs in runs.items():
+        for r in rs:
+            check(r["device"].startswith("cuda"),
+                  f"mnist {name} ran on {r['device']}")
+            check(r["last_loss"] < MNIST_LOSS,
+                  f"mnist {name}: last loss {r['last_loss']} >= {MNIST_LOSS}")
+    fp32 = runs["fp32_deterministic"]
+    check(len({(r["last_loss"], r["test_acc"]) for r in fp32}) == 1,
+          f"mnist: deterministic fp32 runs differ {fp32}")
+    cpu = train_mnist.run(list(MNIST_ARGS) + ["--device", "cpu"])
+    gap = abs(fp32[0]["test_acc"] - cpu["test_acc"])
+    check(gap <= MNIST_CPU_GAP, f"mnist: card fp32 accuracy "
+          f"{fp32[0]['test_acc']} vs the CPU's {cpu['test_acc']}")
+    out = {**fp32[0], "runs": {name: [{k: x[k] for k in (
+        "last_loss", "test_acc", "steps_per_s")} for x in rs]
+        for name, rs in runs.items()},
+        "cpu": {k: cpu[k] for k in ("last_loss", "test_acc")},
+        "card_cpu_accuracy_gap": gap}
+    emit("mnist_train", args=list(MNIST_ARGS), **out)
+    return out
 
 
 # ---- 11e. the runtime on one card -------------------------------------------
@@ -6454,6 +6779,13 @@ def main() -> int:
     timed("moe_train_save_attn", phase_moe_train_save_attn)
     gc.collect()
     torch.cuda.empty_cache()
+    gpt = timed("gpt_moe_serve", phase_gpt_moe_serve)
+    torch.cuda.empty_cache()
+    timed("model_zoo", phase_model_zoo)
+    timed("mingpt_train", phase_mingpt_train)
+    timed("mnist_train", phase_mnist_train)
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("runtime_multiproc", phase_runtime_multiproc)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6479,7 +6811,9 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     rows.append({
         **PORTED["K4"], "replaces": at["K4"],
-        "launches": launches,
+        "launches": launches + gpt["kernel_launches"],
+        "launches_by_path": {"serve": launches,
+                             "gpt_moe_serve": gpt["kernel_launches"]},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["kernel_ms"],
         "plain_ms": bf16["plain_ms"],

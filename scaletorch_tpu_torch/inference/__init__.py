@@ -17,12 +17,14 @@
 
 from scaletorch_tpu_torch.inference.kv_cache import (  # noqa: F401
     KVCache,
+    MLACache,
     PageAllocator,
     PagedKVCache,
     PagedKVIO,
     RadixPrefixCache,
     ceil_div,
     init_kv_cache,
+    init_mla_cache,
     init_paged_kv_cache,
     kv_cache_bytes,
     kv_cache_shape,

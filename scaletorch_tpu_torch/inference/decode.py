@@ -62,18 +62,20 @@ StepOutput = Tuple[Tensor, Tensor, Tensor]
 
 
 def resolve_forward_cached(cfg) -> Callable:
-    """The cached forward for a model config: ``Qwen3MoEConfig`` has the
-    MoE one; every other ``LlamaConfig`` (Llama, Qwen3) shares the Llama
-    one."""
-    from scaletorch_tpu_torch.models import llama, qwen3_moe
+    """The cached forward for a model config: ``Qwen3MoEConfig`` and
+    ``GPTMoEConfig`` have their own; every other ``LlamaConfig`` (Llama,
+    Qwen3) shares the Llama one."""
+    from scaletorch_tpu_torch.models import gpt_moe, llama, qwen3_moe
 
     if isinstance(cfg, qwen3_moe.Qwen3MoEConfig):
         return qwen3_moe.forward_cached
+    if isinstance(cfg, gpt_moe.GPTMoEConfig):
+        return gpt_moe.forward_cached
     if isinstance(cfg, llama.LlamaConfig):
         return llama.forward_cached
     raise TypeError(
         f"no cache-aware forward known for config {type(cfg).__name__} "
-        "(the PyTorch port serves the Llama family and Qwen3-MoE)"
+        "(the PyTorch port serves the Llama family, Qwen3-MoE and GPT-MoE)"
     )
 
 

@@ -295,14 +295,16 @@ class InferenceEngine:
 
     Parameters
     ----------
-    params : the model — a ``LlamaForCausalLM`` or ``Qwen3MoEForCausalLM``
-        (or any module with ``forward_cached``), or a parameter tree in the
-        reference layout (torch tensors or numpy arrays, e.g.
-        ``init_params``' output or a JAX tree through ``np.asarray``),
-        which is loaded into a new model of the config's family on
-        ``device``.
-    cfg : the model's config (``LlamaConfig``, ``Qwen3Config`` or
-        ``Qwen3MoEConfig``).
+    params : the model — a ``LlamaForCausalLM``, ``Qwen3MoEForCausalLM``
+        or ``GPTMoEForCausalLM`` (or any module with ``forward_cached``),
+        or a parameter tree in the reference layout (torch tensors or
+        numpy arrays, e.g. ``init_params``' output or a JAX tree through
+        ``np.asarray``), which is loaded into a new model of the config's
+        family on ``device``.
+    cfg : the model's config (``LlamaConfig``, ``Qwen3Config``,
+        ``Qwen3MoEConfig`` or ``GPTMoEConfig``; a GPT-MoE engine's
+        ``max_seq`` is at most the config's ``block_size``, the length of
+        its position table).
     max_slots : decode batch size B (fixed).
     max_seq : cache length S_max (prompt + generation cap per slot).
     prefill_len : static prompt-buffer length P_max (default
@@ -409,6 +411,11 @@ class InferenceEngine:
             raise ValueError(
                 f"cache_layout must be 'dense' or 'paged', "
                 f"got {cache_layout!r}")
+        block = getattr(cfg, "block_size", None)
+        if block is not None and max_seq > block:
+            raise ValueError(
+                f"max_seq {max_seq} exceeds the model's block_size {block} "
+                "(its learned position table)")
         self._check_mesh(cfg, mesh, tp_axis, batch_axis, cache_layout,
                          max_slots)
         self.mesh, self.tp_axis, self.batch_axis = mesh, tp_axis, batch_axis
@@ -580,8 +587,8 @@ class InferenceEngine:
             return
         if hasattr(cfg, "num_experts"):
             raise NotImplementedError(
-                "a Qwen3-MoE engine over a mesh is not ported (the "
-                "reference runs it only through GSPMD): ROADMAP Queue 1")
+                "an MoE engine over a mesh is not ported (the reference "
+                "runs it only through GSPMD): ROADMAP Queue 1")
         if mesh.pp > 1 or mesh.cp > 1 or mesh.ep > 1:
             raise ValueError(
                 f"a serving mesh spans tp and dp only, got {mesh!r}")
@@ -602,12 +609,19 @@ class InferenceEngine:
 
     def _resolve_model(self, params, cfg) -> torch.nn.Module:
         if not isinstance(params, torch.nn.Module):
+            from scaletorch_tpu_torch.models.gpt_moe import (
+                GPTMoEConfig,
+                GPTMoEForCausalLM,
+            )
             from scaletorch_tpu_torch.models.llama import LlamaForCausalLM
             from scaletorch_tpu_torch.models.qwen3_moe import (
                 Qwen3MoEConfig,
                 Qwen3MoEForCausalLM,
             )
 
+            if isinstance(cfg, GPTMoEConfig):
+                return GPTMoEForCausalLM.from_params(params, cfg,
+                                                     device=self.device)
             if isinstance(cfg, Qwen3MoEConfig):
                 return Qwen3MoEForCausalLM.from_params(params, cfg,
                                                        device=self.device)

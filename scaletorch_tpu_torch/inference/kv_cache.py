@@ -2,7 +2,9 @@
 
 Counterpart of scaletorch_tpu/inference/kv_cache.py:
 
-  * dense: ``KVCache``, one buffer pair ``[L, B, Hkv, S_max, D]``;
+  * dense: ``KVCache``, one buffer pair ``[L, B, Hkv, S_max, D]`` (GPT-MoE:
+    ``[L, B, H, S_max, D]``);
+  * ``MLACache``: MLA attention's latent-only buffer ``[B, S_max, R]``;
   * paged: ``PagedKVCache``, a global pool of fixed-size pages
     ``[L, n_pages, Hkv, page_size, D]`` plus per-slot page tables
     (``[B, max_pages]`` int32, TRASH_PAGE-padded). ``PageAllocator``
@@ -61,11 +63,21 @@ class PagedKVCache(NamedTuple):
     v: Tensor
 
 
+class MLACache(NamedTuple):
+    """Latent-only cache [B, S_max, kv_rank] of MLA attention
+    (``models/attention``)."""
+
+    latent: Tensor
+
+
 def kv_cache_shape(cfg, batch: int, max_seq: int) -> Tuple[int, ...]:
-    """[L, B, Hkv, S_max, D] for a Llama-family config."""
+    """[L, B, Hkv, S_max, D] for a Llama-family config, or [L, B, H,
+    S_max, D] for GPT-MoE (full per-head K/V)."""
     if hasattr(cfg, "num_key_value_heads"):
         return (cfg.num_hidden_layers, batch, cfg.num_key_value_heads,
                 max_seq, cfg.actual_head_dim)
+    if hasattr(cfg, "n_layer"):  # GPTMoEConfig
+        return (cfg.n_layer, batch, cfg.n_head, max_seq, cfg.head_dim)
     raise TypeError(f"no KV-cache layout known for config {type(cfg).__name__}")
 
 
@@ -211,6 +223,17 @@ def init_paged_kv_cache(cfg, num_pages: int, page_size: int, *,
     return PagedKVCache(
         k=torch.zeros(_local(shape, sk), dtype=dt, device=dev),
         v=torch.zeros(_local(shape, sv), dtype=dt, device=dev))
+
+
+def init_mla_cache(attn_cfg, batch: int, max_seq: int, *,
+                   dtype: Optional[torch.dtype] = None,
+                   device: DeviceLike = None) -> MLACache:
+    """Zeroed latent cache of an ``AttentionConfig`` with MLA ranks, on
+    ``device`` (None: the CUDA card)."""
+    from scaletorch_tpu_torch.models.attention import MultiHeadLatentAttention
+
+    return MLACache(latent=MultiHeadLatentAttention(attn_cfg).init_cache(
+        batch, max_seq, dtype, device=device))
 
 
 class PageAllocator:

@@ -1,5 +1,6 @@
-"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3) and
-Qwen3-MoE.
+"""Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3),
+Qwen3-MoE, and the examples' zoo: GPT(-MoE), LeNet and the attention-variant
+library (MHA / MQA / GQA / MLA, ``models.attention``).
 
 Importing the package registers the attention backends: ``sdpa``
 (``llama.py``), ``flash`` (``ops/flash_attention.py``, the CUDA
@@ -12,6 +13,12 @@ from scaletorch_tpu_torch.models.convert import (  # noqa: F401
     params_from_numpy,
     params_to_numpy,
 )
+from scaletorch_tpu_torch.models.gpt_moe import (  # noqa: F401
+    GPTMoE,
+    GPTMoEConfig,
+    GPTMoEForCausalLM,
+)
+from scaletorch_tpu_torch.models.lenet import LeNet, LeNetConfig  # noqa: F401
 from scaletorch_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     LlamaForCausalLM,

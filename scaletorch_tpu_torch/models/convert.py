@@ -13,6 +13,8 @@ parameter dict (fp32 leaves with ``requires_grad``) and
 (``llama.init_params``) load the same way. ``opt_state_from_jax`` carries
 an optax optimizer state (as numpy arrays) into the port's state dict of
 the same optimizer, so both sides can start from one mid-run state.
+``gpt_moe_from_jax``, ``lenet_from_jax`` and ``attention_from_jax`` carry
+the model zoo's trees (LeNet's from NHWC to NCHW).
 
 ``shard_numpy_params`` turns a full tree into one rank's shards over the
 mesh (``parallel/tensor_parallel.shard_dims``: the stacked layer axis over
@@ -290,3 +292,42 @@ def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm, *,
         return out
 
     return walk(list(shards))
+
+
+# ---- the model zoo: GPT-MoE, LeNet, the attention variants ---------------------
+def gpt_moe_from_jax(tree: Dict[str, Any], cfg, device: DeviceLike = None,
+                     *, requires_grad: bool = False):
+    """A ``GPTMoEForCausalLM`` holding the JAX package's GPT-MoE tree (as
+    numpy arrays): the layouts are the same, leaf for leaf."""
+    from scaletorch_tpu_torch.models.gpt_moe import GPTMoEForCausalLM
+
+    return GPTMoEForCausalLM.from_params(tree, cfg, device=device,
+                                         requires_grad=requires_grad)
+
+
+def lenet_from_jax(tree: Dict[str, Any], device: DeviceLike = None, *,
+                   requires_grad: bool = False) -> Dict[str, torch.Tensor]:
+    """The port's LeNet parameters (NCHW) of the JAX package's (NHWC): the
+    convs HWIO -> OIHW, and ``fc1``'s rows reordered from NHWC's (H, W, C)
+    flatten to NCHW's (C, H, W), so both compute the same logits."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in tree.items():
+        t = _as_tensor(leaf).float()
+        if name.startswith("conv"):
+            t = t.permute(3, 2, 0, 1)
+        elif name == "fc1":
+            c = 16
+            hw = int(round((t.shape[0] // c) ** 0.5))
+            t = t.reshape(hw, hw, c, -1).permute(2, 0, 1, 3).reshape(
+                t.shape[0], -1)
+        out[name] = t.contiguous().to(dev).requires_grad_(requires_grad)
+    return out
+
+
+def attention_from_jax(tree: Dict[str, Any], device: DeviceLike = None
+                       ) -> Dict[str, torch.Tensor]:
+    """An attention variant's parameters (``[in, out]`` projections in both
+    packages) as tensors on ``device``."""
+    dev = resolve_device(device)
+    return {name: _as_tensor(leaf).to(dev) for name, leaf in tree.items()}

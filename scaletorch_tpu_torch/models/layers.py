@@ -1,4 +1,5 @@
-"""Model building blocks: RMSNorm, SwiGLU, RoPE, SDPA, cross entropy.
+"""Model building blocks: initialisers, RMSNorm, SwiGLU, RoPE, SDPA,
+cross entropy.
 
 PyTorch counterparts of scaletorch_tpu/models/layers.py with the same
 casts, because the casts decide the numbers:
@@ -25,6 +26,39 @@ import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+# ---- initialisation -----------------------------------------------------------
+def init_generator(generator: Optional[torch.Generator],
+                   device: torch.device) -> torch.Generator:
+    """``generator``, or a fresh one on ``device`` seeded with 0: the
+    default draw of the port's ``init_params`` and samplers."""
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    return generator
+
+
+def fan_in_uniform(generator: torch.Generator, shape: Tuple[int, ...],
+                   fan_in: int, dtype: torch.dtype = torch.float32, *,
+                   device=None) -> Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) drawn from ``generator`` on the
+    generator's device, then put on ``device`` (None: left there), so one
+    CPU generator draws the same weights for the CPU and the card."""
+    bound = 1.0 / math.sqrt(fan_in)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    out.uniform_(-bound, bound, generator=generator)
+    return out if device is None else out.to(device)
+
+
+def normal_init(generator: torch.Generator, shape: Tuple[int, ...],
+                std: float = 0.02, dtype: torch.dtype = torch.float32, *,
+                device=None) -> Tensor:
+    """N(0, std²) drawn from ``generator``, placed as ``fan_in_uniform``
+    places its draw."""
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    out.normal_(0.0, std, generator=generator)
+    return out if device is None else out.to(device)
 
 
 # ---- RMSNorm / SwiGLU ---------------------------------------------------------

@@ -55,6 +55,7 @@ from scaletorch_tpu_torch.models.layers import (
     apply_rotary_pos_emb,
     cached_sdpa_attention,
     get_cos_sin,
+    init_generator,
     rms_norm,
     sdpa_attention,
     swiglu,
@@ -203,9 +204,7 @@ def init_params(
     are not JAX's threefry draws; parity tests carry JAX parameters
     across with ``models.convert`` instead."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(0)
+    generator = init_generator(generator, dev)
     pd = cfg.param_dtype
     params: Params = {"layers": {}}
     for name, (shape, is_norm) in _param_shapes(cfg).items():

@@ -49,7 +49,11 @@ from torch import nn
 
 from scaletorch_tpu_torch.env import get_env
 from scaletorch_tpu_torch.models import llama as _llama
-from scaletorch_tpu_torch.models.layers import get_cos_sin, rms_norm
+from scaletorch_tpu_torch.models.layers import (
+    get_cos_sin,
+    init_generator,
+    rms_norm,
+)
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config
 from scaletorch_tpu_torch.models.registry import get_attention_backend
 from scaletorch_tpu_torch.parallel.expert_parallel import (
@@ -263,9 +267,7 @@ def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None
     init_params``'s contract: the shards are those of one card's
     parameters)."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(0)
+    generator = init_generator(generator, dev)
     params: Params = {"layers": {}}
     for name, (shape, init) in param_shapes(cfg).items():
         t = torch.empty(shape, dtype=cfg.param_dtype, device=dev)

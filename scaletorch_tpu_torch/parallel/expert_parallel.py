@@ -23,6 +23,11 @@ H]`` slab of every destination's experts and receives its own experts'
 slabs from every source rank, laid out (source_rank, group) along the
 token axis. With ``axis`` None, or one rank, it is the identity.
 
+Beside the capacity path, ``sorted_moe_forward`` is the reference's
+zero-drop sort-based dispatch (``sort_dispatch_tokens`` /
+``sort_gather_tokens``: rows sorted by destination rank, one all-to-all
+of the sizes and two of the fixed slabs).
+
 The routing math lives in one place (``_route_core``), so both forms make
 the same decisions, drop the same rows and report the same aux losses.
 Ties in the top-k go to the lower expert index, as ``jax.lax.top_k``
@@ -378,6 +383,155 @@ def slot_fill_counts_indexed(routing: Dict[str, Tensor], num_experts: int,
     counts.scatter_add_(1, ei.reshape(g, -1),
                         kept.reshape(g, -1).to(torch.int32))
     return counts.T.contiguous()
+
+
+def sorted_dispatch_reference(x: Tensor, expert_ids: Tensor,
+                              num_experts: int):
+    """Sort-based dispatch semantics, for tests and ragged flows outside a
+    captured step: (sorted_tokens = x[sort_idx] grouped by expert id and
+    stable within a group, sort_idx, counts per expert summing to N)."""
+    sort_idx = torch.sort(expert_ids, stable=True).indices
+    counts = torch.bincount(expert_ids.long(), minlength=num_experts)
+    return x[sort_idx], sort_idx, counts
+
+
+# ---- the sort-based exchange: zero drops, ragged sizes in fixed slabs ---------
+#
+# Rows are stable-sorted by destination rank and scattered into one slab of
+# ``chunk_capacity`` rows per destination (default N: nothing can drop);
+# one all-to-all carries the true sizes and two carry the slabs (rows and
+# their expert ids). Every local expert then runs over the whole receive
+# buffer under a membership mask, which costs E_local times the capacity
+# path's products: a correctness path for few local experts.
+
+class _AllToAll(torch.autograd.Function):
+    """The equal-split exchange along dim 0; its adjoint is itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _excl_cumsum(x: Tensor) -> Tensor:
+    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)[:-1]])
+
+
+def sort_dispatch_tokens(x: Tensor, expert_ids: Tensor, *,
+                         axis: Optional[str], num_experts: int,
+                         chunk_capacity: Optional[int] = None):
+    """x [N, H] local (token·choice) rows and each row's global expert
+    ``expert_ids`` [N] -> (recv_x [ep·P, H] grouped by source rank,
+    recv_local [ep·P] each row's local expert (E_local marks an empty
+    slot), recv_valid [ep·P] bool, meta for ``sort_gather_tokens``).
+
+    P = ``chunk_capacity`` (default N, the zero-drop worst case). Rows
+    past a destination's slab are dropped at the sender and counted in
+    ``meta["dropped_rows"]``. The scatter sends them to a trash row past
+    the slab, so no shape depends on the data."""
+    group = axis_group(axis)
+    ep = group_size(group)
+    me = dist.get_rank(group) if ep > 1 else 0
+    n, h = x.shape
+    e_local = num_experts // ep
+    p = chunk_capacity or n
+    dest = expert_ids.long() // e_local
+    order = torch.sort(dest, stable=True).indices
+    x_s, ids_s, dest_s = x[order], expert_ids[order], dest[order]
+    send_sizes = torch.bincount(dest, minlength=ep)
+    slot = torch.arange(n, device=x.device) - _excl_cumsum(send_sizes)[dest_s]
+    at = (dest_s, torch.clamp(slot, max=p))
+    send_x = x.new_zeros(ep, p + 1, h).index_put(at, x_s)[:, :p]
+    send_ids = torch.full((ep, p + 1), num_experts, dtype=ids_s.dtype,
+                          device=x.device).index_put(at, ids_s)[:, :p]
+    if ep > 1:
+        recv_sizes = _all_to_all(send_sizes, group)
+        recv_x = _AllToAll.apply(send_x, group)
+        recv_ids = _all_to_all(send_ids, group)
+    else:
+        recv_sizes, recv_x, recv_ids = send_sizes, send_x, send_ids
+    recv_valid = (torch.arange(p, device=x.device)[None, :]
+                  < torch.clamp(recv_sizes, max=p)[:, None]).reshape(-1)
+    recv_local = torch.where(recv_valid,
+                             recv_ids.reshape(-1).long() - me * e_local,
+                             e_local)
+    meta = {"order": order, "dest_s": dest_s, "slot": slot, "n": n, "p": p,
+            "dropped_rows": torch.clamp(send_sizes - p, min=0).sum()}
+    return recv_x.reshape(ep * p, h), recv_local, recv_valid, meta
+
+
+def sort_gather_tokens(expert_out: Tensor, meta: Dict[str, Tensor], *,
+                       axis: Optional[str]) -> Tensor:
+    """Expert outputs [ep·P, H] in the receive-slab layout -> [N, H] in
+    the rows' original order on their source rank. A row that never left
+    (past its slab) comes back as zeros."""
+    group = axis_group(axis)
+    ep = group_size(group)
+    p, n = meta["p"], meta["n"]
+    h = expert_out.shape[-1]
+    back = expert_out.reshape(ep, p, h)
+    if ep > 1:
+        back = _AllToAll.apply(back, group)
+    kept = meta["slot"] < p
+    sorted_back = torch.where(
+        kept[:, None],
+        back[meta["dest_s"], torch.clamp(meta["slot"], max=p - 1)], 0.0)
+    # un-sort: row i of the send order was x[order[i]]
+    return sorted_back.new_zeros(n, h).index_copy(0, meta["order"],
+                                                  sorted_back)
+
+
+def sorted_moe_forward(x: Tensor, gate_idx: Tensor, gate_w: Tensor,
+                       gate_proj: Tensor, up_proj: Tensor, down_proj: Tensor,
+                       *, axis: Optional[str] = None, num_experts: int,
+                       chunk_capacity: Optional[int] = None,
+                       compute_dtype=None) -> Tensor:
+    """Zero-drop MoE forward over the sort-based exchange: x [N, H],
+    gate_idx / gate_w [N, k], this rank's experts gate/up [E_local, H, I]
+    and down [E_local, I, H] -> [N, H]. ``axis`` None runs locally with
+    E_local = E (the world-1 no-op); a named axis, even of one rank, goes
+    through the exchange, whose ``chunk_capacity`` may drop rows."""
+    from scaletorch_tpu_torch.models.layers import swiglu
+
+    n, h = x.shape
+    k = gate_idx.shape[-1]
+    cdt = compute_dtype or x.dtype
+    flat_x = torch.repeat_interleave(x, k, dim=0)  # row n·k+j = choice j
+    flat_ids = gate_idx.reshape(-1)
+    if axis is None:
+        recv, local_ids = flat_x, flat_ids.long()
+        valid = torch.ones(n * k, dtype=torch.bool, device=x.device)
+    else:
+        recv, local_ids, valid, meta = sort_dispatch_tokens(
+            flat_x, flat_ids, axis=axis, num_experts=num_experts,
+            chunk_capacity=chunk_capacity)
+    e_local = gate_proj.shape[0]
+    if e_local > 4:
+        import warnings
+
+        warnings.warn(
+            f"sorted_moe_forward with E_local={e_local}: every local expert "
+            "multiplies the WHOLE receive buffer under a membership mask, "
+            f"so compute scales {e_local}x against the capacity path's "
+            "slots. For E_local > 4 use the capacity dispatch "
+            "(dispatch_routed / moe_mlp) or a larger expert-parallel size.",
+            RuntimeWarning, stacklevel=2)
+    recv_c = torch.where(valid[:, None], recv, 0.0).to(cdt)
+    out = torch.zeros(recv.shape, dtype=cdt, device=x.device)
+    for e in range(e_local):  # each expert masks its rows
+        mask = (local_ids == e)[:, None]
+        g = recv_c @ gate_proj[e].to(cdt)
+        u = recv_c @ up_proj[e].to(cdt)
+        out = out + torch.where(mask, swiglu(g, u) @ down_proj[e].to(cdt),
+                                0.0)
+    if axis is not None:
+        out = sort_gather_tokens(out, meta, axis=axis)
+    y = out.reshape(n, k, h) * gate_w[..., None].to(cdt)
+    return y.sum(dim=1)
 
 
 def validate_ep_divisibility(cfg, ep: int) -> None:

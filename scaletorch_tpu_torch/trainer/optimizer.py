@@ -10,7 +10,9 @@ their optax chains, and Adafactor as the reference's ``Trainer`` runs it
 * ``sgd``: ``trace(momentum)`` (not Nesterov), the learning rate;
 * ``lamb``: ``scale_by_adam(eps_root=0)``, the decay on every leaf, then
   ``scale_by_trust_ratio`` (``||p|| / ||u||`` over each whole leaf, 1
-  where either norm is 0), the learning rate.
+  where either norm is 0), the learning rate;
+* ``Adadelta`` (the MNIST example's, outside the factory):
+  ``scale_by_adadelta``, the learning rate.
 
 The learning rate is the schedule's at the count before it advances.
 State leaves take the parameters' dtype, as optax's do: fp32 masters get
@@ -191,6 +193,40 @@ class SGD(Optimizer):
             t_new = g + as_dtype(self.momentum, d) * t
             commit(p, (p + as_dtype(lr, d) * t_new).to(d), ok)
             commit(t, t_new, ok)
+        state["count"] += 1
+
+
+class Adadelta(Optimizer):
+    """``optax.adadelta`` (the MNIST example's optimizer): ``e_g = rho·e_g
+    + (1 - rho)·g²``, ``u = sqrt(e_x + eps) / sqrt(e_g + eps) · g`` with
+    the previous ``e_x``, ``e_x = rho·e_x + (1 - rho)·u²``, then the
+    learning rate."""
+
+    def __init__(self, schedule: Callable[[int], float], rho: float = 0.9,
+                 eps: float = 1e-6) -> None:
+        super().__init__(schedule)
+        self.rho, self.eps = rho, eps
+
+    def init(self, params: Tree) -> Tree:
+        return {"count": torch.zeros((), dtype=torch.int64),
+                "e_g": zeros_like_tree(params), "e_x": zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def _apply(self, params: Tree, state: Tree, grads: Tree,
+               ok: Optional[Tensor]) -> None:
+        lr = -self.lr(int(state["count"]))
+        for p, e_g, e_x, g in zip(tree_leaves(params), tree_leaves(state["e_g"]),
+                                  tree_leaves(state["e_x"]),
+                                  tree_leaves(grads)):
+            d = p.dtype
+            rho, rest, eps = (as_dtype(v, d) for v in
+                              (self.rho, 1 - self.rho, self.eps))
+            e_g_new = rho * e_g + rest * (g * g)
+            u = torch.sqrt(e_x + eps) / torch.sqrt(e_g_new + eps) * g
+            e_x_new = rho * e_x + rest * (u * u)
+            commit(p, (p + as_dtype(lr, d) * u).to(d), ok)
+            commit(e_g, e_g_new, ok)
+            commit(e_x, e_x_new, ok)
         state["count"] += 1
 
 

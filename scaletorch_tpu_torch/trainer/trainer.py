@@ -169,6 +169,15 @@ def build_model_config(cfg: ScaleTorchTPUArguments):
     """``model_type`` dispatch over the config's architecture fields, or
     over ``model_name_or_path``'s ``config.json`` when set (the training
     knobs still come from ``cfg``)."""
+    if cfg.model_type in ("lenet", "gpt_moe", "mingpt"):
+        # the examples' models train through their own mains, not the LLM
+        # Trainer's sequence / cross-entropy pipeline
+        raise ValueError(
+            f"model_type {cfg.model_type!r} trains via its example: "
+            "python -m scaletorch_tpu_torch.examples.mnist.train_mnist "
+            "(lenet) or python -m "
+            "scaletorch_tpu_torch.examples.mingpt.train_mingpt "
+            "(gpt_moe/mingpt)")
     overrides = dict(dtype=_DTYPE[cfg.dtype],
                      param_dtype=_DTYPE[cfg.param_dtype])
     if cfg.model_name_or_path:

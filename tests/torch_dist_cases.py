@@ -588,6 +588,46 @@ def case_fsdp(payload):
     return out
 
 
+def case_sort_dispatch(payload):
+    """The sort-based exchange over an ep group of the whole world, for
+    each chunk capacity in ``payload['capacities']``: this rank's
+    ``sort_dispatch_tokens`` outputs and dropped rows, the round trip of
+    the received rows doubled, and ``sorted_moe_forward`` with the
+    gradients of sum(out²) over its rows and its experts."""
+    from scaletorch_tpu_torch.parallel import expert_parallel as tep
+
+    ep = dist.get_world_size()
+    mm = tmesh.setup_mesh_manager(ep=ep, device_type="cpu")
+    r = mm.my_coords.ep
+    e = payload["num_experts"]
+    el = e // ep
+
+    def rows(a):
+        n = a.shape[0] // ep
+        return _t(np.ascontiguousarray(a[r * n:(r + 1) * n]))
+
+    out = []
+    with tmesh.using_mesh_manager(mm):
+        for cap in payload["capacities"]:
+            recv, local, valid, meta = tep.sort_dispatch_tokens(
+                rows(payload["flat_x"]), rows(payload["flat_ids"]),
+                axis="ep", num_experts=e, chunk_capacity=cap)
+            back = tep.sort_gather_tokens(recv * 2.0, meta, axis="ep")
+            x = rows(payload["x"]).requires_grad_(True)
+            ws = [_t(w[r * el:(r + 1) * el], grad=True)
+                  for w in payload["w"]]
+            y = tep.sorted_moe_forward(
+                x, rows(payload["gate_idx"]), rows(payload["gate_w"]), *ws,
+                axis="ep", num_experts=e, chunk_capacity=cap)
+            grads = torch.autograd.grad((y * y).sum(), [x] + ws)
+            out.append({"recv": _np(recv), "local": local.numpy().copy(),
+                        "valid": valid.numpy().copy(),
+                        "dropped": int(meta["dropped_rows"]),
+                        "back": _np(back), "y": _np(y),
+                        "grads": [_np(g) for g in grads]})
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 # the multi-process runtime's cases (coordinated decisions, checkpoints,
