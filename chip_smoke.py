@@ -297,6 +297,12 @@ is non-zero; no phase catches an exception):
                 library's (cuBLAS bmm of the launch's own products for K6
                 and K7; the einsum path for K5 and the whole backward;
                 several calls, not one) and the bound of its own work.
+                Then K5 on the decode's and the prefill's slabs of rank 0
+                of a serving mesh (no exchange: its E/ep experts with the
+                rows routed to them, its I/tp): decode ep4 [32, 8, 1,
+                2048] I 768, tp2 x ep2 [64, ...] I 384, tp4 [128, ...] I
+                192; prefill ep4 [32, 8, 512, 2048] I 768 and tp2 x ep2
+                [64, ...] I 384; each with the skipped-tile control.
  12b. kernel_ep_blocks — K5, the grads pass, K6 and K7 on the slabs the
                 ep exchange hands one rank at the train cell under ep 4:
                 [E/ep, ep·G, C, H] = [32, 4, 320, 2048], fill counts per
@@ -356,6 +362,12 @@ is non-zero; no phase catches an exception):
                 tokens/s and ms a step.
       mnist_train — the port's MNIST example, synthetic digits, 2
                 epochs: last loss below 1.6; test accuracy, steps/s.
+      resnet_train — the port's ImageNet example (``run``) with resnet18
+                and resnet34 at 224², 1000 classes, fp32, on its synthetic
+                data: 3 epochs of 4 steps of 64 images, an eval of 128
+                images after each; every loss finite, the last epoch's
+                mean below the first's, top-1 / top-5 computed; images/s
+                and ms a step after the first epoch, peak memory.
  18. parallel — ``torch.distributed.run`` of this script (``--parallel-
                 worker``) with one rank a visible card, NCCL, under a
                 wall-clock limit; a failed rank fails the phase. One card:
@@ -409,8 +421,17 @@ is non-zero; no phase catches an exception):
                 again; cp4 ring zigzag and cp4 Ulysses under each remat
                 policy (fp32 gradients bit for bit against
                 ``nothing_saveable``, K1-K3 launches as the policy reckons
-                them, bf16 step s). The line names the world and the
-                checks run and not run.
+                them, bf16 step s). Then, four cards: the
+                Qwen3-MoE engine over ep4 and over tp2 x ep2 — Qwen3-30B-A3B's
+                width cut to 4 layers, fp32, dropless, against one card
+                (teacher-forced paged logits <= 1e-3, 4 greedy requests'
+                tokens equal), and at full width and depth, bf16, the
+                serve cell's 16 requests on one card and over each mesh
+                (16/16 ok, one capture of each step, K4 = K5 = 48 a decode
+                replay and K5 = 48 a prefill replay on every rank, the same
+                tokens on every rank; decode tokens/s, TTFT, TPOT, replay
+                ms and peak memory a card beside one card's). The line
+                names the world and the checks run and not run.
  18b. runtime_multiproc — the multi-process checkpoint on one card: the
                 headline row (fp32 masters, AdamW) in a world-1 NCCL
                 group takes 2 steps and saves through the process-group
@@ -475,6 +496,7 @@ from scaletorch_tpu_torch.inference import (
     teacher_forced_decode,
     teacher_forced_decode_paged,
 )
+from scaletorch_tpu_torch.examples.imagenet import dist_train
 from scaletorch_tpu_torch.examples.mingpt import train_mingpt
 from scaletorch_tpu_torch.examples.mnist import train_mnist
 from scaletorch_tpu_torch.launch import ELASTIC_NCCL_ENV
@@ -559,6 +581,9 @@ PARITY_TOLERANCE = 1e-3
 # the heads (Hq, Hkv, D) of one rank of qwen3-32b over tp 4
 TP_MODEL = "qwen3-32b"
 TP4_RANK_HEADS = (16, 2, 128)
+# the heads (Hq, Hkv, D) of one rank of Qwen3-30B-A3B served over tp 4;
+# over tp 2 (serve_moe_ep4's tp 2 x ep 2) a rank's are TP4_RANK_HEADS
+MOE_TP4_RANK_HEADS = (8, 1, 128)
 # the bench headline row: qwen3-0.6b, seq 8192, micro-batch 1, GC
 TRAIN_SEQ = 8192
 TRAIN_WARMUP, TRAIN_STEPS, PROFILE_STEPS = 2, 5, 2
@@ -647,6 +672,15 @@ GMLP_SHAPES = {  # name: (groups, tokens per group, capacity factor, bwd)
 # over (source rank, group), [E/ep, ep·G, C, H] = [32, 4, 320, 2048]
 EP_SLAB_RANKS = 4
 EP_SHAPE = "ep4_train"
+# the decode's and the prefill's slabs on rank 0 of a serving mesh, name:
+# (GMLP_SHAPES step, ep, tp): its E/ep experts with the counts of the rows
+# routed to them (no exchange: every rank holds every row) and its I/tp
+# slice of each
+GMLP_SERVE_SLABS = {"decode_ep4": ("decode", 4, 1),
+                    "decode_tp2_ep2": ("decode", 2, 2),
+                    "decode_tp4": ("decode", 1, 4),
+                    "prefill_ep4": ("prefill", 4, 1),
+                    "prefill_tp2_ep2": ("prefill", 2, 2)}
 # kernels on vs the einsum path through the whole fp32 model (the
 # limits of the flash vs sdpa training parity)
 MOE_TRAIN_PARITY = {"loss_abs": 1e-4, "grad_rel": 1e-3}
@@ -880,10 +914,11 @@ def check_decode_row(row: dict, what: str) -> None:
 def phase_kernel() -> dict:
     """The serving shape of Qwen3-0.6B, then Qwen3-30B-A3B's heads (n_rep
     8), one tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), one slot at
-    32768 keys, GPT-MoE's heads (Hq 4, Hkv 4, D 32, up to 256 keys),
-    qwen3-14b's heads (n_rep 5) and dense-tiny's (D 32). On each of the
-    first five, a control: the plain version with one page of the
-    longest slot dropped must fail the checks (both readings are
+    32768 keys, GPT-MoE's heads (Hq 4, Hkv 4, D 32, up to 256 keys), one
+    rank of Qwen3-30B-A3B over tp 4 (Hq 8, Hkv 1; over tp 2 its rank's
+    heads are the tp4 rank of qwen3-32b's), qwen3-14b's heads (n_rep 5)
+    and dense-tiny's (D 32). On each of the first six, a control: the plain version with one page of
+    the longest slot dropped must fail the checks (both readings are
     printed)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -908,6 +943,11 @@ def phase_kernel() -> dict:
             "gpt_moe_heads": decode_row(
                 decode_inputs(dtype, seed=1239, heads=GPT_HEADS,
                               max_seq=GPT_MAX_SEQ), flush),
+            # one rank of Qwen3-30B-A3B served over tp 4 (over tp 2 its
+            # heads are qwen3-32b's tp4 rank's)
+            "qwen3_30b_a3b_tp4_rank_heads": decode_row(
+                decode_inputs(dtype, seed=1244, heads=MOE_TP4_RANK_HEADS),
+                flush),
         }
         row["geometries"] = {m: paged_geometry(m, dtype, flush)
                              for m in GEOMETRY_MODELS}
@@ -2461,18 +2501,21 @@ def gmlp_shape(shape: str) -> tuple:
     """(groups, tokens per group, capacity factor, bwd, ep ranks)."""
     if shape == EP_SHAPE:
         return (*GMLP_SHAPES["train"], EP_SLAB_RANKS)
+    if shape in GMLP_SERVE_SLABS:
+        return (*GMLP_SHAPES[GMLP_SERVE_SLABS[shape][0]], 1)
     return (*GMLP_SHAPES[shape], 1)
 
 
 def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
-    """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES, or at EP_SHAPE.
-    Counts come from routing seeded hidden states through a seeded
-    router, as a layer routes them; the train shape also gets one expert
-    at 0 and one at C. EP_SHAPE routes four ranks' tokens and keeps rank
-    0's experts: the counts per (expert, source rank) that
-    ``exchange_slot_counts`` gives it, uneven across the ranks. x and dO
-    are random in every row, past the counts too, so the kernels' masks
-    are what keeps those rows out."""
+    """(x, counts, wg, wu, wd, dO) at one of GMLP_SHAPES, at EP_SHAPE or
+    at one of GMLP_SERVE_SLABS. Counts come from routing seeded hidden
+    states through a seeded router, as a layer routes them; the train
+    shape also gets one expert at 0 and one at C. EP_SHAPE routes four
+    ranks' tokens and keeps rank 0's experts: the counts per (expert,
+    source rank) that ``exchange_slot_counts`` gives it, uneven across
+    the ranks. A serving slab keeps rank 0's E/ep experts of the decode's
+    or the prefill's routing and I/tp. x and dO are random in every row, past the counts
+    too, so the kernels' masks are what keeps those rows out."""
     cfg = model_config(MOE_MODEL)
     e, k, h, i = (cfg.num_experts, cfg.num_experts_per_tok,
                   cfg.hidden_size, cfg.moe_intermediate_size)
@@ -2492,7 +2535,8 @@ def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
     counts = slot_fill_counts_indexed(routing, e, cap)
     if shape == "train":
         counts[0], counts[1] = 0, cap
-    e = e // ep
+    _, serve_ep, serve_tp = GMLP_SERVE_SLABS.get(shape, (None, 1, 1))
+    e, i = e // (ep * serve_ep), i // serve_tp
     counts = counts[:e]  # [E/ep, ep·G]: (source rank, group) per expert
     x = rnd(e, ep * groups, cap, h)
     wg, wu = rnd(e, h, i, scale=h ** -0.5), rnd(e, h, i, scale=h ** -0.5)
@@ -2769,10 +2813,11 @@ def gmlp_case(shape: str, dtype: torch.dtype, flush,
     return row
 
 
-def phase_kernel_grouped_mlp(dtypes=(torch.float32, torch.bfloat16)) -> dict:
+def phase_kernel_grouped_mlp(dtypes=(torch.float32, torch.bfloat16),
+                             shapes=(*GMLP_SHAPES, *GMLP_SERVE_SLABS)) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
-    for shape in GMLP_SHAPES:
+    for shape in shapes:
         for dtype in dtypes:
             row = gmlp_case(shape, dtype, flush)
             results[(shape, row["dtype"])] = row
@@ -3303,6 +3348,47 @@ def phase_mnist_train() -> dict:
         "cpu": {k: cpu[k] for k in ("last_loss", "test_acc")},
         "card_cpu_accuracy_gap": gap}
     emit("mnist_train", args=list(MNIST_ARGS), **out)
+    return out
+
+
+# ---- 11d. the ResNet family through the ImageNet example --------------------
+# the example's own entry at ImageNet's shape (224², 1000 classes) on its
+# synthetic data, fp32 (TF32 off in main): 3 epochs of 4 steps, one eval
+# of 128 images after each
+RESNET_ARCHS = ("resnet18", "resnet34")
+RESNET_ARGS = ("--image-size", "224", "--num-classes", "1000", "--epochs",
+               "3", "--train-samples", "256", "--val-samples", "128", "-b",
+               "64", "--print-freq", "100")
+
+
+def phase_resnet_train() -> dict:
+    """resnet18 and resnet34 through ``examples.imagenet.dist_train.run``
+    on the card: every loss finite, the last epoch's mean loss below the
+    first's, each eval's top-1 and top-5 over its 128 images; images/s
+    and ms a step over the epochs after the first (cuDNN's first calls
+    left out), peak memory."""
+    out = {}
+    for arch in RESNET_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        run = dist_train.run(["--arch", arch, *RESNET_ARGS])
+        steps = run["steps_per_epoch"]
+        later = sum(run["epoch_seconds"][1:])
+        row = {"epoch_losses": run["epoch_losses"], "val": run["val"],
+               "images_per_s": (len(run["epoch_seconds"]) - 1) * steps * 64
+               / later, "ms_per_step": 1e3 * later / (
+                   (len(run["epoch_seconds"]) - 1) * steps),
+               "first_epoch_s": run["epoch_seconds"][0],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(all(np.isfinite(run["losses"])), f"{arch}: a loss is not finite")
+        check(run["epoch_losses"][-1] < run["epoch_losses"][0],
+              f"{arch}: the loss did not fall {run['epoch_losses']}")
+        check(all(v["samples"] == 128 and 0 <= v["acc5"] <= 100
+                  and v["acc1"] <= v["acc5"] for v in run["val"]),
+              f"{arch}: eval {run['val']}")
+        out[arch] = row
+        del run
+        free_engine()
+    emit("resnet_train", args=list(RESNET_ARGS), dtype="float32", **out)
     return out
 
 
@@ -4596,10 +4682,11 @@ PARALLEL_DIR = os.path.join("build", "parallel")
 # the torch.distributed.run of every check: world 1, and four cards
 PARALLEL_TIMEOUT_S = {1: 720, 4: 1800}
 PARALLEL_WARMUP, PARALLEL_STEPS = 2, 3
-# what the four-card run does: PRs 12-13's layouts, then PR 14's checks
+# what the four-card run does: the training layouts, the tp serving
+# checks, FSDP, Adafactor and remat, then the Qwen3-MoE engine over tp x ep
 PARALLEL_GROUPS = ("layouts", "nccl_capture", "serve_tp4", "tp_parity",
                    "serve_tp2_dp2_dense", "fsdp4", "adafactor", "remat_cp",
-                   "cp_timing")
+                   "cp_timing", "moe_mesh_parity", "serve_moe_ep4")
 # the timed window of each four-card layout: three steps spread by
 # 30-45% between two calls, so the layouts are compared over ten
 LAYOUT_STEPS = 10
@@ -5101,7 +5188,9 @@ def parallel_layouts(world: int, groups=PARALLEL_GROUPS) -> dict:
                       ("serve_tp4", serve_tp4), ("tp_parity", tp_parity),
                       ("serve_tp2_dp2_dense", serve_tp2_dp2_dense),
                       ("fsdp4", fsdp4), ("adafactor", adafactor_layouts),
-                      ("remat_cp", remat_cp), ("cp_timing", cp_timing)):
+                      ("remat_cp", remat_cp), ("cp_timing", cp_timing),
+                      ("moe_mesh_parity", moe_mesh_parity),
+                      ("serve_moe_ep4", serve_moe_ep4)):
         if group in groups:
             t0 = time.monotonic()
             out[group] = fn(world, dev)
@@ -5410,26 +5499,33 @@ def replay_ms(graph, dev, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def decode_breakdown(eng, mm, cfg, dev, calls: int = 100) -> dict:
-    """Where a tp decode tick goes (after the run; the replays rewrite the
-    last step's cache lines): the captured decode step's device ms, a
-    graph of its 2 L all-reduces of [slots, hidden] alone, and the host
-    ms of the tick's rank-0 broadcast (``_agree``)."""
+def decode_breakdown(eng, mm, cfg, dev, calls: int = 100,
+                     groups=(("tp", 2),)) -> dict:
+    """Where a decode tick over a mesh goes (after the run; the replays
+    rewrite the last step's cache lines): the captured decode step's
+    device ms, a graph of its all-reduces of [slots, hidden] alone (for
+    each (mesh axes, per layer) of ``groups``: tp's 2 a layer, or the
+    MoE's one over tp and one over ``EXPERT_AXES``), and the host ms of
+    the tick's rank-0 broadcast (``_agree``)."""
     x = torch.zeros(eng.max_slots, cfg.hidden_size, dtype=cfg.dtype,
                     device=dev)
-    group = mm.group("tp")
+    layers = cfg.num_hidden_layers
+    plan = [(mm.group(axes), per) for axes, per in groups]
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
-        torch.distributed.all_reduce(x, group=group)
+        for group, _ in plan:
+            torch.distributed.all_reduce(x, group=group)
     torch.cuda.current_stream(dev).wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
-        for _ in range(2 * cfg.num_hidden_layers):
-            torch.distributed.all_reduce(x, group=group)
+        for _ in range(layers):
+            for group, per in plan:
+                for _ in range(per):
+                    torch.distributed.all_reduce(x, group=group)
     out = {"decode_replay_ms": replay_ms(eng._decode.graph, dev),
            "allreduces_graph_ms": replay_ms(graph, dev),
-           "allreduces_per_step": 2 * cfg.num_hidden_layers}
+           "allreduces_per_step": layers * sum(per for _, per in groups)}
     del graph
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -5438,79 +5534,86 @@ def decode_breakdown(eng, mm, cfg, dev, calls: int = 100) -> dict:
     return out
 
 
-def serve_tp4(world: int, dev) -> dict:
-    """qwen3-32b at full width and depth, bf16, paged, 8 slots of
-    PREFILL_LEN positions (65.5 GB of weights leave one card a small
-    cache), the serve cell's 16 requests of 64 new tokens: first on one
-    card (rank 0, the
-    others waiting), then over tp 4. Asserted on every rank: 16/16 ok,
-    the same tokens on every rank, one capture of each step, K4 once a
-    layer per decode replay; printed beside one card's: decode tokens/s,
-    TTFT mean, TPOT p50, peak memory a card."""
+def mesh_model(model_cls, cfg, dev, mm):
+    """``cfg``'s model drawn from seed 0 as one card draws it, this rank's
+    slices over ``mm`` (None: the whole model)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return model_cls(cfg, dev, mesh=mm).init_weights_(gen)
+
+
+def serve_over_meshes(what: str, head: dict, model_cls, cfg, meshes, dev,
+                      want_decode: dict, want_prefill: dict, breakdown,
+                      **serve_kw) -> dict:
+    """The serve cell's 16 requests of 64 new tokens through a graphed
+    paged engine: first on one card (rank 0, the others waiting), then
+    over each (name, mesh sizes) of ``meshes``. Asserted on every rank:
+    16/16 ok, one capture of each step, the launches of a decode replay
+    ``want_decode`` and of a prefill replay ``want_prefill``, the same
+    tokens on every rank. Emitted as ``what`` after ``head``, beside one
+    card's: each mesh's decode tokens/s, TTFT mean, TPOT p50, the decode
+    replay's ms, ``decode_breakdown``'s readings over ``breakdown(mm)``,
+    peak memory a card and the greedy agreement."""
     from scaletorch_tpu_torch import dist as stdist
     from scaletorch_tpu_torch.parallel.mesh import MeshManager
 
-    cfg = model_config(TP_MODEL, dtype=torch.bfloat16)
     prompts = traffic(cfg.vocab_size)
-    rank = stdist.process_index()
-    one = None
-    if rank == 0:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        model = LlamaForCausalLM(cfg, dev).init_weights_(gen)
+
+    def run(where, mm):
+        model = mesh_model(model_cls, cfg, dev, mm)
         torch.cuda.reset_peak_memory_stats(dev)
         _build.reset_launch_counts()
         eng, results, ptrs, stats = serve(model, cfg, prompts, None,
-                                          device=dev, max_seq=PREFILL_LEN)
-        check_served(eng, results, ptrs, stats, "serve one card")
-        cap = check_one_capture(eng, "serve one card")
-        one = {"tokens": [r.tokens for r in results],
+                                          device=dev, mesh=mm, **serve_kw)
+        check_served(eng, results, ptrs, stats, where)
+        cap = check_one_capture(eng, where)
+        per_decode = cap["decode_launches_per_replay"]
+        per_prefill = cap["prefill_launches_per_replay"]
+        check(per_decode == want_decode and per_prefill == want_prefill,
+              f"{where}: launches a decode replay {per_decode}, a prefill "
+              f"replay {per_prefill}: want {want_decode} and "
+              f"{want_prefill}")
+        row = {"tokens": [r.tokens for r in results],
                **engine_numbers(eng, stats, dev), **cap,
-               "decode_replay_ms": replay_ms(eng._decode.graph, dev)}
+               **({"decode_replay_ms": replay_ms(eng._decode.graph, dev)}
+                  if mm is None else
+                  decode_breakdown(eng, mm, cfg, dev, groups=breakdown(mm)))}
         del eng, model
         free_engine()
+        return row
+
+    rank = stdist.process_index()
+    one = run(f"{what} one card", None) if rank == 0 else None
     stdist.barrier()
-    mm = MeshManager(tp=world, device_type="cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    model = LlamaForCausalLM(cfg, dev, mesh=mm).init_weights_(gen)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launch_counts()
-    eng, results, ptrs, stats = serve(model, cfg, prompts, None, device=dev,
-                                      max_seq=PREFILL_LEN, mesh=mm)
-    check_served(eng, results, ptrs, stats, "serve_tp4")
-    cap = check_one_capture(eng, "serve_tp4")
-    k4 = cap["decode_launches_per_replay"].get("paged_decode", 0)
-    check(k4 == cfg.num_hidden_layers,
-          f"serve_tp4: K4 {k4} a decode replay, want {cfg.num_hidden_layers}")
-    mine = {"tokens": [r.tokens for r in results],
-            **engine_numbers(eng, stats, dev), **cap,
-            **decode_breakdown(eng, mm, cfg, dev)}
-    del eng, model
-    free_engine()
-    mm.destroy()
-    ranks = stdist.all_gather_object(mine)
-    check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
-          "serve_tp4: the ranks' tokens differ")
-    row = {"model": TP_MODEL, "dtype": "bfloat16", "slots": SLOTS,
-           "requests": len(prompts), "tp": world,
-           "tp4": {k: v for k, v in ranks[0].items() if k != "tokens"},
-           "peak_memory_gb_per_card": [r["peak_memory_gb"] for r in ranks],
+    row = {**head, "slots": SLOTS, "requests": len(prompts),
            "one_card": ({k: v for k, v in one.items() if k != "tokens"}
-                        if one else None),
-           "tp4_vs_one_card_greedy": (agreement(ranks[0]["tokens"],
-                                                one["tokens"])
-                                      if one else None)}
+                        if one else None), "layouts": {}}
+    for name, sizes in meshes:
+        mm = MeshManager(**sizes, device_type="cuda")
+        mine = run(f"{what} {name}", mm)
+        mm.destroy()
+        ranks = stdist.all_gather_object(mine)
+        check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
+              f"{what} {name}: the ranks' tokens differ")
+        row["layouts"][name] = {
+            "mesh": sizes, **{k: v for k, v in ranks[0].items()
+                              if k != "tokens"},
+            "peak_memory_gb_per_card": [r["peak_memory_gb"] for r in ranks],
+            "vs_one_card_greedy": (agreement(ranks[0]["tokens"],
+                                             one["tokens"])
+                                   if one else None)}
     if rank == 0:
-        emit("serve_tp4", **row)
+        emit(what, **row)
     return row
 
 
-def tp_parity(world: int, dev) -> dict:
-    """qwen3-32b's width cut to TP_PARITY_LAYERS layers, fp32, over tp 4
-    against one card (every rank computes both): the teacher-forced
-    logits of every step (dense and paged through K4) within
-    PARITY_TOLERANCE, and 4 greedy requests' tokens equal."""
+def parity_over_meshes(what: str, head: dict, model_cls, cfg, meshes, dev,
+                       positions: int, dense: bool) -> dict:
+    """``cfg`` on one card and over each (name, mesh sizes) of
+    ``meshes``, every rank computing each. Asserted on every rank: the
+    teacher-forced logits of ``positions`` positions of 2 rows (paged
+    through K4, and dense when ``dense``) within PARITY_TOLERANCE of one
+    card's, and 4 greedy requests' tokens equal."""
     from scaletorch_tpu_torch import dist as stdist
     from scaletorch_tpu_torch.inference.kv_cache import (
         kv_cache_shardings,
@@ -5521,52 +5624,77 @@ def tp_parity(world: int, dev) -> dict:
         using_mesh_manager,
     )
 
-    cfg = model_config(TP_MODEL, dtype=torch.float32,
-                       num_hidden_layers=TP_PARITY_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab_size, (2, TP_PARITY_TOKENS),
-                           generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, positions), generator=gen,
+                           device=dev)
     prompts = traffic(cfg.vocab_size)[:4]
     out = {}
-    for which in ("one_card", "tp"):
-        mm = MeshManager(tp=world, device_type="cuda") if which == "tp" \
-            else None
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        model = LlamaForCausalLM(cfg, dev, mesh=mm).init_weights_(gen)
-        shard = {} if mm is None else {"dense": {"sharding":
-                                                 kv_cache_shardings(mm)},
-                                       "paged": {"sharding":
-                                                 paged_kv_cache_shardings(
-                                                     mm)}}
+    for name, sizes in (("one_card", None),) + tuple(meshes):
+        mm = None if sizes is None else MeshManager(**sizes,
+                                                    device_type="cuda")
+        model = mesh_model(model_cls, cfg, dev, mm)
+
+        def shard(shardings):
+            return {} if mm is None else {"sharding": shardings(mm)}
+
+        got = {}
         with using_mesh_manager(mm), torch.inference_mode():
-            dense = teacher_forced_decode(model, cfg, tokens,
-                                          **shard.get("dense", {}))
-            paged = teacher_forced_decode_paged(model, cfg, tokens,
-                                                page_size=PAGE_SIZE,
-                                                **shard.get("paged", {}))
+            if dense:
+                got["dense"] = teacher_forced_decode(
+                    model, cfg, tokens, **shard(kv_cache_shardings))
+            got["paged"] = teacher_forced_decode_paged(
+                model, cfg, tokens, page_size=PAGE_SIZE,
+                **shard(paged_kv_cache_shardings))
         eng = serving_engine(model, cfg, device=dev, mesh=mm)
-        served, _ = recorded_serve(eng, prompts, 16)
-        out[which] = (dense, paged, served)
+        got["served"], _ = recorded_serve(eng, prompts, 16)
+        out[name] = got
         del eng, model
         free_engine()
         if mm is not None:
             mm.destroy()
-    (d0, p0, s0), (d1, p1, s1) = out["one_card"], out["tp"]
-    row = {"model": TP_MODEL, "layers": TP_PARITY_LAYERS, "dtype": "float32",
-           "tp": world, "dense_max_abs": max_abs(d1, d0),
-           "paged_max_abs": max_abs(p1, p0), "tolerance": PARITY_TOLERANCE,
-           "greedy_tokens_equal": s0 == s1}
-    ranks = stdist.all_gather_object(row)
+    one = out.pop("one_card")
+    layouts = {name: {**{f"{k}_max_abs": max_abs(got[k], one[k])
+                         for k in ("dense", "paged") if k in got},
+                      "greedy_tokens_equal": got["served"] == one["served"]}
+               for name, got in out.items()}
+    row = {**head, "tolerance": PARITY_TOLERANCE, "layouts": layouts}
+    ranks = stdist.all_gather_object(layouts)
     if stdist.process_index() == 0:
-        emit("tp_parity", **row, per_rank=ranks)
+        emit(what, **row, per_rank=ranks)
     for r in ranks:
-        check(r["dense_max_abs"] <= PARITY_TOLERANCE
-              and r["paged_max_abs"] <= PARITY_TOLERANCE,
-              f"tp_parity: logits {r}")
-        check(r["greedy_tokens_equal"], f"tp_parity: greedy tokens {r}")
+        for name, got in r.items():
+            check(all(v <= PARITY_TOLERANCE for k, v in got.items()
+                      if k.endswith("_max_abs")),
+                  f"{what} {name}: logits {got}")
+            check(got["greedy_tokens_equal"],
+                  f"{what} {name}: greedy tokens {got}")
     return row
+
+
+def serve_tp4(world: int, dev) -> dict:
+    """qwen3-32b at full width and depth, bf16, paged, 8 slots of
+    PREFILL_LEN positions (65.5 GB of weights leave one card a small
+    cache), on one card and over tp 4 (``serve_over_meshes``): K4 once a
+    layer a decode replay, no kernel in a prefill replay."""
+    cfg = model_config(TP_MODEL, dtype=torch.bfloat16)
+    return serve_over_meshes(
+        "serve_tp4", {"model": TP_MODEL, "dtype": "bfloat16"},
+        LlamaForCausalLM, cfg, ((f"tp{world}", dict(tp=world)),), dev,
+        {"paged_decode": cfg.num_hidden_layers}, {},
+        lambda mm: (("tp", 2),), max_seq=PREFILL_LEN)
+
+
+def tp_parity(world: int, dev) -> dict:
+    """qwen3-32b's width cut to TP_PARITY_LAYERS layers, fp32, over tp 4
+    against one card (``parity_over_meshes``, dense and paged)."""
+    cfg = model_config(TP_MODEL, dtype=torch.float32,
+                       num_hidden_layers=TP_PARITY_LAYERS)
+    return parity_over_meshes(
+        "tp_parity", {"model": TP_MODEL, "layers": TP_PARITY_LAYERS,
+                      "dtype": "float32"},
+        LlamaForCausalLM, cfg, ((f"tp{world}", dict(tp=world)),), dev,
+        TP_PARITY_TOKENS, dense=True)
 
 
 def serve_tp2_dp2_dense(world: int, dev) -> dict:
@@ -5953,12 +6081,59 @@ def remat_cp(world: int, dev) -> dict:
     return out
 
 
-def phase_parallel(groups=PARALLEL_GROUPS) -> dict:
+# ---- 20b. the Qwen3-MoE engine over tp x ep ------------------------------------
+# the serving meshes of Qwen3-30B-A3B on four cards: its experts over ep 4,
+# and over ep 2 with their intermediate dim and the heads over tp 2
+MOE_MESH_LAYOUTS = (("ep4", dict(ep=4)), ("tp2_ep2", dict(tp=2, ep=2)))
+MOE_MESH_TOKENS = 64  # teacher-forced decode positions of moe_mesh_parity
+
+
+def moe_mesh_parity(world: int, dev) -> dict:
+    """Qwen3-30B-A3B's width cut to MOE_DECODE_PARITY_LAYERS layers,
+    fp32, dropless, K4 + K5, over each of MOE_MESH_LAYOUTS against one
+    card (``parity_over_meshes``, paged)."""
+    cfg = model_config(MOE_MODEL, dtype=torch.float32,
+                       num_hidden_layers=MOE_DECODE_PARITY_LAYERS,
+                       capacity_factor=DROPLESS_CF,
+                       use_grouped_mlp_kernel=True)
+    return parity_over_meshes(
+        "moe_mesh_parity", {"model": MOE_MODEL,
+                            "layers": cfg.num_hidden_layers,
+                            "dtype": "float32",
+                            "capacity_factor": cfg.capacity_factor},
+        Qwen3MoEForCausalLM, cfg, MOE_MESH_LAYOUTS, dev, MOE_MESH_TOKENS,
+        dense=False)
+
+
+def serve_moe_ep4(world: int, dev) -> dict:
+    """Qwen3-30B-A3B at full width and depth, bf16, dropless, paged, on
+    one card and over each of MOE_MESH_LAYOUTS (``serve_over_meshes``):
+    K4 = K5 = 48 a decode replay and K5 = 48 a prefill replay; the
+    breakdown times attention's all-reduce over tp (at tp > 1) and the
+    experts' over ``EXPERT_AXES``."""
+    from scaletorch_tpu_torch.parallel.mesh import EXPERT_AXES
+
+    cfg = model_config(MOE_MODEL, dtype=torch.bfloat16,
+                       capacity_factor=DROPLESS_CF,
+                       use_grouped_mlp_kernel=True)
+    layers = cfg.num_hidden_layers
+    return serve_over_meshes(
+        "serve_moe_ep4", {"model": MOE_MODEL, "layers": layers,
+                          "dtype": "bfloat16",
+                          "capacity_factor": cfg.capacity_factor},
+        Qwen3MoEForCausalLM, cfg, MOE_MESH_LAYOUTS, dev,
+        {"paged_decode": layers, gm.K5_NAME: layers}, {gm.K5_NAME: layers},
+        lambda mm: ((("tp", 1),) if mm.tp > 1 else ()) + ((EXPERT_AXES, 1),))
+
+
+def phase_parallel(groups=PARALLEL_GROUPS, timeout=None) -> dict:
     """``torch.distributed.run`` of ``parallel_worker`` with one rank a
-    visible card, under a wall-clock limit; any failed rank fails it.
-    ``groups``: the four-card groups to run (PARALLEL_GROUPS)."""
+    visible card, under ``timeout`` s (PARALLEL_TIMEOUT_S of the world
+    by default); any failed rank fails it. ``groups``: the four-card
+    groups to run (PARALLEL_GROUPS)."""
     world = torch.cuda.device_count()
     check(world in (1, 4), f"parallel: runs on 1 or 4 cards, found {world}")
+    limit = PARALLEL_TIMEOUT_S[world] if timeout is None else timeout
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     os.makedirs(PARALLEL_DIR)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -5972,7 +6147,7 @@ def phase_parallel(groups=PARALLEL_GROUPS) -> dict:
     proc = subprocess.Popen(cmd, stdout=sys.stderr, stderr=sys.stderr,
                             start_new_session=True, env=env)
     try:
-        rc = proc.wait(timeout=PARALLEL_TIMEOUT_S[world])
+        rc = proc.wait(timeout=limit)
     except subprocess.TimeoutExpired:
         rc = None
     finally:
@@ -5982,7 +6157,7 @@ def phase_parallel(groups=PARALLEL_GROUPS) -> dict:
             pass
         proc.wait()
     check(rc is not None,
-          f"parallel: no end within {PARALLEL_TIMEOUT_S[world]} s")
+          f"parallel: no end within {limit} s")
     check(rc == 0, f"parallel: torch.distributed.run exited {rc}")
     with open(os.path.join(PARALLEL_DIR, "result.json")) as f:
         result = json.load(f)
@@ -6784,6 +6959,9 @@ def main() -> int:
     timed("model_zoo", phase_model_zoo)
     timed("mingpt_train", phase_mingpt_train)
     timed("mnist_train", phase_mnist_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("resnet_train", phase_resnet_train)
     gc.collect()
     torch.cuda.empty_cache()
     timed("runtime_multiproc", phase_runtime_multiproc)

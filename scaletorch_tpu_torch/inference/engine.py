@@ -44,8 +44,9 @@ Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
     captured steps keep their buffers and are never captured again.
 
   * over a serving mesh (``mesh``: a ``parallel.mesh.MeshManager`` of tp
-    and dp ranks, one process and one card each): the model holds this
-    rank's tensor-parallel shards and the cache its KV heads
+    and dp ranks, and for a Qwen3-MoE of ep ranks too, one process and
+    one card each): the model holds this rank's tensor-parallel shards
+    (and expert slices: ``models/qwen3_moe.py``) and the cache its KV heads
     (``kv_cache_shardings``; dense slots also over ``batch_axis``), the
     steps run the tp path with its collectives inside the captured
     graphs, and every rank runs this engine. The host scheduler
@@ -351,12 +352,14 @@ class InferenceEngine:
         constructor (a Qwen3-MoE config must move tokens by index:
         the one-hot form cannot be captured).
     mesh / tp_axis / batch_axis : serve over a mesh (the module
-        docstring): a Llama/Qwen3 model's weights over ``tp_axis`` (a
-        full parameter tree is cut to this rank's shards; a module must
-        have been built for the mesh), the cache's KV heads over
-        ``tp_axis`` and, dense only, its slots over ``batch_axis`` (each
-        rank computes its slots; the tokens are all-gathered in the
-        step). ``device`` is this rank's card.
+        docstring): a Llama/Qwen3 model's weights over ``tp_axis``, a
+        Qwen3-MoE's over ``tp_axis`` and its experts over ``ep`` (a full
+        parameter tree is cut to this rank's shards; a module must have
+        been built for the mesh), the cache's KV heads over ``tp_axis``
+        (whole over ep) and, dense models and the dense layout only, its
+        slots over ``batch_axis`` (each rank computes its slots; the
+        tokens are all-gathered in the step). ``device`` is this rank's
+        card.
     donate_cache : accepted for the reference's signature; the buffers
         are written in place whatever it says (the counterpart of
         donation).
@@ -580,20 +583,35 @@ class InferenceEngine:
     @staticmethod
     def _check_mesh(cfg, mesh, tp_axis: str, batch_axis: Optional[str],
                     cache_layout: str, max_slots: int) -> None:
-        """The reference's checks of a serving mesh, and the port's."""
+        """The reference's checks of a serving mesh, and the port's: a
+        dense model over tp and dp, a Qwen3-MoE over tp and ep (and
+        replicas over dp, no ``batch_axis``)."""
         if mesh is None:
             if batch_axis is not None:
                 raise ValueError("batch_axis needs a mesh")
             return
+        if tp_axis != "tp":
+            raise ValueError(f"tp_axis must be 'tp', got {tp_axis!r}")
         if hasattr(cfg, "num_experts"):
-            raise NotImplementedError(
-                "an MoE engine over a mesh is not ported (the reference "
-                "runs it only through GSPMD): ROADMAP Queue 1")
+            from scaletorch_tpu_torch.models.qwen3_moe import (
+                Qwen3MoEConfig,
+                check_serving_mesh,
+            )
+
+            if not isinstance(cfg, Qwen3MoEConfig):
+                raise NotImplementedError(
+                    "a GPT-MoE engine over a mesh is not ported: ROADMAP "
+                    "Queue 1, item 9c")
+            check_serving_mesh(cfg, mesh)
+            if batch_axis is not None:
+                raise ValueError(
+                    "a Qwen3-MoE serving mesh shards no slots: every rank "
+                    "of its tp x ep group holds every slot (batch_axis "
+                    "must be None)")
+            return
         if mesh.pp > 1 or mesh.cp > 1 or mesh.ep > 1:
             raise ValueError(
                 f"a serving mesh spans tp and dp only, got {mesh!r}")
-        if tp_axis != "tp":
-            raise ValueError(f"tp_axis must be 'tp', got {tp_axis!r}")
         if batch_axis is not None:
             if cache_layout == "paged":
                 raise ValueError(
@@ -622,16 +640,17 @@ class InferenceEngine:
             if isinstance(cfg, GPTMoEConfig):
                 return GPTMoEForCausalLM.from_params(params, cfg,
                                                      device=self.device)
-            if isinstance(cfg, Qwen3MoEConfig):
-                return Qwen3MoEForCausalLM.from_params(params, cfg,
-                                                       device=self.device)
-            return LlamaForCausalLM.from_params(
-                params, cfg, device=self.device, mesh=self.mesh)
-        want = self.mesh.tp if self.mesh else 1
-        if getattr(params, "tp_size", 1) != want:
-            raise ValueError(
-                f"the model holds tp={getattr(params, 'tp_size', 1)} "
-                f"shards, the engine's mesh has tp={want}")
+            family = (Qwen3MoEForCausalLM if isinstance(cfg, Qwen3MoEConfig)
+                      else LlamaForCausalLM)
+            return family.from_params(params, cfg, device=self.device,
+                                      mesh=self.mesh)
+        for axis in ("tp", "ep"):
+            want = getattr(self.mesh, axis) if self.mesh else 1
+            held = getattr(params, f"{axis}_size", 1)
+            if held != want:
+                raise ValueError(
+                    f"the model holds {axis}={held} shards, the engine's "
+                    f"mesh has {axis}={want}")
         dev = next(params.parameters()).device
         if dev.type != self.device.type or (
                 self.device.index is not None and dev != self.device):

@@ -1,6 +1,6 @@
 """Models of the PyTorch port: the Llama-family decoder (Llama, Qwen3),
-Qwen3-MoE, and the examples' zoo: GPT(-MoE), LeNet and the attention-variant
-library (MHA / MQA / GQA / MLA, ``models.attention``).
+Qwen3-MoE, and the examples' zoo: GPT(-MoE), LeNet, ResNet-18/34 and the
+attention-variant library (MHA / MQA / GQA / MLA, ``models.attention``).
 
 Importing the package registers the attention backends: ``sdpa``
 (``llama.py``), ``flash`` (``ops/flash_attention.py``, the CUDA
@@ -30,6 +30,7 @@ from scaletorch_tpu_torch.models.presets import (  # noqa: F401
     preset,
 )
 from scaletorch_tpu_torch.models.qwen3 import Qwen3Config  # noqa: F401
+from scaletorch_tpu_torch.models.resnet import ResNet, ResNetConfig  # noqa: F401
 from scaletorch_tpu_torch.models.qwen3_moe import (  # noqa: F401
     Qwen3MoEConfig,
     Qwen3MoEForCausalLM,

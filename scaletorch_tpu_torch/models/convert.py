@@ -13,8 +13,9 @@ parameter dict (fp32 leaves with ``requires_grad``) and
 (``llama.init_params``) load the same way. ``opt_state_from_jax`` carries
 an optax optimizer state (as numpy arrays) into the port's state dict of
 the same optimizer, so both sides can start from one mid-run state.
-``gpt_moe_from_jax``, ``lenet_from_jax`` and ``attention_from_jax`` carry
-the model zoo's trees (LeNet's from NHWC to NCHW).
+``gpt_moe_from_jax``, ``lenet_from_jax``, ``attention_from_jax`` and
+``resnet_from_jax`` carry the model zoo's trees (LeNet's and ResNet's from
+NHWC to NCHW; ``resnet_to_jax`` is the way back).
 
 ``shard_numpy_params`` turns a full tree into one rank's shards over the
 mesh (``parallel/tensor_parallel.shard_dims``: the stacked layer axis over
@@ -331,3 +332,43 @@ def attention_from_jax(tree: Dict[str, Any], device: DeviceLike = None
     packages) as tensors on ``device``."""
     dev = resolve_device(device)
     return {name: _as_tensor(leaf).to(dev) for name, leaf in tree.items()}
+
+
+def resnet_from_jax(params: Dict[str, Any], state: Dict[str, Any],
+                    device: DeviceLike = None, *, requires_grad: bool = False
+                    ) -> tuple:
+    """The port's ResNet ``(params, bn_state)`` (``models/resnet.py``,
+    NCHW) of the JAX package's (NHWC, numpy arrays): every convolution
+    HWIO -> OIHW, a stage's list of blocks -> a dict keyed ``"0"``, ...,
+    the head and the BatchNorm leaves as they are, fp32 on ``device``
+    (the parameters with ``requires_grad``)."""
+    dev = resolve_device(device)
+
+    def walk(tree, grad):
+        if isinstance(tree, (list, tuple)):
+            tree = {str(i): v for i, v in enumerate(tree)}
+        if isinstance(tree, dict):
+            return {k: walk(v, grad) for k, v in tree.items()}
+        t = _as_tensor(tree).float()
+        if t.ndim == 4:
+            t = t.permute(3, 2, 0, 1)
+        return t.contiguous().to(dev).requires_grad_(grad)
+
+    return walk(params, requires_grad), walk(state, False)
+
+
+def resnet_to_jax(params: Dict[str, Any], state: Dict[str, Any]) -> tuple:
+    """The inverse of ``resnet_from_jax``: the JAX package's layout (HWIO
+    convolutions, lists of blocks) as float32 numpy arrays."""
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if tree and all(k.isdigit() for k in tree):
+                return [walk(tree[str(i)]) for i in range(len(tree))]
+            return {k: walk(v) for k, v in tree.items()}
+        t = tree.detach().to("cpu", torch.float32)
+        if t.ndim == 4:
+            t = t.permute(2, 3, 1, 0)
+        return t.contiguous().numpy().copy()
+
+    return walk(params), walk(state)

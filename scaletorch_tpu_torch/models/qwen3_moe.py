@@ -35,11 +35,32 @@ dtype, the norms and the router in ``param_dtype`` (the router runs in
 fp32, as the reference's does). Its weights are filled in place, layer by
 layer, from a seeded generator (``init_weights_``), so a full-size model
 never needs a second copy on the card.
+
+Over a serving mesh of tp x ep ranks (``mesh``) the module holds this
+rank's slices as ``qwen3_moe_param_specs`` cuts them: attention, the
+embedding and the head over tp as the dense model's, the experts E/ep
+over ep and their intermediate dim I/tp over tp, the router whole. Every
+rank of the group holds the same slots and the same hidden state, so the
+training path's all-to-all (which assumes different tokens on each ep
+rank) would send each row ep times; the serving block instead routes all
+rows on every rank with the replicated fp32 router (the same bits on
+every rank), keeps the choices of its own E/ep experts in the slots the
+whole routing gave them (``local_expert_routing``), runs the grouped MLP
+(K5 on the card) over those experts and its I/tp slice, takes the
+weighted sum of its partial outputs, and completes every token with ONE
+all-reduce over the ep x tp group (``parallel.mesh.EXPERT_AXES``). A
+rank's expert work is 1/(ep·tp) of one card's, the capacity is one
+card's (dropless decode stays dropless), and a layer issues two
+collectives: attention's row-parallel all-reduce over tp (none at tp 1)
+and the experts' all-reduce. A step adds the vocab-parallel embedding's
+all-reduce and the logits' all-gather over tp. Static shapes only: the
+collectives run inside the captured serving steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -61,10 +82,16 @@ from scaletorch_tpu_torch.parallel.expert_parallel import (
     dispatch_routed,
     exchange_slot_counts,
     expert_capacity,
+    local_expert_routing,
     moe_mlp,
     resolve_moe_dispatch,
     route_tokens,
     routed_fill_counts,
+)
+from scaletorch_tpu_torch.parallel.mesh import (
+    EXPERT_AXES,
+    all_reduce_,
+    axis_group,
 )
 from scaletorch_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -236,20 +263,30 @@ def param_shapes(cfg: Qwen3MoEConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
 
 @torch.no_grad()
 def _fill_(t: Tensor, init: str, generator: torch.Generator,
-           draw_dtype: torch.dtype) -> None:
+           draw_dtype: torch.dtype, full: Optional[Tuple[int, ...]] = None,
+           local: Optional[Callable[[Tensor], Tensor]] = None) -> None:
     """Fill ``t`` in place, one leading-axis slice at a time for stacked
-    weights, drawing in ``draw_dtype`` and casting into t's dtype."""
+    weights, drawing in ``draw_dtype`` and casting into t's dtype. With
+    ``full`` (the whole leaf's shape) ``t`` is a rank's part of it: each
+    slice is drawn whole and ``local`` cuts the rank's part of the slice
+    (given as a stack of one when the leaf is stacked), so every rank
+    draws what one card draws."""
     if init == "ones":
         t.fill_(1.0)
         return
-    slices = t.unbind(0) if t.ndim >= 3 else (t,)
+    full = tuple(t.shape) if full is None else full
+    stacked = len(full) >= 3
+    slices = t.unbind(0) if stacked else (t,)
     for part in slices:
-        tmp = torch.empty(part.shape, dtype=draw_dtype, device=t.device)
+        tmp = torch.empty(full[1:] if stacked else full, dtype=draw_dtype,
+                          device=t.device)
         if init == "normal":
             tmp.normal_(0.0, 0.02, generator=generator)
         else:
-            bound = 1.0 / math.sqrt(t.shape[-2])
+            bound = 1.0 / math.sqrt(full[-2])
             tmp.uniform_(-bound, bound, generator=generator)
+        if local is not None:
+            tmp = local(tmp[None])[0] if stacked else local(tmp)
         part.copy_(tmp)
 
 
@@ -286,11 +323,18 @@ def init_params(cfg: Qwen3MoEConfig, generator: Optional[torch.Generator] = None
 def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
                     with_aux: bool, *, ep_axis: Optional[str] = None,
                     tp_axis: Optional[str] = None,
-                    sequence_parallel: bool = False
+                    sequence_parallel: bool = False,
+                    first_expert: Optional[int] = None,
+                    expert_group: Any = None
                     ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
     """Post-attention MoE sub-block with residual -> (x, the routing's aux
     per group, or None without ``with_aux``): router (fp32) -> route ->
-    dispatch (-> exchange) -> experts -> (exchange ->) combine."""
+    dispatch (-> exchange) -> experts -> (exchange ->) combine.
+
+    Serving over a mesh (the module docstring): with ``first_expert``,
+    ``layer``'s experts are this rank's E/ep, the first at that global
+    index, and the rows move by index (``local_expert_routing``); the
+    weighted partial outputs are summed over ``expert_group`` (ep x tp)."""
     sp = tp_axis is not None and sequence_parallel
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
     if sp:
@@ -304,10 +348,13 @@ def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = torch.matmul(h.float(), layer["router"].float())  # [B, S, E]
     cap = expert_capacity(s, e, k, cfg.capacity_factor)
-    mode = cfg.resolved_moe_dispatch()
+    mode = cfg.resolved_moe_dispatch() if first_expert is None else "index"
     state, aux = route_tokens(logits, k, cap, mode=mode,
                               normalize_weights=cfg.norm_topk_prob,
                               with_aux=with_aux)
+    if first_expert is not None:
+        e = layer["expert_gate_proj"].shape[0]
+        state = local_expert_routing(state, first_expert, e, cap)
     slots = dispatch_routed(h, state, mode=mode, num_experts=e, capacity=cap,
                             axis=ep_axis)
     kernel = {}
@@ -328,7 +375,7 @@ def _routed_experts(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig,
         )
 
         y = reduce_scatter_sequence(y, tp_axis)
-    return x + y.to(x.dtype), aux
+    return x + all_reduce_(y, expert_group).to(x.dtype), aux
 
 
 def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig, *,
@@ -363,12 +410,16 @@ def moe_block(x: Tensor, layer: Dict[str, Tensor], cfg: Qwen3MoEConfig, *,
 
 
 def moe_block_serving(x: Tensor, layer: Dict[str, Tensor],
-                      cfg: Qwen3MoEConfig) -> Tensor:
+                      cfg: Qwen3MoEConfig, *,
+                      first_expert: Optional[int] = None,
+                      group: Any = None) -> Tensor:
     """``moe_block``'s x, bit for bit, without the aux loss and the
     routing statistics that only training reads (the reference discards
     them in its cached forward and XLA drops the dead code; here they
-    would run, inside the serving graphs too)."""
-    return _routed_experts(x, layer, cfg, with_aux=False)[0]
+    would run, inside the serving graphs too). Over a serving mesh,
+    ``first_expert`` and ``group`` as ``_routed_experts`` takes them."""
+    return _routed_experts(x, layer, cfg, with_aux=False,
+                           first_expert=first_expert, expert_group=group)[0]
 
 
 def _moe_layer(x, layer, cos, sin, cfg, attn_fn, tp_axis=None, ep_axis=None,
@@ -547,21 +598,67 @@ def _check_servable(cfg: Qwen3MoEConfig) -> None:
             "Qwen3 family or extend the cache to per-kind stacks")
 
 
+def check_serving_mesh(cfg: Qwen3MoEConfig, mesh: Any) -> None:
+    """A Qwen3-MoE serving mesh spans tp and ep (and replicas over dp):
+    tp at most the KV heads and dividing them and the experts'
+    intermediate dim, ep dividing the experts."""
+    if mesh.pp > 1 or mesh.cp > 1:
+        raise ValueError(
+            f"a Qwen3-MoE serving mesh spans tp, ep and dp, got {mesh!r}")
+    if cfg.num_key_value_heads % mesh.tp:
+        raise ValueError(
+            f"tp={mesh.tp} does not split {cfg.num_key_value_heads} KV heads")
+    if cfg.moe_intermediate_size % mesh.tp:
+        raise ValueError(
+            f"tp={mesh.tp} does not split moe_intermediate_size="
+            f"{cfg.moe_intermediate_size}")
+    if cfg.num_experts % mesh.ep:
+        raise ValueError(
+            f"ep={mesh.ep} does not split {cfg.num_experts} experts")
+
+
 class Qwen3MoEForCausalLM(nn.Module):
     """The uniform-sparse MoE decoder for serving, weights in the
     reference layout (see the module docstring). Built empty on
     ``device`` (None = the CUDA card); fill it with ``init_weights_``,
     ``models.convert.load_numpy_params`` or build it with
-    ``from_params``. Weights carry no gradient."""
+    ``from_params``. Weights carry no gradient.
 
-    def __init__(self, cfg: Qwen3MoEConfig, device: DeviceLike = None) -> None:
+    With ``mesh`` (a ``parallel.mesh.MeshManager`` of tp and ep ranks)
+    the module holds this rank's slices, cut as ``models.convert.
+    local_shard_fn`` cuts them (``qwen3_moe_param_specs``); its
+    ``forward_cached`` runs the tp attention and the sharded MoE block
+    (the mesh must be current: ``using_mesh_manager``) and returns the
+    full-vocabulary logits on every rank."""
+
+    def __init__(self, cfg: Qwen3MoEConfig, device: DeviceLike = None, *,
+                 mesh: Any = None) -> None:
         super().__init__()
         _check_servable(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
+        self.tp_size = mesh.tp if mesh is not None else 1
+        self.ep_size = mesh.ep if mesh is not None else 1
+        self.tp_axis = "tp" if self.tp_size > 1 else None
+        # the global index of this rank's first expert
+        self.first_expert = 0
+        # this rank's part of a full leaf (None: the leaves are whole)
+        self._local = None
+        if self.tp_size > 1 or self.ep_size > 1:
+            from scaletorch_tpu_torch.models.convert import local_shard_fn
+
+            check_serving_mesh(cfg, mesh)
+            self._local = local_shard_fn(cfg, mesh, mesh.rank)
+            self.first_expert = (mesh.axis_rank("ep") * cfg.num_experts
+                                 // self.ep_size)
         self._inits: Dict[str, str] = {}
+        self._full: Dict[str, Tuple[int, ...]] = {}
         layers: Dict[str, nn.Parameter] = {}
         for name, (shape, init) in param_shapes(cfg).items():
+            self._full[name] = shape
+            if self._local is not None:
+                shape = tuple(self._local(
+                    name, torch.empty(shape, device="meta")).shape)
             full_precision = init == "ones" or name == "layers.router"
             dtype = cfg.param_dtype if full_precision else cfg.dtype
             p = nn.Parameter(torch.empty(shape, dtype=dtype, device=dev),
@@ -573,14 +670,25 @@ class Qwen3MoEForCausalLM(nn.Module):
                 self.register_parameter(name, p)
         self.layers = nn.ParameterDict(layers)
 
+    @property
+    def sharded(self) -> bool:
+        return self._local is not None
+
     @classmethod
     def from_params(cls, params: Params, cfg: Qwen3MoEConfig,
-                    device: DeviceLike = None) -> "Qwen3MoEForCausalLM":
+                    device: DeviceLike = None, *,
+                    mesh: Any = None) -> "Qwen3MoEForCausalLM":
         """A model holding ``params`` (a nested dict of tensors or numpy
-        arrays in the reference layout)."""
-        from scaletorch_tpu_torch.models.convert import load_numpy_params
+        arrays in the reference layout); with ``mesh``, this rank's slices
+        of the full tree."""
+        from scaletorch_tpu_torch.models.convert import (
+            load_numpy_params,
+            shard_numpy_params,
+        )
 
-        model = cls(cfg, device=device)
+        model = cls(cfg, device=device, mesh=mesh)
+        if model.sharded:
+            params = shard_numpy_params(params, cfg, mesh, mesh.rank)
         load_numpy_params(model, params)
         return model
 
@@ -589,9 +697,14 @@ class Qwen3MoEForCausalLM(nn.Module):
                       ) -> "Qwen3MoEForCausalLM":
         """Random weights with ``init_params``' distributions, drawn in
         place one layer slice at a time in ``param_dtype`` and cast into
-        each parameter (the draws differ from ``init_params``')."""
+        each parameter (the draws differ from ``init_params``'). Over a
+        mesh every rank draws each full slice in one order and keeps its
+        part, so the shards are one card's weights."""
         for name, p in self.named_parameters():
-            _fill_(p, self._inits[name], generator, self.cfg.param_dtype)
+            local = (None if self._local is None else
+                     functools.partial(self._local, name))
+            _fill_(p, self._inits[name], generator, self.cfg.param_dtype,
+                   full=self._full[name], local=local)
         return self
 
     @property
@@ -621,20 +734,39 @@ class Qwen3MoEForCausalLM(nn.Module):
         routes each call's rows alone: with a dropless capacity factor
         (>= E / k) decode matches the full forward exactly."""
         cfg = self.cfg if cfg is None else cfg
+        tp = self.tp_axis
         cache_k, cache_v = cache
-        x = self.embed_tokens[input_ids.long()]
+        if tp is None:
+            x = self.embed_tokens[input_ids.long()]
+        else:
+            from scaletorch_tpu_torch.parallel.tensor_parallel import (
+                vocab_parallel_embedding,
+            )
+
+            x = vocab_parallel_embedding(input_ids, self.embed_tokens,
+                                         axis=tp)
         cos, sin = get_cos_sin(input_ids.shape[1], cfg.actual_head_dim,
                                cfg.rope_theta, positions=positions)
+        group = axis_group(EXPERT_AXES) if self.sharded else None
+        first = self.first_expert if self.ep_size > 1 else None
         for i, layer in enumerate(_per_layer(dict(self.layers.items()))):
             x = _llama.attention_block_cached(
                 x, layer, cache_k[i], cache_v[i], cos, sin, positions, cfg,
-                write_mask=write_mask, kv_io=kv_io)
-            x = moe_block_serving(x, layer, cfg)
+                write_mask=write_mask, kv_io=kv_io, tp_axis=tp)
+            x = moe_block_serving(x, layer, cfg, first_expert=first,
+                                  group=group)
         if last_index is not None:
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_index.long()][:, None]
         x = rms_norm(x, self.norm, cfg.rms_norm_eps)
-        return x @ self.lm_head_weight(), (cache_k, cache_v)
+        logits = x @ self.lm_head_weight()
+        if tp is not None:
+            from scaletorch_tpu_torch.parallel.tensor_parallel import (
+                gather_from_tensor_parallel_region,
+            )
+
+            logits = gather_from_tensor_parallel_region(logits, tp)
+        return logits, (cache_k, cache_v)
 
 
 def forward_cached(model: Qwen3MoEForCausalLM, input_ids: Tensor,

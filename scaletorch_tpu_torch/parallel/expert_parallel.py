@@ -385,6 +385,20 @@ def slot_fill_counts_indexed(routing: Dict[str, Tensor], num_experts: int,
     return counts.T.contiguous()
 
 
+def local_expert_routing(routing: Dict[str, Tensor], first_expert: int,
+                         num_local: int, capacity: int) -> Dict[str, Tensor]:
+    """Index-form routing cut to the experts ``[first_expert, first_expert
+    + num_local)`` of this rank, renumbered from 0: every other choice
+    becomes a drop (slot ``capacity``, weight 0, expert 0), so the
+    dispatch, the fill counts and the combine over ``num_local`` experts
+    see only this rank's rows, in the slots the whole routing gave them."""
+    local = routing["expert_idx"] - first_expert
+    mine = (local >= 0) & (local < num_local)
+    return {"expert_idx": torch.where(mine, local, 0),
+            "slot": torch.where(mine, routing["slot"], capacity),
+            "weight": torch.where(mine, routing["weight"], 0.0)}
+
+
 def sorted_dispatch_reference(x: Tensor, expert_ids: Tensor,
                               num_experts: int):
     """Sort-based dispatch semantics, for tests and ragged flows outside a

@@ -7,9 +7,11 @@ dp: the reference's decomposition) and, when a process group is up, the
 ``torch.distributed.device_mesh.DeviceMesh`` over it
 (``init_device_mesh``, whose ranks are ``arange(world).view(shape)``, the
 same row-major order). Each axis's process group comes from the mesh;
-the fused data group ``("dp", "cp")`` (the gradient mean) and, at ep > 1,
-the batch group ``("dp", "cp", "ep")`` (the mean of every leaf but the
-expert shards) are made once with ``new_group`` over the same rank sets.
+the fused data group ``("dp", "cp")`` (the gradient mean), at ep > 1 the
+batch group ``("dp", "cp", "ep")`` (the mean of every leaf but the expert
+shards) and, at ep > 1 and tp > 1, the expert group ``("ep", "tp")`` (the
+serving MoE's combine) are made once with ``new_group`` over the same
+rank sets.
 ``destroy`` frees the groups' communicators.
 
 Unlike the reference's rank-agnostic manager, a rank lives in one
@@ -37,6 +39,9 @@ MESH_AXES: Tuple[str, ...] = ("dp", "pp", "cp", "ep", "tp")
 DATA_AXES: Tuple[str, ...] = ("dp", "cp")
 # the ranks that see distinct data: the batch rows also shard over ep
 BATCH_AXES: Tuple[str, ...] = ("dp", "cp", "ep")
+# every expert slice of a token when the experts split over ep and their
+# intermediate dim over tp (the serving MoE's one all-reduce a layer)
+EXPERT_AXES: Tuple[str, ...] = ("ep", "tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,14 +96,19 @@ class MeshManager:
         for axis in MESH_AXES:
             self._groups[(axis,)] = self._mesh.get_group(axis)
         # every rank makes every fused group, in one order; at ep 1 the
-        # batch group is the data group
+        # batch group is the data group, and the expert group is one axis's
+        # group unless both ep and tp split
         fused = (DATA_AXES, BATCH_AXES) if self.ep > 1 else (DATA_AXES,)
+        if self.ep > 1 and self.tp > 1:
+            fused += (EXPERT_AXES,)
         for axes in fused:
             for ranks in self.axis_rank_sets(axes):
                 group = dist.new_group(ranks, timeout=stdist.group_timeout())
                 if self.rank in ranks:
                     self._groups[axes] = group
         self._groups.setdefault(BATCH_AXES, self._groups[DATA_AXES])
+        self._groups.setdefault(
+            EXPERT_AXES, self._groups[("ep",) if self.ep > 1 else ("tp",)])
 
     def destroy(self) -> None:
         """Destroy this manager's process groups (each holds a
@@ -204,7 +214,8 @@ class MeshManager:
 
     def group(self, axes) -> Optional[object]:
         """The process group over one axis name or the fused
-        ``DATA_AXES`` / ``BATCH_AXES``; None without a process group."""
+        ``DATA_AXES`` / ``BATCH_AXES`` / ``EXPERT_AXES``; None without a
+        process group."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
         if self._mesh is None:
             return None

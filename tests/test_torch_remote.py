@@ -180,8 +180,12 @@ def test_wire_matches_the_reference(models):
         engine = make(models)
         with ServerThread(server_cls,
                           worker_cls(engine, replica_id="r0").start()) as st:
+            # the test's own ceiling: the reference replica's first
+            # request waits on its engine's first JAX compile, which under
+            # a loaded test run outlasts the 10 s default
             remote = RemoteEngineWorker("127.0.0.1", st.port,
-                                        replica_id="r0").start()
+                                        replica_id="r0",
+                                        connect_timeout_s=CEILING_S).start()
             try:
                 outs = [run_request(remote, GenerateRequest(
                     prompt=p, max_new_tokens=n, trace_id="ab" * 16))

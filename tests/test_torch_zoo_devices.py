@@ -1,8 +1,8 @@
 """PyTorch port: the model zoo's entry points run on the card unless the
 caller asks for the CPU.
 
-Each entry (GPT-MoE's, LeNet's and the attention variants' parameter
-draws, MLA's latent caches) is called without a device and with a CPU
+Each entry (GPT-MoE's, LeNet's, ResNet's and the attention variants'
+parameter draws, MLA's latent caches) is called without a device and with a CPU
 generator. With a card visible the result lies on it; without one the
 call raises the port's "no CUDA device" error instead of building on
 the CPU. Asked for ``device="cpu"``, the same draw lands on the CPU with
@@ -13,12 +13,13 @@ import pytest
 import torch
 
 from scaletorch_tpu_torch.inference import init_mla_cache
-from scaletorch_tpu_torch.models import gpt_moe, lenet
+from scaletorch_tpu_torch.models import gpt_moe, lenet, resnet
 from scaletorch_tpu_torch.models import attention as att
 
 GPT = gpt_moe.GPTMoEConfig(block_size=16, vocab_size=11, n_layer=1,
                            n_head=2, n_embd=16, num_experts=2, top_k=1)
 ATT = att.AttentionConfig(embed_dim=16, num_heads=2, kv_lora_rank=4)
+RESNET = resnet.ResNetConfig(width=4, num_classes=3)
 
 
 def leaves(out):
@@ -36,6 +37,13 @@ ENTRIES = {
     "GPTMoE.init": lambda g, **kw: gpt_moe.GPTMoE(GPT).init(g, **kw),
     "lenet.init_params": lambda g, **kw: lenet.init_params(g, **kw),
     "LeNet.init": lambda g, **kw: lenet.LeNet().init(g, **kw),
+    "resnet.init_params": lambda g, **kw: dict(zip(
+        ("params", "state"), resnet.init_params(g, RESNET, **kw))),
+    "ResNet.init": lambda g, **kw: dict(zip(
+        ("params", "state"), resnet.ResNet(RESNET, device="cpu").init(
+            g, **kw))),
+    "ResNet": lambda g, **kw: dict(
+        resnet.ResNet(RESNET, g, **kw).named_parameters()),
     **{f"{cls.__name__}.init": (lambda g, cls=cls, **kw: cls(ATT).init(g, **kw))
        for cls in (att.MultiHeadAttention, att.MultiQueryAttention,
                    att.GroupQueryAttention, att.MultiHeadLatentAttention)},

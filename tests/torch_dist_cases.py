@@ -543,6 +543,69 @@ def case_tp_serving(payload):
     return out
 
 
+def case_moe_mesh_serving(payload):
+    """For every run: a paged Qwen3-MoE ``InferenceEngine`` over the run's
+    tp x ep mesh (this rank's slices of the full weights) serving the
+    payload's schedule: tokens and outcomes per request, the compile
+    counts, the local cache and expert shapes, page conservation; and the
+    teacher-forced logits of the mesh's model over ``payload['tokens']``."""
+    from scaletorch_tpu_torch.inference import engine as teng
+    from scaletorch_tpu_torch.inference.decode import (
+        teacher_forced_decode_paged,
+    )
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        paged_kv_cache_shardings,
+    )
+    from scaletorch_tpu_torch.inference.sampling import SamplingParams
+    from scaletorch_tpu_torch.models.qwen3_moe import Qwen3MoEConfig
+
+    out = []
+    for run in payload["runs"]:
+        cfg = Qwen3MoEConfig(**payload["kw"], dtype=torch.float32,
+                             use_grouped_mlp_kernel=run.get("kernel", False))
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        eng = teng.InferenceEngine(
+            payload["params"], cfg, **payload["engine"],
+            sampling=SamplingParams(temperature=0.0), mesh=mm,
+            device="cpu")
+        ids = [eng.submit(list(p), max_new_tokens=n)
+               for p, n in payload["schedule"]]
+        results = eng.run()
+        eng.allocator.check_conservation()
+        res = {"tokens": [results[i].tokens for i in ids],
+               "outcomes": [results[i].outcome for i in ids],
+               "compiles": (eng.prefill_compile_count,
+                            eng.decode_compile_count),
+               "prefix_hits": eng.metrics.prefix_hits,
+               "cache_shape": tuple(eng.cache.k.shape),
+               "expert_shape": tuple(
+                   eng.model.layers["expert_gate_proj"].shape[1:]),
+               "first_expert": eng.model.first_expert}
+        toks = torch.from_numpy(payload["tokens"])
+        with tmesh.using_mesh_manager(mm), torch.inference_mode():
+            logits = teacher_forced_decode_paged(
+                eng.model, cfg, toks, page_size=payload["engine"]["page_size"],
+                prefill_len=3, sharding=paged_kv_cache_shardings(mm))
+        res["logits"] = _np(logits)
+        out.append(res)
+        del eng
+        mm.destroy()
+    return out
+
+
+def case_imagenet_example(payload):
+    """The ImageNet example's ``run`` on this rank (the gloo group is the
+    data-parallel group): its losses, validation numbers and the final
+    parameters and BN state in the JAX layout."""
+    from scaletorch_tpu_torch.examples.imagenet import dist_train
+    from scaletorch_tpu_torch.models.convert import resnet_to_jax
+
+    out = dist_train.run(payload["argv"])
+    return {"world": out["world"], "losses": out["losses"],
+            "val": out["val"],
+            "trees": resnet_to_jax(out["params"], out["bn_state"])}
+
+
 # ---- FSDP -------------------------------------------------------------------------
 def case_fsdp(payload):
     """For every run: ``setup_fsdp`` over the world (fp32 or bf16
