@@ -42,8 +42,10 @@ is non-zero; no phase catches an exception):
                 at Qwen3-30B-A3B's heads (Hq 32, Hkv 4, n_rep 8), at one
                 tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), at one
                 slot of 32768 keys and at GPT-MoE's heads (Hq 4, Hkv 4,
-                D 32, 8 slots of up to 256 keys); then at qwen3-14b's
-                heads (n_rep 5, D 128) and dense-tiny's (n_rep 2, D 32).
+                D 32, 8 slots of up to 256 keys) and at one rank's of it
+                over tp2 (Hq 2, Hkv 2) and tp4 (Hq 1, Hkv 1); then at
+                qwen3-14b's heads (n_rep 5, D 128) and dense-tiny's
+                (n_rep 2, D 32).
   4. kernel_flash — the flash kernels K1 (forward), K2 (dQ) and K3 (dK,
                 dV) against their plain versions at the training shape of
                 Qwen3-0.6B (B 1, Hq 16, Hkv 8, S 8192, D 128, causal),
@@ -60,13 +62,19 @@ is non-zero; no phase catches an exception):
                 checked against their plain versions and timed; K1-K3
                 also at qwen3-14b's heads (Hq 40, Hkv 8, D 128) and
                 dense-tiny's (Hq 8, Hkv 4, D 32), S 2048, against their
-                plain versions under the same limits.
+                plain versions under the same limits; and at the
+                long-context example's head_dim 16 (B 1, S 2048: its 4
+                heads, and one Ulysses cp4 rank's 1) with every check of
+                the first row (controls, bit for bit, bound, SDPA).
  4b. kernel_ring_blocks — K1 and K2/K3 at the full (non-causal) blocks
                 the cp ring runs on the headline row over cp 4 (Hq 16, Hkv
                 8, D 128): the contiguous layout's 2048 x 2048
                 off-diagonal block and the zigzag layout's 2048 x 1024 and
-                1024 x 2048 blocks, fp32 and bf16, against their plain
-                versions under kernel_flash's limits, beside the
+                1024 x 2048 blocks, and the long-context example's
+                zigzag blocks at its heads (Hq 4, Hkv 4, D 16; seq 2048
+                over cp 4: 512 x 256 and 256 x 512), fp32 and bf16,
+                against their plain versions under kernel_flash's limits,
+                beside the
                 one-tile-skipped control that must fail them; each
                 kernel's time, its plain version's, its bound and the
                 SDPA time on the same block.
@@ -189,7 +197,9 @@ is non-zero; no phase catches an exception):
                 tokens/s, MFU and peak memory as the entry reports them.
  11. train_profile — torch.profiler over 2 steady steps of the same
                 trainer.
- 11a. data_train — the headline row trained through ``Trainer`` from a
+ 11a. data_train — the headline row cut to DRILL_LAYERS (8) layers, as
+                every data, checkpoint and runtime drill is, trained
+                through ``Trainer`` from a
                 ``.jsonl`` of seeded documents written under build/ (a
                 byte tokenizer defined here), evaluated every 2 steps on
                 2 batches of a second file, checkpointed every 2 steps
@@ -200,7 +210,7 @@ is non-zero; no phase catches an exception):
                 must restore step 2, loader position 2 and AdamW's count,
                 keep A's learning rates exactly and its losses and val
                 losses within the limit; every train step launches K1 /
-                K2 / K3 56 / 28 / 28 times, every eval batch K1 28 times
+                K2 / K3 16 / 8 / 8 times, every eval batch K1 8 times
                 and no K2 / K3; the cached eval set scores the same again.
                 Prints the seconds and tokens of reading and tokenizing
                 a 32 MiB corpus (one process), the free disk, the
@@ -241,7 +251,8 @@ is non-zero; no phase catches an exception):
      The Qwen3-0.6B models are freed here; the Qwen3-30B-A3B phases follow
      (full width, random weights from a seeded generator, the grouped-MLP
      kernels switched on through the config or the environment):
- 11e. runtime_preempt — the headline row fed from a seeded .jsonl
+ 11e. runtime_preempt — the headline row (DRILL_LAYERS) fed from a
+                seeded .jsonl
                 (free disk printed first; checkpoints under
                 build/runtime/, each drill's directory deleted after it):
                 two straight 6-step runs (the first checkpointed every 2
@@ -256,8 +267,9 @@ is non-zero; no phase catches an exception):
                 drill again with no save in flight; then
                 ``python -m scaletorch_tpu_torch.train`` with the drill,
                 cut to 2 layers, exits 0 and logs that its checkpoint is
-                on disk. K1/K2/K3 56/28/28 in every step.
- 11f. runtime_rollback — one run: a corrupt read at stream position 3
+                on disk. K1/K2/K3 16/8/8 in every step.
+ 11f. runtime_rollback — one run (DRILL_LAYERS): a corrupt read at
+                stream position 3
                 (skipped, counted), one failed save (retried), a NaN
                 after step 5 under divergence_policy="rollback": one
                 rollback, every parameter and optimizer state tensor in
@@ -286,7 +298,8 @@ is non-zero; no phase catches an exception):
                 128, G 1, C 320, H 2048, I 768, counts from a real routing
                 of seeded tokens plus one expert at 0 and one at C; K5-K7),
                 prefill (G 8, C 512, dropless; K5) and decode (G 8, C 1;
-                K5). Max abs, whole-tensor and worst-tile (worst-expert for
+                K5), and the moe example's (E 8, top-2, G 1, C 128, H 64,
+                I 64; K5-K7). Max abs, whole-tensor and worst-tile (worst-expert for
                 dW) relative errors against stated limits (s, dG and dU of
                 the backward's grads pass too), beside two controls that
                 must fail them (one filled slot tile skipped; K7 with dO
@@ -368,6 +381,17 @@ is non-zero; no phase catches an exception):
                 images after each; every loss finite, the last epoch's
                 mean below the first's, top-1 / top-5 computed; images/s
                 and ms a step after the first epoch, peak memory.
+      examples — the examples over the mesh (ROADMAP 9c) at the mesh one
+                card allows (``run_examples(1)``), 40 steps each: fsdp
+                saved, then 2 steps resumed; moe (ep 1, the grouped-MLP
+                kernels on: K1-K3 at D 16 and K5-K7 at H 64 / I 64
+                launched); pipeline (pp 1) under afab, interleaved and
+                memory_chunked; longctx (cp 1, seq 2048) ring and Ulysses
+                (K1-K3 at D 16). Every loss finite and falling (the mean of
+                the last quarter below the first's; not the 2 resumed
+                steps), the kernels each run must launch counted from
+                zero; seconds, losses and launches a run. The device-mesh
+                demos need 4 ranks (the four-card ``examples`` group).
  18. parallel — ``torch.distributed.run`` of this script (``--parallel-
                 worker``) with one rank a visible card, NCCL, under a
                 wall-clock limit; a failed rank fails the phase. One card:
@@ -430,10 +454,22 @@ is non-zero; no phase catches an exception):
                 (16/16 ok, one capture of each step, K4 = K5 = 48 a decode
                 replay and K5 = 48 a prefill replay on every rank, the same
                 tokens on every rank; decode tokens/s, TTFT, TPOT, replay
-                ms and peak memory a card beside one card's). The line
-                names the world and the checks run and not run.
+                ms and peak memory a card beside one card's). Then, four
+                cards: ``examples`` (``run_examples(4)``: minGPT
+                and MNIST data parallel, MNIST --fsdp, fsdp over 4 saved
+                and resumed, moe ep2 x dp2, pipeline pp2 x dp2 under each
+                engine, longctx cp4 ring and Ulysses, the device-mesh
+                demos; each loss falling, K1-K3 and K5-K7 counted) and
+                ``serve_gpt_moe_tp`` (GPT-MoE at the minGPT example's
+                width, fp32, gpt_moe_serve's traffic on one card, then
+                over tp2 x dp2 and tp4: 16/16 ok, one capture a step, K4
+                = 4 a decode replay and none in a prefill replay on every
+                rank, greedy tokens equal to one card's; TPOT, replay ms
+                beside one card's). The line names the world and the
+                checks run and not run.
  18b. runtime_multiproc — the multi-process checkpoint on one card: the
-                headline row (fp32 masters, AdamW) in a world-1 NCCL
+                headline row (DRILL_LAYERS; fp32 masters, AdamW) in a
+                world-1 NCCL
                 group takes 2 steps and saves through the process-group
                 path (global tensors, DCP over the checkpoint's gloo
                 group); a new ``Trainer`` restores it bit for bit; 2 CPU
@@ -557,6 +593,10 @@ MODEL = "qwen3-0.6b"
 # the presets' other head geometries: n_rep 5 at D 128, D 32 at n_rep 2
 GEOMETRY_MODELS = ("qwen3-14b", "dense-tiny")
 GEOMETRY_SEQ = 2048  # K1-K3 at those heads
+# the long-context example's attention (Hq, Hkv, D) and sequence; K1-K3
+# causal at one device's heads and at one Ulysses cp4 rank's
+LONGCTX_HEADS, LONGCTX_SEQ = (4, 4, 16), 2048
+LONGCTX_FLASH_ROWS = (("longctx_heads", 4), ("longctx_ulysses_rank", 1))
 GEOMETRY_PARITY_LAYERS = 2  # the qwen3-14b decode-parity cut
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 / fp32 flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -592,6 +632,11 @@ TABLE_WARMUP, TABLE_STEPS = 2, 3
 # data_train: documents of DOC_BYTES bytes (a byte a token): 32 sequences
 # of 8193 tokens to train on, 4 held out; runs of DATA_STEPS steps
 DATA_DOCS, EVAL_DOCS, DOC_BYTES, DATA_STEPS = 64, 8, 4096, 4
+# the depth of the headline row in the data, checkpoint and runtime drills
+# (data_train, runtime_preempt, runtime_rollback, runtime_multiproc): the
+# drills hold runs to each other, so depth changes no assert; 28 -> 8
+# layers cuts their steps and their checkpoints (7.15 -> ~3.3 GB)
+DRILL_LAYERS = 8
 # and a 32 MiB corpus tokenized alone, for the preprocessing rate
 PREP_DOCS = 8192
 # hf_roundtrip: the bf16 export (1.19 GB at 0.6B) cut into >= 2 shards
@@ -667,7 +712,12 @@ GMLP_SHAPES = {  # name: (groups, tokens per group, capacity factor, bwd)
     "train": (1, MOE_TRAIN_SEQ, 1.25, True),
     "prefill": (8, PREFILL_LEN, DROPLESS_CF, False),
     "decode": (8, 1, DROPLESS_CF, False),
+    # the moe example (examples/moe) at its defaults on one card: seq 256,
+    # capacity factor 2.0
+    "moe_example": (1, 256, 2.0, True),
 }
+# (experts, top-k, H, I) of a shape that is not Qwen3-30B-A3B's
+GMLP_SHAPE_DIMS = {"moe_example": (8, 2, 64, 64)}
 # the exchanged slabs of the train cell under ep 4: rank 0's 32 experts
 # over (source rank, group), [E/ep, ep·G, C, H] = [32, 4, 320, 2048]
 EP_SLAB_RANKS = 4
@@ -916,10 +966,11 @@ def phase_kernel() -> dict:
     8), one tp4 rank of qwen3-32b (Hq 16, Hkv 2, n_rep 8), one slot at
     32768 keys, GPT-MoE's heads (Hq 4, Hkv 4, D 32, up to 256 keys), one
     rank of Qwen3-30B-A3B over tp 4 (Hq 8, Hkv 1; over tp 2 its rank's
-    heads are the tp4 rank of qwen3-32b's), qwen3-14b's heads (n_rep 5)
-    and dense-tiny's (D 32). On each of the first six, a control: the plain version with one page of
-    the longest slot dropped must fail the checks (both readings are
-    printed)."""
+    heads are the tp4 rank of qwen3-32b's), one rank of GPT-MoE over tp 2
+    (Hq 2, Hkv 2) and tp 4 (Hq 1, Hkv 1), qwen3-14b's heads (n_rep 5)
+    and dense-tiny's (D 32). On each of the first eight, a control: the
+    plain version with one page of the longest slot dropped must fail the
+    checks (both readings are printed)."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -948,6 +999,12 @@ def phase_kernel() -> dict:
             "qwen3_30b_a3b_tp4_rank_heads": decode_row(
                 decode_inputs(dtype, seed=1244, heads=MOE_TP4_RANK_HEADS),
                 flush),
+            # one rank of GPT-MoE served over tp 2 and tp 4
+            # (serve_gpt_moe_tp): n_rep 1, D 32, 256 keys
+            **{f"gpt_moe_tp{tp}_rank_heads": decode_row(
+                decode_inputs(dtype, seed=1245 + tp, heads=heads,
+                              max_seq=GPT_MAX_SEQ), flush)
+               for tp, heads in GPT_TP_RANK_HEADS.items()},
         }
         row["geometries"] = {m: paged_geometry(m, dtype, flush)
                              for m in GEOMETRY_MODELS}
@@ -1123,92 +1180,26 @@ def lower_precision(q, k, v, dout, lse, delta):
 
 
 def phase_kernel_flash() -> dict:
+    """K1-K3 against their plain versions at the headline's training
+    shape (``flash_case``; bf16 also at the MoE shape), at other presets'
+    heads, and at the long-context example's heads of 16
+    (``LONGCTX_HEADS``: [1, 4, 2048, 16], one device's, and [1, 1, 2048,
+    16], one rank's under Ulysses cp4), fp32 and bf16."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        tol = FLASH_TOLERANCE[dtype]
-        q, k, v, dout = flash_inputs(dtype, seed=4321)
-        scale = 1.0 / q.shape[-1] ** 0.5
-        out, lse = tf.flash_forward(q, k, v, causal=True)
-        ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
-        delta = tf.attention_delta(ref_out, dout)
-        bwd_args = (q, k, v, dout, ref_lse, delta)
-        ref = flash_plain(*bwd_args)
-        dq = tf.flash_dq(*bwd_args, causal=True)
-        dk, dv = tf.flash_dkv(*bwd_args, causal=True)
-        got = (out, lse, dq, dk, dv)
-        lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
-                                                 enable_gqa=True)
-        torch.cuda.synchronize()
-        for t in got:
-            check(bool(torch.isfinite(t).all()), f"{dtype}: non-finite")
-        errs = flash_errors(got, ref)
-        errs["library_out_max_abs"] = max_abs(lib_out.detach(), ref[0])
-        controls = {}
-        for name, faulty in (
-                ("skip_one_tile",
-                 skip_one_tile(got, q, k, v, dout, ref[1], delta, scale)),
-                ("lower_precision", lower_precision(*bwd_args))):
-            c_errs = flash_errors(faulty, ref)
-            controls[name] = {**c_errs,
-                              "over_limit": flash_violations(c_errs, tol)}
-
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, lib_in, dout,
-                                       retain_graph=True)
-
-        reps = 5
-        times = {
-            "K1": (lambda: tf.flash_forward(q, k, v, causal=True),
-                   lambda: tf.flash_forward_ref(q, k, v, causal=True),
-                   lambda: F.scaled_dot_product_attention(
-                       q, k, v, is_causal=True, enable_gqa=True)),
-            "K2": (lambda: tf.flash_dq(*bwd_args, causal=True),
-                   lambda: tf.flash_dq_ref(*bwd_args, causal=True),
-                   lib_bwd),
-            "K3": (lambda: tf.flash_dkv(*bwd_args, causal=True),
-                   lambda: tf.flash_dkv_ref(*bwd_args, causal=True),
-                   lib_bwd),
-        }
-        row = {"dtype": str(dtype).replace("torch.", ""),
-               "shape": {"q": list(q.shape), "kv": list(k.shape)},
-               "causal": True, "tolerance": tol, **errs,
-               "controls": controls, "kernels": {}}
-        lib_bwd_ms = None
-        for kid, (kernel_fn, plain_fn, lib_fn) in times.items():
-            if kid == "K3" and lib_bwd_ms is not None:
-                lib_ms = lib_bwd_ms  # one backward call computes dQ, dK, dV
-            else:
-                lib_ms = time_ms(lib_fn, flush, reps)
-            if kid == "K2":
-                lib_bwd_ms = lib_ms
-            row["kernels"][kid] = {
-                **flash_timing(kid, q, k, time_ms(kernel_fn, flush, reps)),
-                "plain_ms": time_ms(plain_fn, flush, reps),
-                "library_ms": lib_ms,
-            }
-        # no atomics: a second run of K2 and K3 gives the same bits
-        again = (tf.flash_dq(*bwd_args, causal=True),
-                 *tf.flash_dkv(*bwd_args, causal=True))
-        row["bitwise_deterministic"] = all(
-            bool(torch.equal(a, b)) for a, b in zip(again, (dq, dk, dv)))
-        del again
+        row = flash_case(*flash_inputs(dtype, seed=4321), flush,
+                         f"{dtype}")
         if dtype == torch.bfloat16:
-            row["moe_shape"] = flash_moe_shape(flush, reps)
+            row["moe_shape"] = flash_moe_shape(flush, 5)
         row["geometries"] = {m: flash_geometry(m, dtype)
                              for m in GEOMETRY_MODELS}
-        del lib_out, lib_in
+        row["longctx_d16"] = {
+            name: flash_case(*longctx_inputs(dtype, hq, seed=4331 + hq),
+                             flush, f"{dtype} {name}")
+            for name, hq in LONGCTX_FLASH_ROWS}
         results[row["dtype"]] = row
         emit("kernel_flash", **row)
-        violations = flash_violations(errs, tol)
-        check(not violations, f"{dtype}: kernels vs plain: {violations}")
-        seen = {v.split()[0] for v in controls["skip_one_tile"]["over_limit"]}
-        want = {"out_tile_rel", "dq_tile_rel", "dk_tile_rel", "dv_tile_rel"}
-        check(want <= seen, f"{dtype}: a skipped tile passes the checks of "
-                            f"{sorted(want - seen)}")
-        check(row["bitwise_deterministic"],
-              f"{dtype}: two runs of K2 and K3 differ")
         if "moe_shape" in row:
             check(not row["moe_shape"]["over_limit"],
                   f"{dtype}: K1-K3 vs plain at the MoE shape: "
@@ -1218,6 +1209,99 @@ def phase_kernel_flash() -> dict:
                   f"{dtype}: K1-K3 vs plain at {m}'s heads: "
                   f"{g['over_limit']}")
     return results
+
+
+def longctx_inputs(dtype: torch.dtype, hq: int, seed: int,
+                   seq: int = LONGCTX_SEQ):
+    """q, k, v, dO of the long-context example's attention: ``hq`` heads
+    (and as many KV heads) of LONGCTX_HEADS' D, B 1."""
+    d = LONGCTX_HEADS[2]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd():
+        return torch.randn(1, hq, seq, d, generator=gen,
+                           device="cuda").to(dtype)
+
+    return rnd(), rnd(), rnd(), rnd()
+
+
+def flash_case(q, k, v, dout, flush, what: str, reps: int = 5) -> dict:
+    """Causal K1, K2 and K3 on (q, k, v, dO) against their plain versions
+    under FLASH_TOLERANCE, with the skipped-tile control that must fail
+    the tile checks and the lower-precision control; each kernel's time
+    beside its bound, its plain version's and SDPA's (forward; backward
+    for K2 and K3); two runs of K2/K3 bit for bit. Checked here."""
+    dtype = q.dtype
+    tol = FLASH_TOLERANCE[dtype]
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, lse = tf.flash_forward(q, k, v, causal=True)
+    ref_out, ref_lse = tf.flash_forward_ref(q, k, v, causal=True)
+    delta = tf.attention_delta(ref_out, dout)
+    bwd_args = (q, k, v, dout, ref_lse, delta)
+    ref = flash_plain(*bwd_args)
+    dq = tf.flash_dq(*bwd_args, causal=True)
+    dk, dv = tf.flash_dkv(*bwd_args, causal=True)
+    got = (out, lse, dq, dk, dv)
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             enable_gqa=True)
+    torch.cuda.synchronize()
+    for t in got:
+        check(bool(torch.isfinite(t).all()), f"{what}: non-finite")
+    errs = flash_errors(got, ref)
+    errs["library_out_max_abs"] = max_abs(lib_out.detach(), ref[0])
+    controls = {}
+    for name, faulty in (
+            ("skip_one_tile",
+             skip_one_tile(got, q, k, v, dout, ref[1], delta, scale)),
+            ("lower_precision", lower_precision(*bwd_args))):
+        c_errs = flash_errors(faulty, ref)
+        controls[name] = {**c_errs,
+                          "over_limit": flash_violations(c_errs, tol)}
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, lib_in, dout, retain_graph=True)
+
+    lib_bwd_ms = time_ms(lib_bwd, flush, reps)  # dQ, dK and dV in one call
+    times = {
+        "K1": (lambda: tf.flash_forward(q, k, v, causal=True),
+               lambda: tf.flash_forward_ref(q, k, v, causal=True),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True), flush, reps)),
+        "K2": (lambda: tf.flash_dq(*bwd_args, causal=True),
+               lambda: tf.flash_dq_ref(*bwd_args, causal=True), lib_bwd_ms),
+        "K3": (lambda: tf.flash_dkv(*bwd_args, causal=True),
+               lambda: tf.flash_dkv_ref(*bwd_args, causal=True),
+               lib_bwd_ms),
+    }
+    # kernel_ms_spin: the card's work alone (time_ms's spin), which at the
+    # narrow heads is a fraction of the span the wrapper's host enqueue
+    # fills
+    row = {"dtype": str(dtype).replace("torch.", ""),
+           "shape": {"q": list(q.shape), "kv": list(k.shape)},
+           "causal": True, "tolerance": tol, **errs,
+           "controls": controls, "kernels": {
+               kid: {**flash_timing(kid, q, k, time_ms(fn, flush, reps)),
+                     "kernel_ms_spin": time_ms(fn, flush, reps, spin=True),
+                     "plain_ms": time_ms(plain, flush, reps),
+                     "library_ms": lib_ms}
+               for kid, (fn, plain, lib_ms) in times.items()}}
+    # no atomics: a second run of K2 and K3 gives the same bits
+    again = (tf.flash_dq(*bwd_args, causal=True),
+             *tf.flash_dkv(*bwd_args, causal=True))
+    row["bitwise_deterministic"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(again, (dq, dk, dv)))
+    del again, lib_out, lib_in
+    violations = flash_violations(errs, tol)
+    check(not violations, f"{what}: kernels vs plain: {violations}")
+    seen = {v.split()[0] for v in controls["skip_one_tile"]["over_limit"]}
+    want = {"out_tile_rel", "dq_tile_rel", "dk_tile_rel", "dv_tile_rel"}
+    check(want <= seen, f"{what}: a skipped tile passes the checks of "
+                        f"{sorted(want - seen)}")
+    check(row["bitwise_deterministic"], f"{what}: two runs of K2 and K3 "
+                                        f"differ")
+    return row
 
 
 def flash_geometry(model: str, dtype: torch.dtype) -> dict:
@@ -1312,18 +1396,26 @@ RING_BLOCKS = (("contiguous_offdiag", TRAIN_SEQ // RING_CP,
                 TRAIN_SEQ // (2 * RING_CP)),
                ("zigzag_newer", TRAIN_SEQ // (2 * RING_CP),
                 TRAIN_SEQ // RING_CP))
+# the long-context example (examples/longctx) at its defaults: seq 2048
+# over cp 4, 4 heads and 4 KV heads of 16; its zigzag blocks
+LONGCTX_RING_BLOCKS = (
+    ("longctx_zigzag_older", LONGCTX_SEQ // RING_CP,
+     LONGCTX_SEQ // (2 * RING_CP)),
+    ("longctx_zigzag_newer", LONGCTX_SEQ // (2 * RING_CP),
+     LONGCTX_SEQ // RING_CP))
 
 
 def ring_block(name: str, sq: int, skv: int, dtype: torch.dtype, flush,
-               reps: int = 5) -> dict:
-    """K1 and K2/K3 on one full block of Qwen3-0.6B's heads against their
-    plain versions under FLASH_TOLERANCE, beside the one-tile-skipped
-    control that must fail them; each kernel's time, its plain
-    version's, its bound and the SDPA yardstick on the same block."""
+               reps: int = 5, heads=None) -> dict:
+    """K1 and K2/K3 on one full block of Qwen3-0.6B's heads (``heads``:
+    (Hq, Hkv, D) instead) against their plain versions under
+    FLASH_TOLERANCE, beside the one-tile-skipped control that must fail
+    them; each kernel's time, its plain version's, its bound and the SDPA
+    yardstick on the same block."""
     tol = FLASH_TOLERANCE[dtype]
     cfg = model_config(MODEL)
-    hq, hkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.actual_head_dim)
+    hq, hkv, d = heads or (cfg.num_attention_heads, cfg.num_key_value_heads,
+                           cfg.actual_head_dim)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4325 + sq + 3 * skv)
 
@@ -1363,6 +1455,7 @@ def ring_block(name: str, sq: int, skv: int, dtype: torch.dtype, flush,
     }
     kernels = {kid: {**flash_timing(kid, q, k, time_ms(fn, flush, reps),
                                     causal=False),
+                     "kernel_ms_spin": time_ms(fn, flush, reps, spin=True),
                      "plain_ms": time_ms(plain, flush, reps),
                      "library_ms": lib_ms}
                for kid, (fn, plain, lib_ms) in times.items()}
@@ -1375,11 +1468,17 @@ def ring_block(name: str, sq: int, skv: int, dtype: torch.dtype, flush,
 
 
 def phase_kernel_ring_blocks() -> dict:
+    """The headline's ring blocks (RING_BLOCKS, Qwen3-0.6B's heads) and
+    the long-context example's zigzag blocks at its heads of 16
+    (LONGCTX_RING_BLOCKS), fp32 and bf16."""
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     rows = {}
+    blocks = ([(name, sq, skv, None) for name, sq, skv in RING_BLOCKS]
+              + [(name, sq, skv, LONGCTX_HEADS)
+                 for name, sq, skv in LONGCTX_RING_BLOCKS])
     for dtype in (torch.float32, torch.bfloat16):
-        for name, sq, skv in RING_BLOCKS:
-            row = ring_block(name, sq, skv, dtype, flush)
+        for name, sq, skv, heads in blocks:
+            row = ring_block(name, sq, skv, dtype, flush, heads=heads)
             rows[(name, row["dtype"])] = row
             emit("kernel_ring_blocks", **row)
             check(not row["over_limit"],
@@ -2106,11 +2205,12 @@ def write_docs(path: str, docs: int, seed: int) -> str:
 
 
 def data_train_cfg(root: str, checkpoint_dir, **kw):
-    """The headline row fed from the files under ``root``, evaluated
-    every 2 steps on 2 held-out batches, checkpointed every 2 steps."""
+    """The headline row cut to DRILL_LAYERS, fed from the files under
+    ``root``, evaluated every 2 steps on 2 held-out batches, checkpointed
+    every 2 steps."""
     cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
     return dataclasses.replace(
-        cfg, synthetic_data=False,
+        cfg, synthetic_data=False, num_hidden_layers=DRILL_LAYERS,
         dataset_name=os.path.join(root, "train.jsonl"),
         eval_dataset_name=os.path.join(root, "val.jsonl"),
         eval_frequency=2, eval_steps=2, checkpoint_dir=checkpoint_dir,
@@ -2168,12 +2268,12 @@ def phase_data_train(synthetic_tokens_per_s: float) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     free_gb = shutil.disk_usage(root).free / 1e9
-    emit("data_train_disk", free_gb=free_gb, checkpoint_gb_expected=7.2)
+    emit("data_train_disk", free_gb=free_gb, checkpoint_gb_expected=3.4)
     write_docs(os.path.join(root, "train.jsonl"), DATA_DOCS, seed=11)
     write_docs(os.path.join(root, "val.jsonl"), EVAL_DOCS, seed=12)
     prep = preprocess(write_docs(os.path.join(root, "prep.jsonl"),
                                  PREP_DOCS, seed=13))
-    layers = model_config(MODEL).num_hidden_layers
+    layers = DRILL_LAYERS
     want_train = {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers,
                   tf.K3_NAME: layers}
     want_eval = {tf.K1_NAME: layers}
@@ -2258,7 +2358,8 @@ def phase_data_train(synthetic_tokens_per_s: float) -> dict:
     check(resumed_diff <= spread,
           f"resumed run differs by {resumed_diff} > {spread}, the spread "
           "of two straight runs")
-    row = {"model": MODEL, "sequence_length": TRAIN_SEQ,
+    row = {"model": MODEL, "layers": DRILL_LAYERS,
+           "sequence_length": TRAIN_SEQ,
            "train_docs": DATA_DOCS, "eval_docs": EVAL_DOCS,
            "doc_bytes": DOC_BYTES, "straight": a1, "straight_again": a2,
            "straight_bit_equal": spread == 0.0, "limit": spread,
@@ -2517,8 +2618,9 @@ def gmlp_inputs(shape: str, dtype: torch.dtype, seed: int):
     or the prefill's routing and I/tp. x and dO are random in every row, past the counts
     too, so the kernels' masks are what keeps those rows out."""
     cfg = model_config(MOE_MODEL)
-    e, k, h, i = (cfg.num_experts, cfg.num_experts_per_tok,
-                  cfg.hidden_size, cfg.moe_intermediate_size)
+    e, k, h, i = GMLP_SHAPE_DIMS.get(shape, (
+        cfg.num_experts, cfg.num_experts_per_tok, cfg.hidden_size,
+        cfg.moe_intermediate_size))
     groups, tokens, cf, _, ep = gmlp_shape(shape)
     cap = expert_capacity(tokens, e, k, cf)
     gen = torch.Generator(device="cuda")
@@ -3076,6 +3178,8 @@ GPT_PARITY = dict(batch=4, prefill=64)  # teacher-forced K4 vs gather
 GPT_DROPLESS_CF = 4.0  # capacity == the row: paged (gather) == dense
 # the heads K4 serves GPT-MoE with: Hq 4, Hkv 4 (n_rep 1), D 32, <= 256 keys
 GPT_HEADS = (4, 4, 32)
+# and one rank's over tp (serve_gpt_moe_tp)
+GPT_TP_RANK_HEADS = {2: (2, 2, 32), 4: (1, 1, 32)}
 ZOO_TOLERANCE = 1e-4  # fp32 on the card: MLA cache vs full, sorted MoE
 MINGPT_ARGS = ("--block_size", "64", "--batch_size", "32", "--steps", "120",
                "--eval_interval", "60", "--sample_tokens", "32")
@@ -3392,6 +3496,128 @@ def phase_resnet_train() -> dict:
     return out
 
 
+# ---- 11d. the examples over the mesh (ROADMAP 9c) ---------------------------
+# the training examples at 40 steps: at their 8-10 the loss on the
+# synthetic stream (uniform tokens) is flat within its noise; the fsdp
+# example then resumes for 2
+EXAMPLE_STEPS, EXAMPLE_RESUME_STEPS = 40, 2
+
+
+def example_runs(world: int, root: str) -> list:
+    """(name, module under scaletorch_tpu_torch.examples, argv, the
+    kernels its run must launch) of the examples over ``world`` cards:
+    on one card each new example at the mesh one card allows (ep, pp and
+    cp at 1; the device-mesh demos need 4 ranks), on four the reference
+    examples' defaults (minGPT and MNIST data parallel, MNIST --fsdp, the
+    demos), the training examples at EXAMPLE_STEPS. Their K1-K3 run at
+    head_dim 16."""
+    flash = (tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)
+    experts = (gm.K5_NAME, gm.K6_NAME, gm.K7_NAME)
+    ckpt = os.path.join(root, "fsdp_ckpt")
+    one = world == 1
+    steps = ["--steps", str(EXAMPLE_STEPS)]
+    runs = [
+        ("fsdp", "fsdp.train_fsdp", steps + ["--checkpoint-dir", ckpt,
+                                             "--log_interval", "10"], ()),
+        ("fsdp_resumed", "fsdp.train_fsdp",
+         ["--steps", str(EXAMPLE_RESUME_STEPS), "--checkpoint-dir", ckpt],
+         ()),
+        ("moe", "moe.train_moe", steps + ["--ep", "1" if one else "2"],
+         flash + experts),
+        *((f"pipeline_{e}", "pipeline.train_pp",
+           steps + ["--engine", e, "--pp", "1" if one else "2"], flash)
+          for e in ("afab", "interleaved", "memory_chunked")),
+        *((f"longctx_{st}", "longctx.train_longctx",
+           steps + ["--cp", "1" if one else "4", "--strategy", st], flash)
+          for st in ("ring", "ulysses")),
+    ]
+    if not one:
+        runs = [("mingpt_dp", "mingpt.train_mingpt", [], ()),
+                ("mnist_dp", "mnist.train_mnist", [], ()),
+                ("mnist_fsdp", "mnist.train_mnist", ["--fsdp"], ()),
+                *runs,
+                ("device_mesh", "device_mesh.mesh_demos", [], ())]
+    return runs
+
+
+def falling(losses) -> bool:
+    """The mean of the last quarter of the losses below the first's."""
+    n = max(len(losses) // 4, 1)
+    return float(np.mean(losses[-n:])) < float(np.mean(losses[:n]))
+
+
+def run_examples(world: int, dev) -> dict:
+    """Every run of ``example_runs(world)`` on this rank, its launches
+    counted from zero: its seconds, losses (first, last, falling), the
+    launches of the kernels it must launch (each nonzero) and the K1-K3
+    and K5-K7 launches of the run; the moe example with the grouped-MLP
+    kernels on. Asserted on every rank: finite losses that fall (the
+    resumed fsdp run and the demos aside)."""
+    import importlib
+
+    from scaletorch_tpu_torch import dist as stdist
+
+    root = os.path.abspath(os.path.join(_build.BUILD_DIR.parent,
+                                        "examples"))
+    if stdist.process_index() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+    if world > 1:
+        stdist.barrier()
+    out = {}
+    for name, module, argv, kernels in example_runs(world, root):
+        mod = importlib.import_module(
+            f"scaletorch_tpu_torch.examples.{module}")
+        before = os.environ.get(qwen3_moe.GROUPED_MLP_ENV)
+        if module == "moe.train_moe":
+            os.environ[qwen3_moe.GROUPED_MLP_ENV] = "1"
+        _build.reset_launch_counts()
+        t0 = time.monotonic()
+        try:
+            res = mod.run(argv)
+            torch.cuda.synchronize(dev)
+        finally:
+            if before is None:
+                os.environ.pop(qwen3_moe.GROUPED_MLP_ENV, None)
+            else:
+                os.environ[qwen3_moe.GROUPED_MLP_ENV] = before
+        launches = {k: _build.launch_counts.get(k, 0) for k in (
+            tf.K1_NAME, tf.K2_NAME, tf.K3_NAME, gm.K5_NAME, gm.K6_NAME,
+            gm.K7_NAME)}
+        row = {"argv": argv, "seconds": time.monotonic() - t0,
+               "launches": {k: v for k, v in launches.items() if v}}
+        losses = res.get("losses") if isinstance(res, dict) else None
+        if losses:
+            row.update(first_loss=losses[0], last_loss=losses[-1],
+                       steps=len(losses), loss_falling=falling(losses))
+            check(all(np.isfinite(losses)),
+                  f"examples {name}: losses {losses}")
+            check(name == "fsdp_resumed" or row["loss_falling"],
+                  f"examples {name}: the loss does not fall: {losses}")
+        if name == "fsdp_resumed":
+            check(res["start_step"] == EXAMPLE_STEPS,
+                  f"examples {name}: resumed at {res['start_step']}")
+        missing = [k for k in kernels if not launches[k]]
+        check(not missing, f"examples {name}: no launch of {missing}")
+        out[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    if world > 1:
+        stdist.barrier()
+    if stdist.process_index() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_examples() -> dict:
+    """The examples over the mesh on one card (``run_examples(1)``)."""
+    out = run_examples(1, torch.device("cuda"))
+    emit("examples", world=1, runs=out,
+         not_run={"device_mesh": "needs an even world of 4 or more ranks "
+                                 "(the four-card group runs it)"})
+    return out
+
+
 # ---- 11e. the runtime on one card -------------------------------------------
 RUNTIME_STEPS = 6            # the preemption and rollback runs
 SIGTERM_AT, NAN_AT, BAD_READ_AT = 3, 5, 3
@@ -3422,11 +3648,12 @@ def runtime_root(name: str) -> str:
 
 
 def runtime_cfg(root: str, checkpoint_dir=None, **kw):
-    """The headline row fed from ``root``/train.jsonl, a record every
-    step, asynchronous checkpoints keeping the newest."""
+    """The headline row cut to DRILL_LAYERS, fed from
+    ``root``/train.jsonl, a record every step, asynchronous checkpoints
+    keeping the newest."""
     cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
     return dataclasses.replace(
-        cfg, synthetic_data=False,
+        cfg, synthetic_data=False, num_hidden_layers=DRILL_LAYERS,
         dataset_name=os.path.join(root, "train.jsonl"),
         checkpoint_dir=checkpoint_dir, keep_n_checkpoints=1,
         async_checkpointing=True, total_train_steps=RUNTIME_STEPS,
@@ -3435,8 +3662,10 @@ def runtime_cfg(root: str, checkpoint_dir=None, **kw):
         crash_report_dir=os.path.join(root, "crash"), **kw)
 
 
-def train_launches_per_step() -> dict:
-    layers = model_config(MODEL).num_hidden_layers
+def train_launches_per_step(layers=None) -> dict:
+    """K1-K3 launches of a GC step of the headline row (``layers`` of
+    it; default all)."""
+    layers = layers or model_config(MODEL).num_hidden_layers
     return {tf.K1_NAME: 2 * layers, tf.K2_NAME: layers, tf.K3_NAME: layers}
 
 
@@ -3451,8 +3680,9 @@ def close_trainer(trainer) -> None:
     free_engine()
 
 
-def check_train_launches(log: dict, what: str, steps: int) -> None:
-    want = train_launches_per_step()
+def check_train_launches(log: dict, what: str, steps: int,
+                         layers=DRILL_LAYERS) -> None:
+    want = train_launches_per_step(layers)
     check(len(log["train"]) == steps and all(d == want for d in log["train"]),
           f"{what}: launches per train step {log['train']}, want {steps} "
           f"x {want}")
@@ -3531,7 +3761,7 @@ def phase_runtime_preempt() -> dict:
     seconds, a bit-for-bit resume, and the command line's exit code."""
     root = runtime_root("preempt")
     emit("runtime_disk", free_gb=shutil.disk_usage(root).free / 1e9,
-         checkpoint_gb_expected=7.2)
+         checkpoint_gb_expected=3.4)
     write_docs(os.path.join(root, "train.jsonl"), DATA_DOCS, seed=11)
     steps = list(range(1, RUNTIME_STEPS + 1))
     ckpt = os.path.join(root, "ckpt")
@@ -3575,14 +3805,15 @@ def phase_runtime_preempt() -> dict:
     shutil.rmtree(ckpt)
     cli = cli_sigterm(root)
     shutil.rmtree(root)
-    row = {"model": MODEL, "sequence_length": TRAIN_SEQ,
+    row = {"model": MODEL, "layers": DRILL_LAYERS,
+           "sequence_length": TRAIN_SEQ,
            "steps": RUNTIME_STEPS, "sigterm_after_step": SIGTERM_AT,
            "grace_s": GRACE_S, "with_save_in_flight": in_flight,
            "without_save_in_flight": idle, "restore_s": restore_s,
            "straight": a1, "straight_again": a2, "limit": spread,
            "resumed": resumed, "resumed_max_abs_diff": diff,
            "resumed_bit_equal": diff == 0.0, "cli": cli,
-           "launches_per_train_step": train_launches_per_step(),
+           "launches_per_train_step": train_launches_per_step(DRILL_LAYERS),
            "nvidia_smi": card_name_and_power_limit()}
     emit("runtime_preempt", **row)
     return row
@@ -3705,7 +3936,8 @@ def phase_runtime_telemetry() -> dict:
 
     t.step_fn = poke
     t.train()
-    check_train_launches(log, "telemetry run", TELEMETRY_STEPS)
+    check_train_launches(log, "telemetry run", TELEMETRY_STEPS,
+                         layers=None)
     captures = list(t.telemetry.profiler.captures)
     close_trainer(t)
     trace = load_trace(os.path.join(tel, "trace_proc0.trace.json"))
@@ -4686,7 +4918,8 @@ PARALLEL_WARMUP, PARALLEL_STEPS = 2, 3
 # checks, FSDP, Adafactor and remat, then the Qwen3-MoE engine over tp x ep
 PARALLEL_GROUPS = ("layouts", "nccl_capture", "serve_tp4", "tp_parity",
                    "serve_tp2_dp2_dense", "fsdp4", "adafactor", "remat_cp",
-                   "cp_timing", "moe_mesh_parity", "serve_moe_ep4")
+                   "cp_timing", "moe_mesh_parity", "serve_moe_ep4",
+                   "examples", "serve_gpt_moe_tp")
 # the timed window of each four-card layout: three steps spread by
 # 30-45% between two calls, so the layouts are compared over ten
 LAYOUT_STEPS = 10
@@ -5190,7 +5423,9 @@ def parallel_layouts(world: int, groups=PARALLEL_GROUPS) -> dict:
                       ("fsdp4", fsdp4), ("adafactor", adafactor_layouts),
                       ("remat_cp", remat_cp), ("cp_timing", cp_timing),
                       ("moe_mesh_parity", moe_mesh_parity),
-                      ("serve_moe_ep4", serve_moe_ep4)):
+                      ("serve_moe_ep4", serve_moe_ep4),
+                      ("examples", examples_group),
+                      ("serve_gpt_moe_tp", serve_gpt_moe_tp)):
         if group in groups:
             t0 = time.monotonic()
             out[group] = fn(world, dev)
@@ -6126,6 +6361,101 @@ def serve_moe_ep4(world: int, dev) -> dict:
         lambda mm: ((("tp", 1),) if mm.tp > 1 else ()) + ((EXPERT_AXES, 1),))
 
 
+def examples_group(world: int, dev) -> dict:
+    """The examples at the reference's defaults over four cards
+    (``run_examples``), emitted by rank 0."""
+    from scaletorch_tpu_torch import dist as stdist
+
+    out = run_examples(world, dev)
+    if stdist.process_index() == 0:
+        emit("examples", world=world, runs=out)
+    return out
+
+
+# GPT-MoE over tp: the minGPT example's width (GPTMoEConfig's defaults)
+GPT_TP_MESHES = (("tp2_dp2", {"tp": 2, "dp": 2}), ("tp4", {"tp": 4}))
+
+
+def serve_gpt_moe_tp(world: int, dev) -> dict:
+    """GPT-MoE at the minGPT example's width (n_embd 128, 4 heads, 4
+    layers, 8 experts, top-2), fp32, GPT_WEIGHT_SCALE, at the dropless
+    GPT_DROPLESS_CF (at 1.25 a row's capacity turns a last-bit difference
+    of the tp sums into another expert's output), gpt_moe_serve's 16
+    requests through the graphed paged engine: on one card (rank 0, the
+    others waiting), then over each of GPT_TP_MESHES (each rank its heads
+    and expert slices, dp replicas whole). Asserted on every rank: every
+    outcome ok, one capture of each step, K4 once a layer a decode replay
+    and never in a prefill replay, the greedy tokens of one card (every
+    rank's agreement emitted first). TPOT and the decode replay's ms
+    beside one card's."""
+    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.parallel.mesh import MeshManager
+
+    cfg = GPTMoEConfig(capacity_factor=GPT_DROPLESS_CF)
+    params = gpt_moe.scale_matrices(gpt_moe.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev),
+        GPT_WEIGHT_SCALE)
+    prompts = gpt_traffic(cfg.vocab_size)
+    kw = dict(max_slots=GPT_SLOTS, max_seq=GPT_MAX_SEQ,
+              prefill_len=GPT_PREFILL, page_size=GPT_PAGE)
+
+    def run(where, mm):
+        model = GPTMoEForCausalLM.from_params(params, cfg, dev, mesh=mm)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        eng, results, ptrs, stats = serve(model, cfg, prompts, None,
+                                          device=dev, mesh=mm, **kw)
+        check_served(eng, results, ptrs, stats, where)
+        cap = check_one_capture(eng, where)
+        per_decode = cap["decode_launches_per_replay"].get("paged_decode")
+        check(per_decode == cfg.n_layer
+              and not cap["prefill_launches_per_replay"].get("paged_decode"),
+              f"{where}: K4 {per_decode} a decode replay (want "
+              f"{cfg.n_layer}), {cap['prefill_launches_per_replay']} a "
+              "prefill replay (want none)")
+        row = {"tokens": [r.tokens for r in results],
+               "attn_qkv_shape": list(model.layers["attn_qkv"].shape),
+               "expert_fc_shape": list(model.layers["expert_fc"].shape),
+               **engine_numbers(eng, stats, dev), **cap,
+               "decode_replay_ms": replay_ms(eng._decode.graph, dev)}
+        del eng, model
+        free_engine()
+        return row
+
+    rank = stdist.process_index()
+    one = run("serve_gpt_moe_tp one card", None) if rank == 0 else None
+    one_tokens = stdist.broadcast_object_list(
+        [one["tokens"] if one else None])[0]
+    row = {"config": {"n_embd": cfg.n_embd, "n_head": cfg.n_head,
+                      "n_layer": cfg.n_layer, "experts": cfg.num_experts,
+                      "top_k": cfg.top_k, "block_size": cfg.block_size,
+                      "capacity_factor": cfg.capacity_factor},
+           "dtype": "float32", "weight_scale": GPT_WEIGHT_SCALE,
+           "slots": GPT_SLOTS, "requests": len(prompts),
+           "one_card": ({k: v for k, v in one.items() if k != "tokens"}
+                        if one else None), "layouts": {}}
+    for name, sizes in GPT_TP_MESHES:
+        mm = MeshManager(**sizes, device_type="cuda")
+        mine = run(f"serve_gpt_moe_tp {name}", mm)
+        mm.destroy()
+        mine["vs_one_card_greedy"] = agreement(mine.pop("tokens"),
+                                               one_tokens)
+        ranks = stdist.all_gather_object(mine)
+        row["layouts"][name] = {
+            "mesh": sizes, **ranks[0],
+            "per_rank_vs_one_card": [r["vs_one_card_greedy"] for r in ranks],
+            "per_rank_tpot_p50_s": [r["tpot_p50_s"] for r in ranks]}
+    if rank == 0:
+        emit("serve_gpt_moe_tp", **row)
+    for name, got in row["layouts"].items():
+        check(all(a["tokens"] == 1.0
+                  and a["requests"] == f"{len(prompts)}/{len(prompts)}"
+                  for a in got["per_rank_vs_one_card"]),
+              f"serve_gpt_moe_tp {name}: greedy tokens differ from one "
+              f"card's: {got['per_rank_vs_one_card']}")
+    return row
+
+
 def phase_parallel(groups=PARALLEL_GROUPS, timeout=None) -> dict:
     """``torch.distributed.run`` of ``parallel_worker`` with one rank a
     visible card, under ``timeout`` s (PARALLEL_TIMEOUT_S of the world
@@ -6325,9 +6655,11 @@ def write_rank_result(directory: str, result: dict) -> None:
 
 
 def multiproc_cfg(ckpt: str, **kw):
-    """The headline row (fp32 masters, AdamW) checkpointed to ``ckpt``."""
+    """The headline row cut to DRILL_LAYERS (fp32 masters, AdamW)
+    checkpointed to ``ckpt``."""
     cfg = make_bench_args(MODEL, seq=TRAIN_SEQ, gc=True)
-    return dataclasses.replace(cfg, checkpoint_dir=ckpt, keep_n_checkpoints=1,
+    return dataclasses.replace(cfg, num_hidden_layers=DRILL_LAYERS,
+                               checkpoint_dir=ckpt, keep_n_checkpoints=1,
                                async_checkpointing=True, log_frequency=1,
                                total_train_steps=MULTIPROC_STEPS, **kw)
 
@@ -6962,6 +7294,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("resnet_train", phase_resnet_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("examples", phase_examples)
     gc.collect()
     torch.cuda.empty_cache()
     timed("runtime_multiproc", phase_runtime_multiproc)

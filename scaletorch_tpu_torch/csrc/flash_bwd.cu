@@ -66,15 +66,15 @@ using namespace flash;
 using bf16 = __nv_bfloat16;
 
 // bf16 P of a raw score s (Q K^T, unscaled) from its row's LSE (lse2 =
-// LSE log2 e). At head_dim 32 a row of dQ has too few elements to average
-// one dS that rounds to bf16 the other way, so there P is formed exactly as
-// the plain versions form it: expf of the scaled score minus LSE, each
-// step rounded apart. The wider heads keep the cheaper exp2f of a folded
-// scale, one fma.
+// LSE log2 e). At head_dim 32 and 16 a row of dQ has too few elements to
+// average one dS that rounds to bf16 the other way, so there P is formed
+// exactly as the plain versions form it: expf of the scaled score minus
+// LSE, each step rounded apart. The wider heads keep the cheaper exp2f of
+// a folded scale, one fma.
 template <int D>
 __device__ __forceinline__ float bwd_prob(float s, float scale, float scale2,
                                           float lse, float lse2) {
-  if constexpr (D == 32) {
+  if constexpr (D <= 32) {
     return expf(__fsub_rn(__fmul_rn(s, scale), lse));
   } else {
     return exp2f(fmaf(s, scale2, -lse2));
@@ -636,8 +636,11 @@ struct DkvSmem {
   static constexpr int kBytes = kStats + 2 * BQ3 * 4;
 };
 
+// One CTA an SM as the bound: without it ptxas caps the D 16 instantiation
+// at 48 registers and spills 4 bytes; shared memory, not registers, sets
+// these kernels' occupancy at every D.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_fp32_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -823,6 +826,7 @@ int dispatch(const Args& a, int head_dim, int dtype) {
     return cudaErrorInvalidValue;
   }
   switch (head_dim) {
+    case 16: return launch<DKV, 16>(dtype, a);
     case 32: return launch<DKV, 32>(dtype, a);
     case 64: return launch<DKV, 64>(dtype, a);
     case 128: return launch<DKV, 128>(dtype, a);

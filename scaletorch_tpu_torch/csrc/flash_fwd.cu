@@ -34,6 +34,10 @@
 //     (`acc_to_a`); V is the B operand through ldmatrix.trans. O stays in
 //     registers, is divided by max(l, 1e-30) once, and leaves through the
 //     warp's own rows of the Q tile, so the stores to global are 16 bytes.
+//   * At head_dim 16 (rows of 32 bytes, four to a swizzled 128-byte line)
+//     S = Q K^T is one k-step and O = P V two n8 tiles: the same loop with
+//     a quarter of D 64's products per key, so it is bound by the softmax
+//     and the K, V stream more than by the tensor cores.
 //   * One 16-row m-tile per warp and two stages: the kernel fits two CTAs
 //     an SM without spilling. Two m-tiles per warp would read each K and V
 //     fragment once for both (fewer shared-memory reads per product) but
@@ -484,6 +488,7 @@ extern "C" int st_flash_fwd(const void* q, const void* k, const void* v,
                batch, num_q_heads, num_kv_heads, seq_q, seq_kv,
                scale, causal != 0, static_cast<cudaStream_t>(stream)};
   switch (head_dim) {
+    case 16: return launch<16>(dtype, a);
     case 32: return launch<32>(dtype, a);
     case 64: return launch<64>(dtype, a);
     case 128: return launch<128>(dtype, a);

@@ -9,9 +9,10 @@
 //     beside the math, zero-filled where the source row does not exist;
 //   * `SwizzledTile`: a tile of rows of 16-byte chunks whose chunk index is
 //     XORed with (row % 8) (rows of 32 bf16, 64 bytes, pair up into one
-//     128-byte line swizzled by the line's index), so the eight row
-//     addresses of one ldmatrix (or one 8-thread phase of cp.async) fall
-//     on distinct banks without padding;
+//     128-byte line swizzled by the line's index; rows of 16 bf16, 32
+//     bytes, share a line four at a time, odd lines swizzled by one
+//     chunk), so the eight row addresses of one ldmatrix (or one 8-thread
+//     phase of cp.async) fall on distinct banks without padding;
 //   * `acc_to_a`: two m16n8 fp32 accumulators (16 columns) rounded to bf16
 //     as the A fragment of the next m16n8k16, so a product's result (P, dS)
 //     feeds the next product without leaving registers.
@@ -116,27 +117,34 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float c0[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// A [ROWS][COLS] bf16 tile in shared memory, row-major. COLS is 32 or a
-// multiple of 64. With COLS a multiple of 64, 16-byte chunk c of row r is
+// A [ROWS][COLS] bf16 tile in shared memory, row-major. COLS is 16, 32 or
+// a multiple of 64. With COLS a multiple of 64, 16-byte chunk c of row r is
 // stored at chunk c ^ (r % 8). With COLS 32, rows 2l and 2l + 1 share the
 // 128-byte line l, whose eight chunks are XORed with (l % 8): eight rows
 // r0 .. r0 + 7 (r0 % 8 == 0) of one chunk column then fall on eight
-// distinct 16-byte bank groups.
+// distinct 16-byte bank groups. With COLS 16, rows 4l .. 4l + 3 share line
+// l, whose chunks are XORed with (l % 2): the eight rows of one chunk
+// column sit at even chunks of an even line and odd chunks of the odd line
+// after it, again eight distinct bank groups (and a swizzle that depends
+// only on row % 8, so ldmatrix's per-lane masks stay constants).
 template <int ROWS, int COLS>
 struct SwizzledTile {
-  static_assert(COLS == 32 || COLS % 64 == 0,
-                "rows of 32 bf16 or of whole 8-chunk swizzle groups");
+  static_assert(COLS == 16 || COLS == 32 || COLS % 64 == 0,
+                "rows of 16 or 32 bf16 or of whole 8-chunk swizzle groups");
   static constexpr int kChunks = COLS / 8;
   static constexpr int kRowBytes = COLS * 2;
   static constexpr int kBytes = ROWS * kRowBytes;
-  static constexpr int kLineShift = COLS == 32 ? 1 : 0;  // row -> line
+  // row -> line, and the bits of the line index that swizzle it
+  static constexpr int kLineShift = COLS == 16 ? 2 : COLS == 32 ? 1 : 0;
+  static constexpr int kLineMask = COLS == 16 ? 1 : 7;
 
   // The swizzle XORs byte-address bits 4..6 only; below a row pitch that
   // is a multiple of 128 those bits hold the chunk, at pitch 64 bit 6
-  // holds the row's half of its line.
+  // holds the row's half of its line, at pitch 32 bits 5..6 the row's
+  // quarter.
   __device__ __forceinline__ static uint32_t offset(int row, int chunk) {
     return (row * kRowBytes + (chunk << 4)) ^
-           (((row >> kLineShift) & 7) << 4);
+           (((row >> kLineShift) & kLineMask) << 4);
   }
 
   // Rows row0.. of a [n_rows, COLS] row-major global matrix into the tile
@@ -157,10 +165,13 @@ struct SwizzledTile {
   __device__ __forceinline__ static void load_async_strided(
       uint32_t base, const __nv_bfloat16* src, size_t ld, int row0,
       int n_rows, int tid, int n_cols = COLS) {
-    static_assert(ROWS * kChunks % THREADS == 0, "whole passes");
+    constexpr int kTotal = ROWS * kChunks;
+    static_assert(kTotal % THREADS == 0 || kTotal < THREADS,
+                  "whole passes, or one pass by the first kTotal threads");
 #pragma unroll
-    for (int it = 0; it < ROWS * kChunks / THREADS; ++it) {
+    for (int it = 0; it < (kTotal + THREADS - 1) / THREADS; ++it) {
       const int idx = tid + it * THREADS;
+      if (kTotal < THREADS && idx >= kTotal) break;
       const int r = idx / kChunks;
       const int c = idx % kChunks;
       const bool valid = row0 + r < n_rows && c * 8 < n_cols;
@@ -185,10 +196,12 @@ struct SwizzledTile {
 //     n0 + 8 (or a[0..3] of the 16 x 16 A block at (m0, k0)).
 // `*_x16` is the lane's chunk bit and its row's swizzle, folded into the
 // XOR mask of byte-address bits 4..6, for a row pitch that is a multiple
-// of 128 bytes; `*_x16n` is the same for the 64-byte rows of 32 bf16.
+// of 128 bytes; `*_x16n` is the same for the 64-byte rows of 32 bf16,
+// `*_x16q` for the 32-byte rows of 16 bf16 (whose one 16-column block is
+// col0 0: a column offset would carry into the row bits).
 struct LaneAddr {
   int a_row, b_row;
-  uint32_t a_x16, b_x16, a_x16n, b_x16n;
+  uint32_t a_x16, b_x16, a_x16n, b_x16n, a_x16q, b_x16q;
   __device__ __forceinline__ explicit LaneAddr(int lane)
       : a_row(lane & 15),
         b_row((lane & 7) | ((lane >> 4) << 3)),
@@ -196,8 +209,20 @@ struct LaneAddr {
         b_x16((((lane >> 3) & 1) ^ (lane & 7)) << 4),
         a_x16n(((lane >> 4) ^ ((lane & 15) >> 1)) << 4),
         b_x16n((((lane >> 3) & 1) ^ ((lane & 7) >> 1) ^
-                ((lane >> 4) << 2)) << 4) {}
+                ((lane >> 4) << 2)) << 4),
+        a_x16q((((lane >> 4) ^ (lane >> 2)) & 1) << 4),
+        b_x16q((((lane >> 3) ^ (lane >> 2)) & 1) << 4) {}
 };
+
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t a_mask(const LaneAddr& l) {
+  return ROW_BYTES == 32 ? l.a_x16q : ROW_BYTES == 64 ? l.a_x16n : l.a_x16;
+}
+
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t b_mask(const LaneAddr& l) {
+  return ROW_BYTES == 32 ? l.b_x16q : ROW_BYTES == 64 ? l.b_x16n : l.b_x16;
+}
 
 // The lane's ldmatrix row address for the 16x16 block at (row0, col0) of
 // a SwizzledTile at shared address `tile` (a multiple of 128) with row
@@ -208,14 +233,14 @@ template <int ROW_BYTES>
 __device__ __forceinline__ uint32_t a_addr(const LaneAddr& l, uint32_t tile,
                                            int row0, int col0) {
   return (tile + (row0 + l.a_row) * ROW_BYTES + col0 * 2) ^
-         (ROW_BYTES == 64 ? l.a_x16n : l.a_x16);
+         a_mask<ROW_BYTES>(l);
 }
 
 template <int ROW_BYTES>
 __device__ __forceinline__ uint32_t b_addr(const LaneAddr& l, uint32_t tile,
                                            int row0, int col0) {
   return (tile + (row0 + l.b_row) * ROW_BYTES + col0 * 2) ^
-         (ROW_BYTES == 64 ? l.b_x16n : l.b_x16);
+         b_mask<ROW_BYTES>(l);
 }
 
 }  // namespace mma

@@ -41,7 +41,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 
 def synthetic_images(n, num_classes, size, seed=0):
@@ -134,6 +133,7 @@ def make_steps(cfg, optimizer, wd: float, global_batch: int, group=None):
     over ``group``, adds ``wd · p`` and updates in place; it returns the
     global loss, the new BN state and the rank's top-1 / top-5 counts.
     The eval step returns the rows' summed cross-entropy and counts."""
+    from scaletorch_tpu_torch.examples._world import sum_grads_
     from scaletorch_tpu_torch.models import resnet
     from scaletorch_tpu_torch.trainer.optimizer import tree_leaves, tree_map
 
@@ -146,12 +146,8 @@ def make_steps(cfg, optimizer, wd: float, global_batch: int, group=None):
                                            train=True, bn_group=group)
         loss = ce_sum(logits, labels) / global_batch
         leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves)
-        loss = loss.detach()
-        if group is not None:
-            for g in grads:
-                dist.all_reduce(g, group=group)
-            dist.all_reduce(loss, group=group)
+        grads = sum_grads_(torch.autograd.grad(loss, leaves), group)
+        (loss,) = sum_grads_([loss.detach()], group)
         it = iter(grads)
         decayed = tree_map(lambda p: next(it) + wd * p.detach(), params)
         optimizer.update(decayed, opt_state, params)
@@ -168,33 +164,18 @@ def make_steps(cfg, optimizer, wd: float, global_batch: int, group=None):
     return train_step, eval_step
 
 
-def _group_sum(values, group, dev):
-    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
-                     device=dev)
-    if group is not None:
-        dist.all_reduce(t, group=group)
-    return t.tolist()
-
-
 def run(argv=None) -> Dict[str, Any]:
     """Train; returns the per-step and per-epoch losses, each epoch's
     validation numbers and training seconds, the best top-1, the training
     images/s and ms a step (the evaluations left out), and the final
     parameters and BN state."""
     args = parse_args(argv)
-    from scaletorch_tpu_torch import dist as stdist
+    from scaletorch_tpu_torch.examples._world import group_sum, join_world
     from scaletorch_tpu_torch.models import resnet
     from scaletorch_tpu_torch.models.convert import resnet_to_jax
     from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
-    from scaletorch_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
-    stdist.init_distributed("auto", device=dev)
-    world, rank = stdist.process_count(), stdist.process_index()
-    group = dist.group.WORLD if world > 1 else None
-    if dev.type == "cuda":
-        dev = torch.device("cuda", stdist.local_rank())
-
+    dev, world, rank, group = join_world(args.device)
     if args.data:
         x_all, y_all, classes = load_folder(args.data, args.image_size)
         args.num_classes = len(classes)
@@ -253,7 +234,7 @@ def run(argv=None) -> Dict[str, Any]:
             seen += args.batch_size
             c1 += t1
             if (it + 1) % args.print_freq == 0 or it == steps_per_epoch - 1:
-                c1_all = _group_sum([c1], group, dev)[0]
+                c1_all = group_sum([c1], group, dev)[0]
                 if rank == 0:
                     ips = seen / (time.perf_counter() - t0)
                     print(f"Epoch [{epoch}][{it + 1}/{steps_per_epoch}] "
@@ -273,7 +254,7 @@ def run(argv=None) -> Dict[str, Any]:
             sl = slice(i0 + rank * (n // world), i0 + (rank + 1) * (n // world))
             i0 += n
             ce, t1, t5 = eval_step(params, bn_state, val_x[sl], val_y[sl])
-            ce, t1, t5 = _group_sum([ce, t1, t5], group, dev)
+            ce, t1, t5 = group_sum([ce, t1, t5], group, dev)
             vtot, v1, v5, vloss = vtot + n, v1 + t1, v5 + t5, vloss + ce
         acc1, acc5 = 100 * v1 / max(vtot, 1), 100 * v5 / max(vtot, 1)
         val.append({"acc1": acc1, "acc5": acc5,

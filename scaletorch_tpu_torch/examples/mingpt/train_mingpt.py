@@ -9,14 +9,21 @@ clip at 1.0 and a warmup-cosine schedule from 0 to 0, a periodic eval
 NLL, and a sampled continuation at the end. ``main`` returns the last
 eval NLL.
 
-It runs on the CUDA card unless ``--device cpu`` is passed, on one
-device: ``--data_parallel`` above 1 raises (the examples over the mesh
-are ROADMAP item 9c).
+It runs on the CUDA card unless ``--device cpu`` is passed. Under
+``torch.distributed.run`` it is data parallel over the world (the
+reference's ``dp`` mesh; ``--data_parallel`` 0 means the world): each
+rank takes its slice of every global batch, its loss is its rows' share
+of the global mean, and the gradients are summed over the ranks before
+the clip and the update, so every rank holds the one-device parameters.
+Noisy routing (``--use_moe true``) draws its noise on each rank for its
+own rows.
 
 Usage:
     python -m scaletorch_tpu_torch.examples.mingpt.train_mingpt --steps 300
     python -m scaletorch_tpu_torch.examples.mingpt.train_mingpt \
         --data_path shakespeare.txt --use_moe true --steps 2000
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m scaletorch_tpu_torch.examples.mingpt.train_mingpt --device cpu
 """
 
 from __future__ import annotations
@@ -27,9 +34,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-
-MESH_ITEM = ("data parallelism in the examples is not ported: the examples "
-             "over the mesh are ROADMAP item 9c")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -51,7 +55,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--eval_batches", type=int, default=8)
     ap.add_argument("--sample_tokens", type=int, default=64)
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="dp degree; 0 or 1 = this one device")
+                    help="dp degree; 0 = the world (every rank)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -85,10 +89,13 @@ def loss_fn(params, x, y, cfg, generator=None):
     return nll + aux, nll
 
 
-def make_steps(cfg, optimizer):
-    """(train_step, eval_step) over a parameter tree: the step clips the
-    gradient of ``loss_fn`` by the global norm at 1.0 and applies
-    ``optimizer`` in place."""
+def make_steps(cfg, optimizer, share: float = 1.0, group=None):
+    """(train_step, eval_step) over a parameter tree: the step takes
+    ``share`` (this rank's rows over the global batch) of ``loss_fn``,
+    sums its gradient over ``group``, clips it by the global norm at 1.0
+    and applies ``optimizer`` in place; both return this rank's share of
+    the global NLL."""
+    from scaletorch_tpu_torch.examples._world import sum_grads_
     from scaletorch_tpu_torch.trainer.optimizer import tree_leaves, tree_map
     from scaletorch_tpu_torch.trainer.train_step import (
         clip_scale,
@@ -101,15 +108,17 @@ def make_steps(cfg, optimizer):
         # without noise the noise projection is unused: JAX's gradient of
         # it is zero, and AdamW still decays it
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+            leaves, torch.autograd.grad(loss * share, leaves,
+                                        allow_unused=True))]
+        grads = sum_grads_(grads, group)
         scale = clip_scale(global_grad_norm(grads), 1.0)
         it = iter(g * scale for g in grads)
         optimizer.update(tree_map(lambda _: next(it), params), state, params)
-        return nll.detach()
+        return nll.detach() * share
 
     @torch.no_grad()
     def eval_step(params, x, y):
-        return loss_fn(params, x, y, cfg)[1]
+        return loss_fn(params, x, y, cfg)[1] * share
 
     return train_step, eval_step
 
@@ -119,17 +128,19 @@ def run(argv=None) -> Dict[str, Any]:
     last train NLL, the training tokens/s and ms a step (the evals left
     out), and the sample."""
     args = parse_args(argv)
-    if args.data_parallel > 1:
-        raise ValueError(f"--data_parallel {args.data_parallel}: {MESH_ITEM}")
 
+    from scaletorch_tpu_torch.examples._world import group_sum, join_world
     from scaletorch_tpu_torch.examples.mingpt.char_dataset import (
         load_dataset,
     )
     from scaletorch_tpu_torch.models import gpt_moe
     from scaletorch_tpu_torch.trainer.optimizer import AdamW, tree_leaves
-    from scaletorch_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    dev, world, rank, group = join_world(args.device, args.data_parallel)
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {world} ranks")
+    local = args.batch_size // world
     ds, source = load_dataset(args.data_path, args.block_size)
     print(f"corpus={source} chars={len(ds.text)} vocab={ds.vocab_size}")
     cfg = gpt_moe.GPTMoEConfig(
@@ -147,31 +158,36 @@ def run(argv=None) -> Dict[str, Any]:
 
     optimizer = AdamW(warmup_cosine(args.lr, args.warmup, args.steps))
     state = optimizer.init(params)
-    train_step, eval_step = make_steps(cfg, optimizer)
+    train_step, eval_step = make_steps(cfg, optimizer, local /
+                                       args.batch_size, group)
 
     rng = np.random.default_rng(0)
     train_it = ds.batches("train", args.batch_size, rng)
     test_it = ds.batches("test", args.batch_size, rng)
     noise = torch.Generator(device=dev).manual_seed(1)
 
-    def put(a):
-        return torch.from_numpy(a).to(dev, non_blocking=True)
+    def put(a):  # this rank's rows of a global batch
+        return torch.from_numpy(a[rank * local:(rank + 1) * local]).to(
+            dev, non_blocking=True)
 
-    evals_seen, train_nll, train_s = [], float("nan"), 0.0
+    evals_seen, losses, train_nll, train_s = [], [], float("nan"), 0.0
     t0 = time.perf_counter()
     for step in range(1, args.steps + 1):
         x, y = next(train_it)
-        nll = train_step(params, state, put(x), put(y), noise)
+        losses.append(train_step(params, state, put(x), put(y), noise))
         if step % args.eval_interval == 0 or step == args.steps:
-            train_nll = float(nll)  # waits for the device
+            train_nll = group_sum([losses[-1]], group, dev)[0]
             train_s += time.perf_counter() - t0
-            evals = [float(eval_step(params, put(ex), put(ey)))
-                     for ex, ey in (next(test_it)
-                                    for _ in range(args.eval_batches))]
+            evals = group_sum([eval_step(params, put(ex), put(ey))
+                               for ex, ey in (next(test_it) for _ in
+                                              range(args.eval_batches))],
+                              group, dev)
             evals_seen.append(sum(evals) / len(evals))
             tok_s = step * args.batch_size * args.block_size / train_s
-            print(f"step {step}/{args.steps} train_nll {train_nll:.4f} "
-                  f"eval_nll {evals_seen[-1]:.4f} tok/s {tok_s:,.0f} dp=1")
+            if rank == 0:
+                print(f"step {step}/{args.steps} train_nll {train_nll:.4f} "
+                      f"eval_nll {evals_seen[-1]:.4f} tok/s {tok_s:,.0f} "
+                      f"dp={world}")
             t0 = time.perf_counter()
 
     prompt = torch.from_numpy(ds.encode(ds.text[:16])[None, :]).to(dev)
@@ -179,11 +195,13 @@ def run(argv=None) -> Dict[str, Any]:
         params, prompt, cfg, max_new_tokens=args.sample_tokens,
         temperature=0.8, generator=torch.Generator(device=dev).manual_seed(2))
     sample = ds.decode(out[0].cpu().numpy())
-    print("sample:", repr(sample))
+    if rank == 0:
+        print("sample:", repr(sample))
     tokens = args.steps * args.batch_size * args.block_size
     return {"eval_nll": evals_seen[-1] if evals_seen else float("inf"),
             "evals": evals_seen,
-            "train_nll": train_nll,
+            "losses": group_sum(losses, group, dev),
+            "train_nll": train_nll, "world": world,
             "tokens_per_s": tokens / train_s if train_s else 0.0,
             "step_ms": 1e3 * train_s / max(args.steps, 1), "sample": sample,
             "device": str(dev)}

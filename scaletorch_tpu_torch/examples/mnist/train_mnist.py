@@ -11,14 +11,24 @@ Data: the standard idx files under ``--data_dir`` when present
 synthetic digit set (one fixed pattern per class plus pixel noise), so the
 example needs no download. The images go to the device once, in NCHW.
 
-It runs on the CUDA card unless ``--device cpu`` is passed, on one
-device: ``--data_parallel`` above 1 and ``--fsdp`` raise (the examples
-over the mesh are ROADMAP item 9c).
+It runs on the CUDA card unless ``--device cpu`` is passed. Under
+``torch.distributed.run`` it is data parallel over the world
+(``--data_parallel`` 0 means the world): each rank takes its slice of
+every global batch, its loss is its rows' share of the global mean, and
+the gradients are summed over the ranks. With ``--fsdp`` each leaf whose
+leading dim divides over the ranks is held as this rank's slice of it,
+all-gathered for the step (``parallel.sequence_parallel.
+all_gather_sequence`` over dp), its gradient reduce-scattered by that
+gather's backward, and Adadelta (elementwise) updates the slice. The
+port's leaves are NCHW / OIHW, so it slices other dims than the
+reference's HWIO tree; the numbers are the same.
 
 Usage:
     python -m scaletorch_tpu_torch.examples.mnist.train_mnist --epochs 2
     python -m scaletorch_tpu_torch.examples.mnist.train_mnist \
         --data_dir ~/mnist
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m scaletorch_tpu_torch.examples.mnist.train_mnist --fsdp
 """
 
 from __future__ import annotations
@@ -32,9 +42,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-
-MESH_ITEM = ("is not ported: the examples over the mesh are ROADMAP item "
-             "9c")
 
 
 def load_idx_images(path: str) -> np.ndarray:
@@ -104,9 +111,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gamma", type=float, default=0.7,
                     help="StepLR decay per epoch")
     ap.add_argument("--fsdp", action="store_true",
-                    help="shard parameters over dp (not ported: raises)")
+                    help="shard parameters over dp (FSDP/ZeRO-3 role)")
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="dp degree; 0 or 1 = this one device")
+                    help="dp degree; 0 = the world (every rank)")
     ap.add_argument("--log_interval", type=int, default=20)
     ap.add_argument("--limit_steps", type=int, default=0,
                     help="stop after N steps per epoch (CI)")
@@ -124,23 +131,44 @@ def step_lr(lr: float, gamma: float, steps_per_epoch: int):
     return lambda count: sched(count // steps_per_epoch)
 
 
-def make_steps(optimizer):
-    """(train_step, eval_step): the NLL of LeNet's logits, one Adadelta
-    update in place; the eval counts correct predictions."""
+def fsdp_sharded(params, world: int):
+    """The leaves ``--fsdp`` holds as slices: those whose leading dim
+    divides over ``world`` (the reference's rule)."""
+    return {k for k, p in params.items()
+            if world > 1 and p.ndim >= 1 and p.shape[0] % world == 0}
+
+
+def make_steps(optimizer, share: float = 1.0, group=None,
+               sharded=frozenset()):
+    """(train_step, eval_step): ``share`` (this rank's rows over the
+    global batch) of the NLL of LeNet's logits, its gradient summed over
+    ``group``, one Adadelta update in place; the eval counts correct
+    predictions. The leaves named in ``sharded`` are this rank's slices
+    on dim 0: all-gathered over dp for the forward, their gradient
+    reduce-scattered by the gather's backward."""
+    from scaletorch_tpu_torch.examples._world import sum_grads_
     from scaletorch_tpu_torch.models import lenet
-    from scaletorch_tpu_torch.trainer.optimizer import tree_map
+    from scaletorch_tpu_torch.parallel.sequence_parallel import (
+        all_gather_sequence,
+    )
+
+    def full(params):
+        return {k: all_gather_sequence(p, "dp", 0) if k in sharded else p
+                for k, p in params.items()}
 
     def loss_fn(params, x, y):
-        logits = lenet.forward(params, x)
+        logits = lenet.forward(full(params), x)
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(1, y.long()[:, None]).mean(), logits
 
     def train_step(params, state, x, y):
         loss, _ = loss_fn(params, x, y)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        it = iter(grads)
-        optimizer.update(tree_map(lambda _: next(it), params), state, params)
-        return loss.detach()
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss * share, list(params.values()))))
+        sum_grads_([g for k, g in grads.items() if k not in sharded], group)
+        optimizer.update(grads, state, params)
+        return loss.detach() * share
 
     @torch.no_grad()
     def eval_step(params, x, y):
@@ -154,18 +182,27 @@ def run(argv=None) -> Dict[str, Any]:
     """Train; returns the last loss, the last test accuracy and the
     training steps/s (the evals left out)."""
     args = parse_args(argv)
-    if args.fsdp:
-        raise ValueError(f"--fsdp {MESH_ITEM}")
-    if args.data_parallel > 1:
-        raise ValueError(f"--data_parallel {args.data_parallel} {MESH_ITEM}")
 
+    from scaletorch_tpu_torch.examples._world import group_sum, join_world
     from scaletorch_tpu_torch.models import lenet
+    from scaletorch_tpu_torch.parallel.mesh import (
+        MeshManager,
+        using_mesh_manager,
+    )
     from scaletorch_tpu_torch.trainer.optimizer import Adadelta
-    from scaletorch_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    dev, world, rank, group = join_world(args.device, args.data_parallel)
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {world} ranks")
+    local = args.batch_size // world
+    mesh = MeshManager(dp=world, device_type=dev.type if world > 1 else None)
     # one CPU generator: the same initial weights on the CPU and the card
     params = lenet.init_params(torch.Generator().manual_seed(0), device=dev)
+    sharded = fsdp_sharded(params, world) if args.fsdp else set()
+    for k in sharded:  # this rank's slice of dim 0
+        w = params[k].shape[0] // world
+        params[k] = params[k][rank * w:(rank + 1) * w].clone()
     for p in params.values():
         p.requires_grad_(True)
 
@@ -181,35 +218,52 @@ def run(argv=None) -> Dict[str, Any]:
     steps_per_epoch = max(n // args.batch_size, 1)
     optimizer = Adadelta(step_lr(args.lr, args.gamma, steps_per_epoch))
     state = optimizer.init(params)
-    train_step, eval_step = make_steps(optimizer)
+    train_step, eval_step = make_steps(optimizer, local / args.batch_size,
+                                       group, sharded)
 
     rng = np.random.default_rng(0)
     last_loss, acc, train_s, steps_run = float("inf"), 0.0, 0.0, 0
-    for epoch in range(args.epochs):
-        order = torch.from_numpy(rng.permutation(len(tx_img))[:n]).to(dev)
-        t0 = time.perf_counter()
-        for step in range(steps_per_epoch):
-            idx = order[step * args.batch_size:(step + 1) * args.batch_size]
-            loss = train_step(params, state, train_x[idx], train_y[idx])
-            steps_run += 1
-            if step % args.log_interval == 0:
-                print(f"epoch {epoch} step {step}/{steps_per_epoch} "
-                      f"loss {float(loss):.4f}")
-            if args.limit_steps and step + 1 >= args.limit_steps:
-                break
-        last_loss = float(loss)  # waits for the device
-        train_s += time.perf_counter() - t0
+    losses = []
+    with using_mesh_manager(mesh):
+        for epoch in range(args.epochs):
+            order = torch.from_numpy(
+                rng.permutation(len(tx_img))[:n]).to(dev)
+            t0 = time.perf_counter()
+            for step in range(steps_per_epoch):
+                idx = order[step * args.batch_size:
+                            (step + 1) * args.batch_size]
+                idx = idx[rank * local:(rank + 1) * local]
+                losses.append(train_step(params, state, train_x[idx],
+                                         train_y[idx]))
+                steps_run += 1
+                if step % args.log_interval == 0:
+                    loss = group_sum([losses[-1]], group, dev)[0]
+                    if rank == 0:
+                        print(f"epoch {epoch} step {step}/{steps_per_epoch}"
+                              f" loss {loss:.4f}")
+                if args.limit_steps and step + 1 >= args.limit_steps:
+                    break
+            last_loss = group_sum([losses[-1]], group, dev)[0]
+            train_s += time.perf_counter() - t0
 
-        ne = (len(ev_img) // args.batch_size) * args.batch_size
-        correct = 0
-        for step in range(ne // args.batch_size):
-            sl = slice(step * args.batch_size, (step + 1) * args.batch_size)
-            correct += int(eval_step(params, test_x[sl], test_y[sl]))
-        acc = correct / max(ne, 1)
-        print(f"epoch {epoch}: test acc {correct}/{ne} ({100.0 * acc:.1f}%) "
-              f"[{time.perf_counter() - t0:.1f}s, device={dev}]")
-    return {"last_loss": last_loss, "test_acc": acc,
-            "steps_per_s": steps_run / train_s, "device": str(dev)}
+            ne = (len(ev_img) // args.batch_size) * args.batch_size
+            correct = 0
+            for step in range(ne // args.batch_size):
+                sl = slice(step * args.batch_size + rank * local,
+                           step * args.batch_size + (rank + 1) * local)
+                correct += int(eval_step(params, test_x[sl], test_y[sl]))
+            correct = int(group_sum([correct], group, dev)[0])
+            acc = correct / max(ne, 1)
+            if rank == 0:
+                print(f"epoch {epoch}: test acc {correct}/{ne} "
+                      f"({100.0 * acc:.1f}%) [{time.perf_counter() - t0:.1f}"
+                      f"s, device={dev}, dp={world}, fsdp={args.fsdp}]")
+    losses = group_sum(losses, group, dev)
+    mesh.destroy()
+    return {"last_loss": last_loss, "test_acc": acc, "losses": losses,
+            "steps_per_s": steps_run / train_s, "device": str(dev),
+            "world": world, "sharded": sorted(sharded),
+            "param_numel": sum(p.numel() for p in params.values())}
 
 
 def main(argv=None) -> float:

@@ -46,7 +46,9 @@ Counterpart of scaletorch_tpu/inference/engine.py, with its contracts:
   * over a serving mesh (``mesh``: a ``parallel.mesh.MeshManager`` of tp
     and dp ranks, and for a Qwen3-MoE of ep ranks too, one process and
     one card each): the model holds this rank's tensor-parallel shards
-    (and expert slices: ``models/qwen3_moe.py``) and the cache its KV heads
+    (and expert slices: ``models/qwen3_moe.py``; a GPT-MoE its heads and
+    each expert's tp slices: ``models/gpt_moe.py``) and the cache its KV
+    heads
     (``kv_cache_shardings``; dense slots also over ``batch_axis``), the
     steps run the tp path with its collectives inside the captured
     graphs, and every rank runs this engine. The host scheduler
@@ -352,8 +354,9 @@ class InferenceEngine:
         constructor (a Qwen3-MoE config must move tokens by index:
         the one-hot form cannot be captured).
     mesh / tp_axis / batch_axis : serve over a mesh (the module
-        docstring): a Llama/Qwen3 model's weights over ``tp_axis``, a
-        Qwen3-MoE's over ``tp_axis`` and its experts over ``ep`` (a full
+        docstring): a Llama/Qwen3 model's or a GPT-MoE's weights over
+        ``tp_axis``, a Qwen3-MoE's over ``tp_axis`` and its experts over
+        ``ep`` (a full
         parameter tree is cut to this rank's shards; a module must have
         been built for the mesh), the cache's KV heads over ``tp_axis``
         (whole over ep) and, dense models and the dense layout only, its
@@ -584,24 +587,23 @@ class InferenceEngine:
     def _check_mesh(cfg, mesh, tp_axis: str, batch_axis: Optional[str],
                     cache_layout: str, max_slots: int) -> None:
         """The reference's checks of a serving mesh, and the port's: a
-        dense model over tp and dp, a Qwen3-MoE over tp and ep (and
-        replicas over dp, no ``batch_axis``)."""
+        dense model or a GPT-MoE over tp and dp, a Qwen3-MoE over tp and
+        ep (and replicas over dp, no ``batch_axis``)."""
         if mesh is None:
             if batch_axis is not None:
                 raise ValueError("batch_axis needs a mesh")
             return
         if tp_axis != "tp":
             raise ValueError(f"tp_axis must be 'tp', got {tp_axis!r}")
-        if hasattr(cfg, "num_experts"):
+        from scaletorch_tpu_torch.models import gpt_moe
+
+        if isinstance(cfg, gpt_moe.GPTMoEConfig):
+            gpt_moe.check_serving_mesh(cfg, mesh)
+        elif hasattr(cfg, "num_experts"):
             from scaletorch_tpu_torch.models.qwen3_moe import (
-                Qwen3MoEConfig,
                 check_serving_mesh,
             )
 
-            if not isinstance(cfg, Qwen3MoEConfig):
-                raise NotImplementedError(
-                    "a GPT-MoE engine over a mesh is not ported: ROADMAP "
-                    "Queue 1, item 9c")
             check_serving_mesh(cfg, mesh)
             if batch_axis is not None:
                 raise ValueError(
@@ -637,10 +639,9 @@ class InferenceEngine:
                 Qwen3MoEForCausalLM,
             )
 
-            if isinstance(cfg, GPTMoEConfig):
-                return GPTMoEForCausalLM.from_params(params, cfg,
-                                                     device=self.device)
-            family = (Qwen3MoEForCausalLM if isinstance(cfg, Qwen3MoEConfig)
+            family = (GPTMoEForCausalLM if isinstance(cfg, GPTMoEConfig)
+                      else Qwen3MoEForCausalLM
+                      if isinstance(cfg, Qwen3MoEConfig)
                       else LlamaForCausalLM)
             return family.from_params(params, cfg, device=self.device,
                                       mesh=self.mesh)

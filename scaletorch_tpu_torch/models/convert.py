@@ -179,15 +179,31 @@ def _split_dims(cfg) -> Dict[str, Dict[str, int]]:
     return shard_dims(cfg)
 
 
-def _slice(leaf: Any, dim: int, n: int, i: int) -> Any:
+def _slice(leaf: Any, dim: int, n: int, i: int, parts: int = 1) -> Any:
+    """Rank ``i`` of ``n``'s slice of ``dim``; with ``parts``, the dim
+    holds that many equal blocks (q | k | v) and the slice is the rank's
+    part of each, in block order."""
     size = leaf.shape[dim]
-    if size % n:
+    if size % (n * parts):
         raise ValueError(f"dim {dim} of size {size} does not split over "
                          f"{n} ranks")
-    width = size // n
-    index = [slice(None)] * leaf.ndim
-    index[dim] = slice(i * width, (i + 1) * width)
-    return leaf[tuple(index)]
+    block, width = size // parts, size // (n * parts)
+    pieces = []
+    for j in range(parts):
+        index = [slice(None)] * leaf.ndim
+        index[dim] = slice(j * block + i * width, j * block + (i + 1) * width)
+        pieces.append(leaf[tuple(index)])
+    if parts == 1:
+        return pieces[0]
+    if isinstance(leaf, torch.Tensor):
+        return torch.cat(pieces, dim=dim)
+    return np.concatenate(pieces, axis=dim)
+
+
+def _fused_parts(name: str) -> int:
+    from scaletorch_tpu_torch.models.gpt_moe import TP_FUSED_PARTS
+
+    return TP_FUSED_PARTS.get(name, 1)
 
 
 # the order a leaf is cut in: the pp split of the stacked layer axis (after
@@ -202,7 +218,8 @@ def _local(name: str, leaf: Any, dims: Dict[str, int], mm, coords,
     for axis in _SPLIT_AXES:
         n = mm.axis_size(axis)
         if axis in dims and n > 1:
-            leaf = _slice(leaf, dims[axis], n, getattr(coords, axis))
+            leaf = _slice(leaf, dims[axis], n, getattr(coords, axis),
+                          _fused_parts(name) if axis == "tp" else 1)
     return leaf
 
 
@@ -278,6 +295,15 @@ def gather_params(shards: Sequence[Dict[str, Any]], cfg, mm, *,
                  for i in range(mm.axis_size(axis))], axis=d[axis])
 
         leaf = build({}, split)
+        parts, n = _fused_parts(name), mm.axis_size("tp")
+        if parts > 1 and "tp" in split:
+            # rank-major (tp, part, w) blocks back to (part, tp, w)
+            shape = leaf.shape
+            dim = d["tp"]
+            leaf = np.moveaxis(leaf, dim, -1)
+            lead = leaf.shape[:-1]
+            leaf = leaf.reshape(*lead, n, parts, -1).swapaxes(-3, -2)
+            leaf = np.moveaxis(leaf.reshape(*lead, shape[dim]), -1, dim)
         if unlayout is not None and name.startswith("layers."):
             leaf = unlayout(leaf)
         return leaf

@@ -23,7 +23,14 @@ layer order, from the caller's generator.
 
 The functions take the parameter tree (a nested dict of tensors);
 ``GPTMoEForCausalLM`` holds one as an ``nn.Module`` and is what the
-engine's steps call through the functional ``forward_cached``. Sampling
+engine's steps call through the functional ``forward_cached``. Built
+with a serving ``mesh`` whose tp axis splits, the module holds a rank's
+slices (``gpt_moe_param_specs``): q/k/v by heads, the attention output
+row-parallel, each expert's fc by columns and proj by rows; the router,
+the norms, the positions and the tied head whole. ``forward_cached``
+then completes each layer with two all-reduces over tp, one after the
+attention's output projection and one after the MoE FFN, so every rank
+routes every token alike and returns the full logits. Sampling
 (``generate`` with a temperature) draws from a torch generator, so only
 greedy continuations equal the reference's token for token.
 """
@@ -104,6 +111,42 @@ def param_shapes(cfg: GPTMoEConfig) -> Dict[str, Tuple[int, ...]]:
                    "layers.ln1": (l, d), "layers.ln2": (l, d),
                    "ln_f": (d,)})
     return shapes
+
+
+def gpt_moe_param_specs(cfg: GPTMoEConfig) -> Dict[str, object]:
+    """The dim of each leaf that splits over tp (None: replicated), in the
+    parameter dict's nesting (``tensor_parallel.llama_param_specs``' form;
+    layers stacked on dim 0). ``attn_qkv``'s columns hold q, k and v one
+    after the other, each cut by heads (``models.convert`` takes the
+    rank's heads of each of the three, ``TP_FUSED_PARTS``); ``attn_proj``
+    splits its input rows (row-parallel); each expert's ``expert_fc``
+    splits its columns and ``expert_proj`` its rows (the dense
+    ``mlp_fc`` / ``mlp_proj`` alike); the router, its noise projection,
+    the norms, ``wpe`` and the tied ``wte`` stay whole."""
+    layers: Dict[str, Optional[int]] = {
+        "ln1": None, "ln2": None, "attn_qkv": 2, "attn_proj": 1}
+    if cfg.use_moe:
+        layers.update(router=None, router_noise=None, expert_fc=3,
+                      expert_proj=2)
+    else:
+        layers.update(mlp_fc=2, mlp_proj=1)
+    return {"wte": None, "wpe": None, "ln_f": None, "layers": layers}
+
+
+# flat leaf -> the number of equal blocks along its tp dim that are each
+# split over tp (q | k | v of the fused projection)
+TP_FUSED_PARTS = {"layers.attn_qkv": 3}
+
+
+def check_serving_mesh(cfg: GPTMoEConfig, mesh: Any) -> None:
+    """A GPT-MoE serving mesh spans tp (and replicas over dp): tp divides
+    the heads (and so the width and the experts' 4x inner width); pp, cp
+    and ep are refused."""
+    if mesh.pp > 1 or mesh.cp > 1 or mesh.ep > 1:
+        raise ValueError(
+            f"a GPT-MoE serving mesh spans tp and dp only, got {mesh!r}")
+    if cfg.n_head % mesh.tp:
+        raise ValueError(f"tp={mesh.tp} does not split {cfg.n_head} heads")
 
 
 def _init_std(name: str, cfg: GPTMoEConfig) -> Optional[float]:
@@ -203,8 +246,20 @@ def _moe_ffn(h: Tensor, layer: Params, cfg: GPTMoEConfig,
 
 
 def _heads(t: Tensor, cfg: GPTMoEConfig) -> Tensor:
+    """[B, S, h * head_dim] -> [B, h, S, head_dim] (h: every head, or a tp
+    rank's)."""
     b, s, _ = t.shape
-    return t.reshape(b, s, cfg.n_head, cfg.head_dim).transpose(1, 2)
+    return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+
+
+def _tp_sum(x: Tensor, tp_axis: Optional[str]) -> Tensor:
+    """A row-parallel product's partial sums added over tp (``x`` itself
+    without a tp axis)."""
+    if tp_axis is None:
+        return x
+    from scaletorch_tpu_torch.parallel.mesh import all_reduce_, axis_group
+
+    return all_reduce_(x, axis_group(tp_axis))
 
 
 def _per_layer(layers: Params):
@@ -265,17 +320,19 @@ def _forward_cached(p: Params, input_ids: Tensor, cfg: GPTMoEConfig,
                     cache: Tuple[Tensor, Tensor], *, positions: Tensor,
                     write_mask: Optional[Tensor] = None,
                     kv_io: Optional[Any] = None,
-                    last_index: Optional[Tensor] = None):
+                    last_index: Optional[Tensor] = None,
+                    tp_axis: Optional[str] = None):
     cache_k, cache_v = cache
     b, s = input_ids.shape
     cdt = cfg.dtype
+    width = p["layers"]["attn_proj"].shape[1]  # this rank's heads x head_dim
     # JAX clamps an index past the table; on the card an out-of-range
     # index would fault asynchronously
     pos = positions.long().clamp(0, cfg.block_size - 1)
     x = (p["wte"][input_ids.long()] + p["wpe"][pos]).to(cdt)
     for i, layer in enumerate(_per_layer(p["layers"])):
         a = _layer_norm(x, layer["ln1"])
-        q, k, v = (a @ layer["attn_qkv"].to(cdt)).split(cfg.n_embd, dim=-1)
+        q, k, v = (a @ layer["attn_qkv"].to(cdt)).split(width, dim=-1)
         q, k, v = _heads(q, cfg), _heads(k, cfg), _heads(v, cfg)
         if kv_io is None:
             write_kv_cache(cache_k[i], k, positions[:, 0], write_mask)
@@ -285,11 +342,11 @@ def _forward_cached(p: Params, input_ids: Tensor, cfg: GPTMoEConfig,
             kv_io.write(cache_k[i], k, positions, write_mask)
             kv_io.write(cache_v[i], v, positions, write_mask)
             o = kv_io.attend(q, cache_k[i], cache_v[i], positions)
-        o = o.transpose(1, 2).reshape(b, s, cfg.n_embd)
-        x = x + o @ layer["attn_proj"].to(cdt)
+        o = o.transpose(1, 2).reshape(b, s, width)
+        x = x + _tp_sum(o @ layer["attn_proj"].to(cdt), tp_axis)
         y, _ = _mlp(_layer_norm(x, layer["ln2"]), layer, cfg, None, None,
                     with_aux=False)
-        x = x + y.to(cdt)
+        x = x + _tp_sum(y, tp_axis).to(cdt)
     if last_index is not None:
         rows = torch.arange(b, device=x.device)
         x = x[rows, last_index.long()][:, None]
@@ -307,11 +364,16 @@ def forward_cached(params, input_ids: Tensor, cfg: GPTMoEConfig,
     through the page pool (``inference.kv_cache.PagedKVIO``);
     ``write_mask`` [B] keeps unlisted slots' bytes; ``last_index`` [B]
     keeps only that row of each slot before the final norm and head ->
-    logits [B, 1, V]."""
-    if isinstance(params, GPTMoEForCausalLM) and params.cfg != cfg:
-        raise ValueError("the model was built for another config")
+    logits [B, 1, V]. A module built over a tp mesh runs its slices with
+    the mesh current (``parallel.mesh.using_mesh_manager``)."""
+    tp_axis = None
+    if isinstance(params, GPTMoEForCausalLM):
+        if params.cfg != cfg:
+            raise ValueError("the model was built for another config")
+        tp_axis = params.tp_axis
     with torch.no_grad():
-        return _forward_cached(_tree(params), input_ids, cfg, cache, **kw)
+        return _forward_cached(_tree(params), input_ids, cfg, cache,
+                               tp_axis=tp_axis, **kw)
 
 
 def _pick(logits: Tensor, temperature: float,
@@ -398,15 +460,30 @@ class GPTMoEForCausalLM(nn.Module):
     casts to ``cfg.dtype`` at each use). Built empty on ``device`` (None:
     the CUDA card); fill it with ``init_weights_``, ``from_params`` or
     ``models.convert.load_numpy_params``. Its weights carry a gradient
-    only with ``requires_grad``."""
+    only with ``requires_grad``. With ``mesh`` (a serving
+    ``parallel.mesh.MeshManager`` whose tp axis splits) it holds this
+    rank's slices of ``gpt_moe_param_specs``, cut by
+    ``models.convert.local_shard_fn``."""
 
     def __init__(self, cfg: GPTMoEConfig, device: DeviceLike = None, *,
-                 requires_grad: bool = False) -> None:
+                 requires_grad: bool = False, mesh: Any = None) -> None:
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.tp_size = mesh.tp if mesh is not None else 1
+        self.tp_axis = "tp" if self.tp_size > 1 else None
+        self._mesh = mesh if self.tp_axis is not None else None
+        local = None
+        if self._mesh is not None:
+            from scaletorch_tpu_torch.models.convert import local_shard_fn
+
+            check_serving_mesh(cfg, mesh)
+            local = local_shard_fn(cfg, mesh, mesh.rank)
         layers = {}
         for name, shape in param_shapes(cfg).items():
+            if local is not None:
+                shape = tuple(local(name, torch.empty(shape,
+                                                      device="meta")).shape)
             p = nn.Parameter(torch.empty(shape, device=dev),
                              requires_grad=requires_grad)
             if name.startswith("layers."):
@@ -419,23 +496,30 @@ class GPTMoEForCausalLM(nn.Module):
     def from_params(cls, params: Params, cfg: GPTMoEConfig,
                     device: DeviceLike = None, **kw) -> "GPTMoEForCausalLM":
         """A model holding ``params`` (nested tensors or numpy arrays in the
-        reference layout)."""
-        from scaletorch_tpu_torch.models.convert import load_numpy_params
-
+        reference layout; with ``mesh``, this rank's slices of them)."""
         model = cls(cfg, device=device, **kw)
-        load_numpy_params(model, params)
+        model._load_full(params)
         return model
 
     @torch.no_grad()
     def init_weights_(self, generator: Optional[torch.Generator] = None
                       ) -> "GPTMoEForCausalLM":
         """The parameters of ``init_params(generator, cfg)`` on the
-        parameters' device."""
-        from scaletorch_tpu_torch.models.convert import load_numpy_params
-
-        load_numpy_params(self, init_params(generator, self.cfg,
-                                             device=self.device))
+        parameters' device (over a mesh, every rank draws the full tree
+        and keeps its slices: the shards are one card's weights)."""
+        self._load_full(init_params(generator, self.cfg, device=self.device))
         return self
+
+    def _load_full(self, params: Params) -> None:
+        from scaletorch_tpu_torch.models.convert import (
+            load_numpy_params,
+            shard_numpy_params,
+        )
+
+        if self._mesh is not None:
+            params = shard_numpy_params(params, self.cfg, self._mesh,
+                                        self._mesh.rank)
+        load_numpy_params(self, params)
 
     @property
     def device(self) -> torch.device:

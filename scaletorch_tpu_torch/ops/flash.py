@@ -48,8 +48,9 @@ K1_NAME = "flash_fwd"
 K2_NAME = "flash_dq"
 K3_NAME = "flash_dkv"
 
-# the head dims K1-K3 are built for (every preset's: 32, 64, 128)
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# the head dims K1-K3 are built for (every preset's: 32, 64, 128; 16 for
+# the reference examples' narrow heads: moe, pipeline, longctx)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked rows NaN-free
 

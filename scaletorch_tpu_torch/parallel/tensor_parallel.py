@@ -279,7 +279,15 @@ def llama_param_specs(cfg) -> Dict[str, object]:
 
 def param_specs(cfg) -> Dict[str, object]:
     """The tp split dims of ``cfg``'s parameters: ``llama_param_specs``,
-    or ``models.qwen3_moe.qwen3_moe_param_specs`` for a Qwen3-MoE."""
+    ``models.qwen3_moe.qwen3_moe_param_specs`` for a Qwen3-MoE or
+    ``models.gpt_moe.gpt_moe_param_specs`` for a GPT-MoE."""
+    from scaletorch_tpu_torch.models.gpt_moe import (
+        GPTMoEConfig,
+        gpt_moe_param_specs,
+    )
+
+    if isinstance(cfg, GPTMoEConfig):
+        return gpt_moe_param_specs(cfg)
     if hasattr(cfg, "num_experts"):
         from scaletorch_tpu_torch.models.qwen3_moe import (
             qwen3_moe_param_specs,

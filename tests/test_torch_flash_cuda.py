@@ -1,9 +1,10 @@
 """PyTorch port, the hand-written CUDA flash-attention kernels on the card.
 
 K1 (forward), K2 (dQ) and K3 (dK, dV) against their plain PyTorch
-versions on the same inputs, at head_dim 32, 64 and 128 and n_rep 1, 2,
-4, 5 and 8 (every preset's geometry: dense-tiny's D 32, qwen3-14b's 40
-query over 8 KV heads, Qwen3-30B-A3B's 32 over 4), fp32 and bf16, causal and
+versions on the same inputs, at head_dim 16, 32, 64 and 128 and n_rep 1,
+2, 4, 5 and 8 (every preset's geometry: dense-tiny's D 32, qwen3-14b's 40
+query over 8 KV heads, Qwen3-30B-A3B's 32 over 4; and the D 16 of the moe,
+pipeline and long-context examples), fp32 and bf16, causal and
 not, at sequences on both sides of the kernels' 64-row tiles and 32-row
 register chunks (1, 63, 127, 129, 200, 256, 1000); Sq != Skv through
 ``flash_block_backward``; bf16 K1, K2 and K3 at Qwen3-30B-A3B's training
@@ -95,7 +96,7 @@ def assert_close(dtype, got, want, *, out=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 5, 8])
 @pytest.mark.parametrize("seq", [1, 63, 127, 129, 200, 256, 1000])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -138,7 +139,7 @@ def row_rel(a, b):
     return (a - b).norm(dim=-1) / b.norm(dim=-1)
 
 
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 def test_single_row_tile_dq_is_as_close_to_float64_as_the_plain_version(
         cuda, head_dim):
     """At S 129 the last 64-row tile of a head holds one query row, and a
@@ -280,10 +281,11 @@ def test_backward_at_the_moe_training_shape(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_backward_is_bitwise_deterministic(cuda, dtype, causal):
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_backward_is_bitwise_deterministic(cuda, dtype, causal, head_dim):
     """No atomics: two runs of K2 and K3 on the same inputs agree bit for
     bit (n_rep 4, so K3 sums query heads; a ragged last tile)."""
-    q, k, v, dout = inputs(cuda, dtype, 128, 4, 1000, b=1)
+    q, k, v, dout = inputs(cuda, dtype, head_dim, 4, 1000, b=1)
     out, lse = tf.flash_forward(q, k, v, causal=causal)
     delta = tf.attention_delta(out, dout)
     args = (q, k, v, dout, lse, delta)
@@ -297,7 +299,7 @@ def test_backward_is_bitwise_deterministic(cuda, dtype, causal):
 def test_unsupported_inputs_raise_before_launch(cuda):
     q, k, v, _ = inputs(cuda, torch.float32, 64, 2, 64)
     with pytest.raises(ValueError, match="head_dim"):
-        tf.flash_forward(q[..., :16], k[..., :16], v[..., :16], causal=True)
+        tf.flash_forward(q[..., :48], k[..., :48], v[..., :48], causal=True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tf.flash_forward(q.half(), k.half(), v.half(), causal=True)
     with pytest.raises(TypeError, match="want"):

@@ -5,8 +5,10 @@ K4 and trained through the flash kernels K1-K3 on the card, so the
 wrappers' input checks (which run before any launch, and so hold on CPU
 tensors too) must accept each preset's n_rep and head_dim: n_rep 2, 4, 5
 and 8, head_dim 32, 64 and 128 (K4 is built for every n_rep of 1 to 8).
-Outside the built set (head_dim 16, 48,
-256; K4's n_rep past 8) they still raise, with no quiet fallback.
+K1-K3 are also built for head_dim 16, the heads of the moe, pipeline and
+long-context examples (K4 is not: no example serves at D 16). Outside
+the built set (head_dim 48, 256; 16 for K4; K4's n_rep past 8) they still
+raise, with no quiet fallback.
 
 The plain versions (what the kernels are held against on the card) at the
 new geometries, n_rep 5 (qwen3-14b: 40 query over 8 KV heads) and
@@ -96,10 +98,23 @@ def test_paged_decode_checks_reject_n_rep_past_eight(hq, hkv):
         tpa._check_kernel_inputs(*paged_inputs(hq, hkv, 64))
 
 
-@pytest.mark.parametrize("head_dim", [16, 48, 256])
+@pytest.mark.parametrize("head_dim", [48, 256])
 def test_flash_checks_reject_unbuilt_head_dims(head_dim):
     with pytest.raises(ValueError, match="head_dim"):
         tflash._check_qkv(*flash_inputs(8, 4, head_dim))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (1, 1), (4, 2)])
+def test_flash_checks_accept_the_examples_head_dim_16(hq, hkv, dtype):
+    """The long-context example's heads (4 of D 16; one a rank under
+    Ulysses cp4) and a grouped case pass the launch checks."""
+    q, k, v = flash_inputs(hq, hkv, 16, dtype)
+    stats = torch.zeros(q.shape[:3])
+    assert 16 in tflash.SUPPORTED_HEAD_DIMS
+    tflash._check_qkv(q, k, v)
+    tflash._check_qkv(q, k, v, dout=q.clone(), lse=stats, delta=stats)
 
 
 def pool_and_tables(n_rep, d, seed, b=3, hkv=2, max_pages=6):
@@ -128,7 +143,8 @@ def test_paged_decode_plain_version_matches_pallas(n_rep, head_dim):
                                rtol=PAGED_ATOL)
 
 
-@pytest.mark.parametrize("n_rep,head_dim", [(5, 32), (5, 64), (2, 32)])
+@pytest.mark.parametrize("n_rep,head_dim", [(5, 32), (5, 64), (2, 32),
+                                            (1, 16), (4, 16)])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_plain_versions_match_pallas(n_rep, head_dim, causal):
     """K1-K3's plain versions (the port's op on CPU tensors), forward and

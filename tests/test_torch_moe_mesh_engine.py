@@ -19,7 +19,8 @@ grouped-MLP toggle on at ep2, plain versions on the CPU):
   * the teacher-forced logits of the mesh's model (paged cache) within
     1e-4 of the JAX model's full forward, the same bits on every rank;
   * the engine refuses a dense config with ep > 1, a Qwen3-MoE over pp
-    or cp or with ``batch_axis``, and a GPT-MoE over any mesh.
+    or cp or with ``batch_axis``, and a GPT-MoE over pp, cp or ep (its
+    tp serving: ``tests/test_torch_gpt_moe_mesh_engine.py``).
 """
 
 import jax
@@ -196,9 +197,10 @@ def test_the_engine_refuses_what_the_mesh_cannot_serve():
         InferenceEngine({}, moe, mesh=MeshManager(tp=4), device="cpu")
     gpt = GPTMoEConfig(block_size=16, vocab_size=11, n_layer=1, n_head=2,
                        n_embd=16, num_experts=2, top_k=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine({}, gpt, max_seq=16, mesh=MeshManager(tp=2),
-                        device="cpu")
+    for mesh in (MeshManager(pp=2), MeshManager(cp=2), MeshManager(ep=2)):
+        with pytest.raises(ValueError, match="GPT-MoE serving mesh spans "
+                                             "tp and dp only"):
+            InferenceEngine({}, gpt, max_seq=16, mesh=mesh, device="cpu")
 
 
 def test_a_module_built_for_another_mesh_is_refused():

@@ -593,6 +593,71 @@ def case_moe_mesh_serving(payload):
     return out
 
 
+def case_gpt_moe_mesh_serving(payload):
+    """For every run: a GPT-MoE ``InferenceEngine`` over the run's tp (x
+    dp) mesh (this rank's slices of the full weights) serving the
+    payload's schedule: tokens and outcomes per request, the compile
+    counts, the local cache and expert shapes; and the teacher-forced
+    logits of the mesh's model over ``payload['tokens']`` (paged)."""
+    from scaletorch_tpu_torch.inference import engine as teng
+    from scaletorch_tpu_torch.inference.decode import (
+        teacher_forced_decode_paged,
+    )
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        paged_kv_cache_shardings,
+    )
+    from scaletorch_tpu_torch.inference.sampling import SamplingParams
+    from scaletorch_tpu_torch.models.gpt_moe import GPTMoEConfig
+
+    cfg = GPTMoEConfig(**payload["kw"])
+    out = []
+    for run in payload["runs"]:
+        mm = tmesh.setup_mesh_manager(**run["mesh"], device_type="cpu")
+        eng = teng.InferenceEngine(
+            payload["params"], cfg, **{**payload["engine"], **run["engine"]},
+            sampling=SamplingParams(temperature=0.0), mesh=mm,
+            batch_axis=run.get("batch_axis"), device="cpu")
+        ids = [eng.submit(list(p), max_new_tokens=n)
+               for p, n in payload["schedule"]]
+        results = eng.run()
+        res = {"tokens": [results[i].tokens for i in ids],
+               "outcomes": [results[i].outcome for i in ids],
+               "compiles": (eng.prefill_compile_count,
+                            eng.decode_compile_count),
+               "cache_shape": tuple(eng.cache.k.shape),
+               "qkv_shape": tuple(eng.model.layers["attn_qkv"].shape),
+               "expert_shapes": (
+                   tuple(eng.model.layers["expert_fc"].shape),
+                   tuple(eng.model.layers["expert_proj"].shape))}
+        if run.get("logits"):
+            toks = torch.from_numpy(payload["tokens"])
+            with tmesh.using_mesh_manager(mm), torch.inference_mode():
+                logits = teacher_forced_decode_paged(
+                    eng.model, cfg, toks,
+                    page_size=payload["engine"]["page_size"], prefill_len=3,
+                    sharding=paged_kv_cache_shardings(mm))
+            res["logits"] = _np(logits)
+        out.append(res)
+        del eng
+        mm.destroy()
+    return out
+
+
+def case_example_run(payload):
+    """Each of ``payload['runs']`` in turn on this rank: an example's
+    ``run(argv)`` (``module`` under ``scaletorch_tpu_torch.examples``),
+    and the result's keys listed in ``keep``."""
+    import importlib
+
+    out = []
+    for run in payload["runs"]:
+        mod = importlib.import_module(
+            f"scaletorch_tpu_torch.examples.{run['module']}")
+        res = mod.run(run["argv"])
+        out.append({k: res[k] for k in run["keep"]})
+    return out
+
+
 def case_imagenet_example(payload):
     """The ImageNet example's ``run`` on this rank (the gloo group is the
     data-parallel group): its losses, validation numbers and the final
