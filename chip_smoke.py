@@ -598,6 +598,11 @@ GEOMETRY_SEQ = 2048  # K1-K3 at those heads
 LONGCTX_HEADS, LONGCTX_SEQ = (4, 4, 16), 2048
 LONGCTX_FLASH_ROWS = (("longctx_heads", 4), ("longctx_ulysses_rank", 1))
 GEOMETRY_PARITY_LAYERS = 2  # the qwen3-14b decode-parity cut
+# the analyzer's inference audit entries (a Llama of hidden 64, 4 query
+# over 2 KV heads of D 16): b 2, s_max 32, pages of 8; the positions put
+# one slot across a page boundary and the other on its last key
+AUDIT_HEADS, AUDIT_SLOTS, AUDIT_MAX_SEQ, AUDIT_PAGE = (4, 2, 16), 2, 32, 8
+AUDIT_POSITIONS = [13, 31]
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 / fp32 flop/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -818,25 +823,25 @@ def phase_build() -> None:
 # ---- 3. the paged-decode kernel against its plain version --------------------
 def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
                   slots: int = SLOTS, max_seq: int = MAX_SEQ,
-                  positions=None, heads=None):
+                  positions=None, heads=None, page_size: int = PAGE_SIZE):
     """Serving-shaped inputs at ``model``'s heads (``heads``: (Hq, Hkv,
     D) instead, e.g. one tensor-parallel rank's): shuffled physical
-    pages of PAGE_SIZE, ``max_seq // PAGE_SIZE`` per slot; positions that
-    include 0, both sides of a page boundary and the last position
+    pages of ``page_size``, ``max_seq // page_size`` per slot; positions
+    that include 0, both sides of a page boundary and the last position
     (``positions`` replaces them)."""
     cfg = model_config(model)
     b, hq, hkv = slots, cfg.num_attention_heads, cfg.num_key_value_heads
     d = cfg.actual_head_dim
     if heads is not None:
         hq, hkv, d = heads
-    pages = max_seq // PAGE_SIZE
+    pages = max_seq // page_size
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     n_pages = b * pages + 1
-    pool_k = torch.randn(n_pages, hkv, PAGE_SIZE, d, generator=gen,
+    pool_k = torch.randn(n_pages, hkv, page_size, d, generator=gen,
                          device=dev).to(dtype)
-    pool_v = torch.randn(n_pages, hkv, PAGE_SIZE, d, generator=gen,
+    pool_v = torch.randn(n_pages, hkv, page_size, d, generator=gen,
                          device=dev).to(dtype)
     q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
     tables = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1)
@@ -844,7 +849,7 @@ def decode_inputs(dtype: torch.dtype, seed: int, model: str = MODEL,
     if positions is None:
         rest = torch.randint(1, max_seq, (b - 4,), generator=gen, device=dev)
         positions = torch.cat([
-            torch.tensor([0, PAGE_SIZE - 1, PAGE_SIZE, max_seq - 1],
+            torch.tensor([0, page_size - 1, page_size, max_seq - 1],
                          device=dev), rest])
     positions = torch.as_tensor(positions, device=dev).to(torch.int32)
     return q, pool_k, pool_v, tables, positions
@@ -855,11 +860,11 @@ def decode_bound_ms(q, pool_k, positions) -> float:
     bytes (q, the visible K and V rows, their table entries, positions,
     the output) over HBM bandwidth and its flops over the dtype's peak."""
     b, hq, d = q.shape
-    hkv = pool_k.shape[1]
+    hkv, page_size = pool_k.shape[1], pool_k.shape[2]
     keys = int((positions.long() + 1).sum())
     elem = q.element_size()
     kv_bytes = 2 * keys * hkv * d * elem
-    table_bytes = 4 * int(((positions.long() // PAGE_SIZE) + 1).sum())
+    table_bytes = 4 * int(((positions.long() // page_size) + 1).sum())
     nbytes = 2 * q.numel() * elem + kv_bytes + table_bytes + 4 * b
     flops = 4 * hq * d * keys  # q.k and p.v
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype])
@@ -885,17 +890,17 @@ def slot_rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((diff / b.float().flatten(1).norm(dim=1)).max())
 
 
-def drop_one_page(tables, positions):
+def drop_one_page(tables, positions, page_size: int = PAGE_SIZE):
     """The control's inputs: the longest slot without its middle live page
     (its later pages move up one, its position falls by a page), so the
     plain version on them attends every key but that page's."""
     slot = int(positions.argmax())
     pos = int(positions[slot])
-    drop = (pos // PAGE_SIZE + 1) // 2
+    drop = (pos // page_size + 1) // 2
     tables, positions = tables.clone(), positions.clone()
     row = tables[slot]
     row[drop:-1] = row[drop + 1:].clone()
-    positions[slot] = pos - PAGE_SIZE
+    positions[slot] = pos - page_size
     return tables, positions
 
 
@@ -911,7 +916,8 @@ def decode_row(inputs, flush, slot_rel_limits=DECODE_SLOT_REL) -> dict:
     again = paged_decode_attention(*inputs)
     ref = paged_decode_attention_ref(*inputs)
     dropped = paged_decode_attention_ref(
-        q, pool_k, pool_v, *drop_one_page(tables, positions))
+        q, pool_k, pool_v, *drop_one_page(tables, positions,
+                                          pool_k.shape[2]))
     lib = library_attention(*inputs)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{dtype}: non-finite output")
@@ -1005,6 +1011,16 @@ def phase_kernel() -> dict:
                 decode_inputs(dtype, seed=1245 + tp, heads=heads,
                               max_seq=GPT_MAX_SEQ), flush)
                for tp, heads in GPT_TP_RANK_HEADS.items()},
+            # the analyzer's inference audit entries (D 16, pages of 8):
+            # their geometry, then 8 slots of 4096 keys at the same heads
+            "audit_d16": decode_row(
+                decode_inputs(dtype, seed=1250, heads=AUDIT_HEADS,
+                              slots=AUDIT_SLOTS, max_seq=AUDIT_MAX_SEQ,
+                              positions=AUDIT_POSITIONS,
+                              page_size=AUDIT_PAGE), flush),
+            "d16_8x4096": decode_row(
+                decode_inputs(dtype, seed=1251, heads=AUDIT_HEADS,
+                              max_seq=4096, page_size=AUDIT_PAGE), flush),
         }
         row["geometries"] = {m: paged_geometry(m, dtype, flush)
                              for m in GEOMETRY_MODELS}
@@ -1035,6 +1051,104 @@ def paged_geometry(model: str, dtype: torch.dtype, flush) -> dict:
             "kernel_ms_spin": time_ms(
                 lambda: paged_decode_attention(*inputs), flush, spin=True),
             "bound_ms": bound, "bound_share": bound / kernel_ms}
+
+
+# ---- the analyzer: its AST tiers over the port, its deep and memory tiers -----
+ANALYSIS_DIR = os.path.join("build", "analysis")
+ANALYSIS_TIMEOUT_S = 600
+# kernel launches of one call of each audit entry: K4 once a layer in the
+# paged decode steps (2 layers); K1-K3 once a layer a microbatch in the
+# train entries (2 layers x 2 microbatches, no checkpointing; rank 0 of
+# the spmd entry's contiguous cp2 ring computes one block a layer); the
+# dense and prefill steps run no kernel (the gather path and SDPA)
+AUDIT_K4 = {"paged_decode": 2}
+AUDIT_TRAIN = {tf.K1_NAME: 4, tf.K2_NAME: 4, tf.K3_NAME: 4}
+AUDIT_LAUNCHES = {
+    "spmd_train_step": AUDIT_TRAIN, "declarative_train_step": AUDIT_TRAIN,
+    "prefill_step": {}, "decode_step": {}, "paged_decode_step": AUDIT_K4,
+    "disagg_prefill_slice": {}, "disagg_decode_slice": AUDIT_K4,
+}
+
+
+def analyzer(*args: str) -> subprocess.Popen:
+    """``python -m scaletorch_tpu_torch.analysis ARGS``, its output to
+    build/analysis/<tier>.log."""
+    name = args[args.index("--tier") + 1] if "--tier" in args else "ast"
+    log = open(os.path.join(ANALYSIS_DIR, f"{name}.log"), "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "scaletorch_tpu_torch.analysis", *args],
+        stdout=log, stderr=subprocess.STDOUT)
+
+
+def phase_analysis() -> dict:
+    """The port's analyzer, three processes started together: the AST
+    tier and the ownership tier over the whole port (exit 0 against its
+    baseline), and the deep and memory tiers on the card over the seven
+    audit entries (the mesh entries under the fake process group),
+    exit 0 against the checked-in comm and memory budgets. Each entry's
+    peak MB (the card's allocator) and kernel launches are printed and
+    held to AUDIT_LAUNCHES; then plan_slice_split from the card's slice
+    rows (the two slice programs at the served width)."""
+    from scaletorch_tpu_torch.inference.disagg import (
+        DEFAULT_HBM_BUDGET,
+        plan_slice_split,
+    )
+
+    os.makedirs(ANALYSIS_DIR, exist_ok=True)
+    report = os.path.join(ANALYSIS_DIR, "report.json")
+    t0 = time.monotonic()
+    procs = {"ast": analyzer("scaletorch_tpu_torch"),
+             "ownership": analyzer("scaletorch_tpu_torch", "--tier",
+                                   "ownership"),
+             "deep_memory": analyzer("scaletorch_tpu_torch", "--tier",
+                                     "deep,memory", "--report", report)}
+    rcs, seconds = {}, {}
+    for name, proc in procs.items():
+        try:
+            rcs[name] = proc.wait(timeout=ANALYSIS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rcs[name] = proc.wait()
+        seconds[name] = time.monotonic() - t0
+    logs = {name: open(os.path.join(
+        ANALYSIS_DIR, f"{'deep,memory' if name == 'deep_memory' else name}"
+        ".log")).read()[-2000:] for name in procs}
+    for name, rc in rcs.items():
+        check(rc == 0, f"analysis {name}: exit {rc}\n{logs[name]}")
+    with open(report) as f:
+        entries = json.load(f)
+    rows = {name: {"peak_mb": e["memory"]["peak_mb"],
+                   "temp_mb": e["memory"]["temp_mb"],
+                   "source": e["memory"]["source"],
+                   "launches": e["launches"], "seconds": e["seconds"],
+                   "collectives": e["collectives"]}
+            for name, e in entries.items()}
+    for name, want in AUDIT_LAUNCHES.items():
+        check(name in rows, f"analysis: no report of entry {name}")
+        check(rows[name]["source"] == "cuda",
+              f"analysis {name}: memory from {rows[name]['source']}")
+        check(rows[name]["launches"] == want,
+              f"analysis {name}: launches {rows[name]['launches']} != "
+              f"{want}")
+    # the rows plan_slice_split reads: the two slice programs at the
+    # served width, measured on the card when the budget was written
+    with open(DEFAULT_HBM_BUDGET) as f:
+        slices = json.load(f).get("slices", {})
+    check(sorted(slices) == ["disagg_decode_slice", "disagg_prefill_slice"]
+          and all(r["source"] == "cuda" for r in slices.values()),
+          f"analysis: the budget's slice rows are not the card's: {slices}")
+    split = {n: list(plan_slice_split(n)) for n in (2, 8)}
+    out = {"rcs": rcs, "seconds": seconds, "entries": rows,
+           "slices": {name: {k: r[k] for k in (
+               "peak_mb", "argument_mb", "temp_mb", "model", "max_slots",
+               "max_seq", "prefill_len", "page_size")}
+               for name, r in slices.items()},
+           "plan_slice_split": split, "summary": {
+               name: logs[name].strip().splitlines()[-1]
+               for name in procs},
+           "nvidia_smi": card_name_and_power_limit()}
+    emit("analysis", **out)
+    return out
 
 
 # ---- 4. the flash kernels against their plain versions -----------------------
@@ -7237,6 +7351,7 @@ def main() -> int:
     kernel = timed("kernel_paged_decode", phase_kernel)
     flash = timed("kernel_flash", phase_kernel_flash)
     timed("kernel_ring_blocks", phase_kernel_ring_blocks)
+    timed("analysis", phase_analysis)
     model32 = timed("decode_parity", phase_decode_parity)
     launches = timed("serve", phase_serve, model32)
     timed("profile", phase_profile, model32)

@@ -45,7 +45,12 @@
 //   * fp32 (the parity dtype): the same grid and ring on CUDA cores. A
 //     lane scores one key over half of D (one shuffle joins the halves),
 //     the 16 lanes of a half reduce the max and the sum, and P V runs over
-//     the lane's D/32 columns with P broadcast through shared memory.
+//     the lane's D/32 columns with P broadcast through shared memory. At
+//     head_dim 16 a lane owns one column for half of the tile's keys, and
+//     one shuffle adds the two halves' sums once, after the key loop.
+//   * head_dim 16 (the bf16 path): rows of 32 bytes, four to a swizzled
+//     128-byte line; S = Q K^T is one k-step and O = P V two n8 tiles, the
+//     same loop with a quarter of D 64's products per key.
 //   * Each warp keeps its own (m, l, acc); the CTA merges its warps in
 //     shared memory. A slot whose keys fit in one split writes its output
 //     there. Otherwise each split writes an unnormalised fp32 partial
@@ -520,7 +525,11 @@ paged_decode_fp32_kernel(const float* __restrict__ q,
   constexpr int kStages = L::kStages;
   constexpr int LD = L::LD;
   constexpr int kChunks = D / 4;  // 16-byte chunks of a row
-  constexpr int E = D / 32;       // output columns of a lane
+  // output columns of a lane; at D 16 two lanes own a column, each for
+  // half of a tile's keys (KSPLIT halves, summed after the key loop)
+  constexpr int E = D >= 32 ? D / 32 : 1;
+  constexpr int KSPLIT = D >= 32 ? 1 : 32 / D;
+  constexpr int KT = kTileKeys / KSPLIT;  // keys of a lane's P V
   constexpr int H = D / 2;        // a lane scores its key over half of D
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = mma::smem_u32(smem);
@@ -531,6 +540,8 @@ paged_decode_fp32_kernel(const float* __restrict__ q,
   const int warp = tid >> 5;
   const int kl = lane & 15;   // the key this lane scores
   const int half = lane >> 4;  // ... over columns half * H .. half * H + H
+  const int col = (lane % (D / E)) * E;  // the lane's first P V column
+  const int kpart = lane / (D / E);      // ... and its keys' part
   float* p_s = reinterpret_cast<float*>(smem + L::kP) +
                warp * kMaxRep * kTileKeys;
 
@@ -629,11 +640,13 @@ paged_decode_fp32_kernel(const float* __restrict__ q,
       if (half == 0) p_s[r * kTileKeys + kl] = p;
     }
     __syncwarp();
-    // O += P V over this lane's columns lane * E .. lane * E + E - 1
+    // O += P V over this lane's columns col .. col + E - 1 and keys
+    // kpart * KT .. kpart * KT + KT - 1
 #pragma unroll 4
-    for (int k = 0; k < kTileKeys; ++k) {
+    for (int kk = 0; kk < KT; ++kk) {
+      const int k = kpart * KT + kk;
       float v[E];
-      const float* vrow = vs + k * LD + lane * E;
+      const float* vrow = vs + k * LD + col;
       if constexpr (E == 4) {
         const float4 x = *reinterpret_cast<const float4*>(vrow);
         v[0] = x.x;
@@ -668,7 +681,12 @@ paged_decode_fp32_kernel(const float* __restrict__ q,
     }
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      w.acc[(warp * kMaxRep + r) * D + lane * E + e] = acc[r][e];
+      float a = acc[r][e];
+#pragma unroll
+      for (int o = D / E; o < 32; o <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+      }
+      if (kpart == 0) w.acc[(warp * kMaxRep + r) * D + col + e] = a;
     }
   }
   __syncthreads();
@@ -715,8 +733,8 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// Every n_rep of 1..8 (the presets use 2, 4, 5 and 8) and head_dim 32,
-// 64 and 128.
+// Every n_rep of 1..8 (the presets use 2, 4, 5 and 8) and head_dim 16
+// (the audit entries' and the examples' heads), 32, 64 and 128.
 template <typename T, int D>
 cudaError_t dispatch_rep(int n_rep, const Args& a) {
   switch (n_rep) {
@@ -735,6 +753,7 @@ cudaError_t dispatch_rep(int n_rep, const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int head_dim, int n_rep, const Args& a) {
   switch (head_dim) {
+    case 16: return dispatch_rep<T, 16>(n_rep, a);
     case 32: return dispatch_rep<T, 32>(n_rep, a);
     case 64: return dispatch_rep<T, 64>(n_rep, a);
     case 128: return dispatch_rep<T, 128>(n_rep, a);

@@ -59,8 +59,12 @@ def env_override(name: str, fallback: Any) -> Any:
 register_env("FLASH_ATTEN", "1", _as_bool)        # the flash kernels K1-K3
 register_env("CONTEXT_PARALLEL", "0", _as_bool)   # ring attention
 # the plain attention path instead of the flash kernels (name kept from
-# the reference, where the kernels are Pallas kernels)
+# the reference, where the kernels are Pallas kernels); the reference's
+# A/B gate, read where ``"auto"`` resolves to a backend
 register_env("SCALETORCH_TPU_DISABLE_PALLAS", "0", _as_bool)
+# The reference's SCALETORCH_TPU_FORCE_PALLAS has no counterpart: it
+# overrides TPU detection there, and the port has none to override
+# (``flash`` on a CUDA tensor always launches K1-K3).
 # sequence chunk of the fused LM head + cross-entropy (bounds the live
 # fp32 [B, C, V] logits)
 register_env("SCALETORCH_TPU_CE_CHUNK", "1024", int)

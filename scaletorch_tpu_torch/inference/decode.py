@@ -423,3 +423,206 @@ def teacher_forced_decode_paged(
             kv_io=decode_io)
         chunks.append(logits_t)
     return torch.cat(chunks, dim=1)
+
+
+# ---- the analyzer's audit entries ------------------------------------------------
+# Each builder returns a plain dict: the entry's pinned contract fields
+# (``analysis/entry_audit.py`` reads them) and ``setup(device)``, which
+# builds the step over its buffers and returns what one call needs. This
+# module never imports the analyzer.
+AUDIT_BATCH, AUDIT_MAX_SEQ, AUDIT_PAGE = 2, 32, 8
+
+
+def audit_cfg(compute_dtype: str = "fp32"):
+    """The audit entries' tiny Llama (the reference's): hidden 64, 2
+    layers, 4 query over 2 KV heads of D 16, vocab 128. ``compute_dtype``
+    "bf16" builds the bf16-contracted model of the precision-leak
+    injection."""
+    from scaletorch_tpu_torch.models.llama import LlamaConfig
+
+    dt = torch.bfloat16 if compute_dtype in ("bf16", "bfloat16") \
+        else torch.float32
+    return LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, max_position_embeddings=256, dtype=dt,
+        param_dtype=torch.float32)
+
+
+def audit_model(cfg, device):
+    """The audit model on ``device``, weights drawn from seed 0."""
+    from scaletorch_tpu_torch.models.llama import LlamaForCausalLM
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return LlamaForCausalLM(cfg, dev).init_weights_(gen)
+
+
+def audit_inputs(device, *, b: int = AUDIT_BATCH, s: int = AUDIT_MAX_SEQ
+                 ) -> Dict[str, Tensor]:
+    """Seeded step inputs: tokens, per-slot positions on both sides of a
+    page (13 and the last key), every slot active, seeds."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(0)
+    positions = np.array([13, s - 1] + [s // 2] * (b - 2), np.int32)[:b]
+    return {
+        "tokens": torch.from_numpy(
+            rng.integers(0, 128, (b, s)).astype(np.int32)).to(dev),
+        "positions": torch.from_numpy(positions).to(dev),
+        "mask": torch.ones(b, dtype=torch.bool, device=dev),
+        "seeds": torch.from_numpy(
+            rng.integers(0, 2**31, b).astype(np.int64)).to(dev),
+    }
+
+
+def audit_page_tables(b: int, max_pages: int, num_pages: int, device
+                      ) -> Tensor:
+    """Slot ``b`` owns pages ``b * max_pages + 1 ..`` (page 0 is TRASH),
+    wrapped into a smaller pool so a shrunken one still runs."""
+    pages = torch.arange(b * max_pages, dtype=torch.int32) % (num_pages - 1)
+    return (pages + 1).view(b, max_pages).to(torch.device(device))
+
+
+def _audit_contract(name: str, file: str, cfg, kv_cache: Dict[str, Any],
+                    cache_mb: float, compute_dtype: str = "fp32"
+                    ) -> Dict[str, Any]:
+    """The contract fields every single-device inference entry pins: no
+    collective at all (an empty comm-budget row), the cache or pool
+    updated in place (``inplace_min_mb``: ST702/ST1002), the engine's
+    ``kv_cache_bytes`` equal to the allocated buffers (ST1005)."""
+    return {
+        "name": name, "file": file, "world_size": 1,
+        "quantized_axis": None, "expect_inplace": True, "hoisted_axes": (),
+        "max_collective_result_mb": 1.0, "compute_dtype": compute_dtype,
+        "inplace_min_mb": round(0.9 * cache_mb, 4), "kv_cache": kv_cache,
+    }
+
+
+def audit_entry_prefill() -> Dict[str, Any]:
+    """Audit entry: the dense prefill step on one device, as the engine
+    captures it. Contract: the cache updated in place, zero collectives,
+    ``kv_cache_bytes`` of the dense layout equal to the cache's bytes."""
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        init_kv_cache,
+        kv_cache_bytes,
+    )
+
+    cfg = audit_cfg()
+    b, s_max = AUDIT_BATCH, AUDIT_MAX_SEQ
+
+    def setup(device) -> Dict[str, Any]:
+        model = audit_model(cfg, device)
+        cache = init_kv_cache(cfg, b, s_max, device=torch.device(device))
+        x = audit_inputs(device)
+        fn = make_prefill_step(cfg, SamplingParams(temperature=0.0))
+        lengths = x["positions"] + 1
+        return {"call": lambda: fn(model, x["tokens"], lengths, x["mask"],
+                                   cache, x["seeds"]),
+                "inplace": {"cache.k": cache.k, "cache.v": cache.v},
+                "arguments": [*model.parameters(), *cache, *x.values()],
+                "cache": tuple(cache)}
+
+    kv = {"cfg": cfg, "layout": "dense", "batch": b, "max_seq": s_max,
+          "dtype": torch.float32}
+    entry = _audit_contract(
+        "prefill_step", "scaletorch_tpu_torch/inference/decode.py", cfg, kv,
+        kv_cache_bytes(cfg, b, s_max, torch.float32) / 1e6)
+    entry["setup"] = setup
+    return entry
+
+
+def audit_entry_decode(compute_dtype: str = "fp32",
+                       fp32_residual: bool = False) -> Dict[str, Any]:
+    """Audit entry: the dense one-token decode step on one device (the
+    prefill's contract). ``compute_dtype="bf16"`` builds the
+    bf16-contracted entry and ``fp32_residual=True`` routes the cache
+    through a full fp32 round trip after the forward: the accidental
+    upcast the precision-leak check (ST1003) must attribute to its
+    source line."""
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        init_kv_cache,
+        kv_cache_bytes,
+    )
+
+    cfg = audit_cfg(compute_dtype)
+    b, s_max = AUDIT_BATCH, AUDIT_MAX_SEQ
+    forward_fn = None
+    if fp32_residual:
+        base_fwd = resolve_forward_cached(cfg)
+
+        def forward_fn(model, tokens, c, cache, **kw):
+            logits, cache = base_fwd(model, tokens, c, cache, **kw)
+            for buf in cache:  # the injected leak: a whole-buffer fp32 copy
+                buf.copy_((buf.float() + 0.0).to(buf.dtype))
+            return logits, cache
+
+    def setup(device) -> Dict[str, Any]:
+        model = audit_model(cfg, device)
+        cache = init_kv_cache(cfg, b, s_max, device=torch.device(device))
+        x = audit_inputs(device)
+        fn = make_decode_step(cfg, SamplingParams(temperature=0.0),
+                              forward_fn=forward_fn)
+        return {"call": lambda: fn(model, x["tokens"][:, 0],
+                                   x["positions"], x["mask"], cache,
+                                   x["seeds"]),
+                "inplace": {"cache.k": cache.k, "cache.v": cache.v},
+                "arguments": [*model.parameters(), *cache, *x.values()],
+                "cache": tuple(cache)}
+
+    kv = {"cfg": cfg, "layout": "dense", "batch": b, "max_seq": s_max,
+          "dtype": cfg.dtype}
+    entry = _audit_contract(
+        "decode_step", "scaletorch_tpu_torch/inference/decode.py", cfg, kv,
+        kv_cache_bytes(cfg, b, s_max, cfg.dtype) / 1e6, compute_dtype)
+    # one cache buffer counts as large: the smallest fp32 intermediate
+    # the leak injection materialises
+    entry["fp32_large_elems"] = 2048
+    entry["setup"] = setup
+    return entry
+
+
+def audit_entry_paged_decode(pool_pages: Optional[int] = None
+                             ) -> Dict[str, Any]:
+    """Audit entry: the paged one-token decode step on one device (K4 on
+    the card, one launch a layer). Contract: the PAGE POOL updated in
+    place and zero collectives. The ``kv_cache`` sizing is pinned to the
+    default pool (``b * max_pages + 1`` pages) whatever ``pool_pages``
+    says: the keyword builds a shrunken pool, the drift the sizing check
+    (ST1005) must catch."""
+    from scaletorch_tpu_torch.inference.kv_cache import (
+        init_paged_kv_cache,
+        kv_cache_bytes,
+    )
+
+    cfg = audit_cfg()
+    b, s_max, page = AUDIT_BATCH, AUDIT_MAX_SEQ, AUDIT_PAGE
+    max_pages = s_max // page
+    num_pages = b * max_pages + 1
+    built_pages = pool_pages if pool_pages is not None else num_pages
+
+    def setup(device) -> Dict[str, Any]:
+        model = audit_model(cfg, device)
+        pool = init_paged_kv_cache(cfg, built_pages, page,
+                                   device=torch.device(device))
+        tables = audit_page_tables(b, max_pages, built_pages, device)
+        x = audit_inputs(device)
+        fn = make_paged_decode_step(cfg, SamplingParams(temperature=0.0),
+                                    page_size=page, seq_limit=s_max)
+        return {"call": lambda: fn(model, x["tokens"][:, 0], x["positions"],
+                                   x["mask"], tables, pool, x["seeds"]),
+                "inplace": {"pool.k": pool.k, "pool.v": pool.v},
+                "arguments": [*model.parameters(), *pool, tables,
+                              *x.values()],
+                "cache": tuple(pool)}
+
+    kv = {"cfg": cfg, "layout": "paged", "batch": b, "max_seq": s_max,
+          "dtype": torch.float32, "page_size": page, "num_pages": num_pages}
+    entry = _audit_contract(
+        "paged_decode_step", "scaletorch_tpu_torch/inference/decode.py",
+        cfg, kv, kv_cache_bytes(cfg, b, s_max, torch.float32,
+                                layout="paged", page_size=page,
+                                num_pages=num_pages) / 1e6)
+    entry["setup"] = setup
+    # K4 once a layer on the card
+    entry["kernel_launches"] = {"paged_decode": cfg.num_hidden_layers}
+    return entry

@@ -38,10 +38,10 @@ colocated engine is therefore the standing parity oracle.
 On one card both slices may name the same device (``"1:1"`` over
 ``[cuda:0, cuda:0]``): two pools on one card, the weights shared, not
 copied. A slice is one device: tensor parallelism inside a slice is not
-ported. Slice sizing (``plan_slice_split``) reads per-phase peak memory
-rows from ``DEFAULT_HBM_BUDGET``, a file inside the port that holds CUDA
-budgets once they are measured; until then ``auto`` takes the even split
-the reference falls back to.
+ported. Slice sizing (``plan_slice_split``) reads the two slice
+programs' peak memory from ``DEFAULT_HBM_BUDGET``'s ``slices`` rows,
+measured on the card at a served width (``slice_budget_entries``);
+without them ``auto`` takes the even split the reference falls back to.
 """
 
 from __future__ import annotations
@@ -82,8 +82,9 @@ logger = get_logger(__name__)
 
 # ---- spec parsing / slice planning (pure host) -------------------------
 
-# The port's per-phase memory rows (CUDA peaks), not the reference's
-# TPU/CPU file; absent until those budgets are measured on the card.
+# The port's per-phase memory rows (CUDA peaks measured on the card by
+# the analyzer's memory tier, ``--tier memory --write-hbm-budget``), not
+# the reference's TPU/CPU file; plan_slice_split reads its ``slices``.
 DEFAULT_HBM_BUDGET = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "hbm_budget.json")
@@ -128,10 +129,14 @@ def plan_slice_split(
 ) -> Tuple[int, int]:
     """Size the two slices from per-phase memory rows: devices split
     proportional to ``peak_mb`` of the prefill-slice vs decode-slice
-    programs (the ``disagg_*`` rows; the colocated ``prefill_step`` /
-    ``paged_decode_step`` rows are the fallback), each slice getting at
-    least one device. A missing or unreadable budget falls back to an
-    even split — sizing degrades, correctness doesn't."""
+    programs (the ``disagg_*`` rows; ``prefill_step`` /
+    ``paged_decode_step`` are the fallback), each slice getting at least
+    one device. The rows are the budget's ``slices`` section, the two
+    programs measured at a served width (``slice_budget_entries``); its
+    ``entries`` section holds the audit entries' rows at the reference's
+    toy width, which gate the memory tier and size nothing. A missing or
+    unreadable section falls back to an even split — sizing degrades,
+    correctness doesn't."""
     if num_devices < 2:
         raise ValueError(
             f"disaggregation needs >= 2 devices (one per slice), "
@@ -139,8 +144,8 @@ def plan_slice_split(
     path = budget_path or DEFAULT_HBM_BUDGET
     try:
         with open(path) as f:
-            entries = json.load(f)["entries"]
-    except (OSError, ValueError):
+            entries = json.load(f)["slices"]
+    except (OSError, ValueError, KeyError, TypeError):
         entries = {}
     w_p = _budget_peak(entries, "disagg_prefill_slice",
                        "prefill_step") or 1.0
@@ -765,3 +770,166 @@ class DisaggregatedEngine(InferenceEngine):
                 "prefill_slice_busy_fraction": busy_p,
                 "decode_slice_busy_fraction": busy_d,
             })
+
+
+# ---- the analyzer's audit entries ----------------------------------------------
+
+
+def audit_entry_prefill_slice() -> Dict[str, Any]:
+    """Audit entry: the PREFILL slice's one program, the paged prefill
+    step as the disaggregated engine calls it (whole prompts into a
+    prompt-pages pool, through the gather path). Contract: the pool
+    updated in place, zero collectives (cross-slice traffic rides the
+    handoff channel, never a collective), the pinned ``kv_cache``
+    geometry equal to the pool's bytes. Its ``peak_mb`` row in
+    ``hbm_budget.json`` is what ``plan_slice_split`` sizes the prefill
+    slice by."""
+    from scaletorch_tpu_torch.inference.decode import (
+        AUDIT_BATCH,
+        AUDIT_MAX_SEQ,
+        AUDIT_PAGE,
+        _audit_contract,
+        audit_cfg,
+        audit_inputs,
+        audit_model,
+        audit_page_tables,
+    )
+    from scaletorch_tpu_torch.inference.kv_cache import kv_cache_bytes
+    from scaletorch_tpu_torch.inference.sampling import SamplingParams
+
+    cfg = audit_cfg()
+    b, s_max, page = AUDIT_BATCH, AUDIT_MAX_SEQ, AUDIT_PAGE
+    max_pages = s_max // page
+    num_pages = b * max_pages + 1
+
+    def setup(device) -> Dict[str, Any]:
+        model = audit_model(cfg, device)
+        pool = init_paged_kv_cache(cfg, num_pages, page,
+                                   device=torch.device(device))
+        tables = audit_page_tables(b, max_pages, num_pages, device)
+        x = audit_inputs(device)
+        fn = make_paged_prefill_step(cfg, SamplingParams(temperature=0.0),
+                                     page_size=page, seq_limit=s_max)
+        tail_lens = x["positions"] + 1
+        starts = torch.zeros_like(tail_lens)
+        return {"call": lambda: fn(model, x["tokens"], tail_lens, starts,
+                                   x["mask"], tables, pool, x["seeds"]),
+                "inplace": {"pool.k": pool.k, "pool.v": pool.v},
+                "arguments": [*model.parameters(), *pool, tables,
+                              *x.values()],
+                "cache": tuple(pool)}
+
+    kv = {"cfg": cfg, "layout": "paged", "batch": b, "max_seq": s_max,
+          "dtype": torch.float32, "page_size": page, "num_pages": num_pages}
+    entry = _audit_contract(
+        "disagg_prefill_slice", "scaletorch_tpu_torch/inference/disagg.py",
+        cfg, kv, kv_cache_bytes(cfg, b, s_max, torch.float32,
+                                layout="paged", page_size=page,
+                                num_pages=num_pages) / 1e6)
+    entry["setup"] = setup
+    return entry
+
+
+def audit_entry_decode_slice() -> Dict[str, Any]:
+    """Audit entry: the DECODE slice's one program, the paged decode step
+    the colocated engine runs (the slice changes placement, never the
+    program), audited under the disaggregated name so its ``peak_mb`` row
+    sizes the decode slice in ``plan_slice_split``."""
+    from scaletorch_tpu_torch.inference.decode import audit_entry_paged_decode
+
+    entry = audit_entry_paged_decode()
+    entry["name"] = "disagg_decode_slice"
+    entry["file"] = "scaletorch_tpu_torch/inference/disagg.py"
+    return entry
+
+
+# ---- the slice rows plan_slice_split reads ---------------------------------------
+# The audit entries above run the reference's hidden-64 model: their rows
+# gate the memory tier (ST1001) and size nothing. plan_slice_split sizes
+# the slices from the same two programs measured at a served width: the
+# serve cell's model and engine shape (Qwen3-0.6B, fp32, 8 slots of 2048
+# keys, prompts of 512 in pages of 16), written to the budget's
+# ``slices`` section by the memory tier on the card.
+SLICE_BUDGET_MODEL = "qwen3-0.6b"
+SLICE_BUDGET_SHAPE = {"max_slots": 8, "max_seq": 2048, "prefill_len": 512,
+                      "page_size": 16}
+
+
+def slice_budget_entries(cfg=None, **shape: int) -> List[Dict[str, Any]]:
+    """The prefill slice's and the decode slice's programs at the engine's
+    own pool sizes (``max_slots`` whole prompts + TRASH on the prefill
+    side, ``max_slots`` full sequences + TRASH on the decode side), as
+    entries the memory tier measures (``name``, ``file``, ``setup``,
+    ``shape``). ``cfg`` defaults to ``SLICE_BUDGET_MODEL`` in fp32 and
+    ``shape`` to ``SLICE_BUDGET_SHAPE``; every prompt is ``prefill_len``
+    long and every decode slot at its last key."""
+    from scaletorch_tpu_torch.inference.decode import (
+        audit_model,
+        make_paged_decode_step,
+    )
+    from scaletorch_tpu_torch.inference.sampling import SamplingParams
+    from scaletorch_tpu_torch.models.presets import model_config
+
+    model = SLICE_BUDGET_MODEL if cfg is None else "custom"
+    if cfg is None:
+        cfg = model_config(SLICE_BUDGET_MODEL, dtype=torch.float32)
+    shape = {**SLICE_BUDGET_SHAPE, **shape}
+    b, page = shape["max_slots"], shape["page_size"]
+    max_seq, prefill_len = shape["max_seq"], shape["prefill_len"]
+    per_slot = ceil_div(max_seq, page)
+    prompt_pages = ceil_div(prefill_len, page)
+    greedy = SamplingParams(temperature=0.0)
+
+    def common(device, pool_pages: int, owned: int) -> Dict[str, Any]:
+        dev = torch.device(device)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        pages = torch.arange(b * owned, dtype=torch.int32, device=dev)
+        tables = torch.full((b, per_slot), TRASH_PAGE, dtype=torch.int32,
+                            device=dev)
+        tables[:, :owned] = (pages + 1).view(b, owned)
+        return {"params": audit_model(cfg, dev), "tables": tables,
+                "pool": init_paged_kv_cache(cfg, pool_pages, page,
+                                            device=dev),
+                "mask": torch.ones(b, dtype=torch.bool, device=dev),
+                "seeds": torch.randint(0, 2**31, (b,), generator=gen,
+                                       device=dev, dtype=torch.int64),
+                "tokens": torch.randint(0, cfg.vocab_size,
+                                        (b, prefill_len), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+
+    def prepared(x: Dict[str, Any], call: Callable) -> Dict[str, Any]:
+        pool = x["pool"]
+        return {"call": call,
+                "inplace": {"pool.k": pool.k, "pool.v": pool.v},
+                "arguments": [*x["params"].parameters(), *pool, x["tables"],
+                              x["tokens"], x["mask"], x["seeds"]],
+                "cache": tuple(pool)}
+
+    def setup_prefill(device) -> Dict[str, Any]:
+        x = common(device, b * prompt_pages + 1, prompt_pages)
+        fn = make_paged_prefill_step(cfg, greedy, page_size=page,
+                                     seq_limit=max_seq)
+        lens = torch.full((b,), prefill_len, dtype=torch.int32,
+                          device=x["tokens"].device)
+        return prepared(x, lambda: fn(
+            x["params"], x["tokens"], lens, torch.zeros_like(lens),
+            x["mask"], x["tables"], x["pool"], x["seeds"]))
+
+    def setup_decode(device) -> Dict[str, Any]:
+        x = common(device, b * per_slot + 1, per_slot)
+        fn = make_paged_decode_step(cfg, greedy, page_size=page,
+                                    seq_limit=max_seq)
+        pos = torch.full((b,), max_seq - 1, dtype=torch.int32,
+                         device=x["tokens"].device)
+        return prepared(x, lambda: fn(
+            x["params"], x["tokens"][:, 0], pos, x["mask"], x["tables"],
+            x["pool"], x["seeds"]))
+
+    shape = {"model": model, "hidden_size": cfg.hidden_size,
+             "num_hidden_layers": cfg.num_hidden_layers, **shape}
+    return [{"name": "disagg_prefill_slice", "setup": setup_prefill,
+             "file": "scaletorch_tpu_torch/inference/disagg.py",
+             "shape": shape},
+            {"name": "disagg_decode_slice", "setup": setup_decode,
+             "file": "scaletorch_tpu_torch/inference/disagg.py",
+             "shape": shape}]

@@ -47,9 +47,10 @@ Tensor = torch.Tensor
 TRASH_PAGE = 0
 
 KERNEL_NAME = "paged_decode"
-# the geometries K4 is built for: every preset's head_dim (32, 64, 128)
-# and every n_rep up to 8 (the presets use 2, 4, 5 and 8)
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# the geometries K4 is built for: every preset's head_dim (32, 64, 128),
+# the audit entries' and the examples' 16, and every n_rep up to 8 (the
+# presets use 2, 4, 5 and 8)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 SUPPORTED_N_REP = tuple(range(1, 9))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MASKED = -1e30  # the Pallas kernel's mask value

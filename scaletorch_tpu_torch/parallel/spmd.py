@@ -472,3 +472,25 @@ def make_spmd_eval_step(mm: MeshManager, cfg, *, attention_backend="sdpa",
         cfg, attention_backend=backend,
         mesh=MeshReductions(mm, cfg, sequence_parallel=sequence_parallel),
         pipeline=pipeline)
+
+
+def audit_entry(grad_allreduce_dtype: str = "int8", donate: bool = True
+                ) -> Dict[str, object]:
+    """Audit entry (``analysis/entry_audit.py``): the spmd train step on
+    the (dp2, cp2, tp2) mesh with the int8 gradient all-reduce on the dp
+    edge, seq 128, 2 x 2 microbatch rows (the reference's), attention
+    over cp by the contiguous ring (K1-K3 on its blocks). See
+    ``trainer/train_step.audit_train_contract`` for the pinned contract;
+    ``grad_allreduce_dtype`` / ``donate`` inject its regressions."""
+    from scaletorch_tpu_torch.trainer.train_step import audit_train_contract
+
+    def make_step(mm, cfg, optimizer):
+        return make_spmd_train_step(
+            mm, cfg, optimizer, attention_backend="ring", max_grad_norm=1.0,
+            grad_allreduce_dtype=grad_allreduce_dtype,
+            grad_allreduce_axis="dp")
+
+    # the in-place floor is the rank's tp half of it
+    return audit_train_contract(
+        "spmd_train_step", "scaletorch_tpu_torch/parallel/spmd.py",
+        {"dp": 2, "cp": 2, "tp": 2}, (2, 2, 128), make_step, donate=donate)

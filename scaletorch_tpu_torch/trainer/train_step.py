@@ -43,6 +43,7 @@ under ``torch.no_grad()``, without gradient checkpointing.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -318,3 +319,116 @@ def _like(tree, leaves: List[Tensor]):
                 for k, v in t.items()}
 
     return build(tree)
+
+
+# ---- the analyzer's audit entries ------------------------------------------------
+def audit_train_contract(name: str, file: str, mesh_sizes: Dict[str, int],
+                         batch_shape: Tuple[int, int, int],
+                         make_step: Callable, *,
+                         donate: bool = True,
+                         inplace_share: float = 0.9) -> Dict[str, Any]:
+    """A train-step audit entry (``analysis/entry_audit.py``): the tiny
+    Llama of the inference entries (hidden 64, 2 layers, 4 / 2 heads of D
+    16, vocab 128, fp32), its shards on this rank of ``mesh_sizes``
+    (under the analyzer's ``fake`` group at the mesh's world size), SGD
+    state, a seeded batch of ``batch_shape`` = (accumulation, global
+    micro-batch rows, seq) cut to this rank, and the step
+    ``make_step(mm, cfg, optimizer)`` over the flash attention backend.
+
+    The contract is pinned here, not derived from the arguments: the dp
+    edge carries int8 (``quantized_axis``), parameters and optimizer
+    state are updated in place (``expect_inplace``, ``inplace_min_mb``:
+    ``inplace_share`` of the bytes of the parameters and of their SGD
+    trace, the rank's share under tp),
+    no dp collective runs inside the microbatch loop (``hoisted_axes``,
+    marked by ``_micro``), no collective result exceeds four times the
+    parameter bytes. ``donate=False`` is the injected regression: the
+    step then leaves each parameter in a fresh tensor (out of place)."""
+    from scaletorch_tpu_torch.inference.decode import audit_cfg
+
+    cfg = audit_cfg()
+    param_mb = 4 * cfg.num_params() / 1e6
+
+    def setup(device) -> Dict[str, Any]:
+        import numpy as np
+
+        from scaletorch_tpu_torch.data.dataloader import device_batch
+        from scaletorch_tpu_torch.models.convert import (
+            params_from_numpy,
+            shard_numpy_params,
+        )
+        from scaletorch_tpu_torch.parallel.mesh import setup_mesh_manager
+        from scaletorch_tpu_torch.parallel.spmd import local_batch
+        from scaletorch_tpu_torch.trainer.optimizer import SGD, tree_leaves
+
+        dev = torch.device(device)
+        mm = setup_mesh_manager(**mesh_sizes, device_type=dev.type)
+        full = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        params = params_from_numpy(
+            shard_numpy_params(full, cfg, mm, mm.rank), dev)
+        optimizer = SGD(lambda step: 0.1, momentum=0.0)
+        state = optimizer.init(params)
+        accum, rows, seq = batch_shape
+        rng = np.random.default_rng(0)
+        batch = {k: rng.integers(0, cfg.vocab_size, batch_shape,
+                                 dtype=np.int32)
+                 for k in ("input_ids", "target_ids")}
+        batch["position_ids"] = np.broadcast_to(
+            np.arange(seq, dtype=np.int32), (accum, seq)).copy()
+        local = device_batch(local_batch(batch, mm), dev)
+        step = make_step(mm, cfg, optimizer)
+
+        def call():
+            out = step(params, state, local)
+            if not donate:  # the injected regression: out of place
+                for p in tree_leaves(params):
+                    p.data = p.data.clone()
+            return out
+
+        inplace = {f"param{i}": p for i, p in enumerate(tree_leaves(params))}
+        inplace.update({f"state{i}": t for i, t in enumerate(
+            tree_leaves(state["trace"]))})
+        return {"call": call, "inplace": inplace, "mesh": mm,
+                "arguments": [*inplace.values(), *local.values()]}
+
+    tp = mesh_sizes.get("tp", 1)
+    return {
+        "name": name, "file": file,
+        "world_size": math.prod(mesh_sizes.values()),
+        "quantized_axis": ("dp", "int8"),
+        # pinned contract, NOT echoed from ``donate``: building with
+        # donate=False is the injected regression the audit must catch
+        "expect_inplace": True,
+        "hoisted_axes": ("dp",),
+        "max_collective_result_mb": max(1.0, 4.0 * param_mb),
+        "compute_dtype": "fp32",
+        "inplace_min_mb": round(inplace_share * 2 * param_mb / tp, 4),
+        "microbatches": batch_shape[0],
+        "loop_marker": "scaletorch_tpu_torch.trainer.train_step._micro",
+        "grad": True,
+        "setup": setup,
+    }
+
+
+def audit_entry(grad_allreduce_dtype: str = "int8", donate: bool = True,
+                *, world: int = 8) -> Dict[str, Any]:
+    """Audit entry: the quantized-dp train step on a pure dp 8 mesh
+    (the reference's declarative step; the port has one step body,
+    ``make_train_step`` over ``parallel/spmd.MeshReductions``), seq 64,
+    2 x 8 microbatch rows. ``grad_allreduce_dtype`` / ``donate`` exist so
+    the tests can inject exactly the reference's regressions; ``world``
+    builds the same step over another dp size (one row a rank)."""
+
+    def make_step(mm, cfg, optimizer):
+        from scaletorch_tpu_torch.parallel.spmd import MeshReductions
+
+        return make_train_step(
+            cfg, optimizer, attention_backend="flash", max_grad_norm=1.0,
+            mesh=MeshReductions(mm, cfg,
+                                grad_allreduce_dtype=grad_allreduce_dtype,
+                                grad_allreduce_axis="dp"))
+
+    return audit_train_contract(
+        "declarative_train_step", "scaletorch_tpu_torch/trainer/train_step.py",
+        {"dp": world}, (2, world, 64), make_step, donate=donate)

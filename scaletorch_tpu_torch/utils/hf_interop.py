@@ -421,62 +421,69 @@ def save_hf_params_sharded(path: str, params: Params, cfg, mm, *,
             shape[0] = cfg.num_hidden_layers
         return tuple(shape)
 
+    def write() -> str:
+        """Rank 0: gather each leaf from its owners and write the
+        shards."""
+        state = {"next": 0}
+
+        def gather(name: str) -> torch.Tensor:
+            # a stacked leaf is read once per layer: the last one is kept
+            if state.get("name") == name:
+                return state["leaf"]
+            state.pop("leaf", None)
+            i = order.index(name)
+            if i != state["next"]:
+                raise RuntimeError(f"export read {name!r} out of order (leaf "
+                                   f"{i}, expected {state['next']})")
+            state["next"] += 1
+            local = flat[name].detach().to("cpu")
+            pieces = {0: local}
+            for r in owners[1:]:
+                buf = torch.empty(local.numel() * local.element_size(),
+                                  dtype=torch.uint8)
+                dist.recv(buf, src=r, group=group, tag=i)
+                pieces[r] = buf.view(local.dtype).view(local.shape)
+
+            def build(coords: Dict[str, int], axes: List[str]) -> torch.Tensor:
+                if not axes:
+                    r = mm.rank_of(MeshCoords(dp=0, cp=0, **{
+                        a: coords.get(a, 0) for a in ("pp", "ep", "tp")}))
+                    return pieces[r]
+                axis, rest = axes[0], axes[1:]
+                return torch.cat([build({**coords, axis: j}, rest)
+                                  for j in range(mm.axis_size(axis))],
+                                 dim=dims[name][axis])
+
+            leaf = build({}, split[name])
+            if unlayout is not None and name.startswith("layers."):
+                leaf = unlayout(leaf)
+            state.update(name=name, leaf=leaf)
+            return leaf
+
+        assert me.dp == 0 and me.cp == 0
+        lazy: Params = {}
+        for name in order:
+            node = lazy
+            parts = name.split(".")
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = _GatheredLeaf(name, global_shape(name),
+                                            flat[name].dtype, gather)
+        out = save_hf_params(path, lazy, cfg, dtype=dtype,
+                             max_shard_bytes=max_shard_bytes)
+        if state["next"] != len(order):
+            raise RuntimeError(f"export read {state['next']} of "
+                               f"{len(order)} leaves")
+        return out
+
+    # every rank reaches the one barrier after the branch (the owners
+    # once their sends are posted, rank 0 once the shards are written)
     if rank != 0:
         for i, name in enumerate(order):
             send(i, name)
-        dist.barrier(group=group)
-        return ""
-
-    state = {"next": 0}
-
-    def gather(name: str) -> torch.Tensor:
-        # a stacked leaf is read once per layer: the last one is kept
-        if state.get("name") == name:
-            return state["leaf"]
-        state.pop("leaf", None)
-        i = order.index(name)
-        if i != state["next"]:
-            raise RuntimeError(f"export read {name!r} out of order (leaf "
-                               f"{i}, expected {state['next']})")
-        state["next"] += 1
-        local = flat[name].detach().to("cpu")
-        pieces = {0: local}
-        for r in owners[1:]:
-            buf = torch.empty(local.numel() * local.element_size(),
-                              dtype=torch.uint8)
-            dist.recv(buf, src=r, group=group, tag=i)
-            pieces[r] = buf.view(local.dtype).view(local.shape)
-
-        def build(coords: Dict[str, int], axes: List[str]) -> torch.Tensor:
-            if not axes:
-                r = mm.rank_of(MeshCoords(dp=0, cp=0, **{
-                    a: coords.get(a, 0) for a in ("pp", "ep", "tp")}))
-                return pieces[r]
-            axis, rest = axes[0], axes[1:]
-            return torch.cat([build({**coords, axis: j}, rest)
-                              for j in range(mm.axis_size(axis))],
-                             dim=dims[name][axis])
-
-        leaf = build({}, split[name])
-        if unlayout is not None and name.startswith("layers."):
-            leaf = unlayout(leaf)
-        state.update(name=name, leaf=leaf)
-        return leaf
-
-    assert me.dp == 0 and me.cp == 0
-    lazy: Params = {}
-    for name in order:
-        node = lazy
-        parts = name.split(".")
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = _GatheredLeaf(name, global_shape(name),
-                                        flat[name].dtype, gather)
-    out = save_hf_params(path, lazy, cfg, dtype=dtype,
-                         max_shard_bytes=max_shard_bytes)
-    if state["next"] != len(order):
-        raise RuntimeError(f"export read {state['next']} of {len(order)} "
-                           "leaves")
+        out = ""
+    else:
+        out = write()
     dist.barrier(group=group)
     return out
 

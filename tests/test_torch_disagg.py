@@ -360,19 +360,29 @@ BUDGETS = [None, {"disagg_prefill_slice": {"peak_mb": 3.0},
 
 @pytest.mark.parametrize("budget", range(len(BUDGETS)))
 def test_plan_slice_split_matches_the_reference(budget, tmp_path):
-    path = tmp_path / "hbm.json"
+    # the port reads the rows from the budget's ``slices`` (the slice
+    # programs at a served width), the reference the same rows from its
+    # ``entries``: the same arithmetic on the same rows
+    path, ref = tmp_path / "hbm.json", tmp_path / "ref.json"
     if BUDGETS[budget] is not None:
-        path.write_text(json.dumps({"entries": BUDGETS[budget]}))
+        path.write_text(json.dumps({"slices": BUDGETS[budget]}))
+        ref.write_text(json.dumps({"entries": BUDGETS[budget]}))
     for n in range(1, 10):
         got = []
-        for mod in (tdisagg, jdisagg):
+        for mod, p in ((tdisagg, path), (jdisagg, ref)):
             try:
-                got.append(mod.plan_slice_split(n, budget_path=str(path)))
+                got.append(mod.plan_slice_split(n, budget_path=str(p)))
             except ValueError as exc:
                 got.append(str(exc))
         assert got[0] == got[1], n
-    # the port's default budget file does not exist yet: an even split
-    assert tdisagg.plan_slice_split(8) == (4, 4)
+    # the default budget is the port's own file (the analyzer's memory
+    # tier, measured on the card); its slice rows size the split as the
+    # reference's function sizes it from the same rows
+    default = json.loads(open(tdisagg.DEFAULT_HBM_BUDGET).read())
+    assert {row["source"] for row in default["slices"].values()} == {"cuda"}
+    ref.write_text(json.dumps({"entries": default["slices"]}))
+    assert tdisagg.plan_slice_split(8) == \
+        jdisagg.plan_slice_split(8, budget_path=str(ref))
     with pytest.raises(ValueError, match=">= 2 devices"):
         tdisagg.plan_slice_split(1)
 

@@ -5,10 +5,11 @@ K4 and trained through the flash kernels K1-K3 on the card, so the
 wrappers' input checks (which run before any launch, and so hold on CPU
 tensors too) must accept each preset's n_rep and head_dim: n_rep 2, 4, 5
 and 8, head_dim 32, 64 and 128 (K4 is built for every n_rep of 1 to 8).
-K1-K3 are also built for head_dim 16, the heads of the moe, pipeline and
-long-context examples (K4 is not: no example serves at D 16). Outside
-the built set (head_dim 48, 256; 16 for K4; K4's n_rep past 8) they still
-raise, with no quiet fallback.
+K1-K4 are also built for head_dim 16, the heads of the moe, pipeline and
+long-context examples and of the analyzer's audit entries (a Llama of 4
+query over 2 KV heads of D 16, pages of 8). Outside the built set
+(head_dim 48, 256; K4's n_rep past 8) they still raise, with no quiet
+fallback.
 
 The plain versions (what the kernels are held against on the card) at the
 new geometries, n_rep 5 (qwen3-14b: 40 query over 8 KV heads) and
@@ -86,10 +87,20 @@ def test_flash_checks_accept_every_preset(name, dtype):
     tflash._check_qkv(q, k, v, dout=q.clone(), lse=stats, delta=stats)
 
 
-@pytest.mark.parametrize("head_dim", [16, 48, 256])
+@pytest.mark.parametrize("head_dim", [48, 256])
 def test_paged_decode_checks_reject_unbuilt_head_dims(head_dim):
     with pytest.raises(ValueError, match="head_dim"):
         tpa._check_kernel_inputs(*paged_inputs(8, 4, head_dim))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 4), (8, 1)])
+def test_paged_decode_checks_accept_head_dim_16(hq, hkv, dtype):
+    """The audit entries' heads (4 query over 2 KV heads of D 16) and
+    n_rep 2 and 8 at D 16 pass K4's launch checks."""
+    assert 16 in tpa.SUPPORTED_HEAD_DIMS
+    tpa._check_kernel_inputs(*paged_inputs(hq, hkv, 16, dtype))
 
 
 @pytest.mark.parametrize("hq,hkv", [(9, 1), (32, 2), (36, 4)])
@@ -131,7 +142,8 @@ def pool_and_tables(n_rep, d, seed, b=3, hkv=2, max_pages=6):
 
 
 @pytest.mark.parametrize("n_rep,head_dim", [(5, 32), (5, 128), (1, 32),
-                                            (8, 32)])
+                                            (8, 32), (2, 16), (1, 16),
+                                            (8, 16)])
 def test_paged_decode_plain_version_matches_pallas(n_rep, head_dim):
     arrays = pool_and_tables(n_rep, head_dim, seed=n_rep + head_dim)
     out_j = np.asarray(jpa.pallas_paged_decode_attention(

@@ -1,8 +1,8 @@
 """PyTorch port, the hand-written CUDA paged-decode kernel on the card.
 
 The kernel against its plain version at every geometry it is built for
-(head_dim 32, 64 and 128; n_rep 1 to 8, which covers every preset's:
-dense-tiny's D 32, qwen3-14b's n_rep 5), at contexts that span several
+(head_dim 16, 32, 64 and 128; n_rep 1 to 8, which covers every preset's:
+dense-tiny's D 32, qwen3-14b's n_rep 5; and the audit entries' D 16), at contexts that span several
 of its key splits (page sizes 1, 4, 16 and 64) and at one slot of 32768
 keys; two calls equal bit for bit, on one stream and on two; a slot's
 output the same bits alone and inside a batch of 8; and the paged
@@ -94,7 +94,7 @@ def errors(args):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_kernel_matches_plain_version(cuda, dtype, head_dim, n_rep):
     args = inputs(cuda, dtype, head_dim, n_rep)
@@ -110,7 +110,8 @@ def test_kernel_matches_plain_version(cuda, dtype, head_dim, n_rep):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("n_rep,head_dim", [(1, 64), (5, 128), (8, 32)])
+@pytest.mark.parametrize("n_rep,head_dim", [(1, 64), (5, 128), (8, 32),
+                                            (2, 16)])
 @pytest.mark.parametrize("page", [1, 4, 16, 64])
 def test_contexts_across_several_splits(cuda, dtype, n_rep, head_dim, page):
     """Positions on both sides of split boundaries, in the fourth split,
@@ -235,9 +236,9 @@ def test_dispatcher_sends_decode_to_the_kernel(cuda):
 def test_unsupported_shapes_raise_before_launch(cuda):
     q, pk, pv, tables, positions = inputs(cuda, torch.float32, 64, 2)
     with pytest.raises(ValueError, match="head_dim"):
-        tpa.paged_decode_attention(q[..., :16].contiguous(),
-                                   pk[..., :16].contiguous(),
-                                   pv[..., :16].contiguous(), tables,
+        tpa.paged_decode_attention(q[..., :48].contiguous(),
+                                   pk[..., :48].contiguous(),
+                                   pv[..., :48].contiguous(), tables,
                                    positions)
     with pytest.raises(ValueError, match="query heads per kv head"):
         tpa.paged_decode_attention(torch.cat([q] * 5, dim=1), pk, pv, tables,

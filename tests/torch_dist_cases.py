@@ -756,6 +756,27 @@ def case_sort_dispatch(payload):
     return out
 
 
+# ---- the analyzer's collective recorder on a real world ---------------------------
+def case_audit_record(payload):
+    """The declarative audit entry at this world's dp size, one warm-up
+    call, then one call under the collective recorder: (op, dtype, axis,
+    bytes) of each collective, as the fake world records them."""
+    from scaletorch_tpu_torch.analysis.recorder import (
+        CollectiveRecorder,
+        mesh_axis_names,
+    )
+    from scaletorch_tpu_torch.trainer import train_step
+
+    entry = train_step.audit_entry(world=payload["world"])
+    prepared = entry["setup"](torch.device("cpu"))
+    prepared["call"]()
+    rec = CollectiveRecorder(mesh_axis_names(prepared["mesh"]))
+    with rec:
+        prepared["call"]()
+    prepared["mesh"].destroy()
+    return [(c.op, c.dtype, c.axis, c.bytes) for c in rec.records]
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 # the multi-process runtime's cases (coordinated decisions, checkpoints,
