@@ -586,6 +586,7 @@ from scaletorch_tpu_torch.telemetry import (
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
 from scaletorch_tpu_torch.trainer.train_step import make_loss_fn
 from scaletorch_tpu_torch.trainer.trainer import Trainer, build_model_config
+from scaletorch_tpu_torch.tools import gateway_smoke, verify_weights
 from scaletorch_tpu_torch.utils import hf_interop
 from scaletorch_tpu_torch.utils.device import card_name_and_power_limit
 
@@ -2491,7 +2492,11 @@ def phase_data_train(synthetic_tokens_per_s: float) -> dict:
 
 
 # ---- 11b. Hugging Face safetensors both ways --------------------------------
-def phase_hf_roundtrip() -> None:
+def phase_hf_roundtrip() -> dict:
+    """The 0.6B weights exported as bf16 safetensors shards and read back
+    (bit for bit, the same first loss, the same greedy tokens), then
+    ``tools.verify_weights`` over the export; returns the verifier's
+    K1-K3 launches."""
     import shutil
 
     root = os.path.join(_build.BUILD_DIR.parent, "hf_roundtrip")
@@ -2567,13 +2572,36 @@ def phase_hf_roundtrip() -> None:
             del eng, model
             free_engine()
     check(tokens[0] == tokens[1], "the loaded engine's greedy tokens differ")
+    del loaded, rounded
+    free_engine()
+
+    # the operator's verifier over the export: parameter count and tying,
+    # a forward through K1 and a backward through K2/K3 at the model's
+    # full width and depth, and the logits against transformers on the
+    # host CPU where it is installed (else one SKIPPED line)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(verify_weights.verify_one(root, device="cuda"),
+          "verify_weights failed on the export")
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    verify_launches = {k: _build.launch_counts.get(k, 0) for k in (
+        tf.K1_NAME, tf.K2_NAME, tf.K3_NAME)}
+    check(all(n > 0 for n in verify_launches.values()),
+          f"verify_weights did not run K1-K3: {verify_launches}")
+    free_engine()
     shutil.rmtree(root, ignore_errors=True)
     emit("hf_roundtrip", model=MODEL, dtype="bfloat16", shards=len(files),
          bytes=nbytes, write_s=write_s, read_s=read_s,
          write_gb_per_s=nbytes / write_s / 1e9,
          read_gb_per_s=nbytes / read_s / 1e9, tensors=len(flat_l),
          first_losses=losses, requests=len(prompts),
-         greedy_tokens_equal=True, nvidia_smi=card_name_and_power_limit())
+         greedy_tokens_equal=True,
+         verify_weights={"result": "ok", "layers": cfg.num_hidden_layers,
+                         "hidden": cfg.hidden_size, "seconds": verify_s,
+                         "launches": verify_launches},
+         nvidia_smi=card_name_and_power_limit())
+    return verify_launches
 
 
 # ---- 11c. the rest of the reference's single-chip table --------------------
@@ -4478,60 +4506,29 @@ FRONT_ARGS = ("--preset", MODEL, "--dtype", "float32", "--param_seed", "0",
               str(PAGE_SIZE))
 
 
-def sse_generate(port: int, prompt, n: int, on_token=None):
-    """One streamed ``POST /v1/generate``: (token ids, the done events,
-    each token's arrival on the host clock); ``on_token()`` after each
-    token event."""
-    import http.client
+def sse(port: int, prompt, n: int, on_token=None):
+    """One streamed ``POST /v1/generate`` to the gateway on ``port``
+    (``tools.gateway_smoke``'s client): its tokens, done events and each
+    token's arrival on the host clock."""
+    return gateway_smoke.sse_request(f"http://127.0.0.1:{port}", prompt, n,
+                                     on_token=on_token,
+                                     timeout=READY_CEILING_S)
 
-    conn = http.client.HTTPConnection("127.0.0.1", port,
-                                      timeout=READY_CEILING_S)
+
+def healthz(port: int) -> dict:
+    return gateway_smoke.get_json(f"http://127.0.0.1:{port}/healthz")
+
+
+def replica_metrics(sock: str) -> dict:
+    """A replica process's ``/metrics`` payload, over its Unix socket."""
+    from scaletorch_tpu_torch.serving.remote import _UDSHTTPConnection
+
+    conn = _UDSHTTPConnection(sock, timeout=60)
     try:
-        conn.request("POST", "/v1/generate", body=json.dumps(
-            {"prompt": prompt, "max_new_tokens": n}).encode())
-        resp = conn.getresponse()
-        check(resp.status == 200, f"generate answered {resp.status}")
-        tokens, dones, times, event = [], [], [], None
-        while True:
-            line = resp.readline()
-            if not line:
-                break
-            line = line.decode().rstrip("\r\n")
-            if line.startswith("event:"):
-                event = line[6:].strip()
-            elif line.startswith("data:"):
-                data = json.loads(line[5:])
-                if event == "token":
-                    tokens += data["token_ids"]
-                    times.append(time.monotonic())
-                    if on_token is not None:
-                        on_token()
-                elif event == "done":
-                    dones.append(data)
-        return tokens, dones, times
+        conn.request("GET", "/metrics")
+        return json.loads(conn.getresponse().read().decode())
     finally:
         conn.close()
-
-
-def http_get(port: int, path: str, uds: str = None) -> str:
-    """The body of a GET on the gateway's port or a replica's socket."""
-    import http.client
-
-    if uds is None:
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-    else:
-        from scaletorch_tpu_torch.serving.remote import _UDSHTTPConnection
-
-        conn = _UDSHTTPConnection(uds, timeout=60)
-    try:
-        conn.request("GET", path)
-        return conn.getresponse().read().decode()
-    finally:
-        conn.close()
-
-
-def get_json(port: int, path: str, uds: str = None) -> dict:
-    return json.loads(http_get(port, path, uds))
 
 
 def wait_for(predicate, what: str, ceiling_s: float = READY_CEILING_S):
@@ -4566,7 +4563,7 @@ def gated_gateway(eng, prompts, new_tokens: int) -> dict:
     out = [None] * len(prompts)
 
     def client(i):
-        out[i] = sse_generate(gw.port, prompts[i], new_tokens)
+        out[i] = sse(gw.port, prompts[i], new_tokens)
 
     threads = []
     try:
@@ -4590,17 +4587,18 @@ def gated_gateway(eng, prompts, new_tokens: int) -> dict:
         held.join(60)
         gw.stop_sync()
     gw.metrics.check_conservation()
-    dones = [o[1] for o in out]
+    dones = [o.dones for o in out]
     check(all(len(d) == 1 and d[0]["outcome"] == "ok" for d in dones),
           f"want one ok done event per request: {dones}")
-    tokens = [o[0] for o in out]
+    tokens = [o.tokens for o in out]
     check(all(t == d[0]["token_ids"] for t, d in zip(tokens, dones)),
           "the streamed tokens differ from the done events'")
-    gaps = [b - a for o in out for a, b in zip(o[2], o[2][1:])]
+    gaps = [b - a for o in out for a, b in zip(o.times, o.times[1:])]
     n = sum(len(t) for t in tokens)
     return {"tokens": tokens, "wall_s": wall, "tokens_generated": n,
             "tokens_per_s": n / wall,
-            "client_ttft_mean_s": statistics.mean(o[2][0] - t0 for o in out),
+            "client_ttft_mean_s": statistics.mean(o.times[0] - t0
+                                                  for o in out),
             "client_tpot_p50_s": statistics.median(gaps),
             "engine_mean_ttft_s": eng.metrics.snapshot()["mean_ttft_s"],
             "engine_tpot_p50_s": eng.metrics.hist["tpot"].quantile(0.5),
@@ -4616,81 +4614,13 @@ def k4_per_replay(eng, cfg, what: str) -> int:
     return per
 
 
-class ServeProcess:
-    """``python -m scaletorch_tpu_torch.serve`` as a child of this
-    script, in a session of its own: its stdout pumped into a queue,
-    READY awaited, SIGTERM's drain and exit code read; the session (the
-    serve process and any replica process it started) killed at the
-    end, whatever happened."""
-
-    def __init__(self, *args: str):
-        import queue
-        import threading
-
-        self.t0 = time.monotonic()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "scaletorch_tpu_torch.serve", *args],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            start_new_session=True)
-        self.lines: "queue.Queue" = queue.Queue()
-        self.log = []
-        threading.Thread(target=self._pump, daemon=True).start()
-        self.port = None
-        deadline = time.monotonic() + READY_CEILING_S
-        try:
-            while self.port is None:
-                check(time.monotonic() < deadline,
-                      "serve never printed READY")
-                try:
-                    line = self.lines.get(timeout=1.0)
-                except queue.Empty:
-                    check(self.proc.poll() is None,
-                          f"serve exited {self.proc.returncode} before "
-                          "READY: " + "".join(self.log[-40:]))
-                    continue
-                if line.startswith("READY port="):
-                    self.port = int(line.strip().split("=")[1])
-        except BaseException:
-            self.close()
-            raise
-        self.ready_s = time.monotonic() - self.t0
-
-    def _pump(self):
-        for line in self.proc.stdout:
-            self.log.append(line)
-            self.lines.put(line)
-
-    def drain(self) -> int:
-        self.proc.send_signal(signal.SIGTERM)
-        try:
-            return self.proc.wait(timeout=READY_CEILING_S)
-        finally:
-            self.close()
-
-    def close(self):
-        try:
-            os.killpg(self.proc.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass  # the drain ended every process of the session
-        self.proc.wait(timeout=60)
-
-
-def prom_values(text: str) -> dict:
-    out = {}
-    for line in text.splitlines():
-        if line and not line.startswith("#"):
-            key, _, value = line.rpartition(" ")
-            out[key] = float(value)
-    return out
-
-
 def phase_gateway(model32) -> dict:
     """The HTTP gateway over the serve cell's engine at fp32 (8 slots,
     paged, K4), the serve traffic streamed over SSE, against the same
     engine driven directly: tokens bit for bit, one capture each step
     (replays from the gateway's worker thread), K4 = L launches a decode
     replay; then the serve entry as a process, one request, SIGTERM's
-    drain exits 0."""
+    drain exits 0 (``tools.gateway_smoke``)."""
     cfg = model_config(MODEL, dtype=torch.float32)
     prompts = traffic(cfg.vocab_size)
     free_engine()
@@ -4718,19 +4648,28 @@ def phase_gateway(model32) -> dict:
     free_engine()
     added_us = (1e6 * (run["wall_s"] - direct_stats["wall_s"])
                 / run["tokens_generated"])
-    proc = ServeProcess(*FRONT_ARGS, "--serve_port", "0")
-    try:
-        tokens, dones, _ = sse_generate(proc.port, prompts[0],
-                                        FRONT_NEW_TOKENS)
-        prom = prom_values(http_get(proc.port, "/metrics"))
-    finally:
-        rc = proc.drain()
-    check(len(dones) == 1 and dones[0]["outcome"] == "ok"
-          and tokens == direct_tokens[0],
-          "the serve process's stream differs from the direct engine's")
-    check(prom.get('scaletorch_engine_decode_compile_count{replica="r0"}')
-          == 1.0, "the serve process captured its decode step again")
-    check(rc == 0, f"serve drained with exit code {rc}, want 0")
+    # the serve entry as a process, through the operator's smoke: one
+    # traced SSE request against the same engine built here (its oracle,
+    # whose launches are this process's and are not counted), /healthz
+    # and /metrics (one decode capture), SIGTERM's drain to 0, the trace
+    # correlated across the gateway and worker threads, the access
+    # record, and slo_check over both at the serve preset of the port's
+    # slo.json (the CPU runner's bounds: on the card it gates the error
+    # budget, not latency); K4 is read from the serve process's own
+    # counts, printed after its drain
+    smoke = gateway_smoke.run([
+        "--device", "cuda", *FRONT_ARGS,
+        "--max_new_tokens", str(FRONT_NEW_TOKENS),
+        "--telemetry_dir", os.path.join(_build.BUILD_DIR.parent,
+                                        "gateway_smoke"),
+        "--ready_timeout_s", str(READY_CEILING_S)])
+    smoke_k4 = smoke["serve_kernel_launches"].get("paged_decode", 0)
+    check(smoke_k4 > 0 and smoke_k4 % cfg.num_hidden_layers == 0,
+          f"the serve process launched K4 {smoke_k4} times")
+    check(smoke["drain_exit_code"] == 0 and smoke["tokens_equal_direct"]
+          and smoke["slo_check_exit_code"] == 0,
+          f"gateway smoke: {smoke}")
+    free_engine()
     del run["tokens"]
     row = {"requests": f"{len(prompts)}/{len(prompts)}", **run,
            "direct": {k: direct_stats[k] for k in (
@@ -4738,8 +4677,10 @@ def phase_gateway(model32) -> dict:
                "mean_ttft_s", "tpot_p50_s")},
            "gateway_added_host_us_per_token": added_us,
            "k4_launches": launches, "k4_per_decode_replay": per, **graphs,
-           "serve_process": {"ready_s": proc.ready_s, "drain_exit_code": rc,
-                             "tokens_equal_direct": True},
+           "gateway_smoke": {k: smoke[k] for k in (
+               "ready_s", "drain_exit_code", "tokens_equal_direct",
+               "trace_events", "slo_check_exit_code", "health_slo_ok")},
+           "serve_process_k4_launches": smoke_k4,
            "nvidia_smi": card_name_and_power_limit()}
     emit("gateway", model=MODEL, dtype="float32", slots=SLOTS,
          new_tokens=FRONT_NEW_TOKENS, **row)
@@ -4781,36 +4722,36 @@ def phase_gateway_fleet(model32) -> dict:
     root = os.path.abspath(FRONT_DIR)
     shutil.rmtree(root, ignore_errors=True)
     sock_dir = os.path.join(root, "sock")
-    proc = ServeProcess(
+    proc = gateway_smoke.ServeEntry([
         *FRONT_ARGS, "--serve_port", "0", "--serve_replica_procs", "2",
         "--ft_gw_replica_crash_at", "1", "--supervisor_backoff_base_s",
         "0.2", "--supervisor_backoff_max_s", "1.0", "--telemetry_dir",
-        root, "--serve_replica_uds", sock_dir)
+        root, "--serve_replica_uds", sock_dir], READY_CEILING_S)
     try:
         port = proc.port
-        health = get_json(port, "/healthz")
+        health = healthz(port)
         pids = {rid: r["pid"] for rid, r in health["replicas"].items()}
         check(len(pids) == 2, f"want 2 replicas: {health}")
-        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
+        dones = sse(port, prompt, FRONT_NEW_TOKENS).dones
         check(len(dones) == 1 and dones[0]["outcome"] == "aborted",
               f"the killed replica's stream: {dones}")
         crash_t = time.monotonic()
 
         def restarted():
-            h = get_json(port, "/healthz")["replicas"]
+            h = healthz(port)["replicas"]
             return next((rid for rid, r in h.items()
                          if r.get("restarts_total", 0) >= 1
                          and r.get("state") == "up"), None)
 
         victim = wait_for(restarted, "the supervisor's restart")
         restart_wall_s = time.monotonic() - crash_t
-        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
-        check(len(dones) == 1 and dones[0]["outcome"] == "ok"
-              and tokens == cold,
+        got = sse(port, prompt, FRONT_NEW_TOKENS)
+        check(len(got.dones) == 1 and got.dones[0]["outcome"] == "ok"
+              and got.tokens == cold,
               "the healed fleet's stream differs from the direct engine's")
 
         def donor():
-            h = get_json(port, "/healthz")["replicas"]
+            h = healthz(port)["replicas"]
             return next((rid for rid, r in h.items()
                          if (r.get("prefix_pages") or 0) > 0), None)
 
@@ -4831,8 +4772,7 @@ def phase_gateway_fleet(model32) -> dict:
 
         def stream(name, q, n):
             try:
-                both[name] = sse_generate(port, q, n,
-                                          on_token=first[name].set)
+                both[name] = sse(port, q, n, on_token=first[name].set)
             finally:
                 first[name].set()  # a stream that ends before a token
 
@@ -4843,32 +4783,31 @@ def phase_gateway_fleet(model32) -> dict:
             t.start()
         check(all(e.wait(READY_CEILING_S) for e in first.values()),
               "the two streams' first tokens")
-        before = get_json(port, "/healthz")["replicas"][victim2]
+        before = healthz(port)["replicas"][victim2]
         os.kill(before["pid"], signal.SIGKILL)
         for t in streams:
             t.join(READY_CEILING_S)
-        check([d["outcome"] for d in both["cold"][1]] == ["aborted"],
-              f"the stream on the killed replica: {both['cold'][1]}")
-        check([d["outcome"] for d in both["shared"][1]] == ["ok"]
-              and both["shared"][0] == warm,
+        check([d["outcome"] for d in both["cold"].dones] == ["aborted"],
+              f"the stream on the killed replica: {both['cold'].dones}")
+        check([d["outcome"] for d in both["shared"].dones] == ["ok"]
+              and both["shared"].tokens == warm,
               "the survivor's stream was disturbed by the kill")
 
         def warmed():
-            r = get_json(port, "/healthz")["replicas"][victim2]
+            r = healthz(port)["replicas"][victim2]
             return r if (r.get("state") == "up"
                          and r["restarts_total"] > before["restarts_total"]
                          and (r.get("warm_pages") or 0) > 0) else None
 
         rejoined = wait_for(warmed, "the warm rejoin")
-        tokens, dones, _ = sse_generate(port, prompt, FRONT_NEW_TOKENS)
-        check(len(dones) == 1 and dones[0]["outcome"] == "ok"
-              and tokens == warm,
+        got = sse(port, prompt, FRONT_NEW_TOKENS)
+        check(len(got.dones) == 1 and got.dones[0]["outcome"] == "ok"
+              and got.tokens == warm,
               "the warmed replica's stream differs from the direct "
               "engine's prefix-hit pass")
         replicas = {}
         for rid in sorted(pids):
-            m = get_json(None, "/metrics",
-                         uds=os.path.join(sock_dir, f"{rid}.sock"))
+            m = replica_metrics(os.path.join(sock_dir, f"{rid}.sock"))
             per = m["decode_launches_per_replay"].get("paged_decode")
             k4 = m["kernel_launches"].get("paged_decode", 0)
             check(m["decode_compile_count"] == m["prefill_compile_count"]
@@ -4883,7 +4822,8 @@ def phase_gateway_fleet(model32) -> dict:
             replicas[rid] = {"pid": m["pid"], "k4_launches": k4,
                              "k4_per_decode_replay": per,
                              "decode_replays": m["decode_replays"]}
-        prom = prom_values(http_get(port, "/metrics"))
+        prom = gateway_smoke.parse_prom(gateway_smoke.get_text(
+            f"{proc.base}/metrics"))
         compiles = [v for k, v in prom.items() if k.startswith(
             "scaletorch_engine_decode_compile_count")]
         check(compiles == [1.0, 1.0], f"decode captures {compiles}")
@@ -4999,23 +4939,28 @@ def phase_disagg_serve(model32) -> dict:
            "k4_per_decode_replay": per, **graphs}
     del eng
     free_engine()
-    proc = ServeProcess(*FRONT_ARGS, "--serve_port", "0", "--disagg", "1:1")
+    proc = gateway_smoke.ServeEntry(
+        [*FRONT_ARGS, "--serve_port", "0", "--disagg", "1:1"],
+        READY_CEILING_S)
     try:
-        tokens, dones, _ = sse_generate(proc.port, prompts[1],
-                                        FRONT_NEW_TOKENS)
-        health = get_json(proc.port, "/healthz")
+        got = sse(proc.port, prompts[1], FRONT_NEW_TOKENS)
+        health = healthz(proc.port)
     finally:
         rc = proc.drain()
-    check(len(dones) == 1 and dones[0]["outcome"] == "ok"
-          and tokens == whole[1],
+    serve_k4 = proc.kernel_launches().get("paged_decode", 0)
+    check(len(got.dones) == 1 and got.dones[0]["outcome"] == "ok"
+          and got.tokens == whole[1],
           "the disagg serve process's stream differs from the colocated "
           "engine's")
     block = health["replicas"]["r0"].get("disagg")
     check(block is not None and block["handoffs"] == 1,
           f"no disagg block on /healthz: {health}")
     check(rc == 0, f"serve --disagg drained with exit code {rc}, want 0")
+    check(serve_k4 > 0 and serve_k4 % cfg.num_hidden_layers == 0,
+          f"the disagg serve process launched K4 {serve_k4} times")
     row["serve_process"] = {"ready_s": proc.ready_s, "drain_exit_code": rc,
-                            "tokens_equal_colocated": True}
+                            "tokens_equal_colocated": True,
+                            "k4_launches": serve_k4}
     row["nvidia_smi"] = card_name_and_power_limit()
     emit("disagg_serve", model=MODEL, dtype="float32", slots=SLOTS,
          split="1:1", devices=["cuda:0", "cuda:0"],
@@ -7357,7 +7302,7 @@ def main() -> int:
     timed("profile", phase_profile, model32)
     timed("decode_graph", phase_decode_graph, model32)
     timed("runtime_serve", phase_runtime_serve, model32)
-    timed("gateway", phase_gateway, model32)
+    gateway_row = timed("gateway", phase_gateway, model32)
     timed("gateway_fleet", phase_gateway_fleet, model32)
     timed("disagg_serve", phase_disagg_serve, model32)
     del model32
@@ -7372,7 +7317,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("data_train", phase_data_train, train_tok_s)
     torch.cuda.empty_cache()
-    timed("hf_roundtrip", phase_hf_roundtrip)
+    verify_launches = timed("hf_roundtrip", phase_hf_roundtrip)
     torch.cuda.empty_cache()
     timed("train_table", phase_train_table)
     timed("remat_parity", phase_remat_parity)
@@ -7431,17 +7376,25 @@ def main() -> int:
     rows = []
     for kid in ("K1", "K2", "K3"):
         t = flash16["kernels"][kid]
+        name = PORTED[kid]["name"]
         rows.append({
             **PORTED[kid], "replaces": at[kid],
-            "launches": train_launches.get(PORTED[kid]["name"], 0),
+            "launches": (train_launches.get(name, 0)
+                         + verify_launches.get(name, 0)),
+            "launches_by_path": {"train": train_launches.get(name, 0),
+                                 "verify_weights":
+                                     verify_launches.get(name, 0)},
             "max_abs_err": flash_err[kid], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     rows.append({
         **PORTED["K4"], "replaces": at["K4"],
-        "launches": launches + gpt["kernel_launches"],
+        "launches": (launches + gpt["kernel_launches"]
+                     + gateway_row["serve_process_k4_launches"]),
         "launches_by_path": {"serve": launches,
-                             "gpt_moe_serve": gpt["kernel_launches"]},
+                             "gpt_moe_serve": gpt["kernel_launches"],
+                             "gateway_smoke_serve_process":
+                                 gateway_row["serve_process_k4_launches"]},
         "max_abs_err": bf16["max_abs_err"],
         "ms": bf16["kernel_ms"],
         "plain_ms": bf16["plain_ms"],

@@ -1016,6 +1016,12 @@ class TelemetryArguments:
 class LoggingArguments:
     log_frequency: int = 1
     log_file: Optional[str] = None
+    log_format: str = field(
+        default="text",
+        metadata={"help": "text | json: the console and file log format. "
+                          "'json' writes one JSON object a line (a step's "
+                          "metrics record as is, with ts/level/proc added; "
+                          "any other message as {'msg': ...})."})
     performance_log_dir: Optional[str] = field(
         default=None,
         metadata={"help": "Write the per-step metrics history as JSON here "
@@ -1023,6 +1029,12 @@ class LoggingArguments:
     verbose: bool = field(
         default=False,
         metadata={"help": "Log the system and card diagnostics at start."})
+    wandb_project: Optional[str] = field(
+        default=None,
+        metadata={"help": "Log each step's metrics to this wandb project "
+                          "(process 0 only); a warning and no logging "
+                          "when wandb cannot be imported."})
+    wandb_run_name: Optional[str] = None
 
 
 @dataclass
@@ -1049,6 +1061,10 @@ class ScaleTorchTPUArguments(
         ResilienceArguments.__post_init__(self)
         ServingArguments.__post_init__(self)
         TelemetryArguments.__post_init__(self)
+        if self.log_format not in ("text", "json"):
+            raise ValueError(
+                f"log_format must be 'text' or 'json', got {self.log_format!r}"
+            )
         for name in ("data_read_retries", "data_max_skipped_batches"):
             if getattr(self, name) < 0:
                 raise ValueError(

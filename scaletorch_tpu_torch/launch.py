@@ -1,5 +1,5 @@
-"""One-node launcher of the port with per-rank elastic relaunch
-(counterpart of scripts/launch_multihost.sh with ``ELASTIC=1``).
+"""Launcher of the port's ranks on one node, with per-rank elastic
+relaunch (counterpart of scripts/launch_multihost.sh with ``ELASTIC=1``).
 
     python -m scaletorch_tpu_torch.launch --nproc 4 --elastic \
         --membership-dir CKPT/membership --max-restarts 1 -- \
@@ -33,6 +33,19 @@ sets the variables): waiting for the dump would add its wait (60 s) to
 every survivor's end after a lost peer. Without ``--elastic`` a failure ends the launch; a
 fired watchdog (43) relaunches the whole fleet, up to
 ``--max-restarts`` times.
+
+Over several nodes (``--nnodes N --node-rank i``, one launcher a node,
+started by hand or by ``scaletorch_tpu_torch.tools.launch_hosts`` over a
+hosts file), node ``i`` starts ranks ``i·nproc .. i·nproc + nproc - 1``
+(``RANK = node_rank·nproc + local_rank``, ``WORLD_SIZE = nnodes·nproc``)
+and every node meets at the same ``file://`` rendezvous, so
+``--rdzv-dir`` must be a directory all nodes share (the membership
+directory must be shared too). With ``--elastic`` a node's launcher
+relaunches its own ranks as on one node, each up to ``--max-restarts``
+times: the per-rank budget is kept here and nowhere else. It never
+relaunches its fleet and never clears the membership directory: those
+decisions span nodes and belong to whoever started the nodes
+(``launch_hosts``); its exit code is its ranks' (the first non-zero).
 
 Every wait is bounded by ``--timeout`` seconds, after which every rank
 is killed and the launch exits 124. The launcher's own events go to
@@ -72,9 +85,14 @@ class Launcher:
                  elastic: bool, max_restarts: int,
                  membership_dir: Optional[str], timeout: float,
                  log_dir: Optional[str] = None,
-                 events: Optional[str] = None, poll: float = 0.1) -> None:
+                 events: Optional[str] = None, poll: float = 0.1,
+                 nnodes: int = 1, node_rank: int = 0) -> None:
+        if not 0 <= node_rank < nnodes:
+            raise ValueError(f"node rank {node_rank} outside 0..{nnodes - 1}")
         self.command = command
         self.nproc = nproc
+        self.nnodes = nnodes
+        self.node_rank = node_rank
         self.rdzv_dir = os.path.abspath(rdzv_dir)
         self.elastic = elastic
         self.max_restarts = max_restarts
@@ -88,6 +106,9 @@ class Launcher:
         self.done: Dict[int, int] = {}
         self._logs: list = []
 
+    def _global(self, rank: int) -> int:
+        return self.node_rank * self.nproc + rank
+
     def emit(self, event: str, **fields) -> None:
         record = {"event": event, "time": time.time(), **fields}
         print(f"[launch] {json.dumps(record)}", file=sys.stderr, flush=True)
@@ -96,8 +117,13 @@ class Launcher:
                 f.write(json.dumps(record) + "\n")
 
     def _start(self, rank: int, fleet: int) -> None:
-        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(self.nproc),
+        """Start local rank ``rank`` (global ``node_rank·nproc + rank``)."""
+        env = {**os.environ,
+               "RANK": str(self._global(rank)),
+               "WORLD_SIZE": str(self.nnodes * self.nproc),
                "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": str(self.nproc),
+               "NODE_RANK": str(self.node_rank),
                "COORDINATOR_ADDRESS": "file://" + os.path.join(
                    self.rdzv_dir, f"store_f{fleet}"),
                "TORCHELASTIC_RESTART_COUNT": str(self.tries[rank])}
@@ -110,17 +136,20 @@ class Launcher:
         if self.log_dir:
             os.makedirs(self.log_dir, exist_ok=True)
             out = open(os.path.join(
-                self.log_dir, f"rank{rank}_f{fleet}_try{self.tries[rank]}"
+                self.log_dir,
+                f"rank{self._global(rank)}_f{fleet}_try{self.tries[rank]}"
                 ".log"), "w")
             self._logs.append(out)
         self.procs[rank] = subprocess.Popen(
             self.command, env=env, stdout=out,
             stderr=subprocess.STDOUT if out else None)
-        self.emit("start", rank=rank, fleet=fleet, attempt=self.tries[rank],
+        self.emit("start", rank=self._global(rank), fleet=fleet,
+                  attempt=self.tries[rank],
                   pid=self.procs[rank].pid)
 
     def _start_fleet(self, fleet: int) -> None:
-        if self.membership_dir and os.path.isdir(self.membership_dir):
+        if (self.nnodes == 1 and self.membership_dir
+                and os.path.isdir(self.membership_dir)):
             # a fresh fleet: stale epoch records would park its ranks
             shutil.rmtree(self.membership_dir)
         os.makedirs(self.rdzv_dir, exist_ok=True)
@@ -154,7 +183,7 @@ class Launcher:
                     if rc is None:
                         continue
                     del self.procs[rank]
-                    self.emit("exit", rank=rank, code=rc)
+                    self.emit("exit", rank=self._global(rank), code=rc)
                     if rc == DIVERGED_EXIT:
                         self.kill_all()
                         return rc
@@ -162,7 +191,7 @@ class Launcher:
                         self.done[rank] = rc
                     elif self.elastic and self.tries[rank] < self.max_restarts:
                         self.tries[rank] += 1
-                        self.emit("relaunch", rank=rank,
+                        self.emit("relaunch", rank=self._global(rank),
                                   attempt=self.tries[rank])
                         self._start(rank, fleet)
                     elif not self.elastic and rc != WATCHDOG_EXIT:
@@ -178,9 +207,10 @@ class Launcher:
                     self.emit("finished")
                     return 0
                 # the whole fleet is down with ranks unfinished (elastic),
-                # or a watchdog fired (not): a fleet relaunch
-                again = fleet < self.max_restarts and (
-                    self.elastic or WATCHDOG_EXIT in codes)
+                # or a watchdog fired (not): a fleet relaunch, on one node
+                # only (over nodes it is the fan-out's decision)
+                again = (self.nnodes == 1 and fleet < self.max_restarts
+                         and (self.elastic or WATCHDOG_EXIT in codes))
                 if again:
                     fleet += 1
                     self.emit("fleet_restart", fleet=fleet, codes=codes)
@@ -201,7 +231,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit("usage: launch.py [options] -- command ...")
     cut = argv.index("--")
     parser = argparse.ArgumentParser(prog="scaletorch_tpu_torch.launch")
-    parser.add_argument("--nproc", type=int, required=True)
+    parser.add_argument("--nproc", type=int, required=True,
+                        help="ranks on this node")
+    parser.add_argument("--nnodes", type=int, default=1)
+    parser.add_argument("--node-rank", type=int, default=0)
     parser.add_argument("--rdzv-dir", default=None,
                         help="directory of the file:// rendezvous "
                              "(default: <membership-dir>/../rdzv or ./rdzv)")
@@ -219,7 +252,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         elastic=args.elastic, max_restarts=args.max_restarts,
                         membership_dir=args.membership_dir,
                         timeout=args.timeout, log_dir=args.log_dir,
-                        events=args.events)
+                        events=args.events, nnodes=args.nnodes,
+                        node_rank=args.node_rank)
     signal.signal(signal.SIGTERM, lambda *_: (launcher.kill_all(),
                                               sys.exit(143)))
     return launcher.run()

@@ -18,6 +18,9 @@ Prints ``READY port=<port>`` on stdout once the socket is bound.
 SIGTERM/SIGINT drain gracefully — in-flight streams finish, queued
 requests end ``aborted``, replicas stop at refcount-clean page pools —
 and the process exits 0 (the exit-code contract's "clean drain").
+After the drain it prints ``KERNEL_LAUNCHES {...}``: this process's
+launch counts of the hand-written kernels (``ops/_build.launch_counts``;
+a replica process reports its own on its ``/metrics``).
 
 Examples (from the root of a checkout)
 --------------------------------------
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import os
 import signal
 import subprocess
@@ -48,6 +52,8 @@ import sys
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from scaletorch_tpu_torch.ops import _build
 
 TINY = dict(
     vocab_size=64, hidden_size=32, intermediate_size=64,
@@ -428,6 +434,8 @@ async def _main(args) -> int:
         gateway.tracer.close()
     if gateway.exporter is not None:
         gateway.exporter.close()
+    print("KERNEL_LAUNCHES " + json.dumps(dict(_build.launch_counts)),
+          flush=True)
     return 0
 
 

@@ -297,7 +297,8 @@ class Trainer:
     def __init__(self, cfg: ScaleTorchTPUArguments,
                  device: DeviceLike = None, tokenizer: Any = None) -> None:
         self.cfg = cfg
-        self.logger = get_logger(log_file=cfg.log_file)
+        self.logger = get_logger(log_file=cfg.log_file,
+                                 log_format=cfg.log_format)
         # the process group first: everything after may be collective
         device = resolve_device(device)
         # spans, the JSONL stream, profiler windows and SIGUSR1 snapshots:
@@ -471,6 +472,18 @@ class Trainer:
                 cp_layout=cfg.cp_layout, pp_engine=cfg.pp_engine,
                 pp_vpp=self.pp_vpp)
             self._eval_loader = self._build_eval_loader()
+        self._wandb: Any = None
+        self._wandb_logged_step = 0
+        if cfg.wandb_project and stdist.is_main_process():
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=cfg.wandb_project,
+                                         name=cfg.wandb_run_name,
+                                         config=dataclasses.asdict(cfg))
+            except Exception as exc:  # wandb is not installed
+                self.logger.warning(
+                    f"wandb requested but unavailable: {exc!r}")
         self.logger.info(
             f"model {cfg.model_type}: "
             f"{to_readable_format(self.num_params)} params, "
@@ -1199,6 +1212,13 @@ class Trainer:
                         record["val_loss"] = val
                     else:
                         last = {**last, "val_loss": val}
+            if (last and self._wandb is not None
+                    and step > self._wandb_logged_step):
+                # a rollback moves the step back, and wandb drops a step
+                # that does not increase: log again once it passes the
+                # highest step logged
+                self._wandb.log(last, step=step)
+                self._wandb_logged_step = step
             if (cfg.save_frequency and cfg.checkpoint_dir
                     and step % cfg.save_frequency == 0):
                 self.save_checkpoint()
@@ -1334,8 +1354,12 @@ class Trainer:
         self._train_iter = None
 
     def close(self) -> None:
-        """Finish any asynchronous save, release its buffers, and close
-        the telemetry (the trace file becomes valid JSON here)."""
+        """Finish the wandb run and any asynchronous save, release its
+        buffers, and close the telemetry (the trace file becomes valid
+        JSON here)."""
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
         if self._ckpt_mgr is not None:
             self._ckpt_mgr.close()
             self._ckpt_mgr = None

@@ -78,6 +78,15 @@ _TMP_PREFIX = ".tmp-"
 PLAIN_LAYOUT = {"stacked": "plain"}
 
 
+def layout_key(layout: Dict[str, Any]) -> Dict[str, Any]:
+    """A stacked layout as it decides the rows: the virtual stages count
+    only for ``interleaved`` (a padded or plain split ignores them)."""
+    key = dict(layout)
+    if key.get("stacked") != "interleaved":
+        key.pop("vpp", None)
+    return key
+
+
 class CheckpointLayoutError(ValueError):
     """The checkpoint's stacked layer axis is padded or ordered for
     another pipeline layout: restoring it would read pad rows or permuted
@@ -618,13 +627,20 @@ class CheckpointManager:
             saved = self._read_meta(step).get("layout", PLAIN_LAYOUT)
         except (OSError, ValueError):
             return None
-        if saved == self._layout:
+        if layout_key(saved) == layout_key(self._layout):
             return None
         return (f"checkpoint step {step} holds the stacked layer axis in "
                 f"layout {saved}, this run's is {self._layout}: the pp "
                 "padding or interleave differs, so its layers would load "
                 "as pad rows or in another order; restore at the saved "
-                "pipeline layout")
+                "pipeline layout, or convert the checkpoint offline with "
+                "python -m scaletorch_tpu_torch.tools.convert_layer_storage"
+                f" --ckpt {self.directory} --out NEW_DIR --to "
+                f"{self._layout.get('stacked', 'plain')}"
+                + (f" --pp {self._layout['pp']}"
+                   if "pp" in self._layout else "")
+                + (f" --vpp {self._layout['vpp']}"
+                   if self._layout.get("stacked") == "interleaved" else ""))
 
     def _restore_step(self, step: int, params: Tree, opt_state: Tree,
                       mesh: Any = None) -> Dict[str, Any]:

@@ -88,31 +88,64 @@ def _make_formatter(log_format: str, process_index: int,
     return ColorfulFormatter(process_index, use_color)
 
 
+# The process-wide format: an explicit ``log_format`` flips it for every
+# logger of the package, those modules made at import and those made
+# later, since a log aggregator parses the whole stream.
+_DEFAULT_FORMAT = "text"
+
+
+def _swap_handler_formats(logger: logging.Logger, fmt: str,
+                          process_index: int) -> None:
+    for h in logger.handlers:
+        use_color = (
+            isinstance(h, logging.StreamHandler)
+            and not isinstance(h, logging.FileHandler)
+            and sys.stdout.isatty()
+            and os.environ.get("NO_COLOR") is None
+        )
+        h.setFormatter(_make_formatter(fmt, process_index, use_color))
+
+
 def get_logger(
     name: str = "scaletorch_tpu_torch",
     log_file: Optional[str] = None,
     level: int = logging.INFO,
-    log_format: str = "text",
+    log_format: Optional[str] = None,
 ) -> logging.Logger:
     """The named logger, configured once (stdout handler, rank-aware
-    level); a later call that names a new ``log_file`` adds it."""
+    level); a later call that names a new ``log_file`` adds it, and one
+    that names a ``log_format`` switches every configured logger to it."""
+    global _DEFAULT_FORMAT
+    if log_format is not None and log_format != _DEFAULT_FORMAT:
+        _DEFAULT_FORMAT = log_format
+        for other in logging.Logger.manager.loggerDict.values():
+            if getattr(other, "_scaletorch_configured", False):
+                _swap_handler_formats(
+                    other, log_format,
+                    getattr(other, "_scaletorch_process_index", 0))
+                other._scaletorch_log_format = log_format
     logger = logging.getLogger(name)
     process_index = _process_index()
+    fmt = _DEFAULT_FORMAT
     if not getattr(logger, "_scaletorch_configured", False):
         logger.setLevel(level if process_index == 0 else logging.ERROR)
         logger.propagate = False
         use_color = sys.stdout.isatty() and os.environ.get("NO_COLOR") is None
         handler = logging.StreamHandler(sys.stdout)
-        handler.setFormatter(
-            _make_formatter(log_format, process_index, use_color))
+        handler.setFormatter(_make_formatter(fmt, process_index, use_color))
         logger.addHandler(handler)
         logger._scaletorch_log_files = set()  # type: ignore[attr-defined]
+        logger._scaletorch_log_format = fmt  # type: ignore[attr-defined]
+        logger._scaletorch_process_index = process_index  # type: ignore[attr-defined]
         logger._scaletorch_configured = True  # type: ignore[attr-defined]
+    elif fmt != getattr(logger, "_scaletorch_log_format", "text"):
+        _swap_handler_formats(logger, fmt, process_index)
+        logger._scaletorch_log_format = fmt  # type: ignore[attr-defined]
     files = logger._scaletorch_log_files  # type: ignore[attr-defined]
     if log_file is not None and log_file not in files and process_index == 0:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
         fh = logging.FileHandler(log_file)
-        fh.setFormatter(_make_formatter(log_format, process_index, False))
+        fh.setFormatter(_make_formatter(fmt, process_index, False))
         logger.addHandler(fh)
         files.add(log_file)
     return logger

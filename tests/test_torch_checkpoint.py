@@ -21,6 +21,7 @@ import torch
 from scaletorch_tpu.utils.checkpoint import CheckpointManager as JManager
 from scaletorch_tpu_torch.trainer.optimizer import AdamW, tree_leaves
 from scaletorch_tpu_torch.utils.checkpoint import CheckpointManager
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
 
 
 class FailSaves:

@@ -47,6 +47,8 @@ from scaletorch_tpu_torch.inference import sampling as tsampling
 from scaletorch_tpu_torch.models import Qwen3Config
 from scaletorch_tpu_torch.models import llama as tllama
 from scaletorch_tpu_torch.models import qwen3_moe as tmoe
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 DENSE_KW = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
                 num_hidden_layers=2, num_attention_heads=4,

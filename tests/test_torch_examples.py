@@ -29,7 +29,9 @@ from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
 from scaletorch_tpu_torch.examples.mingpt import train_mingpt
 from scaletorch_tpu_torch.examples.mnist import train_mnist
 from scaletorch_tpu_torch.trainer.trainer import build_model_config
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
 from tests.torch_dist_harness import run_ranks
+
 
 MINGPT = ["--device", "cpu", "--block_size", "64", "--batch_size", "16",
           "--eval_interval", "20", "--eval_batches", "2",

@@ -26,6 +26,8 @@ from scaletorch_tpu.ops.pallas import flash as jflash
 from scaletorch_tpu_torch.models import registry as tregistry
 from scaletorch_tpu_torch.ops import _build
 from scaletorch_tpu_torch.ops import flash as tflash
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 B, HKV, S, D = 1, 2, 96, 64
 BLOCK = 64  # the preferred Pallas tile: 96 % 64 != 0, so it halves to 32

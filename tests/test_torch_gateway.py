@@ -17,7 +17,8 @@ paged), serve the same requests over real HTTP.
 * Conservation (``http_requests_received == sum(outcomes)``, the engine's
   own ledger and the page allocator) under a tenant storm, a deadline
   storm and a mid-stream disconnect, on both gateways; the disconnect
-  aborts the request and releases its pages.
+  aborts the request and releases its pages (read on the engine's worker
+  thread, which owns the engine).
 
 Every wait is on an event or a bounded poll of a counter; ports are
 ephemeral.
@@ -54,6 +55,8 @@ from scaletorch_tpu_torch.serving.protocol import (
     parse_sse_stream,
     stream_tokens,
 )
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 KW = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2)
@@ -260,9 +263,18 @@ def test_disconnect_aborts_and_releases_pages(side, models):
         wait_until(lambda: gw.metrics.outcomes["aborted"] == 1
                    and engine.metrics.outcomes["aborted"] == 1,
                    "the disconnect's abort")
-        engine.allocator.check_conservation()
+
+        def pages_after_the_abort(eng):
+            eng.allocator.check_conservation()
+            return dict(eng.allocator._ref)
+
+        # the engine is the worker thread's: read its pages there, after
+        # the cancel (the engine counts the abort before it releases the
+        # slot's pages, so a read from this thread could fall between)
+        refs = gw.workers["r0"].call_engine(pages_after_the_abort,
+                                            timeout_s=CEILING_S)
         # only the radix tree's own reference remains on any page
-        assert all(c == 1 for c in engine.allocator._ref.values())
+        assert all(c == 1 for c in refs.values())
         status, _, _ = post(gw.port, {"prompt": [9, 9],
                                       "max_new_tokens": 2,
                                       "stream": False})

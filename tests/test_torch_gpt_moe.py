@@ -45,6 +45,8 @@ from scaletorch_tpu_torch.models.convert import (
 )
 from scaletorch_tpu_torch.parallel import expert_parallel as tep
 from scaletorch_tpu_torch.trainer.optimizer import AdamW
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 LOGITS_ATOL = 2e-5
 AUX_RTOL = 1e-6

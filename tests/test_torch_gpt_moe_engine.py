@@ -28,6 +28,8 @@ from scaletorch_tpu.inference import SamplingParams as JaxSampling
 from scaletorch_tpu.models import gpt_moe as jg
 from scaletorch_tpu_torch.inference import InferenceEngine, SamplingParams
 from scaletorch_tpu_torch.models import gpt_moe as tg
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 SHAPE = dict(block_size=32, vocab_size=65, n_layer=2, n_head=4, n_embd=64,
              num_experts=4, top_k=2)

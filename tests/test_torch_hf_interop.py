@@ -47,6 +47,8 @@ from scaletorch_tpu_torch.models import qwen3 as tqwen3
 from scaletorch_tpu_torch.models import qwen3_moe as tmoe
 from scaletorch_tpu_torch.models.convert import flatten_params
 from scaletorch_tpu_torch.utils import hf_interop as thf
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 DENSE = dict(vocab_size=64, hidden_size=32, intermediate_size=48,
              num_hidden_layers=2, num_attention_heads=4,

@@ -42,6 +42,11 @@ def test_the_scan_sees_the_port():
     assert {"engine.py", "paged_attention.py", "chip_smoke.py",
             "pipeline_parallel.py", "quantized_collectives.py",
             "expert_parallel.py"} <= names
+    tools = {p.relative_to(ROOT).as_posix() for p in port_files()
+             if p.parent.name == "tools"}
+    assert {f"scaletorch_tpu_torch/tools/{n}.py" for n in (
+        "__init__", "convert_layer_storage", "verify_weights", "slo_check",
+        "gateway_smoke", "group_hosts", "launch_hosts")} <= tools
 
 
 @pytest.mark.parametrize("path", port_files(),

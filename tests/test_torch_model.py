@@ -28,6 +28,8 @@ from scaletorch_tpu_torch.models import (
     model_config,
 )
 from scaletorch_tpu_torch.models import presets as tpresets
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=128,

@@ -27,6 +27,8 @@ from scaletorch_tpu_torch.inference import (
 )
 from scaletorch_tpu_torch.models import Qwen3MoEForCausalLM, params_from_numpy
 from scaletorch_tpu_torch.models import qwen3_moe as tmoe
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 KW = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -42,6 +42,8 @@ from scaletorch_tpu_torch.trainer.optimizer import (
     tree_map,
 )
 from scaletorch_tpu_torch.trainer.train_step import make_train_step
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ARCH = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
             moe_intermediate_size=128, num_hidden_layers=2,

@@ -28,6 +28,8 @@ from scaletorch_tpu_torch.config import ScaleTorchTPUArguments
 from scaletorch_tpu_torch.models import convert as tconvert
 from scaletorch_tpu_torch.trainer import lr_scheduler as tsched
 from scaletorch_tpu_torch.trainer import optimizer as toptim
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 SHAPES = {"embed": (6, 4), "layers": {"w": (2, 4, 3), "norm": (2, 3)},
           "norm": (4,)}

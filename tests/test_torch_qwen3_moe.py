@@ -28,6 +28,8 @@ from scaletorch_tpu.models.presets import preset as jpreset
 from scaletorch_tpu_torch.models import model_config, params_from_numpy
 from scaletorch_tpu_torch.models import qwen3_moe as tmoe
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ARCH = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
             moe_intermediate_size=48, num_hidden_layers=3,

@@ -34,6 +34,8 @@ from scaletorch_tpu_torch.models import params_from_numpy
 from scaletorch_tpu_torch.models import qwen3_moe as tmoe
 from scaletorch_tpu_torch.ops import flash as tflash
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 POLICIES = tllama.REMAT_POLICIES
 DENSE = dict(vocab_size=128, hidden_size=64, intermediate_size=128,

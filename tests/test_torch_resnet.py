@@ -34,7 +34,9 @@ from scaletorch_tpu.models import resnet as jr
 from scaletorch_tpu_torch.examples.imagenet import dist_train
 from scaletorch_tpu_torch.models import resnet as tr
 from scaletorch_tpu_torch.models.convert import resnet_from_jax, resnet_to_jax
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
 from tests.torch_dist_harness import run_ranks
+
 
 TOL = 1e-4
 WIDTH, CLASSES = 8, 10

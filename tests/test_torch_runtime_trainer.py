@@ -41,6 +41,8 @@ from scaletorch_tpu_torch import train as ttrain
 from scaletorch_tpu_torch.telemetry import load_trace, read_jsonl
 from scaletorch_tpu_torch.trainer.optimizer import tree_leaves
 from scaletorch_tpu_torch.trainer.trainer import Trainer
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ARCH = dict(vocab_size=128, hidden_size=32, intermediate_size=64,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

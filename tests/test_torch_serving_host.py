@@ -7,7 +7,8 @@ compared for equality, never within a bound).
 
 * The copies are the reference's code: each module's syntax tree, with
   docstrings dropped and the package name mapped, equals the
-  reference's (``slo.py`` adds only ``DEFAULT_SLO_PATH``).
+  reference's (``slo.py`` adds only ``DEFAULT_SLO_PATH``; ``gateway.py``
+  only the worker thread's grad mode and card, ``ALLOWED_HUNKS``).
 * protocol: request parsing (valid bodies and every malformed one, the
   same error text), payloads, SSE bytes, traceparent handling, the warm
   frames (encode, corrupt, decode, read back) on seeded random bytes.
@@ -51,7 +52,20 @@ from scaletorch_tpu_torch.serving import slo as tslo
 from scaletorch_tpu_torch.serving import supervisor as tsupervisor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COPIES = ("protocol", "admission", "router", "slo", "supervisor")
+COPIES = ("protocol", "admission", "router", "slo", "supervisor", "gateway")
+# the one hunk a copy may add: the gateway's worker thread sets PyTorch's
+# per-thread state (grad mode, the card its graphs were captured on)
+ALLOWED_HUNKS = {"gateway": (
+    "import torch",
+    "device = getattr(engine, 'device', None)",
+    "self._cuda_index: Optional[int] = None",
+    "if device is not None and device.type == 'cuda':\n"
+    "    self._cuda_index = device.index if device.index is not None "
+    "else torch.cuda.current_device()",
+    "torch.set_grad_enabled(False)",
+    "if self._cuda_index is not None:\n"
+    "    torch.cuda.set_device(self._cuda_index)",
+)}
 
 
 # ---- the copies are the reference's code ---------------------------------
@@ -81,8 +95,38 @@ class _Normalize(ast.NodeTransformer):
         return node
 
 
-def _tree(path: str, drop=()) -> str:
-    tree = _Normalize().visit(ast.parse(open(path).read()))
+class _DropHunk(ast.NodeTransformer):
+    """Take the statements of an allowed hunk out of every body,
+    recording each one taken."""
+
+    def __init__(self, hunk):
+        self.hunk = set(hunk)
+        self.dropped = []
+
+    def generic_visit(self, node):
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(node, field, None)
+            if isinstance(stmts, list) and stmts and isinstance(
+                    stmts[0], ast.stmt):
+                kept = []
+                for st in stmts:
+                    src = ast.unparse(st)
+                    if src in self.hunk:
+                        self.dropped.append(src)
+                    else:
+                        kept.append(st)
+                setattr(node, field, kept)
+        return super().generic_visit(node)
+
+
+def _tree(path: str, drop=(), hunk=()) -> str:
+    tree = ast.parse(open(path).read())
+    if hunk:
+        dropper = _DropHunk(hunk)
+        tree = dropper.visit(tree)
+        # every statement of the hunk is there, once
+        assert sorted(dropper.dropped) == sorted(hunk), dropper.dropped
+    tree = _Normalize().visit(tree)
     tree.body = [n for n in tree.body
                  if not (isinstance(n, ast.Assign)
                          and any(getattr(t, "id", None) in drop
@@ -97,7 +141,7 @@ def _tree(path: str, drop=()) -> str:
 def test_each_copy_is_the_reference_code(name):
     drop = ("DEFAULT_SLO_PATH",) if name == "slo" else ()
     ours = _tree(os.path.join(REPO, "scaletorch_tpu_torch", "serving",
-                              f"{name}.py"), drop)
+                              f"{name}.py"), drop, ALLOWED_HUNKS.get(name, ()))
     theirs = _tree(os.path.join(REPO, "scaletorch_tpu", "serving",
                                 f"{name}.py"))
     assert ours == theirs

@@ -44,6 +44,8 @@ from scaletorch_tpu_torch.utils import device as tdevice
 from scaletorch_tpu_torch.utils import env_info, hf_interop, monitor
 from scaletorch_tpu_torch.utils import misc as tmisc
 from scaletorch_tpu_torch.utils.logger import get_logger
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ARCH = dict(vocab_size=128, hidden_size=32, intermediate_size=64,
             num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,

@@ -39,6 +39,8 @@ from scaletorch_tpu_torch.models import llama as tllama
 from scaletorch_tpu_torch.models import params_from_numpy, params_to_numpy
 from scaletorch_tpu_torch.trainer.optimizer import create_optimizer
 from scaletorch_tpu_torch.trainer.train_step import make_train_step
+from tests.test_torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ARCH = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
